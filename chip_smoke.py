@@ -1,21 +1,41 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port of the community-ADMM GCN trainer on one GPU.
+"""Run the PyTorch/CUDA port of the community-ADMM GCN on one GPU: train,
+then serve.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. build the CUDA kernel from the repository's sources;
-  2. hold the kernel against its plain PyTorch version on the card at the
-     trainer's shapes, on a ragged layout, with bf16 blocks and with
-     masked slots whose indices point anywhere (max |diff| <= 1e-5 max |ref|);
+  1. build the CUDA libraries from the repository's sources, one nvcc per
+     source, all started together;
+  2. hold every kernel against its plain PyTorch version on the card:
+     the ELL kernel at the trainer's shapes, on a ragged layout, with bf16
+     blocks and with masked slots whose indices point anywhere
+     (max |diff| <= 1e-5 max |ref|); the packed-plane and fused kernels at
+     the server's shapes (k = 1, D = 16, n_pad = 864, a 13,824-row plane,
+     C = 767 and 1000, f32 and bf16 blocks, the halo mask) and on the
+     ragged layout with masked slots re-pointed: packed vs plain
+     <= 1e-5 max, fused vs the packed kernel then torch.matmul <= 1e-5 max,
+     fused vs its reassociated plain version <= 1e-4 max, and fused with
+     W = I bitwise equal to packed;
   3. train the paper's GCN (767, 1000, 10) on the 13,752-node synthetic
      amazon_computers graph, M = 3 communities, packed state, through the
-     kernel, for 3 epochs; every value must be finite and the kernel must
-     have launched; compare objectives and one step of the kernel path and
-     the plain path from one shared state;
-  4. time the kernel, its plain version and the gather + einsum
+     ELL kernel, for 3 epochs; every value must be finite and the kernel
+     must have launched; compare objectives and one step of the kernel path
+     and the plain path from one shared state;
+  4. time the ELL kernel, its plain version and the gather + einsum
      composition at the trainer's shapes, beside the card's bound;
-  5. print the kernels line, the card's name and power limit, and a last
+  5. serve: train the same model at M = 16 for 2 epochs, build a
+     CommunityServer with the serving launcher's defaults, drive the
+     launcher's Zipf stream (2,048 requests in batches of 64) cached, then
+     cold and fused-cold; check a 1,024-node probe against the dense
+     forward pass (<= 1e-4 max), cached vs cold (bitwise), fused vs
+     unfused (<= 1e-4 max) and, after a feature update, against a fresh
+     server (bitwise); the packed kernel must launch in the cached and cold
+     runs and the fused kernel in the fused run;
+  6. time the packed and fused kernels, their plain versions and the
+     gather + einsum (+ matmul) composition at the server's shapes, beside
+     the card's bound;
+  7. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
@@ -33,9 +53,15 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 TOL = 1e-5                     # max |kernel − plain| ≤ TOL · max |plain|
+FUSED_TOL = 1e-4               # fused vs its reassociated plain version
 EPOCHS = 3
+SERVE_EPOCHS = 2
+SERVE_PARTS = 16
 KERNEL_SRC = "src/repro_torch/kernels/csrc/community_spmm_ell.cu"
+FUSED_SRC = "src/repro_torch/kernels/csrc/community_spmm_ell_fused.cu"
 REPLACES = "src/repro/kernels/community_spmm.py:359"
+PACKED_REPLACES = "src/repro/kernels/community_spmm.py:421"
+FUSED_REPLACES = "src/repro/kernels/community_spmm.py:531"
 
 # Published peaks per H100 variant (NVIDIA data sheets): FP32 outside the
 # tensor cores (FLOP/s) and HBM bandwidth (bytes/s).
@@ -139,6 +165,318 @@ def check_case(name, blocks, idx, mask, z, rows, nbrs, log) -> float:
     return err
 
 
+def packed_work(blocks, off, mask, rows, nbrs, plane_rows: int, c_in: int,
+                c_out: "int | None" = None) -> tuple[float, float]:
+    """(FLOPs, bytes) of the packed aggregation — and with ``c_out`` of the
+    fused aggregation → GEMM — for these operands: only live slots, only
+    rows inside the counts; each input read once (a plane row read by
+    several slots counts once), the output written once."""
+    import torch
+    k, d, n = blocks.shape[0], blocks.shape[1], blocks.shape[2]
+    live = (mask != 0).cpu()
+    r = torch.clamp(rows.cpu(), max=n).double()
+    p = torch.clamp(nbrs.cpu(), max=n).double() * live
+    pairs = float((r[:, None] * p).sum())
+    read = torch.zeros(plane_rows, dtype=torch.bool)
+    for m_, d_ in live.nonzero().tolist():
+        start = int(off[m_, d_])
+        read[start:start + int(p[m_, d_])] = True
+    c_o = c_in if c_out is None else c_out
+    flops = 2.0 * c_in * pairs
+    nbytes = (pairs * blocks.element_size() + float(read.sum()) * c_in * 4
+              + k * n * c_o * 4 + 4 * (3 * k * d + k))
+    if c_out is not None:
+        flops += 2.0 * float(r.sum()) * c_in * c_out
+        nbytes += c_in * c_out * 4
+    return flops, nbytes
+
+
+def check_packed_case(name, blocks, off, mask, z, rows, nbrs, log,
+                      self_mask=None) -> None:
+    """The packed kernel (through ``ops``; with ``self_mask`` the halo
+    split) against its plain version on the same CUDA tensors."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    if self_mask is None:
+        out = ops.community_spmm_ell_packed(blocks, off, mask, z, rows, nbrs)
+    else:
+        out = ops.community_halo_spmm(blocks, off, mask, self_mask, z, rows,
+                                      nbrs)
+        mask = mask * (1.0 - self_mask)
+        nbrs = (nbrs * (mask > 0)).to(torch.int32)
+    torch.cuda.synchronize()
+    want = ref.community_spmm_ell_packed_einsum(blocks, off, mask, z, rows,
+                                                nbrs)
+    err, rel = rel_err(out, want)
+    ok = bool(torch.isfinite(out).all()) and rel <= TOL
+    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel})
+    print(f"[2] packed {name}: max_abs_err {err:.3e} rel {rel:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the packed kernel disagrees with its plain version on {name}")
+
+
+def check_fused_case(name, blocks, off, mask, z, w, rows, nbrs, log) -> None:
+    """The fused kernel against its reassociated plain version, against the
+    packed kernel followed by torch.matmul, and with W = I bitwise against
+    the packed kernel."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    out = ops.community_spmm_ell_fused(blocks, off, mask, z, w, rows, nbrs)
+    agg = ops.community_spmm_ell_packed(blocks, off, mask, z, rows, nbrs)
+    eye = torch.eye(z.shape[1], device=z.device)
+    same = torch.equal(
+        ops.community_spmm_ell_fused(blocks, off, mask, z, eye, rows, nbrs),
+        agg)
+    torch.cuda.synchronize()
+    err, rel = rel_err(out, ref.community_spmm_ell_fused_einsum(
+        blocks, off, mask, z, w, rows, nbrs))
+    _, rel2 = rel_err(out, agg @ w)
+    ok = (bool(torch.isfinite(out).all()) and rel <= FUSED_TOL
+          and rel2 <= TOL and same)
+    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel,
+                "rel_err_vs_packed_then_matmul": rel2,
+                "identity_bitwise": same})
+    print(f"[2] fused {name}: vs plain max_abs_err {err:.3e} rel {rel:.3e}; "
+          f"vs packed+matmul rel {rel2:.3e}; W=I bitwise equal to packed: "
+          f"{same} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the fused kernel disagrees on {name}")
+
+
+def time_batches(server, stream, batch: int, first: int, warm: int,
+                 timed: int) -> dict:
+    """Serve batches first, first + 1, ... of the stream; host-clock the
+    last ``timed`` (each ``serve`` ends in its response's host copy)."""
+    import numpy as np
+    times = []
+    for i in range(first, first + warm + timed):
+        tic = time.perf_counter()
+        server.serve(stream[i * batch:(i + 1) * batch])
+        if i >= first + warm:
+            times.append(time.perf_counter() - tic)
+    ms = np.asarray(times) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "qps": len(times) * batch / sum(times), "batches": len(times)}
+
+
+def counts() -> dict:
+    """Every kernel's launch count."""
+    from repro_torch.kernels import community_spmm
+    return {"ell": community_spmm.launches,
+            "packed": community_spmm.packed_launches,
+            "fused": community_spmm.fused_launches}
+
+
+def reset_counts(to: "dict | None" = None) -> None:
+    """Set every launch count to 0, or back to ``to`` (a ``counts()``)."""
+    from repro_torch.kernels import community_spmm
+    to = to or {"ell": 0, "packed": 0, "fused": 0}
+    community_spmm.launches = to["ell"]
+    community_spmm.packed_launches = to["packed"]
+    community_spmm.fused_launches = to["fused"]
+
+
+def serve_in_batches(server, ids, batch: int):
+    """``server.serve`` over ``ids`` in request batches of ``batch``."""
+    import numpy as np
+    return np.concatenate([server.serve(ids[i:i + batch])
+                           for i in range(0, len(ids), batch)])
+
+
+def serve_phase(cfg, admm, g, card: str, dev) -> dict:
+    """Phase 5: train at M = 16, serve the launcher's stream cached, cold
+    and fused-cold, and check the served embeddings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import gcn, graph
+    from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
+    from repro_torch.launch.serve import _drive
+    from repro_torch.serve import (CommunityServer, ServeConfig,
+                                   zipf_node_stream)
+
+    t0 = time.perf_counter()
+    tr = ParallelADMMTrainer(cfg, admm, g, num_parts=SERVE_PARTS, seed=0,
+                             config=TrainerConfig.packed(use_kernel=True),
+                             device=dev)
+    torch.cuda.synchronize()
+    lay = tr.layout
+    print(f"[5] set-up {time.perf_counter() - t0:.1f} s: M={lay.num_parts}, "
+          f"n_pad={lay.n_pad}, row counts "
+          f"{sorted(set(lay.eff_row_counts().tolist()))}, max_deg "
+          f"{lay.compress().max_deg}, ELL blocks "
+          f"{tuple(lay.compress().ell_blocks.shape)}, resident plane "
+          f"{lay.device_layout(1).plane_rows} rows", flush=True)
+    log = tr.train(SERVE_EPOCHS)
+    for i in log.epoch:
+        print(f"[5] epoch {i}: step {1e3 * log.epoch_time_s[i]:.1f} ms, "
+              f"lagrangian {log.lagrangian[i]:.6f}, residual "
+              f"{log.residual[i]:.6e}, train {log.train_acc[i]:.4f}, test "
+              f"{log.test_acc[i]:.4f}", flush=True)
+    values = (log.lagrangian + log.residual + log.train_acc + log.test_acc)
+    if not all(math.isfinite(v) for v in values):
+        fail("a non-finite value in the M=16 training log")
+    for t in tr.state.weights:
+        if not bool(torch.isfinite(t).all()):
+            fail("a non-finite weight after the M=16 training")
+
+    m, batch = SERVE_PARTS, 64
+    scfg = ServeConfig(embed_capacity=max(m + m // 4, 8), halo_capacity=64,
+                       admission="zipf", max_batch=batch)
+    stream = zipf_node_stream(g.num_nodes, 2048, s=1.1, seed=1)
+    out: dict = {"launches": {}}
+
+    # cached: the serving launcher's drive over the whole stream
+    server = CommunityServer.from_trainer(tr, scfg)
+    reset_counts()
+    res = _drive(server, stream, batch)
+    out["launches"]["cached"] = counts()
+    st = server.stats()
+    out["cached"] = dict(res, hit_rate_total=st["requests"]["hit_rate"],
+                         block_computes=st["block_computes"],
+                         halo_computes=st["halo_computes"])
+    print(f"[5] cached (embed={scfg.embed_capacity}, halo="
+          f"{scfg.halo_capacity}, zipf admission), Zipf(1.1) x 2048 "
+          f"requests, batch {batch}, timed after the first quarter: p50 "
+          f"{res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
+          f"{res['qps']:.1f} QPS, hit rate {res['hit_rate']:.4f} (whole "
+          f"stream {st['requests']['hit_rate']}), block_computes "
+          f"{st['block_computes']}, halo_computes {st['halo_computes']}, "
+          f"launches {out['launches']['cached']} [{card}]", flush=True)
+
+    first = len(stream) // batch // 4
+    runs = {"cold": ServeConfig(cache_enabled=False, max_batch=batch),
+            "fused_cold": ServeConfig(cache_enabled=False, fused=True,
+                                      max_batch=batch)}
+    cold_servers = {}
+    for name, cfg_run in runs.items():
+        srv = CommunityServer.from_trainer(tr, cfg_run)
+        reset_counts()
+        res = time_batches(srv, stream, batch, first, warm=2, timed=6)
+        out["launches"][name] = counts()
+        st = srv.stats()
+        out[name] = dict(res, block_computes=st["block_computes"],
+                         halo_computes=st["halo_computes"])
+        print(f"[5] {name}: {res['batches']} timed batches of {batch} after "
+              f"2 warm-up: p50 {res['p50_ms']:.3f} ms, p99 "
+              f"{res['p99_ms']:.3f} ms, {res['qps']:.1f} QPS, hit rate 0, "
+              f"block_computes {st['block_computes']}, halo_computes "
+              f"{st['halo_computes']}, launches {out['launches'][name]} "
+              f"[{card}]", flush=True)
+        cold_servers[name] = srv
+    launches = out["launches"]
+    if launches["cached"]["packed"] == 0 or launches["cold"]["packed"] == 0:
+        fail("the cached or cold serving run never launched the packed "
+             "kernel")
+    if launches["fused_cold"]["fused"] == 0:
+        fail("the fused serving run never launched the fused kernel")
+
+    # probe: 64 nodes of every community
+    rng = np.random.default_rng(0)
+    probe = np.concatenate([rng.choice(np.flatnonzero(server.node_comm == c),
+                                       1024 // m, replace=False)
+                            for c in range(m)])
+    served = serve_in_batches(server, probe, batch)
+    a = torch.as_tensor(graph.normalized_adjacency(g.num_nodes, g.edges),
+                        device=dev)
+    dense = gcn.forward(cfg, a, torch.as_tensor(g.features, device=dev),
+                        tr.state.weights)[-1]
+    del a
+    dense = dense[torch.as_tensor(probe, device=dev)].cpu().numpy()
+    scale = float(np.abs(dense).max())
+    err_dense = float(np.abs(served - dense).max())
+    cold = serve_in_batches(cold_servers["cold"], probe, batch)
+    fused = serve_in_batches(cold_servers["fused_cold"], probe, batch)
+    err_fused = float(np.abs(fused - served).max())
+    bitwise = bool(np.array_equal(cold, served))
+    print(f"[5] probe of {len(probe)} nodes from {m} communities: served vs "
+          f"dense forward max_abs_err {err_dense:.3e} (rel "
+          f"{err_dense / scale:.3e}); cached vs cold bitwise {bitwise}; "
+          f"fused vs unfused max_abs_err {err_fused:.3e} (rel "
+          f"{err_fused / scale:.3e})", flush=True)
+    if not (np.isfinite(served).all() and served.shape == (len(probe),
+                                                           cfg.layer_dims[-1])):
+        fail("served embeddings are not finite or have the wrong shape")
+    if not err_dense <= FUSED_TOL * scale:
+        fail("served embeddings disagree with the dense forward pass")
+    if not bitwise:
+        fail("cached and cold serving disagree")
+    if not err_fused <= FUSED_TOL * scale:
+        fail("fused and unfused serving disagree")
+
+    ids = np.random.default_rng(2).choice(g.num_nodes, size=2, replace=False)
+    feats = (np.asarray(g.features)[ids] + np.random.default_rng(3).normal(
+        scale=0.1, size=(2, cfg.layer_dims[0]))).astype(np.float32)
+    rep = server.update_features(ids, feats)
+    after = serve_in_batches(server, probe, batch)
+    new_features = np.asarray(g.features).copy()
+    new_features[ids] = feats
+    fresh = serve_in_batches(
+        CommunityServer(cfg, lay, tr.state.weights, new_features, scfg,
+                        device=tr.device), probe, batch)
+    same = bool(np.array_equal(after, fresh))
+    print(f"[5] update of {len(ids)} nodes: dirty communities per hop "
+          f"{[len(c) for c in rep['dirty']]}, dropped {len(rep['embed'])} "
+          f"embed / {len(rep['halo'])} halo entries; post-update serving "
+          f"equals a fresh server bitwise: {same}", flush=True)
+    if not same:
+        fail("post-update serving differs from a freshly built server")
+    out["probe"] = {"nodes": len(probe), "rel_err_vs_dense": err_dense / scale,
+                    "cached_vs_cold_bitwise": bitwise,
+                    "rel_err_fused_vs_unfused": err_fused / scale,
+                    "post_update_vs_fresh_bitwise": same}
+    print(f"[5] serving summary {json.dumps(out)}", flush=True)
+    return out
+
+
+def time_packed(blocks, off, mask, rows, nbrs, z, peak_flops, peak_bw,
+                w=None, self_mask=None) -> dict:
+    """Phase 6: CUDA-event times of the packed (or, with ``w``, the fused)
+    kernel, its plain version and the gather + einsum (+ matmul)
+    composition on the same operands, beside the bound."""
+    import torch
+
+    from repro_torch.kernels import community_spmm, ref
+    if self_mask is not None:           # the halo pass: self slot masked
+        mask = mask * (1 - self_mask.to(mask.dtype))
+        nbrs = (nbrs * (mask != 0)).to(torch.int32)
+    maskf = (mask != 0).float()
+    n = blocks.shape[2]
+    idx = off.long()[..., None] + torch.arange(n, device=z.device)
+
+    def composition():
+        zg = z[idx] * maskf[..., None, None]
+        out = torch.einsum("mdip,mdpc->mic", blocks, zg)
+        return out if w is None else out @ w
+
+    before = counts()
+    if w is None:
+        ms = median_ms(lambda: community_spmm.community_spmm_ell_packed(
+            blocks, off, mask, z, rows, nbrs), 7)
+        plain_ms = median_ms(lambda: ref.community_spmm_ell_packed_einsum(
+            blocks, off, mask, z, rows, nbrs), 5)
+    else:
+        ms = median_ms(lambda: community_spmm.community_spmm_ell_fused(
+            blocks, off, mask, z, w, rows, nbrs), 7)
+        plain_ms = median_ms(lambda: ref.community_spmm_ell_fused_einsum(
+            blocks, off, mask, z, w, rows, nbrs), 5)
+    reset_counts(before)                # timing launches do not count
+    lib_ms = median_ms(composition, 5)
+    flops, nbytes = packed_work(blocks, off, mask, rows, nbrs, z.shape[0],
+                                z.shape[1],
+                                None if w is None else w.shape[1])
+    t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bw
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "live_slots": int((mask != 0).sum())}
+
+
 def objective_gap(trainer) -> float:
     """Largest relative difference between the kernel path and the plain
     path over every W- and Z-update objective value and gradient at the
@@ -167,7 +505,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import gcn_paper
-    from repro_torch.core import graph
+    from repro_torch.core import graph, messages
     from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
     from repro_torch.kernels import build, community_spmm, ref
     from repro_torch.util.device import strict_f32
@@ -181,9 +519,9 @@ def main() -> int:
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    build.load(community_spmm.LIB)
-    print(f"[1] built {KERNEL_SRC} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    build.load_all([community_spmm.LIB, community_spmm.FUSED_LIB])
+    print(f"[1] built {KERNEL_SRC} and {FUSED_SRC} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -236,6 +574,68 @@ def main() -> int:
             b.to(dt), ix, mk, z, r_, n_, checks))
     max_rel = max(ch["max_rel_err"] for ch in checks)
 
+    # packed and fused kernels at the server's shapes: one lane, 16 slots of
+    # 864 rows back to back on a 13,824-row plane; slot 0 is the self slot
+    n_s, d_s = 864, SERVE_PARTS
+    blocks_s = torch.randn((1, d_s, n_s, n_s), generator=gen, device=dev)
+    off_s = (torch.arange(d_s, **i32) * n_s)[None].contiguous()
+    mask_s = torch.ones((1, d_s), **i32)
+    rows_s = torch.full((1,), n_s, **i32)
+    nbrs_s = torch.full((1, d_s), n_s, **i32)
+    self_s = torch.zeros((1, d_s), dtype=torch.float32, device=dev)
+    self_s[0, 0] = 1.0
+    packed_checks: list[dict] = []
+    fused_checks: list[dict] = []
+    planes = {c: torch.randn((d_s * n_s, c), generator=gen, device=dev)
+              for c in (767, 1000)}
+    serve_ops = (off_s, mask_s)
+    for c, dt in ((767, torch.float32), (1000, torch.float32),
+                  (1000, torch.bfloat16)):
+        check_packed_case(
+            f"k=1 D={d_s} n_pad={n_s} plane={d_s * n_s} C={c} "
+            f"{str(dt).split('.')[-1]}", blocks_s.to(dt), *serve_ops,
+            planes[c], rows_s, nbrs_s, packed_checks)
+    check_packed_case(f"halo mask k=1 D={d_s} n_pad={n_s} C=1000 f32",
+                      blocks_s, off_s, mask_s.float(), planes[1000], rows_s,
+                      nbrs_s, packed_checks, self_mask=self_s)
+    for c_in, c_out in ((767, 1000), (1000, 10)):
+        w = torch.randn((c_in, c_out), generator=gen, device=dev) / 30.0
+        check_fused_case(f"k=1 D={d_s} n_pad={n_s} {c_in}->{c_out} f32",
+                         blocks_s, *serve_ops, planes[c_in], w, rows_s,
+                         nbrs_s, fused_checks)
+    del planes
+
+    # the ragged layout on one packed plane, masked slots re-pointed
+    dl_r = lay.device_layout(1)
+    off_r = messages.plane_read_offsets(csr.ell_indices, csr.ell_mask,
+                                        dl_r.local_offsets)
+    dead = csr.ell_mask == 0
+    off_r = np.where(dead, rng.integers(0, dl_r.plane_rows,
+                                        size=off_r.shape), off_r)
+    nc_r = np.where(dead, rng.integers(0, lay.n_pad + 1, size=nc.shape), nc)
+    packed_r = [torch.as_tensor(x, device=dev) for x in
+                (csr.ell_blocks, off_r.astype(np.int32),
+                 (csr.ell_mask != 0).astype(np.int32), rc,
+                 nc_r.astype(np.int32))]
+    b, o_, mk, r_, n_ = packed_r
+    planes = {c: torch.randn((dl_r.plane_rows, c), generator=gen, device=dev)
+              for c in (64, 10)}
+    tag = (f"ragged M={m_r} n_pad={lay.n_pad} D={csr.max_deg} plane "
+           f"{dl_r.plane_rows} (masked slots re-pointed)")
+    for c, dt in ((64, torch.float32), (10, torch.float32),
+                  (64, torch.bfloat16)):
+        check_packed_case(f"{tag} C={c} {str(dt).split('.')[-1]}",
+                          b.to(dt), o_, mk, planes[c], r_, n_, packed_checks)
+    self_r = torch.as_tensor(messages.self_slot_mask(
+        csr.ell_indices, csr.ell_mask), device=dev)
+    check_packed_case(f"{tag} halo mask C=64 f32", b, o_, mk.float(),
+                      planes[64], r_, n_, packed_checks, self_mask=self_r)
+    for c_in, c_out in ((64, 10), (10, 64)):
+        w = torch.randn((c_in, c_out), generator=gen, device=dev)
+        check_fused_case(f"{tag} {c_in}->{c_out} f32", b, o_, mk,
+                         planes[c_in], w, r_, n_, fused_checks)
+    del planes
+
     # ---- 3. the trainer at full width -------------------------------------
     cfg, admm = gcn_paper.config("amazon_computers")
     t0 = time.perf_counter()
@@ -267,7 +667,7 @@ def main() -> int:
     trainer.state = s0
     del s_k, s_p
 
-    community_spmm.launches = 0
+    reset_counts()
     log = trainer.train(EPOCHS)
     launches = community_spmm.launches
     for i in log.epoch:
@@ -346,19 +746,86 @@ def main() -> int:
           f"{per_step}/step, {launches / EPOCHS:g}/epoch, idle share {idle} "
           f"[{card}]", flush=True)
 
-    # ---- 5. the kernels line, the card, the result --------------------------
+    del trainer, blocks_full
+    torch.cuda.empty_cache()
+
+    # ---- 5. serving at full width ------------------------------------------
+    serve = serve_phase(cfg, admm, g, card, dev)
+
+    # ---- 6. packed and fused kernel times at the server's shapes ----------
+    packed_c, fused_c = {}, {}
+    for c in (767, 1000):
+        z = torch.randn((d_s * n_s, c), generator=gen, device=dev)
+        t = packed_c[c] = time_packed(blocks_s, off_s, mask_s, rows_s, nbrs_s,
+                                      z, peak_flops, peak_bw,
+                                      self_mask=self_s)
+        print(f"[6] packed halo pass k=1 D={d_s} ({t['live_slots']} live) "
+              f"n_pad={n_s} C={c}: kernel {t['ms']:.3f} ms, plain version "
+              f"{t['plain_ms']:.3f} ms, gather+einsum {t['library_ms']:.3f} "
+              f"ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}; "
+              f"{t['gflop']:.2f} GFLOP, {t['mbytes']:.1f} MB) [{card}]",
+              flush=True)
+        del z
+    for c_in, c_out in ((767, 1000), (1000, 10)):
+        z = torch.randn((d_s * n_s, c_in), generator=gen, device=dev)
+        w = torch.randn((c_in, c_out), generator=gen, device=dev)
+        t = fused_c[(c_in, c_out)] = time_packed(
+            blocks_s, off_s, mask_s, rows_s, nbrs_s, z, peak_flops, peak_bw,
+            w=w)
+        print(f"[6] fused cold path k=1 D={d_s} ({t['live_slots']} live) "
+              f"n_pad={n_s} {c_in}->{c_out}: kernel {t['ms']:.3f} ms, plain "
+              f"version {t['plain_ms']:.3f} ms, gather+einsum+matmul "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_by']}; {t['gflop']:.2f} GFLOP, "
+              f"{t['mbytes']:.1f} MB) [{card}]", flush=True)
+        del z, w
+
+    # ---- 7. the kernels line, the card, the result --------------------------
     main_c = 1000
-    row = {"name": "community_spmm_ell", "route": "cuda",
-           "source": KERNEL_SRC, "replaces": REPLACES,
-           "launches": launches, "max_abs_err": max_abs,
-           "ms": per_c[main_c]["ms"], "plain_ms": per_c[main_c]["plain_ms"],
-           "bound_ms": per_c[main_c]["bound_ms"],
-           "bound_by": per_c[main_c]["bound_by"],
-           "library_ms": per_c[main_c]["library_ms"],
-           "timed_at": {"k": k, "max_deg": d, "n_pad": n_full, "C": main_c},
-           "checked": True, "max_rel_err": max_rel,
-           "per_c": {str(c): v for c, v in per_c.items()}}
-    print(json.dumps({"kernels": [row]}))
+    rows_out = [{
+        "name": "community_spmm_ell", "route": "cuda",
+        "source": KERNEL_SRC, "replaces": REPLACES,
+        "launches": launches, "max_abs_err": max_abs,
+        "ms": per_c[main_c]["ms"], "plain_ms": per_c[main_c]["plain_ms"],
+        "bound_ms": per_c[main_c]["bound_ms"],
+        "bound_by": per_c[main_c]["bound_by"],
+        "library_ms": per_c[main_c]["library_ms"],
+        "timed_at": {"k": k, "max_deg": d, "n_pad": n_full, "C": main_c},
+        "checked": True, "max_rel_err": max_rel,
+        "per_c": {str(c): v for c, v in per_c.items()}}]
+    head = packed_c[main_c]
+    rows_out.append({
+        "name": "community_spmm_ell_packed", "route": "cuda",
+        "source": KERNEL_SRC, "replaces": PACKED_REPLACES,
+        "launches": serve["launches"]["cached"]["packed"],
+        "max_abs_err": max(ch["max_abs_err"] for ch in packed_checks),
+        "max_rel_err": max(ch["max_rel_err"] for ch in packed_checks),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "timed_at": {"k": 1, "max_deg": d_s, "live_slots": head["live_slots"],
+                     "n_pad": n_s, "plane_rows": d_s * n_s, "C": main_c},
+        "checked": True,
+        "launches_cold_run": serve["launches"]["cold"]["packed"],
+        "per_c": {str(c): v for c, v in packed_c.items()}})
+    head = fused_c[(767, 1000)]
+    rows_out.append({
+        "name": "community_spmm_ell_fused", "route": "cuda",
+        "source": FUSED_SRC, "replaces": FUSED_REPLACES,
+        "launches": serve["launches"]["fused_cold"]["fused"],
+        "max_abs_err": max(ch["max_abs_err"] for ch in fused_checks),
+        "max_rel_err": max(ch["max_rel_err"] for ch in fused_checks),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "timed_at": {"k": 1, "max_deg": d_s, "live_slots": head["live_slots"],
+                     "n_pad": n_s, "plane_rows": d_s * n_s, "C_in": 767,
+                     "C_out": 1000},
+        "checked": True,
+        "max_rel_err_vs_packed_then_matmul": max(
+            ch["rel_err_vs_packed_then_matmul"] for ch in fused_checks),
+        "per_shape": {f"{a}->{b}": v for (a, b), v in fused_c.items()}})
+    print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

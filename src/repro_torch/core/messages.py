@@ -1,9 +1,11 @@
 """Host-side (numpy) accounting of the community messages.
 
-The port's copy of ``gather_bytes``, ``adjacency_bytes`` and ``pad_stats``
-from ``repro.core.messages``: per-iteration payload bytes, device-resident
-adjacency bytes and residual-padding work of a layout.  The neighbour
-exchange plan and its transports come with the multi-shard slice.
+The port's copy of ``gather_bytes``, ``adjacency_bytes``, ``pad_stats``,
+``plane_read_offsets`` and ``self_slot_mask`` from ``repro.core.messages``:
+per-iteration payload bytes, device-resident adjacency bytes and
+residual-padding work of a layout, and the single-plane read tables of the
+serving engine.  The neighbour exchange plan and its transports come with
+the multi-shard slice.
 """
 from __future__ import annotations
 
@@ -112,3 +114,36 @@ def pad_stats(neighbor_mask: np.ndarray, sizes: np.ndarray,
         "padded_rows_total": int(rc.sum()),
         "true_rows_total": int(s.sum()),
     }
+
+
+def plane_read_offsets(ell_indices: np.ndarray, ell_mask: np.ndarray,
+                       local_offsets: np.ndarray) -> np.ndarray:
+    """Resident-plane row offsets of every ELL neighbour slot.
+
+    The single-plane twin of ``NeighborExchange.localized_offsets``: when
+    every community is resident on one packed plane (serving, or a 1-shard
+    mesh) there is no receive buffer to remap through — each masked-in
+    (m, d) slot reads its neighbour's bucket starting at
+    ``local_offsets[ell_indices[m, d]]``.  Masked-out slots map to row 0
+    (in range; multiplied away by the mask).  This is the halo-read table
+    the serving engine scalar-prefetches into the packed ELL kernel.
+    """
+    idx = np.asarray(ell_indices)
+    msk = np.asarray(ell_mask) > 0
+    offs = np.asarray(local_offsets, dtype=np.int32)
+    return np.where(msk, offs[idx], 0).astype(np.int32)
+
+
+def self_slot_mask(ell_indices: np.ndarray, ell_mask: np.ndarray
+                   ) -> np.ndarray:
+    """(M, max_deg) float32 marking each ELL row's *self* (diagonal) slot.
+
+    ``ell_mask - self_slot_mask`` is then the cross-community (halo) mask:
+    the serving engine aggregates the two halves separately so the halo
+    part — the only part that depends on other communities — can be cached
+    and invalidated on its own (kernels.ops.community_halo_spmm).
+    """
+    idx = np.asarray(ell_indices)
+    msk = np.asarray(ell_mask) > 0
+    rows = np.arange(idx.shape[0])[:, None]
+    return ((idx == rows) & msk).astype(np.float32)

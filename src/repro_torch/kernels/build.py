@@ -4,10 +4,11 @@ Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface (raw device
 pointers, shapes and a ``cudaStream_t``), so it compiles with ``nvcc`` alone
 in seconds — no PyTorch headers and no ``ninja``.  The shared library lands
 in ``build/torch_ext/<hash>/`` at the repository root, where the hash covers
-the source bytes and the nvcc flags: an edited source or flag builds anew,
-an unchanged one is reused.  Two processes building the same library at
-once are safe: each compiles to its own temporary file and moves it into
-place with an atomic ``os.replace``.
+the source bytes, the shared headers (``csrc/*.cuh``) and the nvcc flags: an
+edited source, header or flag builds anew, an unchanged one is reused.  Two
+processes building the same library at once are safe: each compiles to its
+own temporary file and moves it into place with an atomic ``os.replace``.
+Within a process, different libraries build concurrently (``load_all``).
 
 Nothing here runs at import time; the first kernel launch calls ``load``.
 A missing ``nvcc`` or a failed compile raises — there is no fallback.
@@ -21,6 +22,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -28,7 +30,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_lock = threading.Lock()      # guards ``_locks``
 
 
 def nvcc_path() -> str:
@@ -44,15 +47,20 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source bytes + flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed by source bytes, the shared
+    headers' bytes and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers
+                         + "\0".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_ROOT / key[:16] / f"lib{name}.so"
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     with _lock:
+        name_lock = _locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
@@ -72,3 +80,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
         return lib
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """``load`` every library in ``names`` at once: one nvcc per source, all
+    started together; raises the first build failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(load, names))

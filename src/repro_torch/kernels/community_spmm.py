@@ -1,19 +1,24 @@
-"""Launcher for the hand-written Hopper ELL aggregation kernel.
+"""Launchers for the hand-written Hopper ELL aggregation kernels.
 
-``csrc/community_spmm_ell.cu`` replaces the Pallas TPU kernel
-``community_spmm_ell`` (src/repro/kernels/community_spmm.py).  This module
-checks the operands, allocates the output, and launches the kernel on the
-current CUDA stream through the library ``build.load`` compiles at first
-use.  Outputs never need a gradient on the trainer's path (they reach every
-objective as constants), so there is no ``autograd.Function``: the launcher
-runs on detached inputs.
+``csrc/community_spmm_ell.cu`` replaces the Pallas TPU kernels
+``community_spmm_ell`` and ``community_spmm_ell_packed``, and
+``csrc/community_spmm_ell_fused.cu`` replaces ``community_spmm_ell_fused``
+(src/repro/kernels/community_spmm.py).  This module checks the operands,
+allocates the output, and launches a kernel on the current CUDA stream
+through the library ``build.load`` compiles at first use.  No output needs
+a gradient (the trainer's reach every objective as constants; serving is
+inference), so there is no ``autograd.Function``: the launchers run on
+detached inputs.
 
-``launches`` counts kernel launches, one per call that reaches the kernel;
-callers that want the count of one phase reset it to 0 before the phase.
+Each kernel has its own launch count, one per call that reaches it:
+``launches`` (ELL), ``packed_launches`` and ``fused_launches``.  Callers
+that want the count of one phase reset it to 0 before the phase.
 
-The launcher reads no values from the device: the indices of live slots
-must lie in ``[0, M)``, which ``check_indices`` verifies once where the
-layout is built (``core.parallel.community_data``), not on every launch.
+The launchers read no values from the device: the indices of live slots
+must lie in ``[0, M)`` and the plane rows a live packed slot reads must lie
+inside the plane, which ``check_indices`` and ``check_plane_offsets`` verify
+once where the tables are built (``core.parallel.community_data``,
+``serve.engine.CommunityServer``), not on every launch.
 """
 from __future__ import annotations
 
@@ -23,19 +28,25 @@ import torch
 
 from repro_torch.kernels import build
 
-LIB = "community_spmm_ell"
+LIB = "community_spmm_ell"          # the ELL and packed kernels
+FUSED_LIB = "community_spmm_ell_fused"
 launches = 0
+packed_launches = 0
+fused_launches = 0
 
-_SYMBOLS = {torch.float32: "community_spmm_ell_f32",
-            torch.bfloat16: "community_spmm_ell_bf16"}
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT = (torch.int32,)
+# the fused kernel keeps a (16, C_in rounded up to 128) f32 aggregate and
+# 19,456 bytes of staging tiles in one block's shared memory (227 KB)
+_FUSED_ROWS, _FUSED_CHUNK, _FUSED_STATIC = 16, 128, 19456
+_SMEM_LIMIT = 232448
 
 
-def _fn(dtype: torch.dtype):
-    lib = build.load(LIB)
-    fn = getattr(lib, _SYMBOLS[dtype])
+def _fn(lib_name: str, symbol: str, n_ptr: int, n_int: int):
+    lib = build.load(lib_name)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:     # first use: declare the C signature
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.community_spmm_error_string
@@ -58,6 +69,25 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _cuda_device(kernel: str, z: torch.Tensor) -> torch.device:
+    if z.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel {kernel} needs CUDA tensors, got "
+                         f"{z.device}")
+    return z.device
+
+
+def _launch(kernel: str, lib_name: str, symbol: str, ptrs: list,
+            ints: list, device: torch.device) -> None:
+    fn, lib = _fn(lib_name, symbol, len(ptrs), len(ints))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*[t.data_ptr() for t in ptrs], *ints, stream)
+    if code != 0:
+        msg = lib.community_spmm_error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} "
+                           f"(cudaError {code})")
+
+
 def check_indices(ell_indices: torch.Tensor, ell_mask: torch.Tensor,
                   m_total: int) -> None:
     """Raise IndexError unless every live slot indexes one of ``m_total``
@@ -66,6 +96,36 @@ def check_indices(ell_indices: torch.Tensor, ell_mask: torch.Tensor,
     if live.numel() and (int(live.min()) < 0 or int(live.max()) >= m_total):
         raise IndexError(f"a live ELL slot indexes outside z_all's "
                          f"{m_total} communities")
+
+
+def check_plane_offsets(offsets, mask, nbr_counts, plane_rows: int) -> None:
+    """Raise IndexError unless every live slot's rows ``[off, off +
+    nbr_count)`` lie inside a ``plane_rows``-row plane; a masked slot's
+    offset and count may hold any value."""
+    offsets, mask, nbr_counts = (torch.as_tensor(x) for x in
+                                 (offsets, mask, nbr_counts))
+    live = mask != 0
+    start = offsets[live].long()
+    end = start + nbr_counts[live].long()
+    if start.numel() and (int(start.min()) < 0
+                          or int(end.max()) > plane_rows):
+        raise IndexError(f"a live ELL slot reads outside the packed plane's "
+                         f"{plane_rows} rows")
+
+
+def _check_ell_operands(device, ell_blocks, table_name, table, ell_mask,
+                        row_counts, nbr_counts) -> tuple[int, int, int]:
+    if ell_blocks.dim() != 4:
+        raise ValueError(f"expected blocks (k, D, n, n), got "
+                         f"{tuple(ell_blocks.shape)}")
+    k, d, n_pad, _ = ell_blocks.shape
+    _check("ell_blocks", ell_blocks, (k, d, n_pad, n_pad), tuple(_DTYPES),
+           device)
+    _check(table_name, table, (k, d), _INT, device)
+    _check("ell_mask", ell_mask, (k, d), _INT, device)
+    _check("row_counts", row_counts, (k,), _INT, device)
+    _check("nbr_counts", nbr_counts, (k, d), _INT, device)
+    return k, d, n_pad
 
 
 def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
@@ -84,35 +144,102 @@ def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
     returns      (k, n_pad, C) f32
     """
     global launches
-    device = z_all.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
-    if ell_blocks.dim() != 4 or z_all.dim() != 3:
-        raise ValueError(f"expected blocks (k, D, n, n) and z_all (M, n, C), "
-                         f"got {tuple(ell_blocks.shape)} and "
+    device = _cuda_device("community_spmm_ell", z_all)
+    if z_all.dim() != 3:
+        raise ValueError(f"expected z_all (M, n, C), got "
                          f"{tuple(z_all.shape)}")
-    k, d, n_pad, _ = ell_blocks.shape
+    k, d, n_pad = _check_ell_operands(device, ell_blocks, "ell_indices",
+                                      ell_indices, ell_mask, row_counts,
+                                      nbr_counts)
     m_total, _, c = z_all.shape
-    _check("ell_blocks", ell_blocks, (k, d, n_pad, n_pad),
-           tuple(_SYMBOLS), device)
     _check("z_all", z_all, (m_total, n_pad, c), (torch.float32,), device)
-    _check("ell_indices", ell_indices, (k, d), _INT, device)
-    _check("ell_mask", ell_mask, (k, d), _INT, device)
-    _check("row_counts", row_counts, (k,), _INT, device)
-    _check("nbr_counts", nbr_counts, (k, d), _INT, device)
     out = torch.empty((k, n_pad, c), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    fn, lib = _fn(ell_blocks.dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(ell_blocks.data_ptr(), ell_indices.data_ptr(),
-                  ell_mask.data_ptr(), row_counts.data_ptr(),
-                  nbr_counts.data_ptr(), z_all.data_ptr(), out.data_ptr(),
-                  k, d, n_pad, c, stream)
-    if code != 0:
-        msg = lib.community_spmm_error_string(code).decode()
-        raise RuntimeError(f"community_spmm_ell launch failed: {msg} "
-                           f"(cudaError {code})")
+    _launch("community_spmm_ell", LIB,
+            f"community_spmm_ell_{_DTYPES[ell_blocks.dtype]}",
+            [ell_blocks, ell_indices, ell_mask, row_counts, nbr_counts,
+             z_all, out], [k, d, n_pad, c], device)
     launches += 1
+    return out
+
+
+def community_spmm_ell_packed(ell_blocks: torch.Tensor,
+                              ell_offsets: torch.Tensor,
+                              ell_mask: torch.Tensor, z_plane: torch.Tensor,
+                              row_counts: torch.Tensor,
+                              nbr_counts: torch.Tensor) -> torch.Tensor:
+    """Σ_d [mask[m,d] ≠ 0] · blocks[m,d] @ plane[off[m,d] : off[m,d] + n]
+    on the card, rows p ≥ nbr_counts[m,d] of each neighbour left out.
+
+    ell_blocks:  (k, D, n_pad, n_pad) f32 or bf16
+    ell_offsets: (k, D) int32 — plane row of each neighbour's row 0 (live
+                 slots only are read; see check_plane_offsets)
+    ell_mask:    (k, D) int32 — nonzero = live slot
+    z_plane:     (R, C) f32 packed plane
+    row_counts:  (k,) int32 — output rows at or past it are zero
+    nbr_counts:  (k, D) int32 — rows of each neighbour that contribute
+    returns      (k, n_pad, C) f32
+    """
+    global packed_launches
+    device = _cuda_device("community_spmm_ell_packed", z_plane)
+    if z_plane.dim() != 2:
+        raise ValueError(f"expected z_plane (R, C), got "
+                         f"{tuple(z_plane.shape)}")
+    k, d, n_pad = _check_ell_operands(device, ell_blocks, "ell_offsets",
+                                      ell_offsets, ell_mask, row_counts,
+                                      nbr_counts)
+    _check("z_plane", z_plane, tuple(z_plane.shape), (torch.float32,),
+           device)
+    c = z_plane.shape[1]
+    out = torch.empty((k, n_pad, c), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    _launch("community_spmm_ell_packed", LIB,
+            f"community_spmm_ell_packed_{_DTYPES[ell_blocks.dtype]}",
+            [ell_blocks, ell_offsets, ell_mask, row_counts, nbr_counts,
+             z_plane, out], [k, d, n_pad, c], device)
+    packed_launches += 1
+    return out
+
+
+def fused_smem_bytes(c_in: int) -> int:
+    """Shared memory one block of the fused kernel takes at width C_in."""
+    ld = -(-c_in // _FUSED_CHUNK) * _FUSED_CHUNK
+    return _FUSED_ROWS * ld * 4 + _FUSED_STATIC
+
+
+def community_spmm_ell_fused(ell_blocks: torch.Tensor,
+                             ell_offsets: torch.Tensor,
+                             ell_mask: torch.Tensor, z_plane: torch.Tensor,
+                             w: torch.Tensor, row_counts: torch.Tensor,
+                             nbr_counts: torch.Tensor) -> torch.Tensor:
+    """(packed aggregate) @ w on the card in one pass: the operands of
+    ``community_spmm_ell_packed`` plus w (C_in, C_out) f32.  The aggregate
+    stays in shared memory and is bitwise the packed kernel's output.
+    Returns (k, n_pad, C_out) f32, rows at or past row_counts zero."""
+    global fused_launches
+    device = _cuda_device("community_spmm_ell_fused", z_plane)
+    if z_plane.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"expected z_plane (R, C_in) and w (C_in, C_out), "
+                         f"got {tuple(z_plane.shape)} and {tuple(w.shape)}")
+    k, d, n_pad = _check_ell_operands(device, ell_blocks, "ell_offsets",
+                                      ell_offsets, ell_mask, row_counts,
+                                      nbr_counts)
+    _check("z_plane", z_plane, tuple(z_plane.shape), (torch.float32,),
+           device)
+    c_in, c_out = z_plane.shape[1], w.shape[1]
+    _check("w", w, (c_in, c_out), (torch.float32,), device)
+    if fused_smem_bytes(c_in) > _SMEM_LIMIT:
+        raise ValueError(f"C_in = {c_in} needs {fused_smem_bytes(c_in)} "
+                         f"bytes of shared memory per block; the card has "
+                         f"{_SMEM_LIMIT}")
+    out = torch.empty((k, n_pad, c_out), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    _launch("community_spmm_ell_fused", FUSED_LIB,
+            f"community_spmm_ell_fused_{_DTYPES[ell_blocks.dtype]}",
+            [ell_blocks, ell_offsets, ell_mask, row_counts, nbr_counts,
+             z_plane, w, out], [k, d, n_pad, c_in, c_out], device)
+    fused_launches += 1
     return out

@@ -12,6 +12,17 @@ import torch
 from repro_torch.kernels import community_spmm, ref
 
 
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def _mask(t: torch.Tensor) -> torch.Tensor:
+    """An int32 mask reaches the kernel as it is (tested ``!= 0``)."""
+    if t.dtype != torch.int32:
+        t = (t != 0).to(torch.int32)
+    return t.contiguous()
+
+
 def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
                        ell_mask: torch.Tensor, z_all: torch.Tensor,
                        row_counts: torch.Tensor | None = None,
@@ -27,8 +38,7 @@ def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
     returns      (k, n_pad, C)
 
     Without counts every row is live (the global-pad layout).  Operands
-    already int32 and contiguous (an int32 mask is tested ``!= 0`` by the
-    kernel) reach it without a copy.
+    already int32 and contiguous reach the kernel without a copy.
     """
     if z_all.device.type == "cpu":
         return ref.community_spmm_ell_einsum(ell_blocks, ell_indices,
@@ -40,10 +50,66 @@ def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
         row_counts = torch.full((k,), n_pad, **i32)
     if nbr_counts is None:
         nbr_counts = torch.full((k, max_deg), n_pad, **i32)
-    if ell_mask.dtype != torch.int32:
-        ell_mask = (ell_mask != 0).to(torch.int32)
     return community_spmm.community_spmm_ell(
-        ell_blocks.detach().contiguous(),
-        ell_indices.to(torch.int32).contiguous(), ell_mask.contiguous(),
-        z_all.detach().contiguous(), row_counts.to(torch.int32).contiguous(),
-        nbr_counts.to(torch.int32).contiguous())
+        ell_blocks.detach().contiguous(), _i32(ell_indices), _mask(ell_mask),
+        z_all.detach().contiguous(), _i32(row_counts), _i32(nbr_counts))
+
+
+def community_spmm_ell_packed(ell_blocks: torch.Tensor,
+                              ell_offsets: torch.Tensor,
+                              ell_mask: torch.Tensor, z_plane: torch.Tensor,
+                              row_counts: torch.Tensor,
+                              nbr_counts: torch.Tensor) -> torch.Tensor:
+    """Packed-plane ELL aggregation: neighbour d of lane m is rows
+    ``[ell_offsets[m, d], ell_offsets[m, d] + nbr_counts[m, d])`` of the
+    packed ``(plane_rows, C)`` plane, instead of a fixed ``n_pad`` stride.
+
+    Same dispatch contract as ``community_spmm_ell``; returns the blocked
+    (k, n_pad, C) aggregate with rows past ``row_counts`` zero.
+    """
+    if z_plane.device.type == "cpu":
+        return ref.community_spmm_ell_packed_einsum(
+            ell_blocks, ell_offsets, ell_mask, z_plane, row_counts,
+            nbr_counts)
+    return community_spmm.community_spmm_ell_packed(
+        ell_blocks.detach().contiguous(), _i32(ell_offsets), _mask(ell_mask),
+        z_plane.detach().contiguous(), _i32(row_counts), _i32(nbr_counts))
+
+
+def community_spmm_ell_fused(ell_blocks: torch.Tensor,
+                             ell_offsets: torch.Tensor,
+                             ell_mask: torch.Tensor, z_plane: torch.Tensor,
+                             w: torch.Tensor, row_counts: torch.Tensor,
+                             nbr_counts: torch.Tensor) -> torch.Tensor:
+    """Fused packed-plane aggregation → GEMM: ``(packed aggregate) @ w``.
+
+    The CUDA kernel keeps the aggregate in shared memory and sums it
+    exactly as ``community_spmm_ell_packed`` does; the plain version on the
+    CPU is the reassociated ``A·(Z·W)`` of the reference's oracle, so
+    parity with the unfused two-call pipeline is a tolerance, not bitwise.
+    Returns (k, n_pad, C_out) with rows past ``row_counts`` zero.
+    """
+    if z_plane.device.type == "cpu":
+        return ref.community_spmm_ell_fused_einsum(
+            ell_blocks, ell_offsets, ell_mask, z_plane, w, row_counts,
+            nbr_counts)
+    return community_spmm.community_spmm_ell_fused(
+        ell_blocks.detach().contiguous(), _i32(ell_offsets), _mask(ell_mask),
+        z_plane.detach().contiguous(), w.detach().float().contiguous(),
+        _i32(row_counts), _i32(nbr_counts))
+
+
+def community_halo_spmm(ell_blocks: torch.Tensor, ell_offsets: torch.Tensor,
+                        ell_mask: torch.Tensor, self_mask: torch.Tensor,
+                        z_plane: torch.Tensor, row_counts: torch.Tensor,
+                        nbr_counts: torch.Tensor) -> torch.Tensor:
+    """Cross-community (halo) half of the packed ELL aggregation:
+    Σ_{r∈N_m\\{m}} Ã_{m,r} Z_r.  The self slot (``self_mask``, from
+    ``messages.self_slot_mask``) is removed from both the slot mask and the
+    per-neighbour row counts, so the diagonal block never enters the sum.
+    ``halo + self block`` reassembles the full aggregate up to float
+    reassociation (the split sums the slots in two groups)."""
+    cross_mask = ell_mask * (1.0 - self_mask)
+    cross_counts = (nbr_counts * (cross_mask > 0)).to(nbr_counts.dtype)
+    return community_spmm_ell_packed(ell_blocks, ell_offsets, cross_mask,
+                                     z_plane, row_counts, cross_counts)

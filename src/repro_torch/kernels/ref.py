@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the ELL aggregation kernel (the allclose targets).
+"""Plain PyTorch versions of the ELL aggregation kernels (the allclose targets).
 
-Counterparts of ``community_spmm_ell_einsum`` and ``community_spmm_ell_ref``
-in src/repro/kernels/ref.py.  The CPU dispatch in ``kernels.ops`` runs
-``community_spmm_ell_einsum``; ``chip_smoke.py`` holds the CUDA kernel
-against it on the card.
+Counterparts of ``community_spmm_ell_einsum``, ``community_spmm_ell_ref``,
+``community_spmm_ell_packed_einsum`` and ``community_spmm_ell_fused_einsum``
+in src/repro/kernels/ref.py.  The CPU dispatch in ``kernels.ops`` runs the
+einsum forms; ``chip_smoke.py`` holds each CUDA kernel against its plain
+version on the card.
 """
 from __future__ import annotations
 
@@ -35,6 +36,57 @@ def community_spmm_ell_einsum(ell_blocks: torch.Tensor,
         out = out * (lane[None, :, None]
                      < row_counts[:, None, None]).to(out.dtype)
     return out
+
+
+def community_spmm_ell_packed_einsum(ell_blocks: torch.Tensor,
+                                     ell_offsets: torch.Tensor,
+                                     ell_mask: torch.Tensor,
+                                     z_plane: torch.Tensor,
+                                     row_counts: torch.Tensor,
+                                     nbr_counts: torch.Tensor
+                                     ) -> torch.Tensor:
+    """Gather-einsum form of the packed-plane ELL aggregation.
+
+    ``z_plane`` is the packed (plane_rows, C) plane; neighbour d of lane m
+    starts at row ``ell_offsets[m, d]`` and contributes ``nbr_counts[m, d]``
+    rows.  Rows past a neighbour's count, masked slots and rows outside the
+    plane gather 0 (the reference's take with ``mode="fill"``), so the
+    blocked (k, D, n_pad, C) view is the strided oracle's masked gather.
+    """
+    k, max_deg = ell_offsets.shape
+    n_pad = ell_blocks.shape[2]
+    plane_rows, c = z_plane.shape
+    lane = torch.arange(n_pad, device=z_plane.device)
+    rows = ell_offsets.long()[..., None] + lane[None, None, :]   # (k, D, n)
+    valid = ((lane[None, None, :] < nbr_counts[..., None])
+             & (ell_mask[..., None] != 0) & (rows >= 0) & (rows < plane_rows))
+    rows = torch.where(valid, rows, plane_rows)                # OOB -> fill
+    filled = torch.cat([z_plane, z_plane.new_zeros((1, c))])
+    z_g = filled[rows.reshape(-1)].reshape(k, max_deg, n_pad, c)
+    out = torch.einsum("mdip,mdpc->mic", ell_blocks.float(),
+                       z_g.float()).to(z_plane.dtype)
+    return out * (lane[None, :, None]
+                  < row_counts[:, None, None]).to(out.dtype)
+
+
+def community_spmm_ell_fused_einsum(ell_blocks: torch.Tensor,
+                                    ell_offsets: torch.Tensor,
+                                    ell_mask: torch.Tensor,
+                                    z_plane: torch.Tensor, w: torch.Tensor,
+                                    row_counts: torch.Tensor,
+                                    nbr_counts: torch.Tensor
+                                    ) -> torch.Tensor:
+    """Plain version of the fused aggregation→GEMM: (A·Z)·W = A·(Z·W).
+
+    Reassociated as the reference's oracle is: W is applied to the packed
+    plane first, then the packed aggregation runs on the pre-multiplied
+    plane, so no (k, n_pad, C_in) aggregate is formed.  Against the CUDA
+    kernel, which sums (A·Z) first, parity is a tolerance, not bitwise.
+    """
+    zw = (z_plane.float() @ w.float()).to(z_plane.dtype)
+    return community_spmm_ell_packed_einsum(ell_blocks, ell_offsets,
+                                            ell_mask, zw, row_counts,
+                                            nbr_counts)
 
 
 def community_spmm_ell_ref(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,

@@ -1,12 +1,18 @@
-"""The port's CUDA kernel and trainer on the card (skipped without one).
+"""The port's CUDA kernels, trainer and server on the card (skipped
+without one).
 
 Imports torch, numpy and the port only, so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same CUDA
-tensors (max |diff| ≤ 1e-6 · max |ref| with f32 blocks, 1e-5 with bf16); the
-trainer's kernel path against its plain path at one shared state.
+Each kernel is held against its plain PyTorch version on the same CUDA
+tensors: the strided and packed kernels within 1e-6 · max |ref| with f32
+blocks and 1e-5 with bf16; the fused kernel within 1e-5 · max of the packed
+kernel followed by ``torch.matmul``, within 1e-4 · max of its reassociated
+plain version, and bitwise equal to the packed kernel with W = I.  The
+trainer's kernel path is held against its plain path at one shared state;
+the server's cached path against its cold path (bitwise) and against the
+same server on the CPU.
 """
 import numpy as np
 import pytest
@@ -16,6 +22,7 @@ from repro_torch.core import gcn, graph
 from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
 from repro_torch.core.subproblems import ADMMConfig
 from repro_torch.kernels import community_spmm, ops, ref
+from repro_torch.serve import CommunityServer, ServeConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +103,121 @@ def test_trainer_kernel_path_matches_plain_path(cuda_device):
         assert float((ga - gb).abs().max()) <= 1e-5 * float(gb.abs().max())
     log = tr.train(2)
     assert all(np.isfinite(log.lagrangian)) and all(np.isfinite(log.residual))
+
+
+def _packed_operands(seed, k, max_deg, n_pad, c_in, c_out, device):
+    """Random packed-plane operands with ragged counts; masked slots point
+    anywhere in the plane."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, n_pad + 1, size=k + 2)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    plane_rows = int(counts.sum())
+    slot = rng.integers(0, k + 2, size=(k, max_deg))
+    mask = np.zeros((k, max_deg), np.float32)
+    for r in range(k):
+        mask[r, : 1 + r % max_deg] = 1.0
+    off = np.where(mask > 0, starts[slot],
+                   rng.integers(0, plane_rows, size=(k, max_deg)))
+    out = [rng.normal(size=(k, max_deg, n_pad, n_pad)).astype(np.float32),
+           off.astype(np.int32), mask,
+           rng.normal(size=(plane_rows, c_in)).astype(np.float32),
+           rng.normal(size=(c_in, c_out)).astype(np.float32),
+           rng.integers(1, n_pad + 1, size=k).astype(np.int32),
+           (counts[slot] * (mask > 0)).astype(np.int32)]
+    return [torch.as_tensor(x, device=device) for x in out]
+
+
+PACKED = [  # k, max_deg, n_pad, c_in, c_out
+    (1, 16, 96, 200, 130),
+    (3, 3, 64, 48, 10),
+    (2, 5, 131, 67, 256),
+    (4, 1, 40, 1000, 3),
+]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k,max_deg,n_pad,c_in,c_out", PACKED)
+def test_packed_kernel_matches_plain_version(cuda_device, k, max_deg, n_pad,
+                                             c_in, c_out, bf16):
+    blocks, off, mask, z, _, rows, nbrs = _packed_operands(
+        0, k, max_deg, n_pad, c_in, c_out, cuda_device)
+    if bf16:
+        blocks = blocks.to(torch.bfloat16)
+    before = community_spmm.packed_launches
+    got = ops.community_spmm_ell_packed(blocks, off, mask, z, rows, nbrs)
+    torch.cuda.synchronize()
+    assert community_spmm.packed_launches == before + 1
+    want = ref.community_spmm_ell_packed_einsum(blocks, off, mask, z, rows,
+                                                nbrs)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= (1e-5 if bf16 else 1e-6) * scale
+
+
+@pytest.mark.parametrize("k,max_deg,n_pad,c_in,c_out", PACKED)
+def test_fused_kernel_matches_plain_versions(cuda_device, k, max_deg, n_pad,
+                                             c_in, c_out):
+    blocks, off, mask, z, w, rows, nbrs = _packed_operands(
+        1, k, max_deg, n_pad, c_in, c_out, cuda_device)
+    before = community_spmm.fused_launches
+    got = ops.community_spmm_ell_fused(blocks, off, mask, z, w, rows, nbrs)
+    torch.cuda.synchronize()
+    assert community_spmm.fused_launches == before + 1
+    agg = ops.community_spmm_ell_packed(blocks, off, mask, z, rows, nbrs)
+    two_step = agg @ w
+    assert float((got - two_step).abs().max()) \
+        <= 1e-5 * float(two_step.abs().max())
+    plain = ref.community_spmm_ell_fused_einsum(blocks, off, mask, z, w, rows,
+                                                nbrs)
+    assert float((got - plain).abs().max()) <= 1e-4 * float(plain.abs().max())
+    # with W = I the fused output is the packed aggregate, bit for bit
+    eye = torch.eye(c_in, device=cuda_device)
+    assert torch.equal(
+        ops.community_spmm_ell_fused(blocks, off, mask, z, eye, rows, nbrs),
+        agg)
+
+
+def test_halo_kernel_matches_plain_version(cuda_device):
+    blocks, off, mask, z, _, rows, nbrs = _packed_operands(
+        2, 3, 4, 64, 32, 8, cuda_device)
+    self_mask = torch.zeros_like(mask)
+    self_mask[:, 0] = mask[:, 0]
+    got = ops.community_halo_spmm(blocks, off, mask, self_mask, z, rows, nbrs)
+    cross = mask * (1.0 - self_mask)
+    want = ref.community_spmm_ell_packed_einsum(
+        blocks, off, cross, z, rows, (nbrs * (cross > 0)).to(torch.int32))
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_fused_kernel_refuses_too_wide_c_in(cuda_device):
+    blocks, off, mask, z, w, rows, nbrs = _packed_operands(
+        3, 1, 1, 16, 3400, 4, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        community_spmm.community_spmm_ell_fused(
+            blocks, off, mask.to(torch.int32), z, w, rows, nbrs)
+
+
+def test_server_on_the_card_matches_the_cpu(cuda_device):
+    g, part = graph.synthetic_powerlaw_communities(
+        8, nodes_per_part=12, attach=1, feat_dim=8, size_skew=0.8, seed=0)
+    cfg = gcn.GCNConfig((8, 16, g.num_classes))
+    layout = graph.build_community_layout(g.num_nodes, g.edges, part,
+                                          compressed=True,
+                                          pad_mode="bucketed", num_parts=8)
+    ws = gcn.init_weights(cfg, torch.Generator().manual_seed(0))
+    ids = np.arange(g.num_nodes)
+    cpu = CommunityServer(cfg, layout, ws, g.features, device="cpu")
+    want = cpu.serve(ids)
+    community_spmm.packed_launches = community_spmm.fused_launches = 0
+    cached = CommunityServer(cfg, layout, ws, g.features)
+    assert cached.device.type == "cuda"
+    got = cached.serve(ids)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    cold = CommunityServer(cfg, layout, ws, g.features,
+                           ServeConfig(cache_enabled=False))
+    np.testing.assert_array_equal(cold.serve(ids), got)
+    assert community_spmm.packed_launches > 0
+    fused = CommunityServer(cfg, layout, ws, g.features,
+                            ServeConfig(fused=True, cache_enabled=False))
+    np.testing.assert_allclose(fused.serve(ids), got, rtol=1e-4, atol=1e-5)
+    assert community_spmm.fused_launches > 0
+    assert cached.stats() == cpu.stats()

@@ -3,7 +3,8 @@
 A fresh interpreter imports every module of ``repro_torch`` (and loads
 ``chip_smoke.py`` as a module) and must end with no ``jax``/``jax.*`` and no
 ``repro``/``repro.*`` module loaded.  The trainer defaults to the card and
-refuses to carry on quietly on the CPU.
+and the server default to the card and refuse to carry on quietly on the
+CPU.
 """
 import os
 import pathlib
@@ -11,6 +12,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,7 +42,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                           cwd=str(ROOT), timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15, proc.stdout
+    assert n_modules >= 28, proc.stdout
 
 
 def test_trainer_without_device_raises_when_cuda_is_absent():
@@ -56,3 +58,21 @@ def test_trainer_without_device_raises_when_cuda_is_absent():
         ParallelADMMTrainer(gcn.GCNConfig((4, 8, g.num_classes)),
                             ADMMConfig(), g, 4,
                             config=TrainerConfig.packed(use_kernel=True))
+
+
+def test_server_without_device_raises_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is the card")
+    from repro.core import graph as jgraph
+    from repro_torch.core import gcn
+    from repro_torch.serve import CommunityServer
+    g, part = jgraph.synthetic_powerlaw_communities(
+        4, nodes_per_part=8, feat_dim=4, seed=0)
+    cfg = gcn.GCNConfig((4, 8, g.num_classes))
+    layout = jgraph.build_community_layout(g.num_nodes, g.edges, part,
+                                           compressed=True,
+                                           pad_mode="bucketed")
+    ws = [np.zeros((4, 8), np.float32), np.zeros((8, g.num_classes),
+                                                 np.float32)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CommunityServer(cfg, layout, ws, g.features)

@@ -1,16 +1,20 @@
 """ELL aggregation of the PyTorch port against the JAX package.
 
-The port's plain versions (``repro_torch.kernels.ref``) are held against
-the reference's jnp oracle on random operands, and against the Pallas
-kernel body itself in interpret mode on layout-valid operands (pad rows
-zero, as in every real layout: the Pallas kernel guards rows at tile
-granularity where the oracle and the CUDA kernel guard them exactly).
-Tolerance: max |diff| ≤ 1e-6 · max |ref| with f32 blocks, 1e-5 with bf16
-blocks (the same upcast values, summed in another order).
+The port's plain versions (``repro_torch.kernels.ref``) of the strided,
+packed-plane and fused kernels are held against the reference's jnp
+oracles on random operands, and against the Pallas kernel bodies
+themselves in interpret mode on layout-valid operands (pad rows zero and
+8-aligned plane offsets, as in every real layout: the Pallas kernels guard
+rows at tile granularity and steer 8-row slabs where the oracles and the
+CUDA kernels guard and address rows exactly).  Tolerances: max |diff| ≤
+1e-6 · max |ref| against the oracles (1e-5 for the strided kernel with bf16
+blocks: the same upcast values, summed in another order), 1e-5 · max |ref|
+for the packed and fused kernels against the interpret-mode bodies (the
+fused body sums (A·Z)·W, the plain version A·(Z·W)).
 
-The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py
-holds it against the plain version (skipped without a card), and
-``chip_smoke.py`` does so at the trainer's shapes.
+The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
+holds them against the plain versions (skipped without a card), and
+``chip_smoke.py`` does so at the trainer's and the server's shapes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +22,15 @@ import pytest
 import torch
 
 from repro.core import graph as jgraph
+from repro.core import messages as jmessages
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.community_spmm import community_spmm_ell as pallas_ell
+from repro.kernels.community_spmm import \
+    community_spmm_ell_fused as pallas_fused
+from repro.kernels.community_spmm import \
+    community_spmm_ell_packed as pallas_packed
+from repro_torch.core import messages
 from repro_torch.kernels import build, community_spmm, ops, ref
 
 
@@ -168,3 +179,228 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     assert path.name == f"lib{community_spmm.LIB}.so"
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path(community_spmm.LIB) != path
+
+
+# ---------------------------------------------------------------------------
+# packed-plane and fused kernels
+# ---------------------------------------------------------------------------
+
+def _packed_operands(seed, k, max_deg, n_pad, c_in, c_out, layout_valid):
+    """Random packed-plane operands: neighbour slots packed back to back
+    on one plane, masked slots (mask 0) whose offsets and counts point
+    anywhere.  ``layout_valid``: 8-aligned offsets and counts, and blocks
+    zero past the row and neighbour counts (the zero-outside-counts
+    contract of every real layout); otherwise ragged counts."""
+    rng = np.random.default_rng(seed)
+    n_slots = k + 2
+    if layout_valid:
+        counts = 8 * rng.integers(1, n_pad // 8 + 1, size=n_slots)
+        rows = 8 * rng.integers(1, n_pad // 8 + 1, size=k)
+    else:
+        counts = rng.integers(1, n_pad + 1, size=n_slots)
+        rows = rng.integers(1, n_pad + 1, size=k)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    plane_rows = int(counts.sum())
+    slot = rng.integers(0, n_slots, size=(k, max_deg))
+    mask = np.zeros((k, max_deg), np.float32)
+    for r in range(k):
+        mask[r, : 1 + r % max_deg] = 1.0
+    live = mask > 0
+    off = np.where(live, starts[slot],
+                   rng.integers(0, plane_rows, size=(k, max_deg)))
+    nbrs = np.where(live, counts[slot],
+                    rng.integers(0, n_pad + 1, size=(k, max_deg)))
+    blocks = rng.normal(size=(k, max_deg, n_pad, n_pad)).astype(np.float32)
+    if layout_valid:
+        lane = np.arange(n_pad)
+        blocks *= lane[None, None, :, None] < rows[:, None, None, None]
+        blocks *= lane[None, None, None, :] < nbrs[:, :, None, None]
+    z = rng.normal(size=(plane_rows, c_in)).astype(np.float32)
+    w = rng.normal(size=(c_in, c_out)).astype(np.float32)
+    return (blocks, off.astype(np.int32), mask, z, w, rows.astype(np.int32),
+            nbrs.astype(np.int32))
+
+
+PACKED_CASES = [  # k, max_deg, n_pad, c_in, c_out
+    (1, 4, 32, 24, 16),
+    (3, 3, 40, 16, 8),
+    (2, 5, 24, 12, 20),
+    (4, 1, 64, 8, 4),
+]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k,max_deg,n_pad,c_in,c_out", PACKED_CASES)
+def test_packed_and_fused_plain_versions_match_reference_oracles(
+        k, max_deg, n_pad, c_in, c_out, bf16):
+    blocks, off, mask, z, w, rows, nbrs = _packed_operands(
+        k, k, max_deg, n_pad, c_in, c_out, layout_valid=False)
+    jb = jnp.asarray(blocks, jnp.bfloat16) if bf16 else jnp.asarray(blocks)
+    tb = torch.as_tensor(blocks).to(torch.bfloat16 if bf16 else torch.float32)
+    want_p = jref.community_spmm_ell_packed_einsum(
+        jb, *_jax(off, mask, z, rows, nbrs))
+    want_f = jref.community_spmm_ell_fused_einsum(
+        jb, *_jax(off, mask, z, w, rows, nbrs))
+    got_p = ref.community_spmm_ell_packed_einsum(
+        tb, *_port(off, mask, z, rows, nbrs))
+    got_f = ref.community_spmm_ell_fused_einsum(
+        tb, *_port(off, mask, z, w, rows, nbrs))
+    _close(got_p, want_p, 1e-6)
+    _close(got_f, want_f, 1e-6)
+    # the CPU dispatch runs the plain versions, bit for bit
+    np.testing.assert_array_equal(
+        ops.community_spmm_ell_packed(tb, *_port(off, mask, z, rows,
+                                                 nbrs)).numpy(),
+        got_p.numpy())
+    np.testing.assert_array_equal(
+        ops.community_spmm_ell_fused(tb, *_port(off, mask, z, w, rows,
+                                                nbrs)).numpy(),
+        got_f.numpy())
+
+
+@pytest.mark.parametrize("k,max_deg,n_pad,c_in,c_out", PACKED_CASES)
+def test_packed_and_fused_plain_versions_match_pallas_interpret(
+        k, max_deg, n_pad, c_in, c_out):
+    blocks, off, mask, z, w, rows, nbrs = _packed_operands(
+        k + 1, k, max_deg, n_pad, c_in, c_out, layout_valid=True)
+    want_p = pallas_packed(*_jax(blocks, off, mask, z, rows, nbrs),
+                           interpret=True)
+    want_f = pallas_fused(*_jax(blocks, off, mask, z, w, rows, nbrs),
+                          interpret=True)
+    _close(ops.community_spmm_ell_packed(
+        *_port(blocks, off, mask, z, rows, nbrs)), want_p, 1e-5)
+    _close(ops.community_spmm_ell_fused(
+        *_port(blocks, off, mask, z, w, rows, nbrs)), want_f, 1e-5)
+
+
+def test_packed_bf16_blocks_match_pallas_interpret():
+    blocks, off, mask, z, _, rows, nbrs = _packed_operands(
+        9, 2, 3, 32, 16, 8, layout_valid=True)
+    jb = jnp.asarray(blocks, jnp.bfloat16)
+    want = pallas_packed(jb, *_jax(off, mask, z, rows, nbrs), interpret=True)
+    got = ops.community_spmm_ell_packed(torch.as_tensor(blocks).bfloat16(),
+                                        *_port(off, mask, z, rows, nbrs))
+    _close(got, want, 1e-5)
+
+
+def test_packed_masked_slots_contribute_nothing():
+    """A masked slot adds nothing, wherever its offset and count point;
+    unmasked, the same slots would."""
+    blocks, off, mask, z, w, rows, nbrs = _port(*_packed_operands(
+        4, 3, 3, 32, 8, 4, layout_valid=False))
+    out = ops.community_spmm_ell_packed(blocks, off, mask, z, rows, nbrs)
+    dead = mask == 0
+    moved_off, moved_n = off.clone(), nbrs.clone()
+    moved_off[dead] = (moved_off[dead] * 7 + 3) % z.shape[0]
+    moved_n[dead] = 32 - moved_n[dead]
+    np.testing.assert_array_equal(
+        ops.community_spmm_ell_packed(blocks, moved_off, mask, z, rows,
+                                      moved_n).numpy(), out.numpy())
+    np.testing.assert_array_equal(
+        ops.community_spmm_ell_fused(blocks, moved_off, mask, z, w, rows,
+                                     moved_n).numpy(),
+        ops.community_spmm_ell_fused(blocks, off, mask, z, w, rows,
+                                     nbrs).numpy())
+    lane = torch.arange(32)
+    for m in range(3):
+        assert not out[m, lane >= rows[m]].any()
+
+
+def _serving_layout():
+    g, part = jgraph.synthetic_powerlaw_communities(
+        8, nodes_per_part=16, size_skew=1.0, feat_dim=16, seed=0)
+    lay = jgraph.build_community_layout(g.num_nodes, g.edges, part,
+                                        compressed=True, pad_mode="bucketed")
+    csr = lay.compress()
+    dl = lay.device_layout(1)
+    rows, nbrs = csr.ell_row_counts()
+    off = jmessages.plane_read_offsets(csr.ell_indices, csr.ell_mask,
+                                       dl.local_offsets)
+    self_mask = jmessages.self_slot_mask(csr.ell_indices, csr.ell_mask)
+    x = np.random.default_rng(2).normal(
+        size=(g.num_nodes, 12)).astype(np.float32)
+    z = dl.pack_state(lay.pack(x))
+    return lay, csr, dl, (csr.ell_blocks, off, csr.ell_mask, self_mask, z,
+                          rows, nbrs)
+
+
+def test_plane_tables_equal_reference():
+    _, csr, dl, _ = _serving_layout()
+    np.testing.assert_array_equal(
+        messages.plane_read_offsets(csr.ell_indices, csr.ell_mask,
+                                    dl.local_offsets),
+        jmessages.plane_read_offsets(csr.ell_indices, csr.ell_mask,
+                                     dl.local_offsets))
+    np.testing.assert_array_equal(
+        messages.self_slot_mask(csr.ell_indices, csr.ell_mask),
+        jmessages.self_slot_mask(csr.ell_indices, csr.ell_mask))
+
+
+def test_halo_split_reassembles_the_full_aggregate():
+    """halo + self block == the packed aggregate over every slot, and the
+    halo equals the reference's ``community_halo_spmm``."""
+    lay, _, dl, ops_args = _serving_layout()
+    blocks, off, mask, self_mask, z, rows, nbrs = ops_args
+    halo = ops.community_halo_spmm(*_port(*ops_args))
+    _close(halo, jops.community_halo_spmm(*_jax(*ops_args)), 1e-6)
+    full = ops.community_spmm_ell_packed(*_port(blocks, off, mask, z, rows,
+                                                nbrs))
+    split = halo.clone()
+    for m in range(lay.num_parts):
+        rc, start = int(rows[m]), int(dl.local_offsets[m])
+        a_self = torch.as_tensor(lay.a_blocks[m, m, :rc, :rc])
+        split[m, :rc] += a_self @ torch.as_tensor(z[start:start + rc])
+    _close(split, full, 1e-6)
+    assert float((halo - full).abs().max()) > 1e-3   # the self slot counts
+
+
+def test_check_plane_offsets_reads_live_slots_only():
+    """A live slot's rows [off, off + count) must lie in the plane; a
+    masked slot's offset and count may hold any value."""
+    off = torch.tensor([[0, 99], [8, -5]], dtype=torch.int32)
+    mask = torch.tensor([[1.0, 0.0], [1.0, 0.0]])
+    nbrs = torch.tensor([[8, 64], [8, 3]], dtype=torch.int32)
+    community_spmm.check_plane_offsets(off, mask, nbrs, 16)
+    community_spmm.check_plane_offsets(off.numpy(), mask.numpy(),
+                                       nbrs.numpy(), 16)
+    for m, d, value in ((1, 0, 9), (1, 0, -1), (0, 0, 16)):
+        bad = off.clone()
+        bad[m, d] = value
+        with pytest.raises(IndexError, match="outside the packed plane"):
+            community_spmm.check_plane_offsets(bad, mask, nbrs, 16)
+
+
+@pytest.mark.parametrize("kernel", ["packed", "fused"])
+def test_packed_launchers_refuse_cpu_tensors(kernel):
+    blocks, off, mask, z, w, rows, nbrs = _port(*_packed_operands(
+        0, 2, 2, 16, 4, 4, layout_valid=True))
+    mask = mask.to(torch.int32)
+    before = (community_spmm.packed_launches, community_spmm.fused_launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if kernel == "packed":
+            community_spmm.community_spmm_ell_packed(blocks, off, mask, z,
+                                                     rows, nbrs)
+        else:
+            community_spmm.community_spmm_ell_fused(blocks, off, mask, z, w,
+                                                    rows, nbrs)
+    assert (community_spmm.packed_launches,
+            community_spmm.fused_launches) == before
+
+
+def test_fused_shared_memory_fits_the_serving_widths():
+    assert community_spmm.fused_smem_bytes(1000) == 16 * 1024 * 4 + 19456
+    assert community_spmm.fused_smem_bytes(767) == 16 * 768 * 4 + 19456
+    assert community_spmm.fused_smem_bytes(3328) <= community_spmm._SMEM_LIMIT
+    assert community_spmm.fused_smem_bytes(3329) > community_spmm._SMEM_LIMIT
+
+
+def test_library_path_is_keyed_by_shared_headers(monkeypatch, tmp_path):
+    for src in build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    paths = {name: build.library_path(name)
+             for name in (community_spmm.LIB, community_spmm.FUSED_LIB)}
+    header = tmp_path / "ell_tile.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    for name, path in paths.items():
+        assert build.library_path(name) != path
