@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port of the community-ADMM GCN on one GPU: train,
-then serve.
+"""Run the PyTorch/CUDA port of the community-ADMM GCN on one GPU: train
+(dense and ELL Parallel ADMM, Serial ADMM, a backprop baseline), then serve.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,12 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. hold every kernel against its plain PyTorch version on the card:
      the ELL kernel at the trainer's shapes, on a ragged layout, with bf16
      blocks and with masked slots whose indices point anywhere
-     (max |diff| <= 1e-5 max |ref|); the packed-plane and fused kernels at
+     (max |diff| <= 1e-5 max |ref|); the dense kernel at the trainer's
+     shapes (k = M = 3, n_pad = 4584, C = 767 / 1000 / 10), with per-lane
+     masks whose absent blocks hold random values, on the ragged M = 32
+     layout's blocks and neighbour mask, and through ``ops`` with a shared
+     (M,) row, with no mask and on one block row (<= 1e-5 max); the
+     packed-plane and fused kernels at
      the server's shapes (k = 1, D = 16, n_pad = 864, a 13,824-row plane,
      C = 767 and 1000, f32 and bf16 blocks, the halo mask) and on the
      ragged layout with masked slots re-pointed: packed vs plain
@@ -21,9 +26,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      amazon_computers graph, M = 3 communities, packed state, through the
      ELL kernel, for 3 epochs; every value must be finite and the kernel
      must have launched; compare objectives and one step of the kernel path
-     and the plain path from one shared state;
-  4. time the ELL kernel, its plain version and the gather + einsum
-     composition at the trainer's shapes, beside the card's bound;
+     and the plain path from one shared state; then, on the same graph:
+     dense-adjacency Parallel ADMM through the dense kernel for 3 epochs
+     (finite, launched, objectives of kernel and plain paths <= 1e-5 apart,
+     a profiled step, and the dense kernel against the ELL kernel on the
+     layout's compressed view, bitwise reported, <= 1e-5 asserted); Serial
+     ADMM for 3 epochs (finite; the Table 3 ratio of serial to dense
+     parallel step time, reported); the Adam baseline for 3 epochs
+     (finite); and packed ELL with bf16 blocks for 2 epochs (finite, the
+     ELL kernel launched on bf16 blocks holding half the f32 block bytes);
+  4. time the ELL and dense kernels, their plain versions and the library
+     composition (gather + einsum, masked einsum) at the trainer's shapes,
+     beside the card's bound;
   5. serve: train the same model at M = 16 for 2 epochs, build a
      CommunityServer with the serving launcher's defaults, drive the
      launcher's Zipf stream (2,048 requests in batches of 64) cached, then
@@ -59,7 +73,10 @@ SERVE_EPOCHS = 2
 SERVE_PARTS = 16
 KERNEL_SRC = "src/repro_torch/kernels/csrc/community_spmm_ell.cu"
 FUSED_SRC = "src/repro_torch/kernels/csrc/community_spmm_ell_fused.cu"
+DENSE_SRC = "src/repro_torch/kernels/csrc/community_spmm_dense.cu"
 REPLACES = "src/repro/kernels/community_spmm.py:359"
+DENSE_REPLACES = "src/repro/kernels/community_spmm.py:273"
+BF16_EPOCHS = 2
 PACKED_REPLACES = "src/repro/kernels/community_spmm.py:421"
 FUSED_REPLACES = "src/repro/kernels/community_spmm.py:531"
 
@@ -268,16 +285,284 @@ def counts() -> dict:
     from repro_torch.kernels import community_spmm
     return {"ell": community_spmm.launches,
             "packed": community_spmm.packed_launches,
-            "fused": community_spmm.fused_launches}
+            "fused": community_spmm.fused_launches,
+            "dense": community_spmm.dense_launches}
 
 
 def reset_counts(to: "dict | None" = None) -> None:
     """Set every launch count to 0, or back to ``to`` (a ``counts()``)."""
     from repro_torch.kernels import community_spmm
-    to = to or {"ell": 0, "packed": 0, "fused": 0}
+    to = to or {"ell": 0, "packed": 0, "fused": 0, "dense": 0}
     community_spmm.launches = to["ell"]
     community_spmm.packed_launches = to["packed"]
     community_spmm.fused_launches = to["fused"]
+    community_spmm.dense_launches = to["dense"]
+
+
+def dense_work(mask, n: int, c: int) -> tuple[float, float]:
+    """(FLOPs, bytes) the dense block-row aggregation needs for this (k, M)
+    mask: only live blocks; each input read once (a Z block read by several
+    lanes counts once), the output written once."""
+    live = (mask != 0).cpu()
+    k, m = live.shape
+    n_live = float(live.sum())
+    z_blocks = float(live.any(dim=0).sum())
+    flops = 2.0 * n_live * n * n * c
+    nbytes = (n_live * n * n * 4 + z_blocks * n * c * 4 + k * n * c * 4
+              + k * m * 4)
+    return flops, nbytes
+
+
+def check_dense_case(name, a_row, z, mask, log) -> None:
+    """The dense kernel (through ``ops``: mask None, (M,) or (k, M); a_row
+    3-D or 4-D) against its plain version on the same CUDA tensors."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    out = ops.community_spmm(a_row, z, mask)
+    torch.cuda.synchronize()
+    if mask is None:
+        mask = torch.ones(a_row.shape[-3], dtype=torch.int32, device=z.device)
+    want = ref.community_spmm_ref(a_row, z, mask)
+    err, rel = rel_err(out, want)
+    ok = (bool(torch.isfinite(out).all()) and out.shape == want.shape
+          and rel <= TOL)
+    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel})
+    print(f"[2] dense {name}: max_abs_err {err:.3e} rel {rel:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the dense kernel disagrees with its plain version on {name}")
+
+
+def check_finite_log(log, what: str) -> None:
+    values = (log.lagrangian + log.residual + log.train_acc + log.test_acc
+              + log.epoch_time_s)
+    if not all(math.isfinite(v) for v in values):
+        fail(f"a non-finite value in the {what} training log")
+
+
+def print_log(tag: str, log) -> None:
+    for j, i in enumerate(log.epoch):
+        print(f"[{tag}] epoch {i}: step {1e3 * log.epoch_time_s[j]:.1f} ms, "
+              f"lagrangian {log.lagrangian[j]:.6f}, residual "
+              f"{log.residual[j]:.6e}, train {log.train_acc[j]:.4f}, test "
+              f"{log.test_acc[j]:.4f}", flush=True)
+
+
+def profiled_idle(step) -> tuple[float, float, str]:
+    """(wall µs, device-busy µs, idle share) of one profiled ``step()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy_us = device_busy_us(prof.events())
+    idle = (f"{1.0 - busy_us / wall_us:.4f}" if busy_us > 0 else
+            "not measured (the profiler traced no device activity)")
+    return wall_us, busy_us, idle
+
+
+def dense_train_phase(cfg, admm, g, card: str, dev) -> dict:
+    """Phase 3, dense: Parallel ADMM on the dense block tensor through the
+    dense kernel; then the dense kernel against the ELL kernel on the same
+    layout's compressed view."""
+    import torch
+
+    from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
+    from repro_torch.kernels import community_spmm
+    t0 = time.perf_counter()
+    tr = ParallelADMMTrainer(cfg, admm, g, num_parts=3, seed=0,
+                             config=TrainerConfig.dense(use_kernel=True),
+                             device=dev)
+    torch.cuda.synchronize()
+    lay = tr.layout
+    print(f"[3d] set-up {time.perf_counter() - t0:.1f} s: dense a_blocks "
+          f"{tuple(tr.data.a_blocks.shape)} = "
+          f"{tr.data.adjacency_nbytes / 1e6:.1f} MB, live blocks "
+          f"{int(tr.data.neighbor_mask.sum())}/{lay.num_parts ** 2}, "
+          f"transport {tr.transport}", flush=True)
+    reset_counts()
+    log = tr.train(EPOCHS)
+    launches = community_spmm.dense_launches
+    print_log("3d", log)
+    check_finite_log(log, "dense")
+    st = tr.state
+    for t in st.weights + st.zs + (st.u,) + st.taus + st.thetas:
+        if not bool(torch.isfinite(t).all()):
+            fail("a non-finite value in the dense trainer state")
+    if launches == 0:
+        fail("the dense training run never launched the dense kernel")
+    worst = objective_gap(tr)
+    print(f"[3d] trained state: objectives and gradients, kernel vs plain "
+          f"path: max rel diff {worst:.3e}", flush=True)
+    if not worst <= TOL:
+        fail(f"dense objectives differ between paths by {worst:.3e}")
+    reset_counts()
+    tr.step()
+    per_step = community_spmm.dense_launches
+    print(f"[3d] dense kernel launches: {launches} in {EPOCHS} epochs "
+          f"({launches / EPOCHS:g} per epoch), {per_step} per step "
+          f"[{card}]", flush=True)
+    wall_us, busy_us, idle = profiled_idle(tr.step)
+    print(f"[3d] profiled step: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms, device idle share {idle} [{card}]",
+          flush=True)
+
+    # the dense kernel against the ELL kernel on the compressed view of the
+    # same layout: one FFMA chain per output over the live blocks in order
+    csr = lay.compress()
+    rows, nbrs = csr.ell_row_counts()
+
+    def dv(x):
+        return torch.as_tensor(x, device=dev)
+    ell = [dv(csr.ell_blocks), dv(csr.ell_indices).to(torch.int32),
+           dv((csr.ell_mask != 0).astype("int32")), None, dv(rows),
+           dv(nbrs)]
+    nbr = tr.data.neighbor_mask.to(torch.int32).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    z = torch.randn((lay.num_parts, lay.n_pad, 1000), generator=gen,
+                    device=dev)
+    before = counts()
+    out_d = community_spmm.community_spmm(tr.data.a_blocks, z, nbr)
+    ell[3] = z
+    out_e = community_spmm.community_spmm_ell(*ell)
+    torch.cuda.synchronize()
+    reset_counts(before)
+    bitwise = torch.equal(out_d, out_e)
+    err, rel = rel_err(out_d, out_e)
+    print(f"[3d] dense kernel vs ELL kernel on the M=3 layout (max_deg "
+          f"{csr.max_deg}, row counts {rows.tolist()}), C=1000: bitwise "
+          f"equal {bitwise}, max_abs_err {err:.3e} rel {rel:.3e}", flush=True)
+    if not rel <= TOL:
+        fail("the dense and ELL kernels disagree on the M=3 layout")
+    steps = log.epoch_time_s
+    out = {"launches": launches, "per_step": per_step,
+           "steps_ms": [1e3 * t for t in steps],
+           "median_step_ms": 1e3 * statistics.median(steps),
+           "idle": idle, "objective_gap": worst,
+           "vs_ell_bitwise": bitwise, "vs_ell_rel_err": rel}
+    del tr, ell, z, out_d, out_e
+    torch.cuda.empty_cache()
+    return out
+
+
+def serial_phase(cfg, admm, g, card: str, dev, dense_step_ms: float) -> dict:
+    """Phase 3, Serial ADMM and the Adam baseline on the dense Ã."""
+    import torch
+
+    from repro_torch.core.serial import BaselineTrainer, SerialADMMTrainer
+    t0 = time.perf_counter()
+    tr = SerialADMMTrainer(cfg, admm, g, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[3s] set-up {time.perf_counter() - t0:.1f} s: dense Ã "
+          f"{tuple(tr.a_tilde.shape)} = "
+          f"{tr.a_tilde.numel() * 4 / 1e6:.1f} MB", flush=True)
+    log = tr.train(EPOCHS)
+    print_log("3s", log)
+    check_finite_log(log, "serial")
+    st = tr.state
+    for t in st.weights + st.zs + (st.u,):
+        if not bool(torch.isfinite(t).all()):
+            fail("a non-finite value in the serial trainer state")
+    serial_ms = 1e3 * statistics.median(log.epoch_time_s)
+    print(f"[3s] Table 3 ratio, serial step / dense parallel step: "
+          f"{serial_ms:.1f} / {dense_step_ms:.1f} ms = "
+          f"{serial_ms / dense_step_ms:.3f} (reported, not asserted: on one "
+          f"card the 3 community lanes share each kernel, so this compares "
+          f"work per step, not the paper's 3-agent parallelism) [{card}]",
+          flush=True)
+    del tr
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    base = BaselineTrainer(cfg, g, "adam", 1e-3, seed=0, device=dev)
+    blog = base.train(EPOCHS)
+    for i in blog.epoch:
+        print(f"[3b] adam epoch {i}: step {1e3 * blog.epoch_time_s[i]:.1f} "
+              f"ms, loss {blog.lagrangian[i]:.6f}, train "
+              f"{blog.train_acc[i]:.4f}, test {blog.test_acc[i]:.4f}",
+              flush=True)
+    check_finite_log(blog, "baseline")
+    for t in base.weights:
+        if not bool(torch.isfinite(t).all()):
+            fail("a non-finite weight after the baseline training")
+    print(f"[3b] baseline phase {time.perf_counter() - t0:.1f} s", flush=True)
+    del base
+    torch.cuda.empty_cache()
+    return {"steps_ms": [1e3 * t for t in log.epoch_time_s],
+            "median_step_ms": serial_ms,
+            "lagrangian": log.lagrangian,
+            "table3_ratio": serial_ms / dense_step_ms,
+            "baseline_steps_ms": [1e3 * t for t in blog.epoch_time_s]}
+
+
+def bf16_phase(cfg, admm, g, card: str, dev, f32_blocks: int,
+               f32_resident: int) -> dict:
+    """Phase 3, bf16 ELL blocks: the packed trainer through the bf16 entry
+    of the ELL kernel."""
+    import torch
+
+    from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
+    from repro_torch.kernels import community_spmm
+    tr = ParallelADMMTrainer(cfg, admm, g, num_parts=3, seed=0,
+                             config=TrainerConfig.packed(use_kernel=True,
+                                                         adjacency_bf16=True),
+                             device=dev)
+    blocks = tr.data.ell_blocks
+    if blocks.dtype != torch.bfloat16:
+        fail("the adjacency_bf16 trainer holds no bf16 blocks")
+    reset_counts()
+    log = tr.train(BF16_EPOCHS)
+    launches = community_spmm.launches
+    print_log("3h", log)
+    check_finite_log(log, "bf16")
+    if launches == 0:
+        fail("the bf16 training run never launched the ELL kernel")
+    b16 = blocks.numel() * blocks.element_size()
+    resident = tr.data.adjacency_nbytes
+    print(f"[3h] bf16 ELL blocks: {launches} ELL launches on bf16 blocks in "
+          f"{BF16_EPOCHS} epochs; block bytes {b16} vs f32 {f32_blocks} "
+          f"(ratio {b16 / f32_blocks:.4f}); resident adjacency {resident} vs "
+          f"f32 {f32_resident} B [{card}]", flush=True)
+    if 2 * b16 != f32_blocks:
+        fail("the bf16 ELL blocks do not hold half the f32 block bytes")
+    out = {"launches": launches,
+           "steps_ms": [1e3 * t for t in log.epoch_time_s],
+           "block_bytes": b16, "f32_block_bytes": f32_blocks,
+           "resident_bytes": resident, "f32_resident_bytes": f32_resident}
+    del tr, blocks
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_dense(a_row, mask, z, peak_flops, peak_bw) -> dict:
+    """Phase 4: CUDA-event times of the dense kernel, its plain version and
+    the masked einsum on the same operands, beside the bound."""
+    import torch
+
+    from repro_torch.kernels import community_spmm, ref
+    maskf = mask.float()
+
+    def library():
+        return torch.einsum("kmip,mpc->kic",
+                            a_row * maskf[:, :, None, None], z)
+
+    before = counts()
+    ms = median_ms(lambda: community_spmm.community_spmm(a_row, z, mask), 7)
+    reset_counts(before)                # timing launches do not count
+    plain_ms = median_ms(lambda: ref.community_spmm_ref(a_row, z, mask), 5)
+    lib_ms = median_ms(library, 5)
+    flops, nbytes = dense_work(mask, a_row.shape[2], z.shape[2])
+    t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bw
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "live_blocks": int((mask != 0).sum())}
 
 
 def serve_in_batches(server, ids, batch: int):
@@ -519,8 +804,8 @@ def main() -> int:
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    build.load_all([community_spmm.LIB, community_spmm.FUSED_LIB])
-    print(f"[1] built {KERNEL_SRC} and {FUSED_SRC} in "
+    build.load_all(build.LIBRARIES)
+    print(f"[1] built {KERNEL_SRC}, {FUSED_SRC} and {DENSE_SRC} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 2. kernel vs plain version on the card ----------------------------
@@ -573,6 +858,36 @@ def main() -> int:
             f"{str(dt).split('.')[-1]} (masked slots re-pointed)",
             b.to(dt), ix, mk, z, r_, n_, checks))
     max_rel = max(ch["max_rel_err"] for ch in checks)
+
+    # the dense kernel at the trainer's shapes: blocks_full is (k, M, n, n)
+    dense_checks: list[dict] = []
+    all_live = torch.ones((k, d), **i32)
+    for c in (767, 1000, 10):
+        z = torch.randn((k, n_full, c), generator=gen, device=dev)
+        check_dense_case(f"k=M=3 n_pad={n_full} C={c} all live",
+                         blocks_full, z, all_live, dense_checks)
+    # absent blocks hold the random values of blocks_full: the plain
+    # version multiplies them by 0, the kernel must skip them
+    lane_mask = torch.tensor([[1, 0, 1], [0, 1, 0], [1, 1, 0]], **i32)
+    z = torch.randn((k, n_full, 1000), generator=gen, device=dev)
+    check_dense_case(f"k=M=3 n_pad={n_full} C=1000 per-lane masks "
+                     f"{lane_mask.tolist()} (absent blocks random)",
+                     blocks_full, z, lane_mask, dense_checks)
+    check_dense_case(f"k=M=3 n_pad={n_full} C=1000 shared row [1, 0, 1]",
+                     blocks_full, z, lane_mask[0], dense_checks)
+    check_dense_case(f"k=M=3 n_pad={n_full} C=1000 mask=None", blocks_full,
+                     z, None, dense_checks)
+    check_dense_case(f"one block row M=3 n_pad={n_full} C=1000 row [1, 0, 1]",
+                     blocks_full[0], z, lane_mask[0], dense_checks)
+    del z
+    a_r = torch.as_tensor(lay.a_blocks, device=dev)
+    nbr_r = torch.as_tensor(lay.neighbor_mask, device=dev).to(torch.int32)
+    for c in (64, 10):
+        z = torch.randn((m_r, lay.n_pad, c), generator=gen, device=dev)
+        check_dense_case(f"ragged M={m_r} n_pad={lay.n_pad} C={c} "
+                         f"neighbour mask ({int(nbr_r.sum())} live blocks)",
+                         a_r, z, nbr_r, dense_checks)
+    del a_r, z
 
     # packed and fused kernels at the server's shapes: one lane, 16 slots of
     # 864 rows back to back on a 13,824-row plane; slot 0 is the self slot
@@ -670,15 +985,8 @@ def main() -> int:
     reset_counts()
     log = trainer.train(EPOCHS)
     launches = community_spmm.launches
-    for i in log.epoch:
-        print(f"[3] epoch {i}: step {1e3 * log.epoch_time_s[i]:.1f} ms, "
-              f"lagrangian {log.lagrangian[i]:.6f}, residual "
-              f"{log.residual[i]:.6e}, train {log.train_acc[i]:.4f}, test "
-              f"{log.test_acc[i]:.4f}", flush=True)
-    values = (log.lagrangian + log.residual + log.train_acc + log.test_acc
-              + log.epoch_time_s)
-    if not all(math.isfinite(v) for v in values):
-        fail("a non-finite value in the training log")
+    print_log("3", log)
+    check_finite_log(log, "packed ELL")
     st = trainer.state
     for t in st.weights + st.zs + (st.u,) + st.taus + st.thetas:
         if not bool(torch.isfinite(t).all()):
@@ -697,19 +1005,19 @@ def main() -> int:
           f"({launches / EPOCHS:g} per epoch), {per_step} per step",
           flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    busy_us = device_busy_us(prof.events())
-    idle = (f"{1.0 - busy_us / wall_us:.4f}" if busy_us > 0 else
-            "not measured (the profiler traced no device activity)")
+    wall_us, busy_us, idle = profiled_idle(trainer.step)
     print(f"[3] profiled step: wall {wall_us / 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.1f} ms, device idle share {idle}", flush=True)
+    blocks = trainer.data.ell_blocks
+    f32_blocks = blocks.numel() * blocks.element_size()
+    f32_resident = trainer.data.adjacency_nbytes
+    del trainer, blocks, s0, st
+    torch.cuda.empty_cache()
+
+    # ---- 3, continued: dense, serial, baseline, bf16 ----------------------
+    dense = dense_train_phase(cfg, admm, g, card, dev)
+    serial = serial_phase(cfg, admm, g, card, dev, dense["median_step_ms"])
+    bf16 = bf16_phase(cfg, admm, g, card, dev, f32_blocks, f32_resident)
 
     # ---- 4. times -----------------------------------------------------------
     peak_flops, peak_bw = peaks(name)
@@ -740,13 +1048,31 @@ def main() -> int:
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) "
               f"[{card}]", flush=True)
         del z
+    dense_c = {}
+    for c in (767, 1000, 10):
+        z = torch.randn((k, n_full, c), generator=gen, device=dev)
+        t = dense_c[c] = time_dense(blocks_full, all_live, z, peak_flops,
+                                    peak_bw)
+        print(f"[4] dense C={c} ({t['live_blocks']} live blocks): kernel "
+              f"{t['ms']:.3f} ms, plain version {t['plain_ms']:.3f} ms, "
+              f"masked einsum {t['library_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms ({t['bound_by']}; {t['gflop']:.1f} "
+              f"GFLOP, {t['mbytes']:.1f} MB) [{card}]", flush=True)
+        del z
     steps = log.epoch_time_s
-    print(f"[4] full-width step: median {1e3 * statistics.median(steps):.1f} "
-          f"ms over {len(steps)} epochs (first includes warm-up), launches "
-          f"{per_step}/step, {launches / EPOCHS:g}/epoch, idle share {idle} "
-          f"[{card}]", flush=True)
+    print(f"[4] full-width step, packed ELL: median "
+          f"{1e3 * statistics.median(steps):.1f} ms over {len(steps)} epochs "
+          f"(first includes warm-up), launches {per_step}/step, "
+          f"{launches / EPOCHS:g}/epoch, idle share {idle} [{card}]",
+          flush=True)
+    print(f"[4] full-width step, dense: median {dense['median_step_ms']:.1f} "
+          f"ms, launches {dense['per_step']}/step, "
+          f"{dense['launches'] / EPOCHS:g}/epoch, idle share {dense['idle']}; "
+          f"serial: median {serial['median_step_ms']:.1f} ms; bf16 packed "
+          f"ELL: steps {[round(t, 1) for t in bf16['steps_ms']]} ms [{card}]",
+          flush=True)
 
-    del trainer, blocks_full
+    del blocks_full
     torch.cuda.empty_cache()
 
     # ---- 5. serving at full width ------------------------------------------
@@ -825,6 +1151,22 @@ def main() -> int:
         "max_rel_err_vs_packed_then_matmul": max(
             ch["rel_err_vs_packed_then_matmul"] for ch in fused_checks),
         "per_shape": {f"{a}->{b}": v for (a, b), v in fused_c.items()}})
+    head = dense_c[main_c]
+    rows_out.append({
+        "name": "community_spmm", "route": "cuda",
+        "source": DENSE_SRC, "replaces": DENSE_REPLACES,
+        "launches": dense["launches"],
+        "max_abs_err": max(ch["max_abs_err"] for ch in dense_checks),
+        "max_rel_err": max(ch["max_rel_err"] for ch in dense_checks),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "timed_at": {"k": k, "M": d, "live_blocks": head["live_blocks"],
+                     "n_pad": n_full, "C": main_c},
+        "checked": True,
+        "vs_ell_kernel_bitwise": dense["vs_ell_bitwise"],
+        "vs_ell_kernel_rel_err": dense["vs_ell_rel_err"],
+        "per_c": {str(c): v for c, v in dense_c.items()}})
     print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

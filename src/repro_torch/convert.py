@@ -3,9 +3,10 @@
 The JAX trainer initialises its weights from ``jax.random``, which cannot be
 reproduced without JAX, so the port draws its own from a
 ``torch.Generator``.  To run both from one state, take the reference's
-``ParallelState`` leaves with ``np.asarray`` and hand them to
-``state_from_numpy``; the layouts of the two packages are equal array for
-array, so the leaves drop in unchanged.
+``ParallelState`` (or serial ``ADMMState``) leaves with ``np.asarray`` and
+hand them to ``state_from_numpy`` (``serial_state_from_numpy``); the
+layouts of the two packages are equal array for array, so the leaves drop
+in unchanged.  A baseline's weights go through ``weights_from_numpy``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.parallel import ParallelState
+from repro_torch.core.subproblems import ADMMState
 from repro_torch.util.device import resolve_device
 
 
@@ -30,6 +32,14 @@ def weights_from_numpy(weights: Sequence[np.ndarray],
     return tuple(_tensor(w, device) for w in weights)
 
 
+def _leaves(weights, zs, u, taus, thetas, device):
+    device = resolve_device(device)
+    return (weights_from_numpy(weights, device),
+            tuple(_tensor(z, device) for z in zs), _tensor(u, device),
+            tuple(_tensor(t, device) for t in taus),
+            tuple(_tensor(t, device) for t in thetas))
+
+
 def state_from_numpy(weights: Sequence[np.ndarray],
                      zs: Sequence[np.ndarray], u: np.ndarray,
                      taus: Sequence, thetas: Sequence[np.ndarray],
@@ -38,9 +48,14 @@ def state_from_numpy(weights: Sequence[np.ndarray],
     """A ``ParallelState`` of f32 tensors: weights, iterates and dual in
     the trainer's resident layout (strided or packed), τ as 0-dim tensors
     and θ as (M,) tensors."""
-    device = resolve_device(device)
-    return ParallelState(weights_from_numpy(weights, device),
-                         tuple(_tensor(z, device) for z in zs),
-                         _tensor(u, device),
-                         tuple(_tensor(t, device) for t in taus),
-                         tuple(_tensor(t, device) for t in thetas))
+    return ParallelState(*_leaves(weights, zs, u, taus, thetas, device))
+
+
+def serial_state_from_numpy(weights: Sequence[np.ndarray],
+                            zs: Sequence[np.ndarray], u: np.ndarray,
+                            taus: Sequence, thetas: Sequence,
+                            device: "str | torch.device | None" = None
+                            ) -> ADMMState:
+    """The serial trainer's ``ADMMState`` of f32 tensors: node-row
+    (N, C) iterates and dual, τ and θ as 0-dim tensors."""
+    return ADMMState(*_leaves(weights, zs, u, taus, thetas, device))

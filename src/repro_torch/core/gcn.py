@@ -73,3 +73,10 @@ def accuracy(logits: Tensor, labels: Tensor, mask: Tensor) -> Tensor:
     pred = torch.argmax(logits, dim=-1)
     hits = (pred == labels).to(mask.dtype) * mask
     return hits.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def loss_fn(cfg: GCNConfig, a_tilde: Tensor, z0: Tensor,
+            weights: Sequence[Tensor], labels: Tensor, mask: Tensor
+            ) -> Tensor:
+    logits = forward(cfg, a_tilde, z0, weights)[-1]
+    return masked_cross_entropy(logits, labels, mask)

@@ -5,43 +5,53 @@ hosts all ``k = M`` community agents as lanes.  One ADMM iteration:
 
   * W update — layer-parallel (Jacobi): every layer's objective is the sum
     over lanes, and the backtracking test runs on that global objective
-    (``backtracking_step_psum``; the psum is the identity on one shard).
+    (``subproblems.backtracking_step``: the reference's psum over shards is
+    the identity on one shard).
   * Z update — community-parallel: each lane solves its ψ_{l,m} (eq. 5/6)
     with its own backtracking θ_{l,m} (``backtracking_step_lanes``); Z_L by
     per-lane FISTA (eq. 7, ``fista_lanes``).
   * U update — local dual ascent (eq. 3).
 
-Every aggregation Σ_{r∈N_m} Ã_{m,r} Z_r runs through the block-compressed
-ELL view (``compressed=True``), either through the hand-written CUDA kernel
-(``use_kernel=True``, kernels.ops.community_spmm_ell) or through the plain
-gather-einsum.  With one shard nothing crosses a wire: the reference drops
-the packed wire and the p2p plan from its one-shard program
-(repro/core/parallel.py:1023-1028), so ``transport`` changes nothing here,
-``fused`` and ``overlap`` are inert, and ``packed=True`` only changes how the
-state is stored (Σ-bucket-rows planes, unpacked to blocked views with
-take-with-fill tables inside the step).
+Every aggregation Σ_{r∈N_m} Ã_{m,r} Z_r runs over one of two adjacency
+representations, either through a hand-written CUDA kernel
+(``use_kernel=True``) or through a plain einsum:
+
+  * dense (``compressed=False``, the default): the (M, M, n_pad, n_pad)
+    block tensor, through ``kernels.ops.community_spmm`` (absent blocks
+    skipped by the per-lane neighbour mask) or the masked einsum;
+  * block-compressed ELL (``compressed=True``): through
+    ``kernels.ops.community_spmm_ell`` or the gather-einsum, with f32 or
+    (``adjacency_bf16``) bf16 blocks accumulated in f32.
+
+With one shard nothing crosses a wire: the reference drops the packed wire
+and the p2p plan from its one-shard program (repro/core/parallel.py:
+1023-1028), and its all-gather at one shard is the lanes themselves masked
+by the union of their neighbourhoods.  So ``transport`` changes nothing
+here, ``fused`` and ``overlap`` are inert, and ``packed=True`` only changes
+how the state is stored (Σ-bucket-rows planes, unpacked to blocked views
+with take-with-fill tables inside the step).
 
 Each ``lax.while_loop`` of the reference is a host loop with the same
 acceptance test; each ``lax.scan`` a Python loop.  Gradients come from
 autograd; the aggregates reach every objective as constants, so no
 gradient flows through the kernel.
 
-Not in this slice (they raise ``NotImplementedError``): dense adjacency
-(``compressed=False``), ``batch_fraction``, ``comm_bf16`` and
-``adjacency_bf16``, and more than one shard.
+Not in this slice (they raise ``NotImplementedError``): ``batch_fraction``
+and ``comm_bf16``; more than one shard has no entry point yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import gcn, graph, messages
 from repro_torch.core.serial import TrainLog
-from repro_torch.core.subproblems import ADMMConfig
+from repro_torch.core.subproblems import (ADMMConfig, backtracking_step,
+                                          value_and_grad)
 from repro_torch.kernels import community_spmm
 from repro_torch.kernels import ops as kops
 from repro_torch.util.device import resolve_device
@@ -304,53 +314,18 @@ TrainerConfig.minibatch = classmethod(_preset_minibatch)
 def _unsupported(config: TrainerConfig) -> "str | None":
     """Why this slice cannot run ``config``, naming the ROADMAP item (queue
     A) that brings it; None when it can."""
-    if not config.compressed:
-        return ("compressed=False (dense adjacency, the community_spmm "
-                "kernel) is not ported yet: ROADMAP queue A, 'Dense mode'")
     if config.batch_fraction is not None:
         return ("batch_fraction (community minibatching) is not ported yet: "
                 "ROADMAP queue A, 'Multi-shard transport'")
     if config.comm_bf16:
         return ("comm_bf16 (the bf16 wire) is not ported yet: ROADMAP queue "
                 "A, 'Multi-shard transport'")
-    if config.adjacency_bf16:
-        return ("adjacency_bf16 in the trainer is not ported yet: ROADMAP "
-                "queue A, 'Dense mode and the rest of the ladder'")
     return None
 
 
 # ---------------------------------------------------------------------------
 # backtracking primitives
 # ---------------------------------------------------------------------------
-
-def _value_and_grad(fn: Callable[[Tensor], Tensor], x: Tensor
-                    ) -> tuple[Tensor, Tensor]:
-    """``fn(x)`` and the gradient of ``fn(x).sum()`` (per-lane values keep
-    their shape: the lanes are separable, as ``jax.grad`` of the sum)."""
-    with torch.enable_grad():
-        xg = x.detach().requires_grad_(True)
-        val = fn(xg)
-        (grad,) = torch.autograd.grad(val.sum(), xg)
-    return val.detach(), grad
-
-
-def backtracking_step_psum(local_obj, x: Tensor, tau0: Tensor,
-                           admm: ADMMConfig) -> tuple[Tensor, Tensor]:
-    """Majorize-minimize step on the global objective: τ doubles until
-    P(x⁺; τ) ≥ φ(x⁺).  One shard holds every lane, so the psum of the
-    reference is the identity."""
-    val, grad = _value_and_grad(local_obj, x)
-    g_sq = torch.sum(grad * grad)
-    tau = torch.clamp(tau0 / admm.backtrack_growth, min=1e-8)
-    with torch.no_grad():
-        for _ in range(admm.max_backtracks):
-            bound = val - 0.5 * g_sq / tau
-            tol = admm.backtrack_rtol * (torch.abs(bound) + 1e-12)
-            if not bool(bound + tol < local_obj(x - grad / tau)):
-                break
-            tau = tau * admm.backtrack_growth
-    return x - grad / tau, tau
-
 
 def _lane_search(accepted, step0: Tensor, admm: ADMMConfig) -> Tensor:
     """Per-lane doubling until every lane accepts (frozen lanes stop)."""
@@ -371,7 +346,7 @@ def backtracking_step_lanes(obj_lanes, x: Tensor, theta0: Tensor,
     obj_lanes: (k, n, C) -> (k,) per-community objective values.
     x: (k, n, C); theta0: (k,).
     """
-    vals, grads = _value_and_grad(obj_lanes, x)
+    vals, grads = value_and_grad(obj_lanes, x)
     g_sq = torch.sum(grads * grads, dim=(1, 2))
 
     def accepted(theta):
@@ -406,7 +381,7 @@ def fista_lanes(admm: ADMMConfig, b: Tensor, u: Tensor, labels: Tensor,
     lip = torch.full((k,), admm.rho + 1.0, dtype=torch.float32,
                      device=z_init.device)
     for _ in range(admm.fista_iters):
-        vals_y, g = _value_and_grad(obj_lanes, y)
+        vals_y, g = value_and_grad(obj_lanes, y)
         g_sq = torch.sum(g * g, dim=(1, 2))
 
         def accepted(lip, y=y, g=g, vals_y=vals_y, g_sq=g_sq):
@@ -437,8 +412,8 @@ def _take_fill(x: Tensor, idx: Tensor) -> Tensor:
 
 
 class _Body:
-    """The per-step program of the reference's ``_iteration_body`` for
-    compressed adjacency at one shard, with its static operands bound.
+    """The per-step program of the reference's ``_iteration_body`` at one
+    shard, with its static operands bound: dense or compressed adjacency.
 
     ``gather`` is the reference's all-gather at one shard: the lanes are
     already every community, masked by the union of the lanes'
@@ -449,14 +424,25 @@ class _Body:
                  data: CommunityData, packed_aux: "dict | None"):
         self.cfg, self.admm = cfg, admm
         self.f = gcn.activation_fn(cfg.activation)
-        self.ell_rows = data.ell_blocks
-        self.ell_idx = data.ell_indices.long()
-        # the kernel's int32 operands, made once rather than on every launch
-        self.ell_idx32 = data.ell_indices.to(torch.int32).contiguous()
-        self.ell_live = (data.ell_mask != 0).to(torch.int32)
-        self.ell_f = data.ell_mask.float()
-        self.ell_rcnt, self.ell_ncnt = data.row_counts, data.nbr_counts
-        self.shard_nbr = data.neighbor_mask.float().amax(dim=0)   # (M,)
+        self.dense = not data.compressed
+        nbrf = data.neighbor_mask.float()                         # (M, M)
+        if self.dense:
+            # the kernel takes the blocks and the mask and never reads an
+            # absent block; the plain einsum takes the blocks masked once
+            # here rather than on every call (x·1 = x, x·0 = 0: same values)
+            self.a_row = data.a_blocks
+            self.nbr_live = data.neighbor_mask.to(torch.int32).contiguous()
+            self.a_masked = self.a_row * nbrf[:, :, None, None]
+            self.nbr_wt = nbrf[:, :, None, None]                  # (k,M,1,1)
+        else:
+            self.ell_rows = data.ell_blocks
+            self.ell_idx = data.ell_indices.long()
+            # the kernel's int32 operands, made once rather than per launch
+            self.ell_idx32 = data.ell_indices.to(torch.int32).contiguous()
+            self.ell_live = (data.ell_mask != 0).to(torch.int32)
+            self.ell_f = data.ell_mask.float()
+            self.ell_rcnt, self.ell_ncnt = data.row_counts, data.nbr_counts
+        self.shard_nbr = nbrf.amax(dim=0)                         # (M,)
         self.packed_aux = packed_aux
         self.denom = data.denom
         self.z0 = self.from_plane(data.z0)
@@ -478,7 +464,15 @@ class _Body:
         return _take_fill(flat, self.packed_aux["pack"])
 
     def rowagg(self, zh: Tensor, use_kernel: bool) -> Tensor:
-        """Σ_d Ã[m,d] Z[idx[m,d]] per lane."""
+        """Σ_{r∈N_m} Ã_{m,r} Z_r per lane: Σ_d Ã[m,d] Z[idx[m,d]] over the
+        ELL slots, or over the dense block row masked by N_m."""
+        if self.dense:
+            if use_kernel:
+                return kops.community_spmm(self.a_row, zh, self.nbr_live)
+            # one product per lane, as ref.community_spmm_ref and the ELL
+            # gather-einsum run
+            return torch.einsum("kmip,kmpc->kic", self.a_masked,
+                                zh.expand(len(self.a_masked), *zh.shape))
         if use_kernel:
             return kops.community_spmm_ell(self.ell_rows, self.ell_idx32,
                                            self.ell_live, zh, self.ell_rcnt,
@@ -510,21 +504,31 @@ class _Body:
     def z_objective(self, l: int, aggs, zh, zs, u, w_l, w_next):
         """ψ_{l,m} per lane for hidden layer l (eq. 5/6), with W^{k+1}."""
         admm, f, n_l = self.admm, self.f, self.cfg.num_layers
-        ell_rows, ell_idx = self.ell_rows.float(), self.ell_idx
+        # coupling term: Ã_{r,m} = Ã_{m,r}ᵀ (Ã symmetric), so the stored
+        # row blocks are consumed transposed — over the max_deg stored
+        # neighbours (ELL), or over all M weighted by N_m (dense)
+        if self.dense:
+            rows, spec, wt = self.a_row, "kmnp,knc->kmpc", self.nbr_wt
+
+            def nbr_vals(x_all):              # (M, n, C) -> (1, M, n, C)
+                return x_all[None]
+        else:
+            rows, spec = self.ell_rows.float(), "kdnp,knc->kdpc"
+            wt = self.ell_f[..., None, None]                 # (k, D, 1, 1)
+
+            def nbr_vals(x_all):              # (M, n, C) -> (k, D, n, C)
+                return x_all[self.ell_idx]
         target1 = f(aggs[l - 1] @ w_l)                     # (k, n, C_l)
         # relay aggregates q_{l,r}: rowagg(zh[l-1]) is aggs[l]
-        q_nbr = self.gather(aggs[l] @ w_next)[ell_idx]     # (k, D, n, C)
+        q_nbr = nbr_vals(self.gather(aggs[l] @ w_next))
         z_ref = zs[l - 1]
-        wt = self.ell_f[..., None, None]                   # (k, D, 1, 1)
 
-        # coupling term: Ã_{r,m} = Ã_{m,r}ᵀ (Ã symmetric), so the stored
-        # row blocks are consumed transposed, over the max_deg neighbours
         def pre_nbr(z):
             delta = (z - z_ref) @ w_next
-            return q_nbr + torch.einsum("kdnp,knc->kdpc", ell_rows, delta)
+            return q_nbr + torch.einsum(spec, rows, delta)
 
         if l + 1 < n_l:
-            nxt = zh[l][ell_idx]
+            nxt = nbr_vals(zh[l])
 
             def obj_lanes(z):
                 r1 = z - target1
@@ -533,7 +537,7 @@ class _Body:
                 v2 = 0.5 * admm.nu * torch.sum(r2 * r2, dim=(1, 2, 3))
                 return v1 + v2
         else:
-            last, uv = zh[l][ell_idx], self.gather(u)[ell_idx]
+            last, uv = nbr_vals(zh[l]), nbr_vals(self.gather(u))
 
             def obj_lanes(z):
                 r1 = z - target1
@@ -570,8 +574,8 @@ class _Body:
         # ---- Line 3: W update (layer-parallel, Jacobi over Z^k) ----
         new_ws, new_taus = [], []
         for l, obj in enumerate(self.w_objectives(aggs, zs, u)):
-            w_new, tau = backtracking_step_psum(obj, state.weights[l],
-                                                state.taus[l], admm)
+            w_new, tau = backtracking_step(obj, state.weights[l],
+                                           state.taus[l], admm)
             new_ws.append(w_new)
             new_taus.append(tau)
 
@@ -641,11 +645,14 @@ class ParallelADMMTrainer:
         self.partition_stats = graph.partition_quality(
             g.num_nodes, g.edges, part, num_parts)
         self.layout = graph.build_community_layout(
-            g.num_nodes, g.edges, part, compressed=True, pad_mode=pad_mode)
+            g.num_nodes, g.edges, part, compressed=config.compressed,
+            pad_mode=pad_mode)
         m = int(np.asarray(self.layout.neighbor_mask).shape[0])
 
         self.packed_layout = self.layout.device_layout(1) if packed else None
-        self.data = community_data(g, self.layout, compressed=True,
+        self.data = community_data(g, self.layout,
+                                   compressed=config.compressed,
+                                   adjacency_bf16=config.adjacency_bf16,
                                    device_layout=self.packed_layout,
                                    device=device)
 
@@ -724,7 +731,8 @@ class ParallelADMMTrainer:
                                    itemsize=4)
         cs["transport"] = self.transport
         cs["pad_mode"] = self.pad_mode
-        kernel_ragged = self.use_kernel
+        # pad rows drop out of the FLOPs only in the guarded ELL kernel
+        kernel_ragged = self.config.compressed and self.use_kernel
         wire_ragged = self.transport == "p2p"
         ps_flops = messages.pad_stats(
             lay.neighbor_mask, lay.sizes,
@@ -740,8 +748,12 @@ class ParallelADMMTrainer:
         cs["pad_guards"] = {"kernel": kernel_ragged, "wire": wire_ragged}
         cs["partitioner"] = self.partitioner
         cs["partition"] = dict(self.partition_stats)
-        cs["adjacency"] = messages.adjacency_bytes(lay.neighbor_mask,
-                                                   lay.n_pad, itemsize=4)
+        if self.transport == "allgather":
+            # an all-gather moves every row to every shard
+            cs["wire_bytes"] = cs["full_bytes"]
+        cs["adjacency"] = messages.adjacency_bytes(
+            lay.neighbor_mask, lay.n_pad,
+            itemsize=2 if self.config.adjacency_bf16 else 4)
         cs["adjacency"]["resident_bytes"] = int(self.data.adjacency_nbytes)
         z_cols = sum(dims[1:])
         state_cols = dims[0] + z_cols + dims[-1]
@@ -794,20 +806,21 @@ class ParallelADMMTrainer:
             zs, u, zh, aggs = body.inputs(st.zs, st.u, use_kernel)
         out = {"w": [], "z": []}
         for l, obj in enumerate(body.w_objectives(aggs, zs, u)):
-            out["w"].append(_value_and_grad(obj, st.weights[l]))
+            out["w"].append(value_and_grad(obj, st.weights[l]))
         for l in range(1, self.cfg.num_layers):
             obj = body.z_objective(l, aggs, zh, zs, u, st.weights[l - 1],
                                    st.weights[l])
-            out["z"].append(_value_and_grad(obj, zs[l - 1]))
+            out["z"].append(value_and_grad(obj, zs[l - 1]))
         return out
 
     # -- metrics -------------------------------------------------------------
 
     def _agg_full(self, z: Tensor) -> Tensor:
-        """Full-M aggregation of the metrics and the Lagrangian: always the
-        ELL kernel on the card, whatever ``use_kernel`` says, as in the
-        reference (repro/core/parallel.py:1320-1327)."""
-        return self._body.rowagg(z, use_kernel=True)
+        """Full-M aggregation of the metrics and the Lagrangian, whatever
+        ``use_kernel`` says, as in the reference (repro/core/parallel.py:
+        1317-1334): the ELL kernel on the card in compressed mode, the
+        masked einsum in dense mode."""
+        return self._body.rowagg(z, use_kernel=self.config.compressed)
 
     def _forward_blocked(self, weights) -> Tensor:
         """Community-blocked forward pass — logits (M, n_pad, C_L)."""

@@ -28,6 +28,10 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
+# every library, one per csrc/<name>.cu: the ELL and packed kernels, the
+# fused ELL→GEMM kernel, the dense block-row kernel
+LIBRARIES = ("community_spmm_ell", "community_spmm_ell_fused",
+             "community_spmm_dense")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _locks: dict[str, threading.Lock] = {}

@@ -1,8 +1,9 @@
-"""Launchers for the hand-written Hopper ELL aggregation kernels.
+"""Launchers for the hand-written Hopper community aggregation kernels.
 
 ``csrc/community_spmm_ell.cu`` replaces the Pallas TPU kernels
-``community_spmm_ell`` and ``community_spmm_ell_packed``, and
+``community_spmm_ell`` and ``community_spmm_ell_packed``,
 ``csrc/community_spmm_ell_fused.cu`` replaces ``community_spmm_ell_fused``
+and ``csrc/community_spmm_dense.cu`` replaces the dense ``community_spmm``
 (src/repro/kernels/community_spmm.py).  This module checks the operands,
 allocates the output, and launches a kernel on the current CUDA stream
 through the library ``build.load`` compiles at first use.  No output needs
@@ -11,7 +12,8 @@ inference), so there is no ``autograd.Function``: the launchers run on
 detached inputs.
 
 Each kernel has its own launch count, one per call that reaches it:
-``launches`` (ELL), ``packed_launches`` and ``fused_launches``.  Callers
+``launches`` (ELL), ``packed_launches``, ``fused_launches`` and
+``dense_launches``.  Callers
 that want the count of one phase reset it to 0 before the phase.
 
 The launchers read no values from the device: the indices of live slots
@@ -30,9 +32,11 @@ from repro_torch.kernels import build
 
 LIB = "community_spmm_ell"          # the ELL and packed kernels
 FUSED_LIB = "community_spmm_ell_fused"
+DENSE_LIB = "community_spmm_dense"
 launches = 0
 packed_launches = 0
 fused_launches = 0
+dense_launches = 0
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT = (torch.int32,)
@@ -242,4 +246,35 @@ def community_spmm_ell_fused(ell_blocks: torch.Tensor,
             [ell_blocks, ell_offsets, ell_mask, row_counts, nbr_counts,
              z_plane, w, out], [k, d, n_pad, c_in, c_out], device)
     fused_launches += 1
+    return out
+
+
+def community_spmm(a_row: torch.Tensor, z_all: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Σ_r [mask[m,r] ≠ 0] · a_row[m,r] @ z_all[r] on the card; a block
+    whose mask is 0 is never read.
+
+    a_row: (k, M, n_pad, n_pad) f32
+    z_all: (M, n_pad, C) f32
+    mask:  (k, M) int32 — nonzero = live block
+    returns (k, n_pad, C) f32
+    """
+    global dense_launches
+    device = _cuda_device("community_spmm", z_all)
+    if a_row.dim() != 4 or z_all.dim() != 3:
+        raise ValueError(f"expected a_row (k, M, n, n) and z_all (M, n, C), "
+                         f"got {tuple(a_row.shape)} and "
+                         f"{tuple(z_all.shape)}")
+    k, m_total, n_pad, _ = a_row.shape
+    c = z_all.shape[2]
+    _check("a_row", a_row, (k, m_total, n_pad, n_pad), (torch.float32,),
+           device)
+    _check("z_all", z_all, (m_total, n_pad, c), (torch.float32,), device)
+    _check("mask", mask, (k, m_total), _INT, device)
+    out = torch.empty((k, n_pad, c), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    _launch("community_spmm", DENSE_LIB, "community_spmm_dense_f32",
+            [a_row, z_all, mask, out], [k, m_total, n_pad, c], device)
+    dense_launches += 1
     return out

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import community_spmm, ref
+from repro_torch.kernels import community_spmm as launchers
+from repro_torch.kernels import ref
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -21,6 +22,33 @@ def _mask(t: torch.Tensor) -> torch.Tensor:
     if t.dtype != torch.int32:
         t = (t != 0).to(torch.int32)
     return t.contiguous()
+
+
+def community_spmm(a_row: torch.Tensor, z_all: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Σ_r Ã_{m,r} Z_r with block-sparse skipping.
+
+    a_row:  (M, n_pad, n_pad) for one block row, or (k, M, n_pad, n_pad)
+            for k lanes; f32
+    z_all:  (M, n_pad, C) f32
+    mask:   None (every block live), a shared (M,) row, or per-lane (k, M)
+            — nonzero = live block
+    returns (n_pad, C) for one row, (k, n_pad, C) for lanes
+
+    The CUDA kernel never reads a masked block; the plain version on the
+    CPU multiplies it by 0.
+    """
+    if mask is None:
+        mask = torch.ones((a_row.shape[-3],), dtype=torch.int32,
+                          device=a_row.device)
+    if z_all.device.type == "cpu":
+        return ref.community_spmm_ref(a_row, z_all, mask)
+    lanes = a_row if a_row.dim() == 4 else a_row[None]
+    k, m_total = lanes.shape[:2]
+    out = launchers.community_spmm(
+        lanes.detach().contiguous(), z_all.detach().contiguous(),
+        _mask(mask).expand(k, m_total).contiguous())
+    return out if a_row.dim() == 4 else out[0]
 
 
 def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
@@ -50,7 +78,7 @@ def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
         row_counts = torch.full((k,), n_pad, **i32)
     if nbr_counts is None:
         nbr_counts = torch.full((k, max_deg), n_pad, **i32)
-    return community_spmm.community_spmm_ell(
+    return launchers.community_spmm_ell(
         ell_blocks.detach().contiguous(), _i32(ell_indices), _mask(ell_mask),
         z_all.detach().contiguous(), _i32(row_counts), _i32(nbr_counts))
 
@@ -71,7 +99,7 @@ def community_spmm_ell_packed(ell_blocks: torch.Tensor,
         return ref.community_spmm_ell_packed_einsum(
             ell_blocks, ell_offsets, ell_mask, z_plane, row_counts,
             nbr_counts)
-    return community_spmm.community_spmm_ell_packed(
+    return launchers.community_spmm_ell_packed(
         ell_blocks.detach().contiguous(), _i32(ell_offsets), _mask(ell_mask),
         z_plane.detach().contiguous(), _i32(row_counts), _i32(nbr_counts))
 
@@ -93,7 +121,7 @@ def community_spmm_ell_fused(ell_blocks: torch.Tensor,
         return ref.community_spmm_ell_fused_einsum(
             ell_blocks, ell_offsets, ell_mask, z_plane, w, row_counts,
             nbr_counts)
-    return community_spmm.community_spmm_ell_fused(
+    return launchers.community_spmm_ell_fused(
         ell_blocks.detach().contiguous(), _i32(ell_offsets), _mask(ell_mask),
         z_plane.detach().contiguous(), w.detach().float().contiguous(),
         _i32(row_counts), _i32(nbr_counts))

@@ -1,14 +1,31 @@
-"""Plain PyTorch versions of the ELL aggregation kernels (the allclose targets).
+"""Plain PyTorch versions of the aggregation kernels (the allclose targets).
 
-Counterparts of ``community_spmm_ell_einsum``, ``community_spmm_ell_ref``,
-``community_spmm_ell_packed_einsum`` and ``community_spmm_ell_fused_einsum``
-in src/repro/kernels/ref.py.  The CPU dispatch in ``kernels.ops`` runs the
-einsum forms; ``chip_smoke.py`` holds each CUDA kernel against its plain
-version on the card.
+Counterparts of ``community_spmm_ref``, ``community_spmm_ell_einsum``,
+``community_spmm_ell_ref``, ``community_spmm_ell_packed_einsum`` and
+``community_spmm_ell_fused_einsum`` in src/repro/kernels/ref.py.  The CPU
+dispatch in ``kernels.ops`` runs the einsum forms; ``chip_smoke.py`` holds
+each CUDA kernel against its plain version on the card.
 """
 from __future__ import annotations
 
 import torch
+
+
+def community_spmm_ref(a_row: torch.Tensor, z_all: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Σ_r mask_r · Ã_{m,r} Z_r — dense einsum form of the block-row
+    aggregation.
+
+    a_row (M, n, n) with mask (M,) gives (n, C), as the reference; a_row
+    (k, M, n, n) with a per-lane (k, M) or shared (M,) mask gives (k, n, C),
+    what the reference's vmap over lanes gives.  A masked block is
+    multiplied by 0, so it contributes nothing when its values are finite.
+    Each lane is its own product over (M · n) (Z broadcast over the lanes,
+    not the lanes folded into one GEMM), as the ELL gather-einsum runs.
+    """
+    masked = a_row * mask[..., None, None].to(a_row.dtype)
+    z = z_all.expand(*masked.shape[:-3], *z_all.shape)
+    return torch.einsum("...rip,...rpc->...ic", masked, z)
 
 
 def community_spmm_ell_einsum(ell_blocks: torch.Tensor,

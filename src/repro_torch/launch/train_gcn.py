@@ -1,13 +1,18 @@
 """Command-line entry point of the port's Parallel ADMM GCN trainer.
 
-The counterpart of examples/train_gcn_communities.py.  On the card:
+The counterpart of examples/train_gcn_communities.py.  On the card, dense
+adjacency (the default) through the dense CUDA kernel, or block-compressed
+ELL adjacency with packed state through the ELL kernel:
 
   PYTHONPATH=src python -m repro_torch.launch.train_gcn \\
       --dataset amazon_computers --parts 3 --hidden 1000 --epochs 3 \\
-      --compressed --packed --use-kernel
+      --use-kernel
+  PYTHONPATH=src python -m repro_torch.launch.train_gcn \\
+      --dataset amazon_computers --parts 3 --hidden 1000 --epochs 3 \\
+      --compressed --packed --use-kernel [--adjacency-bf16]
 
-Add ``--device cpu`` to run on the CPU (the CUDA kernel's plain version
-then does the aggregation).
+Add ``--device cpu`` to run on the CPU (the CUDA kernels' plain versions
+then do the aggregation).
 """
 from __future__ import annotations
 
@@ -28,11 +33,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--epochs", type=int, default=200)
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--compressed", action="store_true",
-                    help="block-compressed (ELL) adjacency (the only "
-                         "adjacency this slice of the port runs)")
+                    help="block-compressed (ELL) adjacency: only the "
+                         "neighbour blocks on the device, no dense "
+                         "(M, M, n_pad, n_pad) tensor")
     ap.add_argument("--use-kernel", action="store_true",
-                    help="aggregate through the CUDA ELL kernel (its plain "
-                         "version on the CPU)")
+                    help="aggregate through the CUDA kernels (their plain "
+                         "versions on the CPU)")
+    ap.add_argument("--transport", default=None,
+                    choices=["p2p", "allgather"],
+                    help="Z/U/q exchange: neighbour-only p2p (default with "
+                         "--compressed) or the masked all-gather (default "
+                         "otherwise); one device exchanges nothing, so "
+                         "this sets the configuration and its accounting")
     ap.add_argument("--partitioner", default="multilevel",
                     choices=["bfs_kl", "multilevel"],
                     help="community detection: multilevel (METIS scheme) "
@@ -40,6 +52,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--pad-mode", default="bucketed",
                     choices=["global", "bucketed"],
                     help="one global n_pad or size-aware pad buckets")
+    ap.add_argument("--adjacency-bf16", action="store_true",
+                    help="store the ELL adjacency blocks in bf16 (half the "
+                         "resident bytes; aggregation still accumulates "
+                         "f32) — requires --compressed")
     ap.add_argument("--packed", action="store_true",
                     help="store Z/U/z0 as packed Σ-bucket-rows planes "
                          "(requires --compressed)")
@@ -72,8 +88,11 @@ def main(argv=None) -> dict:
     print(f"device: {trainer.device}; layout n_pad={trainer.layout.n_pad}, "
           f"row counts {trainer.layout.eff_row_counts().tolist()}")
     adj = cs["adjacency"]
-    print(f"adjacency on device [ELL]: {adj['resident_bytes'] / 1e6:.2f} MB "
-          f"(dense would be {adj['dense_bytes'] / 1e6:.2f} MB, max_deg "
+    mode = "compressed (ELL"
+    mode += ", bf16 blocks)" if args.adjacency_bf16 else ")"
+    mode = mode if args.compressed else "dense"
+    print(f"adjacency on device [{mode}]: {adj['resident_bytes'] / 1e6:.2f} "
+          f"MB (dense would be {adj['dense_bytes'] / 1e6:.2f} MB, max_deg "
           f"{adj['max_deg']})")
     st = cs["state"]
     print(f"resident state [{'packed' if st['packed'] else 'strided'}]: "

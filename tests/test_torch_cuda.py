@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, trainer and server on the card (skipped
+"""The port's CUDA kernels, trainers and server on the card (skipped
 without one).
 
 Imports torch, numpy and the port only, so it runs where JAX is absent:
@@ -9,10 +9,14 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors: the strided and packed kernels within 1e-6 · max |ref| with f32
 blocks and 1e-5 with bf16; the fused kernel within 1e-5 · max of the packed
 kernel followed by ``torch.matmul``, within 1e-4 · max of its reassociated
-plain version, and bitwise equal to the packed kernel with W = I.  The
-trainer's kernel path is held against its plain path at one shared state;
-the server's cached path against its cold path (bitwise) and against the
-same server on the CPU.
+plain version, and bitwise equal to the packed kernel with W = I; the
+dense kernel within 1e-5 · max of its plain version (cuBLAS sums the
+plain einsum in another order), with absent blocks holding random values
+or NaN (never read), and bitwise equal to the ELL kernel where the ELL
+slots list every block in order.  The trainer's
+kernel path is held against its plain path at one shared state, in ELL and
+dense mode; the server's cached path against its cold path (bitwise) and
+against the same server on the CPU; the serial and baseline trainers run.
 """
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.core import gcn, graph
 from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
+from repro_torch.core.serial import BaselineTrainer, SerialADMMTrainer
 from repro_torch.core.subproblems import ADMMConfig
 from repro_torch.kernels import community_spmm, ops, ref
 from repro_torch.serve import CommunityServer, ServeConfig
@@ -84,18 +89,25 @@ def test_kernel_refuses_a_live_index_out_of_range(cuda_device):
         community_spmm.check_indices(args[1], args[2], 3)
 
 
-def test_trainer_kernel_path_matches_plain_path(cuda_device):
+@pytest.mark.parametrize("mode", ["packed", "dense", "packed-bf16"])
+def test_trainer_kernel_path_matches_plain_path(cuda_device, mode):
     g, _ = graph.synthetic_powerlaw_communities(
         8, nodes_per_part=16, size_skew=1.0, feat_dim=16, seed=0)
+    config = {"packed": TrainerConfig.packed(use_kernel=True),
+              "dense": TrainerConfig.dense(use_kernel=True),
+              "packed-bf16": TrainerConfig.packed(use_kernel=True,
+                                                  adjacency_bf16=True)}[mode]
     tr = ParallelADMMTrainer(gcn.GCNConfig((16, 32, g.num_classes)),
                              ADMMConfig(nu=1e-3, rho=1e-3), g, 8, seed=0,
-                             config=TrainerConfig.packed(use_kernel=True))
+                             config=config)
     assert tr.device.type == "cuda"
     for _ in range(5):
         tr.step()
-    community_spmm.launches = 0
+    community_spmm.launches = community_spmm.dense_launches = 0
     tr.step()
-    assert community_spmm.launches == tr.cfg.num_layers + 1
+    count = community_spmm.dense_launches if mode == "dense" \
+        else community_spmm.launches
+    assert count == tr.cfg.num_layers + 1
     got, want = tr.objectives(use_kernel=True), tr.objectives(use_kernel=False)
     for (va, ga), (vb, gb) in zip(got["w"] + got["z"],
                                   want["w"] + want["z"]):
@@ -221,3 +233,107 @@ def test_server_on_the_card_matches_the_cpu(cuda_device):
     np.testing.assert_allclose(fused.serve(ids), got, rtol=1e-4, atol=1e-5)
     assert community_spmm.fused_launches > 0
     assert cached.stats() == cpu.stats()
+
+
+# the dense kernel against the plain einsum: f32 sums of up to M · n_pad
+# products in two orders
+DENSE_TOL = 1e-5
+
+
+def _dense_operands(seed, k, m, n_pad, c, device):
+    """Random dense block rows, per-lane masks with zeros (absent blocks
+    hold random values), lane i keeping block i % M."""
+    rng = np.random.default_rng(seed)
+    lanes = (rng.random((k, m)) > 0.4).astype(np.int32)
+    lanes[np.arange(k), np.arange(k) % m] = 1
+    out = [rng.normal(size=(k, m, n_pad, n_pad)).astype(np.float32),
+           rng.normal(size=(m, n_pad, c)).astype(np.float32), lanes]
+    return [torch.as_tensor(x, device=device) for x in out]
+
+
+@pytest.mark.parametrize("k,m,n_pad,c", [
+    (3, 3, 64, 48), (4, 4, 131, 67), (2, 5, 40, 10), (1, 3, 200, 1000),
+    (3, 3, 96, 767)])
+def test_dense_kernel_matches_plain_version(cuda_device, k, m, n_pad, c):
+    a, z, lanes = _dense_operands(k, k, m, n_pad, c, cuda_device)
+    before = community_spmm.dense_launches
+    got = ops.community_spmm(a, z, lanes)
+    torch.cuda.synchronize()
+    assert community_spmm.dense_launches == before + 1
+    want = ref.community_spmm_ref(a, z, lanes)
+    assert float((got - want).abs().max()) \
+        <= DENSE_TOL * float(want.abs().max())
+    # the shared-row and mask=None forms, and one 3-D block row
+    shared = lanes[0]
+    for args in ((a, z, shared), (a, z, None), (a[0], z, shared)):
+        got = ops.community_spmm(*args)
+        mask = torch.ones(m, dtype=torch.int32, device=cuda_device) \
+            if args[2] is None else args[2]
+        want = ref.community_spmm_ref(args[0], z, mask)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) \
+            <= DENSE_TOL * float(want.abs().max())
+
+
+def test_dense_kernel_never_reads_an_absent_block(cuda_device):
+    """NaN in every absent block: the kernel's output stays finite and
+    equals the plain version on zeroed blocks; the plain version itself
+    gives NaN (0 · NaN)."""
+    a, z, lanes = _dense_operands(9, 3, 4, 72, 20, cuda_device)
+    clean = a * lanes[:, :, None, None]
+    a[lanes == 0] = float("nan")
+    got = ops.community_spmm(a, z, lanes)
+    want = ref.community_spmm_ref(clean, z, lanes)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) \
+        <= DENSE_TOL * float(want.abs().max())
+    assert not bool(torch.isfinite(ref.community_spmm_ref(a, z, lanes)).all())
+
+
+def test_dense_kernel_is_bitwise_the_ell_kernel_with_every_block(
+        cuda_device):
+    """ELL slots listing every block in ascending order: the two kernels run
+    one FFMA chain per output in the same order."""
+    g, part = graph.synthetic_powerlaw_communities(
+        3, nodes_per_part=40, size_skew=0.5, feat_dim=8, seed=0)
+    lay = graph.build_community_layout(g.num_nodes, g.edges, part,
+                                       compressed=True, pad_mode="global")
+    csr = lay.compress()
+    assert csr.max_deg == lay.num_parts
+    z = torch.randn((lay.num_parts, lay.n_pad, 70), device=cuda_device)
+
+    def dev(x):
+        return torch.as_tensor(x, device=cuda_device)
+    dense = ops.community_spmm(dev(lay.a_blocks), z, dev(lay.neighbor_mask))
+    ell = ops.community_spmm_ell(dev(csr.ell_blocks), dev(csr.ell_indices),
+                                 dev(csr.ell_mask), z)
+    assert torch.equal(dense, ell)
+
+
+def test_dense_launcher_refuses_bad_operands(cuda_device):
+    a, z, lanes = _dense_operands(2, 2, 3, 16, 4, cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        community_spmm.community_spmm(a, z, lanes[:, :2].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        community_spmm.community_spmm(a.double(), z, lanes)
+
+
+def test_serial_and_baseline_trainers_run_on_the_card(cuda_device):
+    g, _ = graph.synthetic_powerlaw_communities(
+        8, nodes_per_part=16, size_skew=1.0, feat_dim=16, seed=0)
+    cfg = gcn.GCNConfig((16, 32, g.num_classes))
+    serial = SerialADMMTrainer(cfg, ADMMConfig(nu=1e-3, rho=1e-3), g)
+    assert serial.device.type == "cuda"
+    log = serial.train(3)
+    assert all(np.isfinite(log.lagrangian)) and all(np.isfinite(log.residual))
+    cpu = SerialADMMTrainer(cfg, ADMMConfig(nu=1e-3, rho=1e-3), g,
+                            device="cpu")
+    cpu.state = serial.state.__class__(
+        *[tuple(t.cpu() for t in leaf) if isinstance(leaf, tuple)
+          else leaf.cpu() for leaf in serial.state])
+    assert abs(float(cpu._lagrangian(cpu.state))
+               - float(serial._lagrangian(serial.state))) \
+        <= 1e-5 * abs(float(cpu._lagrangian(cpu.state)))
+    base = BaselineTrainer(cfg, g, "adam", 1e-2)
+    log = base.train(3)
+    assert log.lagrangian[-1] < log.lagrangian[0]

@@ -2,9 +2,8 @@
 
 A fresh interpreter imports every module of ``repro_torch`` (and loads
 ``chip_smoke.py`` as a module) and must end with no ``jax``/``jax.*`` and no
-``repro``/``repro.*`` module loaded.  The trainer defaults to the card and
-and the server default to the card and refuse to carry on quietly on the
-CPU.
+``repro``/``repro.*`` module loaded.  The trainers and the server default
+to the card and refuse to carry on quietly on the CPU.
 """
 import os
 import pathlib
@@ -29,7 +28,7 @@ CHECK = textwrap.dedent("""
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
-    print(len(names), bad)
+    print(len(names), bad, " ".join(names))
     sys.exit(1 if bad else 0)
 """)
 
@@ -42,7 +41,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                           cwd=str(ROOT), timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 28, proc.stdout
+    assert n_modules >= 30, proc.stdout
+    for name in ("repro_torch.core.serial", "repro_torch.core.subproblems",
+                 "repro_torch.optim.optimizers",
+                 "repro_torch.kernels.community_spmm"):
+        assert name in proc.stdout.split(), name
 
 
 def test_trainer_without_device_raises_when_cuda_is_absent():
@@ -58,6 +61,24 @@ def test_trainer_without_device_raises_when_cuda_is_absent():
         ParallelADMMTrainer(gcn.GCNConfig((4, 8, g.num_classes)),
                             ADMMConfig(), g, 4,
                             config=TrainerConfig.packed(use_kernel=True))
+
+
+@pytest.mark.parametrize("trainer", ["serial", "baseline"])
+def test_serial_trainers_without_device_raise_when_cuda_is_absent(trainer):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is the card")
+    from repro.core import graph as jgraph
+    from repro_torch.core import gcn
+    from repro_torch.core.serial import BaselineTrainer, SerialADMMTrainer
+    from repro_torch.core.subproblems import ADMMConfig
+    g, _ = jgraph.synthetic_powerlaw_communities(
+        4, nodes_per_part=8, feat_dim=4, seed=0)
+    cfg = gcn.GCNConfig((4, 8, g.num_classes))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if trainer == "serial":
+            SerialADMMTrainer(cfg, ADMMConfig(), g)
+        else:
+            BaselineTrainer(cfg, g, "adam", 1e-3)
 
 
 def test_server_without_device_raises_when_cuda_is_absent():

@@ -1,16 +1,18 @@
-"""ELL aggregation of the PyTorch port against the JAX package.
+"""Community aggregation of the PyTorch port against the JAX package.
 
-The port's plain versions (``repro_torch.kernels.ref``) of the strided,
-packed-plane and fused kernels are held against the reference's jnp
-oracles on random operands, and against the Pallas kernel bodies
+The port's plain versions (``repro_torch.kernels.ref``) of the dense,
+strided ELL, packed-plane and fused kernels are held against the
+reference's jnp oracles on random operands, and against the Pallas kernel bodies
 themselves in interpret mode on layout-valid operands (pad rows zero and
 8-aligned plane offsets, as in every real layout: the Pallas kernels guard
 rows at tile granularity and steer 8-row slabs where the oracles and the
 CUDA kernels guard and address rows exactly).  Tolerances: max |diff| ≤
 1e-6 · max |ref| against the oracles (1e-5 for the strided kernel with bf16
 blocks: the same upcast values, summed in another order), 1e-5 · max |ref|
-for the packed and fused kernels against the interpret-mode bodies (the
-fused body sums (A·Z)·W, the plain version A·(Z·W)).
+for the dense, packed and fused kernels against the interpret-mode bodies
+(the Pallas bodies sum in tiles; the fused body sums (A·Z)·W, the plain
+version A·(Z·W)).  The dense cases give absent blocks random non-zero
+values: the plain version multiplies them by 0, the kernels skip them.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against the plain versions (skipped without a card), and
@@ -25,6 +27,7 @@ from repro.core import graph as jgraph
 from repro.core import messages as jmessages
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.community_spmm import community_spmm as pallas_dense
 from repro.kernels.community_spmm import community_spmm_ell as pallas_ell
 from repro.kernels.community_spmm import \
     community_spmm_ell_fused as pallas_fused
@@ -171,6 +174,15 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load(community_spmm.LIB)
+
+
+def test_every_source_is_a_registered_library():
+    """``build.LIBRARIES`` lists every CUDA source, and the launchers load
+    only registered libraries."""
+    sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert sorted(build.LIBRARIES) == sources
+    assert {community_spmm.LIB, community_spmm.FUSED_LIB,
+            community_spmm.DENSE_LIB} == set(build.LIBRARIES)
 
 
 def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
@@ -398,9 +410,153 @@ def test_library_path_is_keyed_by_shared_headers(monkeypatch, tmp_path):
     for src in build.CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
-    paths = {name: build.library_path(name)
-             for name in (community_spmm.LIB, community_spmm.FUSED_LIB)}
+    paths = {name: build.library_path(name) for name in build.LIBRARIES}
     header = tmp_path / "ell_tile.cuh"
     header.write_bytes(header.read_bytes() + b"\n")
     for name, path in paths.items():
         assert build.library_path(name) != path
+
+
+# ---------------------------------------------------------------------------
+# dense block-row kernel
+# ---------------------------------------------------------------------------
+
+def _dense_operands(seed, k, m, n_pad, c):
+    """Random dense block rows whose absent blocks (mask 0) hold random
+    non-zero values, per-lane masks with zeros (each lane keeps its own
+    block), and a shared row with a zero."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(k, m, n_pad, n_pad)).astype(np.float32)
+    z = rng.normal(size=(m, n_pad, c)).astype(np.float32)
+    lanes = (rng.random((k, m)) > 0.4).astype(np.int32)
+    lanes[np.arange(k), np.arange(k) % m] = 1
+    shared = np.ones(m, np.int32)
+    shared[-1] = 0
+    return a, z, lanes, shared
+
+
+DENSE_CASES = [  # k, M, n_pad, C
+    (3, 3, 64, 48),
+    (4, 4, 40, 10),
+    (2, 5, 24, 33),
+    (1, 3, 72, 128),
+]
+
+
+@pytest.mark.parametrize("form", ["lanes", "shared", "none", "row"])
+@pytest.mark.parametrize("k,m,n_pad,c", DENSE_CASES)
+def test_dense_plain_version_matches_reference_oracle(k, m, n_pad, c, form):
+    """Every mask form of ``ops.community_spmm`` — per-lane (k, M), shared
+    (M,), None, and one 3-D block row — against the reference's dispatch
+    (its jnp oracle, vmapped over lanes) and the port's ``ref`` directly."""
+    a, z, lanes, shared = _dense_operands(k + m, k, m, n_pad, c)
+    if form == "row":
+        a, mask = a[0], shared
+    else:
+        mask = {"lanes": lanes, "shared": shared, "none": None}[form]
+    want = jops.community_spmm(*_jax(a, z, mask))
+    got = ops.community_spmm(*_port(a, z, mask))
+    _close(got, want, 1e-6)
+    # the CPU dispatch runs the plain version, bit for bit
+    full = np.ones(m, np.int32) if mask is None else mask
+    np.testing.assert_array_equal(
+        got.numpy(), ref.community_spmm_ref(*_port(a, z, full)).numpy())
+    if form == "row":
+        _close(got, jref.community_spmm_ref(*_jax(a, z, mask)), 1e-6)
+
+
+@pytest.mark.parametrize("k,m,n_pad,c", DENSE_CASES)
+def test_dense_plain_version_matches_pallas_interpret(k, m, n_pad, c):
+    """The interpret-mode Pallas body, lane by lane with each lane's mask
+    (the reference's vmap), against the port's CPU dispatch."""
+    a, z, lanes, _ = _dense_operands(2 * k + m, k, m, n_pad, c)
+    want = np.stack([np.asarray(pallas_dense(*_jax(a[i], z, lanes[i]),
+                                             interpret=True))
+                     for i in range(k)])
+    _close(ops.community_spmm(*_port(a, z, lanes)), want, 1e-5)
+
+
+def test_dense_masked_block_contributes_nothing():
+    """A masked block adds nothing, whatever finite values it holds;
+    unmasked, the same block would."""
+    a, z, lanes, _ = _port(*_dense_operands(5, 3, 4, 16, 8))
+    out = ops.community_spmm(a, z, lanes)
+    full = ops.community_spmm(a, z, torch.ones_like(lanes))
+    assert float((out - full).abs().max()) > 1e-3
+    moved = a.clone()
+    moved[lanes == 0] = 7.0 * moved[lanes == 0] + 1.0
+    np.testing.assert_array_equal(ops.community_spmm(moved, z, lanes).numpy(),
+                                  out.numpy())
+
+
+def test_dense_launcher_refuses_cpu_tensors():
+    a, z, lanes, _ = _port(*_dense_operands(0, 2, 3, 16, 4))
+    before = community_spmm.dense_launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        community_spmm.community_spmm(a, z, lanes)
+    assert community_spmm.dense_launches == before
+
+
+def test_dense_equals_ell_on_a_layout_with_every_block():
+    """On a layout whose ELL slots list every block in ascending community
+    order (max_deg = M), the dense form over the block rows and the ELL
+    form over the slots are one sum: the plain versions agree to f32
+    noise (the CUDA kernels share one FFMA order and agree bitwise; the
+    card checks that)."""
+    g, part = jgraph.synthetic_powerlaw_communities(
+        3, nodes_per_part=24, size_skew=0.5, feat_dim=8, seed=0)
+    lay = jgraph.build_community_layout(g.num_nodes, g.edges, part,
+                                        compressed=True, pad_mode="global")
+    csr = lay.compress()
+    assert csr.max_deg == lay.num_parts
+    np.testing.assert_array_equal(csr.ell_indices,
+                                  np.tile(np.arange(3), (3, 1)))
+    z = lay.pack(np.random.default_rng(4).normal(
+        size=(g.num_nodes, 12)).astype(np.float32))
+    dense = ops.community_spmm(*_port(lay.a_blocks, z, lay.neighbor_mask))
+    ell = ops.community_spmm_ell(*_port(csr.ell_blocks, csr.ell_indices,
+                                        csr.ell_mask, z))
+    _close(dense, ell, 1e-6)
+
+
+def test_ops_route_device_tensors_to_the_launchers(monkeypatch):
+    """Tensors off the CPU reach the CUDA launchers with int32 tables,
+    contiguous operands and the dense mask expanded to (k, M); the CUDA
+    branch runs here on meta tensors (no data) with the launchers
+    recorded in place of the kernels."""
+    calls = {}
+
+    def record(name):
+        def launcher(*args):
+            calls[name] = args
+            return torch.empty((1, 1, 1), device="meta")
+        return launcher
+
+    for name in ("community_spmm", "community_spmm_ell",
+                 "community_spmm_ell_packed", "community_spmm_ell_fused"):
+        monkeypatch.setattr(community_spmm, name, record(name))
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    k, m, d, n, c = 3, 4, 2, 8, 5
+    ops.community_spmm(meta((k, m, n, n)), meta((m, n, c)),
+                       meta((m,), torch.bool))
+    a, z, mask = calls.pop("community_spmm")
+    assert tuple(mask.shape) == (k, m) and mask.dtype == torch.int32
+    ops.community_spmm(meta((m, n, n)), meta((m, n, c)))
+    a, z, mask = calls.pop("community_spmm")
+    assert tuple(a.shape) == (1, m, n, n) and tuple(mask.shape) == (1, m)
+    table, fmask = meta((k, d), torch.int64), meta((k, d))
+    ops.community_spmm_ell(meta((k, d, n, n)), table, fmask,
+                           meta((m, n, c)))
+    args = calls.pop("community_spmm_ell")
+    assert [t.dtype for t in args[1:3] + args[4:]] == [torch.int32] * 4
+    counts = (meta((k,), torch.int32), meta((k, d), torch.int32))
+    ops.community_spmm_ell_packed(meta((k, d, n, n)), table, fmask,
+                                  meta((20, c)), *counts)
+    ops.community_spmm_ell_fused(meta((k, d, n, n)), table, fmask,
+                                 meta((20, c)), meta((c, 6)), *counts)
+    assert set(calls) == {"community_spmm_ell_packed",
+                          "community_spmm_ell_fused"}
+    for args in calls.values():
+        assert all(t.is_contiguous() for t in args)
