@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port of the community-ADMM GCN on one GPU: train
-(dense and ELL Parallel ADMM, Serial ADMM, a backprop baseline), then serve.
+"""Run the PyTorch/CUDA port on one GPU: train the community-ADMM GCN
+(dense and ELL Parallel ADMM, Serial ADMM, a backprop baseline), serve it,
+then run Mamba-2 1.3B inference through the SSD scan kernel and check the
+flash attention kernel.
 
     python3 chip_smoke.py
 
@@ -49,7 +51,25 @@ Phases (each prints its own lines; any failure exits non-zero):
   6. time the packed and fused kernels, their plain versions and the
      gather + einsum (+ matmul) composition at the server's shapes, beside
      the card's bound;
-  7. print the kernels line, the card's name and power limit, and a last
+  7. hold the SSD scan kernel against its plain version (f32 limit 1e-4,
+     bf16 one ulp, 2^-7 of max) at the Mamba-2 prefill shape (4 x 4096,
+     64 heads of 64, d_state 128) in bf16 and f32, at 1 x 32768, at a
+     ragged S = 1000 (chunk 8), at S = 100 < chunk and with 2 groups; and
+     the flash attention kernel (f32 limit 1e-5, bf16 2^-7) at qwen2-7b's,
+     gemma-2b's and recurrentgemma-9b's attention shapes (causal; window
+     2048), one non-causal and one f32 case;
+  8. Mamba-2 1.3B at its published widths and depth (48 layers, d_model
+     2048, bf16, random weights from a generator on the card): prefill
+     4 x 4096 tokens through the kernel and through the plain path
+     (last-token logits within LOGIT_TOL of max; exactly 48 ssd_scan
+     launches per kernel forward, 0 on the plain one), timed forwards
+     (tokens/s, profiled idle share), 2 decode requests of 64 tokens
+     (per-token latency), and decode against the kernel forward with the
+     weights in f32 (probabilities within rtol 2e-2, atol 2e-3);
+  9. time both kernels, their plain versions and (attention)
+     scaled_dot_product_attention, beside the card's bound for the
+     inputs' type;
+  10. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
@@ -80,10 +100,39 @@ BF16_EPOCHS = 2
 PACKED_REPLACES = "src/repro/kernels/community_spmm.py:421"
 FUSED_REPLACES = "src/repro/kernels/community_spmm.py:531"
 
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:67"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:90"
+# kernel vs plain version, max |diff| <= limit · max |plain|: f32 flash
+# 1e-5; f32 SSD 1e-4 (the chunk's cumsum is summed in another order and
+# exp(cum_t − cum_u) turns its absolute error into a relative one); bf16
+# outputs 2^-7, one bf16 ulp at the largest value (both sum in f32 and
+# round once)
+FLASH_F32_TOL = 1e-5
+SSD_F32_TOL = 1e-4
+BF16_TOL = 2.0 ** -7
+# Mamba-2 1.3B prefill, bf16, kernel path vs plain path: last-token logits
+# within LOGIT_TOL · max |plain| (48 layers of bf16 rounding at different
+# places: the plain path rounds C·Bᵀ to bf16, the kernel rounds y)
+LOGIT_TOL = 5e-2
+PREFILL = (4, 4096)            # batch × tokens, a cut of prefill_32k
+SSD_LONG = (1, 32768)          # one sequence of prefill_32k
+DECODE = (2, 64)               # batch × tokens of the decode requests
+DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3   # tests/test_decode_consistency.py
+# f32 decode vs f32 forward, logits within 1e-4 · max: the same f32
+# arithmetic, the chunked scan against the token recurrence, summed in
+# another order through 48 layers (with random weights the logits reach
+# hundreds, so the softmax is nearly one-hot and the probability check alone
+# would pass whatever the logits below the top one did)
+DECODE_LOGIT_TOL = 1e-4
+
 # Published peaks per H100 variant (NVIDIA data sheets): FP32 outside the
-# tensor cores (FLOP/s) and HBM bandwidth (bytes/s).
-PEAKS = {"H100 NVL": (60e12, 3.9e12), "H100 PCIe": (51e12, 2.0e12),
-         "H100": (67e12, 3.35e12)}
+# tensor cores, dense bf16 on the tensor cores (FLOP/s), and HBM bandwidth
+# (bytes/s).
+PEAKS = {"H100 NVL": (60e12, 835e12, 3.9e12),
+         "H100 PCIe": (51e12, 756e12, 2.0e12),
+         "H100": (67e12, 989e12, 3.35e12)}
 
 
 def fail(msg: str) -> None:
@@ -97,7 +146,7 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def peaks(name: str) -> tuple[float, float]:
+def peaks(name: str) -> tuple[float, float, float]:
     for key, val in PEAKS.items():
         if key in name:
             return val
@@ -283,20 +332,28 @@ def time_batches(server, stream, batch: int, first: int, warm: int,
 def counts() -> dict:
     """Every kernel's launch count."""
     from repro_torch.kernels import community_spmm
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ssd_scan
     return {"ell": community_spmm.launches,
             "packed": community_spmm.packed_launches,
             "fused": community_spmm.fused_launches,
-            "dense": community_spmm.dense_launches}
+            "dense": community_spmm.dense_launches,
+            "ssd": ssd_scan.ssd_launches,
+            "flash": flash.flash_launches}
 
 
 def reset_counts(to: "dict | None" = None) -> None:
     """Set every launch count to 0, or back to ``to`` (a ``counts()``)."""
     from repro_torch.kernels import community_spmm
-    to = to or {"ell": 0, "packed": 0, "fused": 0, "dense": 0}
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ssd_scan
+    to = to or dict.fromkeys(counts(), 0)
     community_spmm.launches = to["ell"]
     community_spmm.packed_launches = to["packed"]
     community_spmm.fused_launches = to["fused"]
     community_spmm.dense_launches = to["dense"]
+    ssd_scan.ssd_launches = to["ssd"]
+    flash.flash_launches = to["flash"]
 
 
 def dense_work(mask, n: int, c: int) -> tuple[float, float]:
@@ -349,8 +406,9 @@ def print_log(tag: str, log) -> None:
               f"{log.test_acc[j]:.4f}", flush=True)
 
 
-def profiled_idle(step) -> tuple[float, float, str]:
-    """(wall µs, device-busy µs, idle share) of one profiled ``step()``."""
+def profiled(step) -> tuple[float, float, str, list]:
+    """(wall µs, device-busy µs, idle share, traced events) of one profiled
+    ``step()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -360,10 +418,51 @@ def profiled_idle(step) -> tuple[float, float, str]:
         step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    busy_us = device_busy_us(prof.events())
+    events = prof.events()
+    busy_us = device_busy_us(events)
     idle = (f"{1.0 - busy_us / wall_us:.4f}" if busy_us > 0 else
             "not measured (the profiler traced no device activity)")
-    return wall_us, busy_us, idle
+    return wall_us, busy_us, idle, events
+
+
+def profiled_idle(step) -> tuple[float, float, str]:
+    """(wall µs, device-busy µs, idle share) of one profiled ``step()``."""
+    return profiled(step)[:3]
+
+
+def device_ms_by_kind(events, top: int = 4) -> dict:
+    """Device milliseconds of the traced device events: the SSD scan
+    kernel, the cuBLAS matrix products, and the ``top`` largest others by
+    name, with their count of events."""
+    from torch.autograd import DeviceType
+    by_name: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+
+    def kind(name: str) -> str:
+        low = name.lower()
+        if "ssd_scan" in low:
+            return "ssd_scan kernel"
+        if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            return "matrix products"
+        return name[:60]
+    kinds: dict = {}
+    for name, (ms, n) in by_name.items():
+        k_ms, k_n = kinds.get(kind(name), (0.0, 0))
+        kinds[kind(name)] = (k_ms + ms, k_n + n)
+    named = ("ssd_scan kernel", "matrix products")
+    others = sorted((k for k in kinds if k not in named),
+                    key=lambda k: -kinds[k][0])
+    out = {k: kinds[k] for k in named if k in kinds}
+    out.update({k: kinds[k] for k in others[:top]})
+    rest = others[top:]
+    out["rest"] = (sum(kinds[k][0] for k in rest),
+                   sum(kinds[k][1] for k in rest))
+    return {k: {"ms": round(ms, 3), "events": n} for k, (ms, n) in
+            out.items()}
 
 
 def dense_train_phase(cfg, admm, g, card: str, dev) -> dict:
@@ -776,6 +875,391 @@ def objective_gap(trainer) -> float:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the language-model path: SSD scan, flash attention, Mamba-2 1.3B
+# ---------------------------------------------------------------------------
+
+def ssd_operands(gen, b, s, h, p, g, n, dtype, dev):
+    """x, dt, a, B, C for the SSD scan: x, B, C standard normal in
+    ``dtype``; dt = 0.5 |N(0, 1)| and a = -|N(0, 1)| in f32."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return (randn(b, s, h, p).to(dtype), 0.5 * randn(b, s, h).abs(),
+            -randn(h).abs(), randn(b, s, g, n).to(dtype),
+            randn(b, s, g, n).to(dtype))
+
+
+def ssd_work(x, b_mat, chunk: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of the SSD scan: per (batch, head, chunk of L) the
+    dual form's causal half, 2·(L(L+1)/2)·(N + P) for C·Bᵀ and scores·x,
+    plus 4·L·N·P for the state's term in and its update; x, dt, a, B and C
+    read once, y written once."""
+    from repro_torch.kernels.ref import ssd_chunk_length
+    b, s, h, p = x.shape
+    length = ssd_chunk_length(s, chunk)
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    pairs = length * (length + 1) / 2
+    flops = b * h * (s // length) * (2 * pairs * (n + p)
+                                     + 4 * length * n * p)
+    elt = x.element_size()
+    nbytes = 2 * b * s * h * p * elt + b * s * h * 4 + h * 4 \
+        + 2 * b * s * g * n * elt
+    return flops, nbytes
+
+
+def attention_pairs(s: int, causal: bool, window) -> float:
+    """(query, key) pairs the causal / window mask keeps, per head."""
+    import numpy as np
+    q = np.arange(s, dtype=np.float64)
+    hi = q + 1 if causal else np.full(s, float(s))
+    lo = np.maximum(q - window + 1, 0) if window is not None else 0.0
+    return float((hi - lo).sum())
+
+
+def flash_work(q, k, causal: bool, window) -> tuple[float, float]:
+    """(FLOPs, bytes) of attention: 4·hd per live (query, key) pair (q·k
+    and p·v); q, k, v read once, the output written once."""
+    b, s, hq, hd = q.shape
+    flops = 4.0 * hd * b * hq * attention_pairs(s, causal, window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return flops, nbytes
+
+
+def bound(flops: float, nbytes: float, peak_ops: float,
+          peak_bw: float) -> tuple[float, str]:
+    t_ops, t_bytes = 1e3 * flops / peak_ops, 1e3 * nbytes / peak_bw
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_lm_case(kind: str, name: str, out, want, limit: float,
+                  log) -> None:
+    import torch
+    err, rel = rel_err(out, want)
+    ok = (bool(torch.isfinite(out).all()) and out.shape == want.shape
+          and out.dtype == want.dtype and rel <= limit)
+    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel})
+    print(f"[7] {kind} {name}: max_abs_err {err:.3e} rel {rel:.3e} (limit "
+          f"{limit:.2e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the {kind} kernel disagrees with its plain version on {name}")
+
+
+SSD_CHECKS = [      # (name, b, s, h, p, g, n, dtype)
+    ("prefill 4x4096 bf16", 4, 4096, 64, 64, 1, 128, "bfloat16"),
+    ("prefill 4x4096 f32", 4, 4096, 64, 64, 1, 128, "float32"),
+    ("1x32768 bf16", 1, 32768, 64, 64, 1, 128, "bfloat16"),
+    ("ragged S=1000 (chunk 8) bf16", 1, 1000, 64, 64, 1, 128, "bfloat16"),
+    ("S=100 < chunk bf16", 2, 100, 64, 64, 1, 128, "bfloat16"),
+    ("G=2 2x2048 bf16", 2, 2048, 64, 64, 2, 128, "bfloat16"),
+]
+FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
+    ("qwen2-7b S=4096 Hq28 Hkv4 hd128 causal bf16", 1, 4096, 28, 4, 128,
+     True, None, "bfloat16"),
+    ("gemma-2b S=4096 Hq8 Hkv1 hd256 causal bf16", 1, 4096, 8, 1, 256, True,
+     None, "bfloat16"),
+    ("recurrentgemma-9b local S=8192 Hq16 Hkv1 hd256 window 2048 bf16", 1,
+     8192, 16, 1, 256, True, 2048, "bfloat16"),
+    ("non-causal S=2048 Hq8 Hkv2 hd128 bf16", 1, 2048, 8, 2, 128, False,
+     None, "bfloat16"),
+    ("qwen2-7b heads S=2048 causal f32", 1, 2048, 28, 4, 128, True, None,
+     "float32"),
+]
+
+
+def check_lm_kernels(gen, dev) -> tuple[list, list]:
+    """Phase 7: the SSD scan and flash attention kernels against their plain
+    versions on the same CUDA tensors."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    ssd_checks: list[dict] = []
+    for name, b, s, h, p, g, n, dtype in SSD_CHECKS:
+        dtype = getattr(torch, dtype)
+        args = ssd_operands(gen, b, s, h, p, g, n, dtype, dev)
+        out, _ = ops.ssd_scan(*args, chunk=256)
+        torch.cuda.synchronize()
+        want = ref.ssd_scan_ref(*args, chunk=256)
+        check_lm_case("ssd_scan", name, out, want,
+                      SSD_F32_TOL if dtype == torch.float32 else BF16_TOL,
+                      ssd_checks)
+        del args, out, want
+    flash_checks: list[dict] = []
+    for name, b, s, hq, hkv, hd, causal, window, dtype in FLASH_CHECKS:
+        dtype = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, s, hq, hd), (b, s, hkv, hd),
+                                 (b, s, hkv, hd)))
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        check_lm_case("flash_attention", name, out, want,
+                      FLASH_F32_TOL if dtype == torch.float32 else BF16_TOL,
+                      flash_checks)
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return ssd_checks, flash_checks
+
+
+def probs_gap(logits, ref_logits) -> tuple[float, bool]:
+    """(max |Δp|, allclose at the decode test's rtol/atol) of the softmax
+    distributions."""
+    import torch
+    p, p_ref = (torch.softmax(x.float(), dim=-1) for x in (logits, ref_logits))
+    gap = float((p - p_ref).abs().max())
+    return gap, bool(torch.allclose(p, p_ref, rtol=DECODE_RTOL,
+                                    atol=DECODE_ATOL))
+
+
+def decode_run(model, params, tokens) -> tuple[object, list]:
+    """``init_cache`` and one ``decode_step`` per token: (logits (B, S, V),
+    host-clock ms of each step, ending in ``synchronize()``)."""
+    import torch
+    b, s = tokens.shape
+    caches = model.init_cache(b, s, device=tokens.device)
+    logits, step_ms = [], []
+    for t in range(s):
+        t0 = time.perf_counter()
+        out, caches = model.decode_step(params, caches, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(out[:, 0])
+    return torch.stack(logits, dim=1), step_ms
+
+
+def mamba_phase(card: str, dev) -> dict:
+    """Phase 8: Mamba-2 1.3B at its published widths and depth, bf16, with
+    random weights from a generator on the card: prefill through the SSD
+    kernel and through the plain path, timed forwards, cached decode, and
+    decode against the kernel forward in f32."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import transformer
+    from repro_torch.models.build import make_model
+
+    cfg = get_config("mamba2-1.3b")
+    model = make_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = []
+    transformer.tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    print(f"[8] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}; {n_params:,} parameters on the card "
+          f"(param_count() {cfg.param_count():,}, which leaves out norms, "
+          f"conv biases and the per-head a_log / dt_bias / d_skip), "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} "
+          f"GB; init {time.perf_counter() - t0:.2f} s", flush=True)
+
+    b, s = PREFILL
+    toks = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=0))
+    batch = {"tokens": torch.as_tensor(toks["tokens"], device=dev)}
+    out = {}
+    with torch.inference_mode():
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits_k, _, _ = model.forward(params, batch, use_kernel=True,
+                                       last_only=True)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reset_counts()
+        t0 = time.perf_counter()
+        logits_p, _, _ = model.forward(params, batch, use_kernel=False,
+                                       last_only=True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        plain_launches = counts()
+    if launches["ssd"] != cfg.num_layers or plain_launches["ssd"] != 0:
+        fail(f"ssd_scan launches: {launches['ssd']} on the kernel forward "
+             f"(expected {cfg.num_layers}), {plain_launches['ssd']} on the "
+             f"plain one (expected 0)")
+    if tuple(logits_k.shape) != (b, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits_k).all() & torch.isfinite(logits_p).all()):
+        fail(f"prefill logits of shape {tuple(logits_k.shape)} or not finite")
+    err, rel = rel_err(logits_k, logits_p)
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    print(f"[8] prefill {b} x {s} tokens, last-token logits "
+          f"{tuple(logits_k.shape)} f32: kernel path vs plain path max "
+          f"|diff| {err:.4e}, rel {rel:.4e} (limit {LOGIT_TOL:.1e}), argmax "
+          f"agreement {agree:.2f}; ssd_scan launches {launches['ssd']} on the "
+          f"kernel forward, {plain_launches['ssd']} on the plain one; peak "
+          f"memory {peak_gb:.2f} GB", flush=True)
+    if not rel <= LOGIT_TOL:
+        fail(f"prefill logits, kernel vs plain path: rel {rel:.3e}")
+    out.update(launches=launches["ssd"], flash_launches=launches["flash"],
+               logits_max_abs_err=err,
+               logits_rel_err=rel, argmax_agreement=agree)
+
+    def forward():
+        model.forward(params, batch, use_kernel=True, last_only=True)
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        before = counts()
+        forward()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            forward()
+            times.append(1e3 * (time.perf_counter() - t0))
+        wall_us, busy_us, idle, events = profiled(forward)
+        reset_counts(before)            # timing launches do not count
+    med = statistics.median(times)
+    kinds = device_ms_by_kind(events)
+    out.update(forward_ms=times, forward_median_ms=med,
+               tokens_per_s=b * s / (med / 1e3), plain_forward_ms=plain_ms,
+               first_forward_ms=first_ms, idle=idle,
+               forward_device_ms=kinds)
+    print(f"[8] prefill forward through the kernel: median {med:.1f} ms of "
+          f"{[round(t, 1) for t in times]} after one warm-up (first call "
+          f"{first_ms:.1f} ms) = {out['tokens_per_s']:,.0f} tokens/s; plain "
+          f"forward {plain_ms:.1f} ms (one call); profiled forward: wall "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms, idle "
+          f"share {idle}; device ms by kind {json.dumps(kinds)} [{card}]",
+          flush=True)
+    del logits_k, logits_p, batch
+
+    b, s = DECODE
+    dec = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=0))
+    tokens = torch.as_tensor(dec["tokens"], device=dev)
+    with torch.inference_mode():
+        dec_logits, step_ms = decode_run(model, params, tokens)
+        caches = model.init_cache(b, s, device=dev)
+        d_wall, d_busy, d_idle, d_events = profiled(
+            lambda: model.decode_step(params, caches, tokens[:, :1]))
+        full_bf16, _, _ = model.forward(params, {"tokens": tokens},
+                                        use_kernel=True)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = make_model(cfg32)
+        params32 = transformer.tree_map(lambda t: t.float(), params)
+        dec32, _ = decode_run(model32, params32, tokens)
+        full32, _, _ = model32.forward(params32, {"tokens": tokens},
+                                       use_kernel=True)
+    torch.cuda.synchronize()
+    gap32, ok32 = probs_gap(dec32, full32)
+    gap16, _ = probs_gap(dec_logits, full_bf16)
+    _, rel32 = rel_err(dec32, full32)
+    _, rel16 = rel_err(dec_logits, full_bf16)
+    steps = sorted(step_ms[1:])
+    n_dev = sum(1 for e in d_events if e.device_type == DeviceType.CUDA)
+    out.update(decode_step_ms=step_ms,
+               decode_median_ms=statistics.median(step_ms[1:]),
+               decode_p90_ms=steps[int(0.9 * (len(steps) - 1))],
+               decode_profiled={"wall_ms": d_wall / 1e3,
+                                "busy_ms": d_busy / 1e3, "idle": d_idle,
+                                "device_events": n_dev},
+               decode_f32_max_abs_dp=gap32, decode_bf16_max_abs_dp=gap16,
+               decode_f32_logits_rel=rel32, decode_bf16_logits_rel=rel16)
+    print(f"[8] decode {b} requests x {s} tokens (init_cache({b}, {s}), one "
+          f"decode_step per token): per token median "
+          f"{out['decode_median_ms']:.2f} ms, p90 {out['decode_p90_ms']:.2f} "
+          f"ms, first {step_ms[0]:.2f} ms = "
+          f"{b * 1e3 / out['decode_median_ms']:,.0f} tokens/s; profiled step: "
+          f"wall {d_wall / 1e3:.2f} ms, device busy {d_busy / 1e3:.2f} ms, "
+          f"idle share {d_idle}, {n_dev} device events [{card}]", flush=True)
+    print(f"[8] decode vs the kernel forward over the same {s} tokens, f32 "
+          f"weights: max |dp| {gap32:.3e}, allclose rtol {DECODE_RTOL} atol "
+          f"{DECODE_ATOL}: {'ok' if ok32 else 'FAIL'}; logits rel "
+          f"{rel32:.3e} (limit {DECODE_LOGIT_TOL:.0e}); bf16 weights "
+          f"(reported, no limit): max |dp| {gap16:.3e}, logits rel "
+          f"{rel16:.3e}", flush=True)
+    if not (ok32 and rel32 <= DECODE_LOGIT_TOL
+            and bool(torch.isfinite(dec_logits).all())):
+        fail(f"f32 decode disagrees with the forward: max |dp| {gap32:.3e}, "
+             f"logits rel {rel32:.3e}")
+    del params, params32, dec_logits, dec32, full_bf16, full32, caches
+    torch.cuda.empty_cache()
+    print(f"[8] Mamba-2 summary {json.dumps(out)}", flush=True)
+    return out
+
+
+def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
+                    peak_bw: float, card: str) -> tuple[dict, dict]:
+    """Phase 9: CUDA-event times of the SSD scan and flash attention
+    kernels, their plain versions and (flash) scaled_dot_product_attention,
+    beside the card's bound for the inputs' type."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    def peak(dtype):
+        return peak_bf16 if dtype == torch.bfloat16 else peak_fp32
+
+    ssd_t = {}
+    for b, s in (PREFILL, SSD_LONG):
+        args = ssd_operands(gen, b, s, 64, 64, 1, 128, torch.bfloat16, dev)
+        before = counts()
+        ms = median_ms(lambda: ops.ssd_scan(*args, chunk=256), 5)
+        reset_counts(before)            # timing launches do not count
+        plain_ms = median_ms(lambda: ref.ssd_scan_ref(*args, chunk=256), 3,
+                             warmup=1)
+        flops, nbytes = ssd_work(args[0], args[3], 256)
+        bnd, by = bound(flops, nbytes, peak(args[0].dtype), peak_bw)
+        key = f"{b}x{s}"
+        ssd_t[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9,
+                      "mbytes": nbytes / 1e6,
+                      "tflop_per_s": flops / ms / 1e9}
+        print(f"[9] ssd_scan {key} bf16 (H 64, P 64, N 128, chunk 256, "
+              f"{b * 64} blocks): kernel {ms:.3f} ms "
+              f"({ssd_t[key]['tflop_per_s']:.1f} TFLOP/s), plain version "
+              f"{plain_ms:.3f} ms, no single PyTorch call, bound {bnd:.4f} "
+              f"ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) "
+              f"[{card}]", flush=True)
+        del args
+    flash_t = {}
+    F = torch.nn.functional
+    for name, b, s, hq, hkv, hd, causal, window, dtype in FLASH_CHECKS[:3]:
+        dtype = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, s, hq, hd), (b, s, hkv, hd),
+                                 (b, s, hkv, hd)))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(s, device=dev)
+            mask = (pos[:, None] - pos[None, :] < window) & (
+                pos[:, None] >= pos[None, :] if causal else True)
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        before = counts()
+        ms = median_ms(lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window), 5)
+        reset_counts(before)            # timing launches do not count
+        plain_ms = median_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window), 3, warmup=1)
+        lib_ms = median_ms(sdpa, 5)
+        flops, nbytes = flash_work(q, k, causal, window)
+        bnd, by = bound(flops, nbytes, peak(dtype), peak_bw)
+        flash_t[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bnd, "bound_by": by,
+                         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                         "tflop_per_s": flops / ms / 1e9}
+        print(f"[9] flash_attention {name}: kernel {ms:.3f} ms "
+              f"({flash_t[name]['tflop_per_s']:.1f} TFLOP/s), plain version "
+              f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} "
+              f"ms, bound {bnd:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB) [{card}]", flush=True)
+        del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return ssd_t, flash_t
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -805,8 +1289,8 @@ def main() -> int:
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     build.load_all(build.LIBRARIES)
-    print(f"[1] built {KERNEL_SRC}, {FUSED_SRC} and {DENSE_SRC} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[1] built {KERNEL_SRC}, {FUSED_SRC}, {DENSE_SRC}, {SSD_SRC} and "
+          f"{FLASH_SRC} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1020,7 +1504,7 @@ def main() -> int:
     bf16 = bf16_phase(cfg, admm, g, card, dev, f32_blocks, f32_resident)
 
     # ---- 4. times -----------------------------------------------------------
-    peak_flops, peak_bw = peaks(name)
+    peak_flops, peak_bf16, peak_bw = peaks(name)
     per_c = {}
     for c in (767, 1000, 10):
         z = torch.randn((k, n_full, c), generator=gen, device=dev)
@@ -1106,7 +1590,17 @@ def main() -> int:
               f"{t['mbytes']:.1f} MB) [{card}]", flush=True)
         del z, w
 
-    # ---- 7. the kernels line, the card, the result --------------------------
+    # ---- 7. SSD scan and flash attention kernels vs plain versions ---------
+    ssd_checks, flash_checks = check_lm_kernels(gen, dev)
+
+    # ---- 8. Mamba-2 1.3B: prefill through the SSD kernel, cached decode ----
+    mamba = mamba_phase(card, dev)
+
+    # ---- 9. SSD scan and flash attention times ------------------------------
+    ssd_t, flash_t = time_lm_kernels(gen, dev, peak_flops, peak_bf16,
+                                     peak_bw, card)
+
+    # ---- 10. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",
@@ -1167,6 +1661,31 @@ def main() -> int:
         "vs_ell_kernel_bitwise": dense["vs_ell_bitwise"],
         "vs_ell_kernel_rel_err": dense["vs_ell_rel_err"],
         "per_c": {str(c): v for c, v in dense_c.items()}})
+    head = ssd_t[f"{PREFILL[0]}x{PREFILL[1]}"]
+    rows_out.append({
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
+        "replaces": SSD_REPLACES, "launches": mamba["launches"],
+        "max_abs_err": max(ch["max_abs_err"] for ch in ssd_checks),
+        "max_rel_err": max(ch["max_rel_err"] for ch in ssd_checks),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "timed_at": {"B": PREFILL[0], "S": PREFILL[1], "H": 64, "P": 64,
+                     "G": 1, "N": 128, "chunk": 256, "dtype": "bfloat16"},
+        "checked": True, "launches_per_forward": mamba["launches"],
+        "per_shape": ssd_t, "checks": ssd_checks})
+    head = flash_t[FLASH_CHECKS[0][0]]
+    rows_out.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+        "replaces": FLASH_REPLACES, "launches": mamba["flash_launches"],
+        "max_abs_err": max(ch["max_abs_err"] for ch in flash_checks),
+        "max_rel_err": max(ch["max_rel_err"] for ch in flash_checks),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "timed_at": FLASH_CHECKS[0][0], "checked": True,
+        "on_main_path": False, "per_shape": flash_t,
+        "checks": flash_checks})
     print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

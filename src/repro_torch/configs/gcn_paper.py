@@ -12,3 +12,9 @@ def config(dataset: str = "amazon_computers"):
     hyper = 1e-3 if "computers" in dataset else 1e-4
     return (GCNConfig(layer_dims=(feats, 1000, classes)),
             ADMMConfig(nu=hyper, rho=hyper))
+
+
+def reduced(dataset: str = "amazon_photo_mini"):
+    cfg, admm = config(dataset)
+    return GCNConfig(layer_dims=(cfg.layer_dims[0], 64,
+                                 cfg.layer_dims[-1])), admm

@@ -7,6 +7,9 @@ reproduced without JAX, so the port draws its own from a
 hand them to ``state_from_numpy`` (``serial_state_from_numpy``); the
 layouts of the two packages are equal array for array, so the leaves drop
 in unchanged.  A baseline's weights go through ``weights_from_numpy``.
+A language model's parameter tree (``repro.models.build.Model.init``, each
+leaf taken with ``np.asarray``) goes through ``model_params_from_numpy``:
+the port keeps the reference's key paths and stacked layer axis.
 """
 from __future__ import annotations
 
@@ -59,3 +62,22 @@ def serial_state_from_numpy(weights: Sequence[np.ndarray],
     """The serial trainer's ``ADMMState`` of f32 tensors: node-row
     (N, C) iterates and dual, τ and θ as 0-dim tensors."""
     return ADMMState(*_leaves(weights, zs, u, taus, thetas, device))
+
+
+def _model_leaf(x, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: same bits
+        bits = torch.from_numpy(np.array(arr).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def model_params_from_numpy(tree, device: "str | torch.device | None" = None):
+    """The port's parameter tree from the reference's: nested dicts mapped
+    key for key, each leaf a tensor of the leaf's dtype (bf16 bits kept
+    exactly) on ``device`` (copies, never views of the numpy arrays)."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: model_params_from_numpy(v, device) for k, v in tree.items()}
+    return _model_leaf(tree, device)

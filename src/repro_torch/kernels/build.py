@@ -12,6 +12,9 @@ Within a process, different libraries build concurrently (``load_all``).
 
 Nothing here runs at import time; the first kernel launch calls ``load``.
 A missing ``nvcc`` or a failed compile raises — there is no fallback.
+``launch`` calls a library's C entry on the current CUDA stream and raises
+on a launch error; ``check_operand`` and ``cuda_device`` are the launchers'
+operand checks.
 """
 from __future__ import annotations
 
@@ -24,14 +27,17 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
 # every library, one per csrc/<name>.cu: the ELL and packed kernels, the
-# fused ELL→GEMM kernel, the dense block-row kernel
+# fused ELL→GEMM kernel, the dense block-row kernel, the Mamba-2 SSD scan,
+# flash attention
 LIBRARIES = ("community_spmm_ell", "community_spmm_ell_fused",
-             "community_spmm_dense")
+             "community_spmm_dense", "ssd_scan", "flash_attention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _locks: dict[str, threading.Lock] = {}
@@ -92,3 +98,54 @@ def load_all(names) -> list[ctypes.CDLL]:
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         return list(pool.map(load, names))
+
+
+def launch(kernel: str, lib_name: str, symbol: str, tensors: list,
+           scalars: list, device: torch.device, error_symbol: str) -> None:
+    """Call ``symbol(pointers..., scalars..., stream)`` of library
+    ``lib_name`` on ``device``'s current stream: a pointer per tensor, a C
+    ``int`` per Python int and a C ``float`` per Python float.  The C function
+    returns its launch's ``cudaError_t``; a non-zero one raises, with the
+    library's ``error_symbol(code)`` text."""
+    lib = load(lib_name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:     # first use: declare the C signature
+        fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+                       + [ctypes.c_float if isinstance(x, float)
+                          else ctypes.c_int for x in scalars]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = getattr(lib, error_symbol)
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*[t.data_ptr() for t in tensors], *scalars, stream)
+    if code != 0:
+        msg = getattr(lib, error_symbol)(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} "
+                           f"(cudaError {code})")
+
+
+def check_operand(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
+                  device: torch.device) -> None:
+    """Raise unless ``t`` lies on ``device``, has one of ``dtypes``, has
+    ``shape`` and is contiguous: what a kernel's raw pointer assumes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of "
+                        f"{dtypes}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def cuda_device(kernel: str, z: torch.Tensor) -> torch.device:
+    """``z``'s device, or ValueError unless it is a CUDA device."""
+    if z.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel {kernel} needs CUDA tensors, got "
+                         f"{z.device}")
+    return z.device

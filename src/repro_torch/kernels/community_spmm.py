@@ -24,11 +24,11 @@ once where the tables are built (``core.parallel.community_data``,
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import check_operand as _check
+from repro_torch.kernels.build import cuda_device as _cuda_device
 
 LIB = "community_spmm_ell"          # the ELL and packed kernels
 FUSED_LIB = "community_spmm_ell_fused"
@@ -46,50 +46,10 @@ _FUSED_ROWS, _FUSED_CHUNK, _FUSED_STATIC = 16, 128, 19456
 _SMEM_LIMIT = 232448
 
 
-def _fn(lib_name: str, symbol: str, n_ptr: int, n_int: int):
-    lib = build.load(lib_name)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:     # first use: declare the C signature
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = lib.community_spmm_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-    return fn, lib
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of "
-                        f"{dtypes}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _cuda_device(kernel: str, z: torch.Tensor) -> torch.device:
-    if z.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel {kernel} needs CUDA tensors, got "
-                         f"{z.device}")
-    return z.device
-
-
 def _launch(kernel: str, lib_name: str, symbol: str, ptrs: list,
             ints: list, device: torch.device) -> None:
-    fn, lib = _fn(lib_name, symbol, len(ptrs), len(ints))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*[t.data_ptr() for t in ptrs], *ints, stream)
-    if code != 0:
-        msg = lib.community_spmm_error_string(code).decode()
-        raise RuntimeError(f"{kernel} launch failed: {msg} "
-                           f"(cudaError {code})")
+    build.launch(kernel, lib_name, symbol, ptrs, ints, device,
+                 "community_spmm_error_string")
 
 
 def check_indices(ell_indices: torch.Tensor, ell_mask: torch.Tensor,

@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import community_spmm as launchers
+from repro_torch.kernels import flash_attention as flash_launcher
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd_launcher
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -141,3 +143,34 @@ def community_halo_spmm(ell_blocks: torch.Tensor, ell_offsets: torch.Tensor,
     cross_counts = (nbr_counts * (cross_mask > 0)).to(nbr_counts.dtype)
     return community_spmm_ell_packed(ell_blocks, ell_offsets, cross_mask,
                                      z_plane, row_counts, cross_counts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Online-softmax attention, causal / sliding window / GQA.
+
+    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) -> (B, S, Hq, hd) in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash_launcher.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=window)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+             chunk: int = 256) -> tuple[torch.Tensor, None]:
+    """Mamba-2 SSD chunked scan; returns ``(y, None)`` as the reference.
+
+    x: (B, S, H, P); dt: (B, S, H); a: (H,); b_mat, c_mat: (B, S, G, N).
+    y is (B, S, H, P) in x's dtype; the chunk is ``min(chunk, S)`` halved
+    until it divides S, on the CPU as on the card.
+    """
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, a, b_mat, c_mat, chunk=chunk), None
+    f32 = torch.float32
+    return ssd_launcher.ssd_scan(
+        x.contiguous(), dt.to(f32).contiguous(), a.to(f32).contiguous(),
+        b_mat.contiguous(), c_mat.contiguous(), chunk), None

@@ -1,14 +1,19 @@
-"""Plain PyTorch versions of the aggregation kernels (the allclose targets).
+"""Plain PyTorch versions of the kernels (the allclose targets).
 
 Counterparts of ``community_spmm_ref``, ``community_spmm_ell_einsum``,
-``community_spmm_ell_ref``, ``community_spmm_ell_packed_einsum`` and
-``community_spmm_ell_fused_einsum`` in src/repro/kernels/ref.py.  The CPU
-dispatch in ``kernels.ops`` runs the einsum forms; ``chip_smoke.py`` holds
-each CUDA kernel against its plain version on the card.
+``community_spmm_ell_ref``, ``community_spmm_ell_packed_einsum``,
+``community_spmm_ell_fused_einsum``, ``flash_attention_ref`` and
+``ssd_scan_ref`` in src/repro/kernels/ref.py.  The CPU dispatch in
+``kernels.ops`` runs the einsum forms; ``chip_smoke.py`` holds each CUDA
+kernel against its plain version on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -2.0 ** 30      # the flash kernels' mask value
 
 
 def community_spmm_ref(a_row: torch.Tensor, z_all: torch.Tensor,
@@ -129,3 +134,52 @@ def community_spmm_ell_ref(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
             acc = acc * (lane[:, None] < row_counts[row])
         out[row] = acc.to(z_all.dtype)
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
+    """Exact softmax attention with GQA and causal / window masks, in f32;
+    q (B, S, Hq, hd), k and v (B, S, Hkv, hd) -> (B, S, Hq, hd) in q's
+    dtype.  Masked scores take -2^30, as in the kernels."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, s, hkv, group, hd).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
+def ssd_chunk_length(seq: int, chunk: int) -> int:
+    """The chunk the SSD kernels take: ``min(chunk, seq)``, halved until it
+    divides ``seq`` (src/repro/kernels/ssd_scan.py:74-76).  Any divisor may
+    come out: S = 100 gives 100, S = 1000 gives 8."""
+    chunk = min(chunk, seq)
+    while seq % chunk:
+        chunk //= 2
+    return chunk
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                 chunk: int = 256) -> torch.Tensor:
+    """Chunked SSD scan in f32 at the kernel's chunk length; y in x's
+    dtype, as the kernel returns it.
+
+    Unlike the reference's oracle, which asserts that ``chunk`` divides S
+    (src/repro/models/ssm.py:82), this halves the chunk as the kernel does,
+    so every S the kernel takes has a plain version."""
+    from repro_torch.models.ssm import ssd_chunked
+    f32 = torch.float32
+    y, _ = ssd_chunked(x.to(f32), dt.to(f32), a.to(f32), b_mat.to(f32),
+                       c_mat.to(f32), ssd_chunk_length(x.shape[1], chunk))
+    return y.to(x.dtype)

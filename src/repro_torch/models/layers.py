@@ -1,0 +1,144 @@
+"""Shared layer primitives of the port's ``ssm`` path: dtypes, the
+truncated-normal init, norms, embeddings and the depthwise causal conv.
+
+Counterparts of the same names in src/repro/models/layers.py, in the same
+functional style: ``init_*`` builds a dict of tensors, ``apply_*`` consumes
+it.  Parameters live in the config dtype (bf16 for the published
+architectures); norm statistics run in f32 and the unembedding gives f32
+logits.  The MLPs and RoPE come with the attention families (ROADMAP
+queue A).
+"""
+from __future__ import annotations
+
+import math
+import weakref
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+Params = dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the standard normal's CDF at -2 and 2: the truncated normal's range
+_CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+_CDF_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """``scale`` (default 1/√fan_in) times a standard normal truncated to
+    [-2, 2], drawn in f32 on the generator's device by inverting the CDF:
+    the reference's distribution, not its numbers."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    u = torch.rand(tuple(shape), generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    u = _CDF_LO + (_CDF_HI - _CDF_LO) * u
+    z = (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return (scale * z).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ModelConfig, dim: int, device: torch.device) -> Params:
+    p = {"scale": torch.ones((dim,), dtype=dtype_of(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype_of(cfg), device=device)
+    return p
+
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    dt = dtype_of(cfg)
+    p = {"table": dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
+                             scale=1.0)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
+    return p
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens.long()]
+
+
+# the f32 copy of the last unembedding matrix seen, keyed by a weak reference
+# to the parameter and its version counter
+_f32_memo: dict = {}
+
+
+def _f32_weight(w: torch.Tensor) -> torch.Tensor:
+    """``w.float()``, made once per parameter rather than on every call: a
+    decode step would otherwise copy the whole (V, D) table each token.  A
+    parameter that needs gradients, or one written since (where its version
+    is tracked: not for inference tensors), gets a fresh copy."""
+    if w.dtype == torch.float32 or w.requires_grad:
+        return w.float()
+    version = None if w.is_inference() else w._version
+    ref, seen, copy = _f32_memo.get("w", (None, None, None))
+    if ref is None or ref() is not w or seen != version:
+        copy = w.float()
+
+        def drop(r):
+            if _f32_memo.get("w", (None,))[0] is r:
+                _f32_memo.clear()
+        _f32_memo["w"] = (weakref.ref(w, drop), version, copy)
+    return copy
+
+
+def unembed(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits, as the reference's ``preferred_element_type=f32``: the
+    operands go up to f32 before the product (a bf16 ``matmul`` would round
+    its output to bf16); products of bf16 values are exact in f32."""
+    if cfg.tie_embeddings:
+        return torch.matmul(x.float(), _f32_weight(p["table"]).t())
+    return torch.matmul(x.float(), _f32_weight(p["unembed"]))
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv (mamba2 blocks) with streaming state
+# ---------------------------------------------------------------------------
+
+def init_conv(cfg: ModelConfig, gen: torch.Generator, width: int,
+              kernel: int) -> Params:
+    dt = dtype_of(cfg)
+    return {"w": dense_init(gen, (kernel, width), dt, scale=0.5),
+            "b": torch.zeros((width,), dtype=dt, device=gen.device)}
+
+
+def apply_conv(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over (B, S, W)."""
+    k = p["w"].shape[0]
+    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1], :] * p["w"][i] for i in range(k))
+    return out + p["b"]
+
+
+def apply_conv_step(p: Params, state: torch.Tensor, x_t: torch.Tensor):
+    """One decode step. state: (B, k-1, W) past inputs; x_t: (B, W)."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)     # (B, k, W)
+    out = torch.einsum("bkw,kw->bw", window, p["w"]) + p["b"]
+    return out, window[:, 1:, :]

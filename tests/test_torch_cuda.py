@@ -17,6 +17,14 @@ slots list every block in order.  The trainer's
 kernel path is held against its plain path at one shared state, in ELL and
 dense mode; the server's cached path against its cold path (bitwise) and
 against the same server on the CPU; the serial and baseline trainers run.
+
+The SSD scan and flash attention kernels are held against their plain
+versions: f32 flash within 1e-5 · max |ref|; f32 SSD within 1e-4 · max
+(the chunk's cumsum is summed in another order, and the decay exp(cum_t −
+cum_u) turns its absolute error |cum| · 2^-24 into a relative one); bf16
+within 2^-7 · max, one bf16 ulp at the largest value (both sum in f32 and
+round the output once).  The reduced Mamba-2 forward through the SSD
+kernel matches the plain path in f32 within 1e-4 · max on the logits.
 """
 import numpy as np
 import pytest
@@ -26,7 +34,11 @@ from repro_torch.core import gcn, graph
 from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
 from repro_torch.core.serial import BaselineTrainer, SerialADMMTrainer
 from repro_torch.core.subproblems import ADMMConfig
+from repro_torch.configs import get_config
 from repro_torch.kernels import community_spmm, ops, ref
+from repro_torch.kernels import flash_attention as flash_launcher
+from repro_torch.kernels import ssd_scan as ssd_launcher
+from repro_torch.models.build import make_model
 from repro_torch.serve import CommunityServer, ServeConfig
 
 pytestmark = pytest.mark.cuda
@@ -337,3 +349,114 @@ def test_serial_and_baseline_trainers_run_on_the_card(cuda_device):
     base = BaselineTrainer(cfg, g, "adam", 1e-2)
     log = base.train(3)
     assert log.lagrangian[-1] < log.lagrangian[0]
+
+
+# ---------------------------------------------------------------------------
+# SSD scan and flash attention
+# ---------------------------------------------------------------------------
+
+BF16_TOL = 2.0 ** -7
+
+
+def _within(got, want, tol):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max()), err
+
+
+def _ssd_operands(seed, b, s, h, p, g, n, dtype, device):
+    rng = np.random.default_rng(seed)
+    x, bm, cm = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                 device=device).to(dtype)
+                 for shape in ((b, s, h, p), (b, s, g, n), (b, s, g, n)))
+    dt = torch.as_tensor((0.5 * np.abs(rng.normal(size=(b, s, h))))
+                         .astype(np.float32), device=device)
+    a = -torch.as_tensor(np.abs(rng.normal(size=(h,))).astype(np.float32),
+                         device=device)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 512, 4, 64, 1, 128, 256),   # the model's head_dim and d_state
+    (1, 1000, 4, 32, 2, 64, 256),   # ragged: the chunk halves to 8
+    (2, 100, 8, 16, 4, 16, 256),    # S < chunk: one chunk of 100
+    (1, 192, 2, 64, 2, 128, 64),    # one 64-row tile per chunk, G = 2
+])
+def test_ssd_kernel_matches_plain_version(cuda_device, b, s, h, p, g, n,
+                                          chunk, dtype):
+    args = _ssd_operands(0, b, s, h, p, g, n, dtype, cuda_device)
+    before = ssd_launcher.ssd_launches
+    got, none = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert none is None and ssd_launcher.ssd_launches == before + 1
+    want = ref.ssd_scan_ref(*args, chunk=chunk)
+    _within(got, want, 1e-4 if dtype == torch.float32 else BF16_TOL)
+
+
+def test_ssd_launcher_refuses_bad_operands(cuda_device):
+    x, dt, a, bm, cm = _ssd_operands(1, 1, 64, 4, 16, 2, 16, torch.float32,
+                                     cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_launcher.ssd_scan(x, dt, a, bm.bfloat16(), cm, 64)
+    with pytest.raises(ValueError, match="chunk <= 256"):
+        ssd_launcher.ssd_scan(x.repeat(1, 8, 1, 1), dt.repeat(1, 8, 1), a,
+                              bm.repeat(1, 8, 1, 1), cm.repeat(1, 8, 1, 1),
+                              512)
+    with pytest.raises(ValueError, match="groups"):
+        ssd_launcher.ssd_scan(x[:, :, :3].contiguous(),
+                              dt[:, :, :3].contiguous(), a[:3].contiguous(),
+                              bm, cm, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", [
+    (1, 512, 4, 1, 128, True, None),     # MQA, causal
+    (2, 300, 8, 2, 64, True, None),      # GQA, a ragged last tile
+    (1, 384, 2, 1, 256, True, 100),      # head_dim 256, sliding window
+    (1, 256, 4, 4, 32, False, None),     # non-causal
+    (1, 256, 2, 2, 48, False, 70),       # window without causal
+])
+def test_flash_kernel_matches_plain_version(cuda_device, b, s, hq, hkv, hd,
+                                            causal, window, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, s, hq, hd), (b, s, hkv, hd),
+                                        (b, s, hkv, hd)))
+    before = flash_launcher.flash_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_launcher.flash_launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _within(got, want, 1e-5 if dtype == torch.float32 else BF16_TOL)
+
+
+def test_flash_launcher_refuses_bad_operands(cuda_device):
+    q = torch.zeros((1, 16, 4, 32), device=cuda_device)
+    k = torch.zeros((1, 16, 3, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="kv heads"):
+        flash_launcher.flash_attention(q, k, k)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_launcher.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="window"):
+        flash_launcher.flash_attention(q, q, q, window=0)
+    wide = torch.zeros((1, 16, 1, 512), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_launcher.flash_attention(wide, wide, wide)
+
+
+def test_mamba2_kernel_forward_matches_plain_forward(cuda_device):
+    """The reduced Mamba-2 (f32) on the card: 2 SSD launches per forward,
+    logits within 1e-4 · max of the plain path."""
+    model = make_model(get_config("mamba2-1.3b", reduced=True))
+    params = model.init(seed=0, device=cuda_device)
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 96),
+                           device=cuda_device)
+    with torch.no_grad():
+        want, _, _ = model.forward(params, {"tokens": tokens})
+        before = ssd_launcher.ssd_launches
+        got, _, _ = model.forward(params, {"tokens": tokens},
+                                  use_kernel=True)
+    assert ssd_launcher.ssd_launches == before + model.cfg.num_layers
+    _within(got, want, 1e-4)

@@ -14,6 +14,13 @@ for the dense, packed and fused kernels against the interpret-mode bodies
 version A·(Z·W)).  The dense cases give absent blocks random non-zero
 values: the plain version multiplies them by 0, the kernels skip them.
 
+The plain versions of the SSD scan and flash attention are held against
+the interpret-mode Pallas kernels and the reference's oracles: f32 inputs
+within 1e-5 · max |ref| (the same f32 algorithm, summed in another order),
+bf16 inputs within 2^-7 · max |ref|, one bf16 ulp at the largest value
+(both upcast the same bf16 values and sum in f32, then round the output to
+bf16 once; sums in another order may round to the neighbouring value).
+
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against the plain versions (skipped without a card), and
 ``chip_smoke.py`` does so at the trainer's and the server's shapes.
@@ -33,8 +40,12 @@ from repro.kernels.community_spmm import \
     community_spmm_ell_fused as pallas_fused
 from repro.kernels.community_spmm import \
     community_spmm_ell_packed as pallas_packed
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro_torch.core import messages
 from repro_torch.kernels import build, community_spmm, ops, ref
+from repro_torch.kernels import flash_attention as flash_launcher
+from repro_torch.kernels import ssd_scan as ssd_launcher
 
 
 def _close(got, want, tol):
@@ -182,7 +193,8 @@ def test_every_source_is_a_registered_library():
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sorted(build.LIBRARIES) == sources
     assert {community_spmm.LIB, community_spmm.FUSED_LIB,
-            community_spmm.DENSE_LIB} == set(build.LIBRARIES)
+            community_spmm.DENSE_LIB, ssd_launcher.LIB,
+            flash_launcher.LIB} == set(build.LIBRARIES)
 
 
 def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
@@ -560,3 +572,156 @@ def test_ops_route_device_tensors_to_the_launchers(monkeypatch):
                           "community_spmm_ell_fused"}
     for args in calls.values():
         assert all(t.is_contiguous() for t in args)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan and flash attention
+# ---------------------------------------------------------------------------
+
+SSD_CASES = [                 # (b, s, h, p, g, n, chunk)
+    (2, 128, 4, 32, 2, 32, 32),   # S a multiple of the chunk, G = 2
+    (1, 96, 2, 16, 1, 16, 64),    # ragged: the chunk halves to 32
+    (1, 100, 2, 16, 1, 8, 256),   # S < chunk: one chunk of 100
+    (2, 64, 8, 16, 4, 16, 16),    # G = 4
+]
+
+
+def _ssd_operands(seed, b, s, h, p, g, n):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, p)).astype(np.float32),
+            (0.5 * np.abs(rng.normal(size=(b, s, h)))).astype(np.float32),
+            -np.abs(rng.normal(size=(h,))).astype(np.float32),
+            rng.normal(size=(b, s, g, n)).astype(np.float32),
+            rng.normal(size=(b, s, g, n)).astype(np.float32))
+
+
+def _as(x, dtype):
+    """numpy → (jnp, torch) pair in ``dtype`` ("f32" or "bf16")."""
+    jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
+              else (jnp.bfloat16, torch.bfloat16))
+    return jnp.asarray(x, jd), torch.as_tensor(x).to(td)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES)
+def test_ssd_plain_version_matches_pallas_interpret(b, s, h, p, g, n, chunk,
+                                                    dtype):
+    x, dt, a, bm, cm = _ssd_operands(0, b, s, h, p, g, n)
+    jx, tx = _as(x, dtype)
+    jb, tb = _as(bm, dtype)
+    jc, tc = _as(cm, dtype)
+    want, _ = pallas_ssd(jx, jnp.asarray(dt), jnp.asarray(a), jb, jc,
+                         chunk=chunk, interpret=True)
+    got, none = ops.ssd_scan(tx, torch.as_tensor(dt), torch.as_tensor(a), tb,
+                             tc, chunk=chunk)
+    assert none is None and got.dtype == tx.dtype
+    _close(got.float(), np.asarray(want, np.float32),
+           1e-5 if dtype == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [c for c in SSD_CASES
+                                               if c[1] % c[6] == 0])
+def test_ssd_plain_version_matches_reference_oracle(b, s, h, p, g, n, chunk):
+    """Where the chunk divides S the reference's oracle runs too."""
+    args = _ssd_operands(1, b, s, h, p, g, n)
+    want = jref.ssd_scan_ref(*(jnp.asarray(v) for v in args), chunk=chunk)
+    got = ref.ssd_scan_ref(*(torch.as_tensor(v) for v in args), chunk=chunk)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("s,chunk,want", [(4096, 256, 256), (100, 256, 100),
+                                          (1000, 256, 8), (96, 64, 32),
+                                          (7, 4, 1)])
+def test_ssd_chunk_length_halves_until_it_divides(s, chunk, want):
+    assert ref.ssd_chunk_length(s, chunk) == want
+
+
+FLASH_CASES = [               # (b, s, hq, hkv, hd, causal, window)
+    (2, 128, 4, 4, 32, True, None),    # MHA, causal
+    (1, 256, 8, 2, 32, True, None),    # GQA
+    (2, 128, 4, 1, 64, True, None),    # MQA
+    (1, 256, 2, 2, 32, True, 48),      # sliding window
+    (2, 128, 2, 1, 32, False, None),   # non-causal
+    (1, 128, 4, 2, 16, False, 40),     # window without causal
+]
+
+
+def _flash_operands(seed, b, s, hq, hkv, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, hq, hd)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, hd)).astype(np.float32),
+            rng.normal(size=(b, s, hkv, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", FLASH_CASES)
+def test_flash_plain_version_matches_pallas_interpret(b, s, hq, hkv, hd,
+                                                      causal, window, dtype):
+    pairs = [_as(v, dtype) for v in _flash_operands(0, b, s, hq, hkv, hd)]
+    want = pallas_flash(*(j for j, _ in pairs), causal=causal, window=window,
+                        block_q=64, block_k=32, interpret=True)
+    got = ops.flash_attention(*(t for _, t in pairs), causal=causal,
+                              window=window)
+    assert got.dtype == pairs[0][1].dtype
+    _close(got.float(), np.asarray(want, np.float32),
+           1e-5 if dtype == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,hd,causal,window", FLASH_CASES)
+def test_flash_plain_version_matches_reference_oracle(b, s, hq, hkv, hd,
+                                                      causal, window):
+    args = _flash_operands(1, b, s, hq, hkv, hd)
+    want = jref.flash_attention_ref(*(jnp.asarray(v) for v in args),
+                                    causal=causal, window=window)
+    got = ref.flash_attention_ref(*(torch.as_tensor(v) for v in args),
+                                  causal=causal, window=window)
+    _close(got, want, 1e-6)
+
+
+def test_ssd_and_flash_launchers_refuse_cpu_tensors():
+    x, dt, a, bm, cm = (torch.as_tensor(v)
+                        for v in _ssd_operands(0, 1, 32, 2, 8, 1, 8))
+    before = ssd_launcher.ssd_launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_launcher.ssd_scan(x, dt, a, bm, cm, 32)
+    assert ssd_launcher.ssd_launches == before
+    q, k, v = (torch.as_tensor(t) for t in _flash_operands(0, 1, 32, 2, 1, 8))
+    before = flash_launcher.flash_launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_launcher.flash_attention(q, k, v)
+    assert flash_launcher.flash_launches == before
+
+
+def test_ssd_and_flash_ops_route_device_tensors_to_the_launchers(
+        monkeypatch):
+    """Tensors off the CPU reach the launchers contiguous, with dt and a in
+    f32 and the chunk and masks passed through (meta tensors, launchers
+    recorded in place of the kernels)."""
+    calls = {}
+
+    def ssd(*args):
+        calls["ssd"] = args
+        return torch.empty(args[0].shape, device="meta")
+
+    def flash(*args, **kwargs):
+        calls["flash"] = (args, kwargs)
+        return torch.empty(args[0].shape, device="meta")
+
+    monkeypatch.setattr(ssd_launcher, "ssd_scan", ssd)
+    monkeypatch.setattr(flash_launcher, "flash_attention", flash)
+
+    def meta(shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    y, none = ops.ssd_scan(meta((2, 4, 16, 8)).transpose(1, 2),
+                           meta((2, 16, 4)), meta((4,)), meta((2, 16, 1, 8)),
+                           meta((2, 16, 1, 8)), chunk=8)
+    assert none is None and tuple(y.shape) == (2, 16, 4, 8)
+    args = calls.pop("ssd")
+    assert all(t.is_contiguous() for t in args[:5]) and args[5] == 8
+    assert [t.dtype for t in args[1:3]] == [torch.float32] * 2
+    ops.flash_attention(meta((1, 4, 16, 8)).transpose(1, 2),
+                        meta((1, 16, 2, 8)), meta((1, 16, 2, 8)),
+                        causal=False, window=5)
+    args, kwargs = calls.pop("flash")
+    assert all(t.is_contiguous() for t in args)
+    assert kwargs == {"causal": False, "window": 5}

@@ -1,0 +1,388 @@
+"""The port's language-model path (Mamba-2) against the JAX package.
+
+Configurations are compared field for field.  The reduced Mamba-2
+(``mamba2_1_3b.reduced()``, f32) runs from the JAX ``Model.init``
+parameters, carried across by ``convert.model_params_from_numpy``:
+``forward`` with and without ``use_kernel`` (the kernel's plain version on
+the CPU) and 12 ``decode_step`` calls against the reference's, within
+1e-5 · max |ref| on the logits (the same f32 arithmetic; XLA and PyTorch
+sum the projections in another order), and the port's cached decode against
+its own forward with the reference test's limit on probabilities (rtol
+2e-2, atol 2e-3; tests/test_decode_consistency.py).  ``ssd_chunked`` with
+an initial state is held within 1e-5 · max |ref| of the reference's.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.data.synthetic import synthetic_token_batches as jtokens
+from repro.models import ssm as jssm
+from repro.models.build import make_model as jmake_model
+from repro_torch import configs
+from repro_torch.convert import model_params_from_numpy
+from repro_torch.data import synthetic_token_batches
+from repro_torch.models import layers, ssm, transformer
+from repro_torch.models.build import make_model
+
+ARCH = "mamba2-1.3b"
+
+
+def _close(got, want, tol):
+    got = np.asarray(got.detach() if isinstance(got, torch.Tensor) else got,
+                     np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= tol * scale, \
+        (float(np.abs(got - want).max()), scale)
+
+
+# ---------------------------------------------------------------------------
+# configurations
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_config_fields_and_param_counts_equal(arch, reduced):
+    got = configs.get_config(arch, reduced=reduced)
+    want = jconfigs.get_config(arch, reduced=reduced)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.param_count() == want.param_count()
+    assert got.active_param_count() == want.active_param_count()
+    if want.num_heads:
+        assert got.resolved_head_dim == want.resolved_head_dim
+
+
+def test_registry_and_shapes_equal():
+    assert configs.list_archs() == jconfigs.list_archs()
+    assert {k: dataclasses.asdict(v) for k, v in configs.INPUT_SHAPES.items()} \
+        == {k: dataclasses.asdict(v)
+            for k, v in jconfigs.INPUT_SHAPES.items()}
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_gcn_paper_is_the_ports_own(reduced):
+    """The registry's "gcn-paper" is the port's GCN configuration, equal to
+    the reference's in its numbers."""
+    got_cfg, got_admm = configs.get_config("gcn-paper", reduced=reduced)
+    want_cfg, want_admm = jconfigs.get_config("gcn-paper", reduced=reduced)
+    assert type(got_cfg).__module__.startswith("repro_torch.")
+    assert got_cfg.layer_dims == want_cfg.layer_dims
+    assert dataclasses.asdict(got_admm) == dataclasses.asdict(want_admm)
+
+
+def test_mamba2_published_widths():
+    cfg = configs.get_config(ARCH)
+    assert (cfg.num_layers, cfg.d_model, cfg.vocab_size) == (48, 2048, 50280)
+    assert ssm.dims(cfg) == (4096, 64, 1, 128)
+    assert cfg.param_count() == 48 * 25_838_592 + 102_973_440
+    assert layers.dtype_of(cfg) == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's plain tensor form
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(2, 64, 4, 8, 2, 8, 16),
+                                               (1, 96, 2, 16, 1, 16, 32)])
+def test_ssd_chunked_matches_reference(b, s, h, p, g, n, chunk, with_h0):
+    rng = np.random.default_rng(3)
+    args = [rng.normal(size=(b, s, h, p)),
+            0.5 * np.abs(rng.normal(size=(b, s, h))),
+            -np.abs(rng.normal(size=(h,))),
+            rng.normal(size=(b, s, g, n)), rng.normal(size=(b, s, g, n))]
+    args = [a.astype(np.float32) for a in args]
+    h0 = (rng.normal(size=(b, h, p, n)).astype(np.float32) if with_h0
+          else None)
+    want_y, want_h = jssm.ssd_chunked(
+        *(jnp.asarray(a) for a in args), chunk,
+        None if h0 is None else jnp.asarray(h0))
+    got_y, got_h = ssm.ssd_chunked(
+        *(torch.as_tensor(a) for a in args), chunk,
+        None if h0 is None else torch.as_tensor(h0))
+    _close(got_y, want_y, 1e-5)
+    _close(got_h, want_h, 1e-5)
+    assert got_h.dtype == torch.float32
+
+
+def test_ssd_chunked_refuses_a_chunk_that_does_not_divide():
+    """The plain form keeps the reference's divisibility requirement; the
+    kernel and its plain version halve the chunk instead."""
+    x = torch.zeros((1, 12, 2, 4))
+    with pytest.raises(ValueError, match="does not divide"):
+        ssm.ssd_chunked(x, torch.zeros((1, 12, 2)), -torch.ones(2),
+                        torch.zeros((1, 12, 1, 4)), torch.zeros((1, 12, 1, 4)),
+                        8)
+
+
+# ---------------------------------------------------------------------------
+# the reduced Mamba-2, from the reference's parameters
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pair():
+    cfg = jconfigs.get_config(ARCH, reduced=True)
+    jmodel = jmake_model(cfg)
+    jparams = jmodel.init(jax.random.key(0))
+    params = model_params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    model = make_model(configs.get_config(ARCH, reduced=True))
+    return jmodel, jparams, model, params
+
+
+def _tokens(cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def test_param_tree_matches_reference(pair):
+    """Same key paths, shapes and dtypes, with the stacked layer axis; the
+    port's own init draws the same tree."""
+    jmodel, jparams, model, params = pair
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    want = {"/".join(k.key for k in path): (leaf.shape, str(leaf.dtype))
+            for path, leaf in flat}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    for tree in (params, model.init(seed=0, device="cpu")):
+        got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+               for k, v in walk(tree)}
+        assert got == want
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_forward_matches_reference(pair, use_kernel):
+    jmodel, jparams, model, params = pair
+    tokens = _tokens(model.cfg, 2, 64)
+    want, _, want_h = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)},
+                                     use_kernel=use_kernel)
+    with torch.no_grad():
+        got, aux, h = model.forward(params,
+                                    {"tokens": torch.as_tensor(tokens)},
+                                    use_kernel=use_kernel)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    _close(got, want, 1e-5)
+    _close(h, want_h, 1e-5)
+
+
+def test_forward_last_only_is_the_last_position(pair):
+    _, _, model, params = pair
+    batch = {"tokens": torch.as_tensor(_tokens(model.cfg, 2, 32))}
+    with torch.no_grad():
+        full, _, _ = model.forward(params, batch)
+        last, _, _ = model.forward(params, batch, last_only=True,
+                                   use_kernel=True)
+    assert tuple(last.shape) == (2, 1, model.cfg.vocab_size)
+    _close(last, full[:, -1:], 1e-5)
+
+
+def test_decode_steps_match_reference(pair):
+    """12 cached decode steps, token by token, against the reference's."""
+    jmodel, jparams, model, params = pair
+    b, s = 2, 12
+    tokens = _tokens(model.cfg, b, s, seed=1)
+    jcaches = jmodel.init_cache(b, s + 2)
+    caches = model.init_cache(b, s + 2, device="cpu")
+    for t in range(s):
+        want, jcaches = jmodel.decode_step(jparams, jcaches,
+                                           jnp.asarray(tokens[:, t:t + 1]))
+        with torch.no_grad():
+            got, caches = model.decode_step(
+                params, caches, torch.as_tensor(tokens[:, t:t + 1]))
+        _close(got, want, 1e-5)
+    for key in ("conv", "h"):
+        _close(caches["ssm"][key], jcaches["ssm"][key], 1e-5)
+
+
+def test_loss_and_prefill_match_reference(pair):
+    jmodel, jparams, model, params = pair
+    tokens = _tokens(model.cfg, 2, 16, seed=2)
+    jbatch = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(tokens)}
+    batch = {k: torch.as_tensor(v) for k, v in jbatch.items()}
+    want, want_metrics = jmodel.loss(jparams, jbatch)
+    with torch.no_grad():
+        got, metrics = model.loss(params, batch)
+        logits, caches = model.prefill(params, batch, max_len=32)
+    _close(got, want, 1e-5)
+    _close(metrics["ce"], want_metrics["ce"], 1e-5)
+    want_logits, want_caches = jmodel.prefill(jparams, jbatch, max_len=32)
+    _close(logits, want_logits, 1e-5)
+    # the reference's prefill hands back zero caches (decode fills them)
+    for key, leaf in caches["ssm"].items():
+        assert tuple(leaf.shape) == want_caches["ssm"][key].shape
+        assert not leaf.any()
+
+
+def test_decode_matches_forward():
+    """The port's own check, as tests/test_decode_consistency.py runs it for
+    mamba2-1.3b: token-by-token cached decode reproduces the full forward
+    on probabilities (the port's init, seed 0)."""
+    cfg = configs.get_config(ARCH, reduced=True)
+    model = make_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    b, s = 2, 12
+    tokens = torch.as_tensor(_tokens(cfg, b, s))
+    with torch.no_grad():
+        full, _, _ = model.forward(params, {"tokens": tokens,
+                                            "targets": tokens})
+        caches = model.init_cache(b, s + 2, device="cpu")
+        dec = []
+        for t in range(s):
+            logits, caches = model.decode_step(params, caches,
+                                               tokens[:, t:t + 1])
+            dec.append(logits[:, 0])
+    p_ref = torch.softmax(full.float(), dim=-1).numpy()
+    p_dec = torch.softmax(torch.stack(dec, dim=1).float(), dim=-1).numpy()
+    np.testing.assert_allclose(p_dec, p_ref, rtol=2e-2, atol=2e-3)
+
+
+def test_decode_step_writes_the_stacked_caches_in_place():
+    """Each layer's new state goes into its slot of the stacked caches: the
+    returned caches are the same tensors, now holding the step's state."""
+    cfg = configs.get_config(ARCH, reduced=True)
+    model = make_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    caches = model.init_cache(2, 4, device="cpu")
+    ptrs = {k: v.data_ptr() for k, v in caches["ssm"].items()}
+    tokens = torch.as_tensor(_tokens(cfg, 2, 1))
+    with torch.no_grad():
+        _, out = model.decode_step(params, caches, tokens)
+    assert out is caches
+    for key, leaf in out["ssm"].items():
+        assert leaf.data_ptr() == ptrs[key]
+    assert out["ssm"]["h"].abs().sum() > 0
+
+
+def test_unembed_reuses_the_f32_table_until_it_is_written():
+    """The bf16 table's f32 copy is made once, and made afresh after an
+    in-place write; the logits equal an f32 product either way."""
+    cfg = dataclasses.replace(configs.get_config(ARCH, reduced=True),
+                              dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    p = layers.init_embedding(cfg, gen)
+    x = torch.randn(2, 3, cfg.d_model, generator=gen).bfloat16()
+    first = layers._f32_weight(p["table"])
+    assert layers._f32_weight(p["table"]) is first
+    torch.testing.assert_close(layers.unembed(cfg, p, x),
+                               x.float() @ p["table"].float().t(),
+                               rtol=0, atol=0)
+    p["table"].mul_(2)
+    assert layers._f32_weight(p["table"]) is not first
+    torch.testing.assert_close(layers.unembed(cfg, p, x),
+                               x.float() @ p["table"].float().t(),
+                               rtol=0, atol=0)
+
+
+def test_model_params_from_numpy_keeps_bf16_bits():
+    """bf16 leaves arrive as ml_dtypes arrays; they land as torch bf16 with
+    the same bits, f32 leaves stay f32."""
+    cfg = dataclasses.replace(jconfigs.get_config(ARCH, reduced=True),
+                              dtype="bfloat16")
+    jparams = jmake_model(cfg).init(jax.random.key(1))
+    tree = jax.tree.map(np.asarray, jparams)
+    params = model_params_from_numpy(tree, "cpu")
+    want = tree["stack"]["ssm"]["mixer"]["in_proj"]
+    got = params["stack"]["ssm"]["mixer"]["in_proj"]
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  want.view(np.int16))
+    assert params["stack"]["ssm"]["mixer"]["a_log"].dtype == torch.float32
+    want_table = tree["embedding"]["table"]
+    np.testing.assert_array_equal(
+        params["embedding"]["table"].float().numpy(),
+        want_table.astype(np.float32))
+
+
+def test_dense_init_is_a_truncated_normal():
+    gen = torch.Generator().manual_seed(0)
+    w = layers.dense_init(gen, (400, 500), torch.float32)
+    z = w * 400 ** 0.5
+    assert float(z.abs().max()) <= 2.0
+    # a standard normal truncated to [-2, 2]: mean 0, std 0.8796
+    assert abs(float(z.mean())) < 0.01
+    assert abs(float(z.std()) - 0.8796) < 0.01
+    half = layers.dense_init(gen, (10, 7), torch.bfloat16, scale=0.5)
+    assert half.dtype == torch.bfloat16 and float(half.abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_input_specs_match_reference(arch):
+    """Shapes and dtypes of every input, for every architecture and input
+    shape (the encoder-decoder and vision formats included)."""
+    model = make_model(configs.get_config(arch))
+    jmodel = jmake_model(jconfigs.get_config(arch))
+    for name, shape in configs.INPUT_SHAPES.items():
+        got = model.input_specs(shape)
+        want = jmodel.input_specs(jconfigs.INPUT_SHAPES[name])
+        assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."),
+                    v.device.type) for k, v in got.items()} \
+            == {k: (v.shape, str(v.dtype), "meta") for k, v in want.items()}
+
+
+def test_cache_specs_match_reference():
+    model = make_model(configs.get_config(ARCH))
+    jmodel = jmake_model(jconfigs.get_config(ARCH))
+    for name, shape in configs.INPUT_SHAPES.items():
+        caches = model.cache_specs(shape)
+        jcaches = jmodel.cache_specs(jconfigs.INPUT_SHAPES[name])
+        for key, leaf in caches["ssm"].items():
+            assert leaf.device.type == "meta"
+            assert tuple(leaf.shape) == jcaches["ssm"][key].shape
+
+
+# ---------------------------------------------------------------------------
+# what is not ported
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", [a for a in jconfigs.list_archs()
+                                  if a != ARCH])
+def test_unported_segment_kind_raises(arch):
+    model = make_model(configs.get_config(arch, reduced=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 1"):
+        model.init(device="cpu")
+
+
+def test_unported_entry_points_raise(pair):
+    _, _, model, params = pair
+    x = torch.zeros((1, 4, model.cfg.d_model))
+    with pytest.raises(NotImplementedError, match="item 1"):
+        transformer.apply_layer(model.cfg, "attn_mlp", {}, x)
+    with pytest.raises(ValueError):
+        transformer.apply_layer(model.cfg, "no-such-kind", {}, x)
+    for call in (model.init_optimizer,
+                 lambda: model.train_step(params, None, {}),
+                 lambda: model.train_step_deferred(None, params, None, {})):
+        with pytest.raises(NotImplementedError, match="item 2"):
+            call()
+    with pytest.raises(NotImplementedError, match="item 1"):
+        model.encode(params, x)
+
+
+def test_init_without_device_raises_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is the card")
+    model = make_model(configs.get_config(ARCH, reduced=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 4)
+
+
+def test_synthetic_token_batches_equal_reference():
+    got = next(synthetic_token_batches(512, 2, 64, seed=0))
+    want = next(jtokens(512, 2, 64, seed=0))
+    for key in ("tokens", "targets"):
+        np.testing.assert_array_equal(got[key], want[key])
