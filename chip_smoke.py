@@ -23,7 +23,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      ragged layout with masked slots re-pointed: packed vs plain
      <= 1e-5 max, fused vs the packed kernel then torch.matmul <= 1e-5 max,
      fused vs its reassociated plain version <= 1e-4 max, and fused with
-     W = I bitwise equal to packed;
+     W = I bitwise equal to packed (the fused kernel runs one 32-row tile
+     per thread-block cluster of up to 8 blocks);
   3. train the paper's GCN (767, 1000, 10) on the 13,752-node synthetic
      amazon_computers graph, M = 3 communities, packed state, through the
      ELL kernel, for 3 epochs; every value must be finite and the kernel
@@ -50,14 +51,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      runs and the fused kernel in the fused run;
   6. time the packed and fused kernels, their plain versions and the
      gather + einsum (+ matmul) composition at the server's shapes, beside
-     the card's bound;
+     the card's bound, with the fused kernel's grid and cluster size;
   7. hold the SSD scan kernel against its plain version (f32 limit 1e-4,
      bf16 one ulp, 2^-7 of max) at the Mamba-2 prefill shape (4 x 4096,
      64 heads of 64, d_state 128) in bf16 and f32, at 1 x 32768, at a
      ragged S = 1000 (chunk 8), at S = 100 < chunk and with 2 groups; and
-     the flash attention kernel (f32 limit 1e-5, bf16 2^-7) at qwen2-7b's,
-     gemma-2b's and recurrentgemma-9b's attention shapes (causal; window
-     2048), one non-causal and one f32 case;
+     the flash attention kernels (bf16: the tensor-core kernel, limit
+     2^-7; f32: the FFMA kernel, limit 1e-5) at qwen2-7b's, gemma-2b's and
+     recurrentgemma-9b's attention shapes (causal; window 2048), one
+     non-causal case, a ragged S = 3000, head_dim 80, and one f32 case;
   8. Mamba-2 1.3B at its published widths and depth (48 layers, d_model
      2048, bf16, random weights from a generator on the card): prefill
      4 x 4096 tokens through the kernel and through the plain path
@@ -68,7 +70,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      weights in f32 (probabilities within rtol 2e-2, atol 2e-3);
   9. time both kernels, their plain versions and (attention)
      scaled_dot_product_attention, beside the card's bound for the
-     inputs' type;
+     inputs' type, with each flash shape's route, blocks and TFLOP/s (flash
+     and SDPA over windows of 10 calls, the SM clock printed beside);
   10. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
@@ -101,7 +104,8 @@ PACKED_REPLACES = "src/repro/kernels/community_spmm.py:421"
 FUSED_REPLACES = "src/repro/kernels/community_spmm.py:531"
 
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
-FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"      # f32
+FLASH_TC_SRC = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:67"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:90"
 # kernel vs plain version, max |diff| <= limit · max |plain|: f32 flash
@@ -146,6 +150,15 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def clocks_line() -> str:
+    """SM clock, power draw and temperature now, as nvidia-smi reads
+    them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def peaks(name: str) -> tuple[float, float, float]:
     for key, val in PEAKS.items():
         if key in name:
@@ -160,7 +173,11 @@ def rel_err(out, ref) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
+def median_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
+    """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back
+    calls, per call.  With ``inner`` > 1 the host enqueues while the card
+    runs, so a sub-millisecond kernel is not charged the host's launch
+    time."""
     import torch
     for _ in range(warmup):
         fn()
@@ -170,10 +187,11 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -339,7 +357,8 @@ def counts() -> dict:
             "fused": community_spmm.fused_launches,
             "dense": community_spmm.dense_launches,
             "ssd": ssd_scan.ssd_launches,
-            "flash": flash.flash_launches}
+            "flash": flash.flash_launches,
+            "flash_tc": flash.flash_tc_launches}
 
 
 def reset_counts(to: "dict | None" = None) -> None:
@@ -354,6 +373,7 @@ def reset_counts(to: "dict | None" = None) -> None:
     community_spmm.dense_launches = to["dense"]
     ssd_scan.ssd_launches = to["ssd"]
     flash.flash_launches = to["flash"]
+    flash.flash_tc_launches = to["flash_tc"]
 
 
 def dense_work(mask, n: int, c: int) -> tuple[float, float]:
@@ -964,9 +984,15 @@ FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
      8192, 16, 1, 256, True, 2048, "bfloat16"),
     ("non-causal S=2048 Hq8 Hkv2 hd128 bf16", 1, 2048, 8, 2, 128, False,
      None, "bfloat16"),
+    ("ragged S=3000 Hq28 Hkv4 hd128 causal bf16", 1, 3000, 28, 4, 128, True,
+     None, "bfloat16"),
+    ("hd80 S=2048 Hq16 Hkv4 causal bf16", 2, 2048, 16, 4, 80, True, None,
+     "bfloat16"),
     ("qwen2-7b heads S=2048 causal f32", 1, 2048, 28, 4, 128, True, None,
      "float32"),
 ]
+FLASH_TIMED = [FLASH_CHECKS[i] for i in (0, 1, 2, 6)]   # three bf16, the f32
+FLASH_INNER = 10    # flash and SDPA calls per timed window (sub-ms kernels)
 
 
 def check_lm_kernels(gen, dev) -> tuple[list, list]:
@@ -1098,6 +1124,7 @@ def mamba_phase(card: str, dev) -> dict:
     if not rel <= LOGIT_TOL:
         fail(f"prefill logits, kernel vs plain path: rel {rel:.3e}")
     out.update(launches=launches["ssd"], flash_launches=launches["flash"],
+               flash_tc_launches=launches["flash_tc"],
                logits_max_abs_err=err,
                logits_rel_err=rel, argmax_agreement=agree)
 
@@ -1191,6 +1218,7 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
     beside the card's bound for the inputs' type."""
     import torch
 
+    from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
 
     def peak(dtype):
@@ -1220,7 +1248,8 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
         del args
     flash_t = {}
     F = torch.nn.functional
-    for name, b, s, hq, hkv, hd, causal, window, dtype in FLASH_CHECKS[:3]:
+    print(f"[9] card before the flash timings: {clocks_line()}", flush=True)
+    for name, b, s, hq, hkv, hd, causal, window, dtype in FLASH_TIMED:
         dtype = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, s, hq, hd), (b, s, hkv, hd),
@@ -1239,21 +1268,29 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
 
         before = counts()
         ms = median_ms(lambda: ops.flash_attention(
-            q, k, v, causal=causal, window=window), 5)
+            q, k, v, causal=causal, window=window), 5, inner=FLASH_INNER)
         reset_counts(before)            # timing launches do not count
         plain_ms = median_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=causal, window=window), 3, warmup=1)
-        lib_ms = median_ms(sdpa, 5)
+        lib_ms = median_ms(sdpa, 5, inner=FLASH_INNER)
         flops, nbytes = flash_work(q, k, causal, window)
         bnd, by = bound(flops, nbytes, peak(dtype), peak_bw)
+        tc = dtype == torch.bfloat16
+        route = "tensor cores (wgmma)" if tc else "FFMA"
+        # a block per (batch, query head, tile of query rows); the FFMA
+        # kernel's tiles are 32 rows (flash_attention.cu)
+        rows = flash.tc_layout(hd)["block_q"] if tc else 32
+        blocks = b * hq * -(-s // rows)
         flash_t[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bnd, "bound_by": by,
                          "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                         "tflop_per_s": flops / ms / 1e9}
-        print(f"[9] flash_attention {name}: kernel {ms:.3f} ms "
-              f"({flash_t[name]['tflop_per_s']:.1f} TFLOP/s), plain version "
-              f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} "
-              f"ms, bound {bnd:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+                         "tflop_per_s": flops / ms / 1e9, "route": route,
+                         "blocks": blocks}
+        print(f"[9] flash_attention {name}: {route}, {blocks} blocks: "
+              f"kernel {ms:.3f} ms ({flash_t[name]['tflop_per_s']:.1f} "
+              f"TFLOP/s), plain version {plain_ms:.3f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
+              f"{bnd:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB) [{card}]", flush=True)
         del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
@@ -1289,8 +1326,9 @@ def main() -> int:
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     build.load_all(build.LIBRARIES)
-    print(f"[1] built {KERNEL_SRC}, {FUSED_SRC}, {DENSE_SRC}, {SSD_SRC} and "
-          f"{FLASH_SRC} in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[1] built {KERNEL_SRC}, {FUSED_SRC}, {DENSE_SRC}, {SSD_SRC}, "
+          f"{FLASH_SRC} and {FLASH_TC_SRC} in {time.perf_counter() - t0:.2f} "
+          f"s", flush=True)
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1582,9 +1620,12 @@ def main() -> int:
         t = fused_c[(c_in, c_out)] = time_packed(
             blocks_s, off_s, mask_s, rows_s, nbrs_s, z, peak_flops, peak_bw,
             w=w)
+        grid = community_spmm.fused_grid(1, n_s, c_in)
+        t.update(grid=grid, cluster=grid[0], blocks=math.prod(grid))
         print(f"[6] fused cold path k=1 D={d_s} ({t['live_slots']} live) "
-              f"n_pad={n_s} {c_in}->{c_out}: kernel {t['ms']:.3f} ms, plain "
-              f"version {t['plain_ms']:.3f} ms, gather+einsum+matmul "
+              f"n_pad={n_s} {c_in}->{c_out}: grid {grid} = {t['blocks']} "
+              f"blocks in clusters of {grid[0]}: kernel {t['ms']:.3f} ms, "
+              f"plain version {t['plain_ms']:.3f} ms, gather+einsum+matmul "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
               f"({t['bound_by']}; {t['gflop']:.2f} GFLOP, "
               f"{t['mbytes']:.1f} MB) [{card}]", flush=True)
@@ -1641,6 +1682,9 @@ def main() -> int:
         "timed_at": {"k": 1, "max_deg": d_s, "live_slots": head["live_slots"],
                      "n_pad": n_s, "plane_rows": d_s * n_s, "C_in": 767,
                      "C_out": 1000},
+        "design": "32-row tile per thread-block cluster, C_in chunks over "
+                  "the cluster, aggregate in distributed shared memory",
+        "cluster": head["cluster"], "blocks": head["blocks"],
         "checked": True,
         "max_rel_err_vs_packed_then_matmul": max(
             ch["rel_err_vs_packed_then_matmul"] for ch in fused_checks),
@@ -1676,8 +1720,11 @@ def main() -> int:
         "per_shape": ssd_t, "checks": ssd_checks})
     head = flash_t[FLASH_CHECKS[0][0]]
     rows_out.append({
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+        "name": "flash_attention", "route": "cuda", "source": FLASH_TC_SRC,
         "replaces": FLASH_REPLACES, "launches": mamba["flash_launches"],
+        "design": "bf16 on the tensor cores (wgmma); f32 FFMA kernel in "
+                  f"{FLASH_SRC}",
+        "tensor_core_launches": mamba["flash_tc_launches"],
         "max_abs_err": max(ch["max_abs_err"] for ch in flash_checks),
         "max_rel_err": max(ch["max_rel_err"] for ch in flash_checks),
         "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -35,9 +35,10 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
 # every library, one per csrc/<name>.cu: the ELL and packed kernels, the
 # fused ELL→GEMM kernel, the dense block-row kernel, the Mamba-2 SSD scan,
-# flash attention
+# flash attention in f32 (FFMA) and in bf16 (tensor cores)
 LIBRARIES = ("community_spmm_ell", "community_spmm_ell_fused",
-             "community_spmm_dense", "ssd_scan", "flash_attention")
+             "community_spmm_dense", "ssd_scan", "flash_attention",
+             "flash_attention_wgmma")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _locks: dict[str, threading.Lock] = {}

@@ -16,6 +16,10 @@ Each kernel has its own launch count, one per call that reaches it:
 ``dense_launches``.  Callers
 that want the count of one phase reset it to 0 before the phase.
 
+``fused_cluster``, ``fused_grid`` and ``fused_smem_bytes`` mirror the
+fused kernel's cluster launch, so that the width limit is refused here
+(the card tests hold them against ``community_spmm_ell_fused_layout``).
+
 The launchers read no values from the device: the indices of live slots
 must lie in ``[0, M)`` and the plane rows a live packed slot reads must lie
 inside the plane, which ``check_indices`` and ``check_plane_offsets`` verify
@@ -40,9 +44,11 @@ dense_launches = 0
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT = (torch.int32,)
-# the fused kernel keeps a (16, C_in rounded up to 128) f32 aggregate and
-# 19,456 bytes of staging tiles in one block's shared memory (227 KB)
-_FUSED_ROWS, _FUSED_CHUNK, _FUSED_STATIC = 16, 128, 19456
+# the fused kernel spreads a 32-row tile's (32, C_in) f32 aggregate over a
+# cluster of up to 8 blocks in 128-column chunks; each block holds its
+# chunks (16 KB each) and 21,504 bytes of staging tiles in shared memory
+_FUSED_ROWS, _FUSED_CHUNK, _FUSED_MAX_CLUSTER = 32, 128, 8
+_FUSED_STATIC = 4 * 32 * ((32 + 4) + (128 + 4))
 _SMEM_LIMIT = 232448
 
 
@@ -167,23 +173,32 @@ def community_spmm_ell_packed(ell_blocks: torch.Tensor,
     return out
 
 
+def fused_cluster(c_in: int) -> tuple[int, int]:
+    """(blocks per cluster, aggregate chunks per block) of the fused kernel
+    at width C_in: ceil(C_in / 128) chunks (at least one) over a cluster
+    of at most 8 blocks, block r owning chunks r, r + cluster, ..."""
+    chunks = max(1, -(-c_in // _FUSED_CHUNK))
+    cluster = min(chunks, _FUSED_MAX_CLUSTER)
+    return cluster, -(-chunks // cluster)
+
+
+def fused_grid(k: int, n_pad: int, c_in: int) -> tuple[int, int, int]:
+    """The fused kernel's grid: (cluster blocks, 32-row tiles, lanes)."""
+    return fused_cluster(c_in)[0], -(-n_pad // _FUSED_ROWS), k
+
+
 def fused_smem_bytes(c_in: int) -> int:
-    """Shared memory one block of the fused kernel takes at width C_in."""
-    ld = -(-c_in // _FUSED_CHUNK) * _FUSED_CHUNK
-    return _FUSED_ROWS * ld * 4 + _FUSED_STATIC
+    """Shared memory one block of the fused kernel takes at width C_in:
+    its aggregate chunks and the staging tiles."""
+    return (fused_cluster(c_in)[1] * _FUSED_ROWS * _FUSED_CHUNK * 4
+            + _FUSED_STATIC)
 
 
-def community_spmm_ell_fused(ell_blocks: torch.Tensor,
-                             ell_offsets: torch.Tensor,
-                             ell_mask: torch.Tensor, z_plane: torch.Tensor,
-                             w: torch.Tensor, row_counts: torch.Tensor,
-                             nbr_counts: torch.Tensor) -> torch.Tensor:
-    """(packed aggregate) @ w on the card in one pass: the operands of
-    ``community_spmm_ell_packed`` plus w (C_in, C_out) f32.  The aggregate
-    stays in shared memory and is bitwise the packed kernel's output.
-    Returns (k, n_pad, C_out) f32, rows at or past row_counts zero."""
-    global fused_launches
-    device = _cuda_device("community_spmm_ell_fused", z_plane)
+def check_fused_operands(device, ell_blocks, ell_offsets, ell_mask,
+                         z_plane, w, row_counts,
+                         nbr_counts) -> tuple[int, int, int, int, int]:
+    """Raise on what the fused kernel does not take, C_in too wide for a
+    block's shared memory included; return (k, D, n_pad, C_in, C_out)."""
     if z_plane.dim() != 2 or w.dim() != 2:
         raise ValueError(f"expected z_plane (R, C_in) and w (C_in, C_out), "
                          f"got {tuple(z_plane.shape)} and {tuple(w.shape)}")
@@ -198,6 +213,24 @@ def community_spmm_ell_fused(ell_blocks: torch.Tensor,
         raise ValueError(f"C_in = {c_in} needs {fused_smem_bytes(c_in)} "
                          f"bytes of shared memory per block; the card has "
                          f"{_SMEM_LIMIT}")
+    return k, d, n_pad, c_in, c_out
+
+
+def community_spmm_ell_fused(ell_blocks: torch.Tensor,
+                             ell_offsets: torch.Tensor,
+                             ell_mask: torch.Tensor, z_plane: torch.Tensor,
+                             w: torch.Tensor, row_counts: torch.Tensor,
+                             nbr_counts: torch.Tensor) -> torch.Tensor:
+    """(packed aggregate) @ w on the card in one pass: the operands of
+    ``community_spmm_ell_packed`` plus w (C_in, C_out) f32.  The aggregate
+    stays in the shared memory of a thread-block cluster and is bitwise the
+    packed kernel's output.
+    Returns (k, n_pad, C_out) f32, rows at or past row_counts zero."""
+    global fused_launches
+    device = _cuda_device("community_spmm_ell_fused", z_plane)
+    k, d, n_pad, c_in, c_out = check_fused_operands(
+        device, ell_blocks, ell_offsets, ell_mask, z_plane, w, row_counts,
+        nbr_counts)
     out = torch.empty((k, n_pad, c_out), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out

@@ -1,9 +1,11 @@
-// Flash attention (online softmax) for Hopper (sm_90a): causal, sliding
-// window and grouped-query heads.
+// Flash attention (online softmax) for Hopper (sm_90a), f32: causal,
+// sliding window and grouped-query heads.
 //
 // Replaces the Pallas TPU kernel `flash_attention` (`_flash_kernel`,
-// src/repro/kernels/flash_attention.py).  For query head h (kv head
-// h / (Hq / Hkv)) and query position i:
+// src/repro/kernels/flash_attention.py) for f32 operands; bf16 operands run
+// the tensor-core kernel of flash_attention_wgmma.cu (tensor cores in f32
+// would mean TF32, outside the f32 limit of 1e-5 of max).  For query head h
+// (kv head h / (Hq / Hkv)) and query position i:
 //
 //   s_ij = (q_i . k_j) / sqrt(hd), set to -2^30 where j > i (causal) or
 //          i - j >= window;
@@ -15,25 +17,21 @@
 // real key has been seen, and the first real key's max resets it (its
 // rescale factor exp(-2^30 - m) is exactly 0), where -inf would give NaN.
 // kv tiles wholly past the causal frontier or before the window are never
-// read.  q, k and v are f32 or bf16; every sum is f32 and the output is
-// written in q's type.
+// read.  Every sum is f32.
 //
 // Design.  One block of 256 threads owns 32 query rows of one (batch, query
-// head); it stages the rows in shared memory as f32 and walks 32-key tiles
-// of k and v, also staged as f32.  Eight threads share a row: each forms
-// four of the row's 32 scores, the eight reduce the max and the sum with
-// warp shuffles, and each keeps every eighth output column of the row in
-// registers (hd / 8 of them).  The tiles are 32 rows so that head_dim 256
-// fits: q, k and v tiles take 100 KB, two blocks per SM.
+// head); it stages the rows in shared memory and walks 32-key tiles of k
+// and v.  Eight threads share a row: each forms four of the row's 32
+// scores, the eight reduce the max and the sum with warp shuffles, and each
+// keeps every eighth output column of the row in registers (hd / 8 of
+// them).  The tiles are 32 rows so that head_dim 256 fits: q, k and v tiles
+// take 100 KB, two blocks per SM.
 //
 // What bounds it.  At qwen2-7b's heads (S = 4096, 28 query heads, hd 128,
-// causal) the work is ~120 GFLOP against ~8 MB of bf16 operands: far above
-// the ridge, bound by the tensor cores at ~0.12 ms.  This first version is
-// a plain FFMA kernel whose P.V loop reads one shared value per FMA, so it
-// runs at a small fraction of the FP32 rate and further still below the
-// tensor cores (PERF.md).  wgmma tiles with the scores kept in registers
-// are later work.
-#include <cuda_bf16.h>
+// causal) the work is ~120 GFLOP against ~134 MB of f32 operands: far
+// above the ridge, bound by FP32 operations.  A plain FFMA kernel whose P.V
+// loop reads one shared value per FMA, it runs at a fraction of the FP32
+// rate (PERF.md).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -46,15 +44,6 @@ constexpr int BK = 32;          // keys per tile
 constexpr int ROW_THREADS = 8;  // threads sharing one query row
 constexpr float NEG = -1073741824.0f;   // -2^30, the TPU kernel's mask
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 template <int HD>
 constexpr int smem_bytes() {
   return 4 * (2 * BQ * (HD + 1) + BK * HD + BQ * (BK + 1));
@@ -62,11 +51,11 @@ constexpr int smem_bytes() {
 
 // HD: head_dim rounded up to 64, 128 or 256 (the register accumulators);
 // hd: the real head_dim, columns at or past it are zero.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int seq, int hq,
-             int hkv, int hd, int causal, int window, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int seq,
+             int hq, int hkv, int hd, int causal, int window, float scale) {
   extern __shared__ float smem[];
   constexpr int LDQ = HD + 1;
   float* qs = smem;                 // qs[r * LDQ + d]
@@ -85,15 +74,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_step = (size_t)hq * hd;
   const size_t k_step = (size_t)hkv * hd;
-  const T* qb = q + ((size_t)b * seq * hq + h) * hd;
-  const T* kb = k + ((size_t)b * seq * hkv + hk) * hd;
-  const T* vb = v + ((size_t)b * seq * hkv + hk) * hd;
-  T* ob = o + ((size_t)b * seq * hq + h) * hd;
+  const float* qb = q + ((size_t)b * seq * hq + h) * hd;
+  const float* kb = k + ((size_t)b * seq * hkv + hk) * hd;
+  const float* vb = v + ((size_t)b * seq * hkv + hk) * hd;
+  float* ob = o + ((size_t)b * seq * hq + h) * hd;
 
   for (int i = tid; i < BQ * HD; i += THREADS) {
     const int rr = i / HD, d = i % HD;
     qs[rr * LDQ + d] = (q0 + rr < seq && d < hd)
-                           ? to_f(qb[(size_t)(q0 + rr) * q_step + d])
+                           ? qb[(size_t)(q0 + rr) * q_step + d]
                            : 0.f;
   }
 
@@ -115,8 +104,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i / HD, d = i % HD;
       const bool ok = k0 + c < seq && d < hd;
       const size_t off = (size_t)(k0 + c) * k_step + d;
-      ks[c * LDQ + d] = ok ? to_f(kb[off]) : 0.f;
-      vs[c * HD + d] = ok ? to_f(vb[off]) : 0.f;
+      ks[c * LDQ + d] = ok ? kb[off] : 0.f;
+      vs[c * HD + d] = ok ? vb[off] : 0.f;
     }
     __syncthreads();
 
@@ -173,30 +162,29 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qi >= seq) return;
   const float denom = fmaxf(l, 1e-20f);
-  T* orow = ob + (size_t)qi * q_step;
+  float* orow = ob + (size_t)qi * q_step;
 #pragma unroll
   for (int j = 0; j < HD / ROW_THREADS; ++j) {
     const int d = cg + ROW_THREADS * j;
-    if (d < hd) store(orow + d, acc[j] / denom);
+    if (d < hd) orow[d] = acc[j] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
               int batch, int seq, int hq, int hkv, int hd, int causal,
               int window, float scale, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes<HD>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq + BQ - 1) / BQ, hq, batch);
-  flash_kernel<T, HD><<<grid, THREADS, smem_bytes<HD>(), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, seq, hq, hkv, hd, causal,
-      window, scale);
+  flash_kernel<HD><<<grid, THREADS, smem_bytes<HD>(), stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, seq, hq,
+      hkv, hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int seq, int hq, int hkv, int hd, int causal, int window,
            float scale, void* stream) {
@@ -204,39 +192,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (hd <= 64)
-    return launch_hd<T, 64>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
-                            window, scale, s);
+    return launch_hd<64>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
+                         window, scale, s);
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
-                             window, scale, s);
-  return launch_hd<T, 256>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
-                           window, scale, s);
+    return launch_hd<128>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
+                          window, scale, s);
+  return launch_hd<256>(q, k, v, o, batch, seq, hq, hkv, hd, causal, window,
+                        scale, s);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer of a
-// contiguous tensor: q and o (batch, seq, hq, hd), k and v (batch, seq,
-// hkv, hd), all f32 (`flash_attention_f32`) or all bf16
-// (`flash_attention_bf16`).  hq is a multiple of hkv, hd <= 256; causal is
-// 0 or 1; window <= 0 means no window; scale multiplies q . k.  Returns the
+// contiguous f32 tensor: q and o (batch, seq, hq, hd), k and v (batch, seq,
+// hkv, hd).  hq is a multiple of hkv, hd <= 256; causal is 0 or 1;
+// window <= 0 means no window; scale multiplies q . k.  Returns the
 // cudaError_t of the launch.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int batch,
                                    int seq, int hq, int hkv, int hd,
                                    int causal, int window, float scale,
                                    void* stream) {
-  return launch<float>(q, k, v, o, batch, seq, hq, hkv, hd, causal, window,
-                       scale, stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int batch,
-                                    int seq, int hq, int hkv, int hd,
-                                    int causal, int window, float scale,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
-                               window, scale, stream);
+  return launch(q, k, v, o, batch, seq, hq, hkv, hd, causal, window, scale,
+                stream);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

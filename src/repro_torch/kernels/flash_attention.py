@@ -1,17 +1,24 @@
-"""Launcher for the hand-written Hopper flash attention kernel.
+"""Launcher for the hand-written Hopper flash attention kernels.
 
-``csrc/flash_attention.cu`` replaces the Pallas TPU kernel
-``flash_attention`` (src/repro/kernels/flash_attention.py): online-softmax
-attention with causal and sliding-window masks and grouped-query heads.  No
-model path of either package calls it (every attention in
-``repro.models`` runs the jnp ``block_causal_attention``), so the port
-carries the kernel, its plain version and its dispatch
+Two CUDA kernels replace the Pallas TPU kernel ``flash_attention``
+(src/repro/kernels/flash_attention.py): online-softmax attention with causal
+and sliding-window masks and grouped-query heads.  The route is fixed by the
+operands' dtype, not chosen on failure:
+
+* bf16 runs ``csrc/flash_attention_wgmma.cu``, on the tensor cores (wgmma);
+* f32 runs ``csrc/flash_attention.cu``, an FFMA kernel (tensor cores in
+  f32 would mean TF32, outside the f32 limit of 1e-5 of max).
+
+No model path of either package calls attention through it (every
+attention in ``repro.models`` runs the jnp ``block_causal_attention``), so
+the port carries the kernels, their plain version and their dispatch
 (``ops.flash_attention``), as the reference does.  This module checks the
-operands, allocates the output and launches the kernel on the current CUDA
-stream; the kernel picks its own tiles (the TPU wrapper's ``block_q`` and
-``block_k`` are tiling only).
+operands, allocates the output and launches on the current CUDA stream; the
+kernels pick their own tiles (the TPU wrapper's ``block_q`` and ``block_k``
+are tiling only); ``tc_layout`` mirrors the tensor-core kernel's choice.
 
-``flash_launches`` counts the calls that reach the kernel.
+``flash_launches`` counts every call that reaches a kernel,
+``flash_tc_launches`` those that reach the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -20,31 +27,46 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.build import check_operand
 
-LIB = "flash_attention"
+LIB = "flash_attention"             # f32, FFMA
+TC_LIB = "flash_attention_wgmma"    # bf16, tensor cores
 flash_launches = 0
+flash_tc_launches = 0
 
 MAX_HEAD_DIM = 256
-_SYMBOLS = {torch.float32: "flash_attention_f32",
-            torch.bfloat16: "flash_attention_bf16"}
+_ROUTES = {torch.float32: (LIB, "flash_attention_f32",
+                           "flash_attention_error_string"),
+           torch.bfloat16: (TC_LIB, "flash_attention_bf16",
+                            "flash_attention_wgmma_error_string")}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
-    """Attention on the card.
+def tc_layout(hd: int) -> dict:
+    """The tensor-core kernel's tiles at head_dim ``hd`` (1..256), as
+    ``flash_attention_bf16_layout`` in the CUDA source computes them: the
+    head_dim padded to a multiple of 64, query rows per block (64 per
+    consumer warpgroup: two, or one at hd 256), keys per kv tile (128 up
+    to hd 128, 64 at 192, 32 at 256), threads and shared-memory bytes (q,
+    two stages of k and v, 1024 to align)."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
+    head = -(-hd // 64) * 64
+    warpgroups = 1 if head == 256 else 2
+    block_q = 64 * warpgroups
+    block_k = {256: 32, 192: 64}.get(head, 128)
+    smem = 2 * head * (block_q + 4 * block_k) + 1024
+    return {"head_pad": head, "block_q": block_q, "block_k": block_k,
+            "threads": 128 * warpgroups, "smem_bytes": smem}
 
-    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd), Hkv dividing Hq; one dtype,
-    f32 or bf16; hd <= 256.  ``window``: keys with q − k ≥ window are
-    masked, with or without ``causal``.  Returns (B, S, Hq, hd) in q's dtype.
-    """
-    global flash_launches
-    device = build.cuda_device("flash_attention", q)
+
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: int | None,
+                   device: torch.device) -> tuple[int, int, int, int, int]:
+    """Raise on what the kernels do not take; return (B, S, Hq, Hkv, hd)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected q (B, S, Hq, hd) and k (B, S, Hkv, hd), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
-    if q.dtype not in _SYMBOLS:
+    if q.dtype not in _ROUTES:
         raise TypeError(f"q has dtype {q.dtype}, expected one of "
-                        f"{tuple(_SYMBOLS)}")
+                        f"{tuple(_ROUTES)}")
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     check_operand("q", q, (b, s, hq, hd), (q.dtype,), device)
@@ -56,12 +78,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    return b, s, hq, hkv, hd
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention on the card.
+
+    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd), Hkv dividing Hq; one dtype,
+    bf16 (tensor cores) or f32 (FFMA); hd <= 256.  ``window``: keys with
+    q − k ≥ window are masked, with or without ``causal``.  Returns
+    (B, S, Hq, hd) in q's dtype.
+    """
+    global flash_launches, flash_tc_launches
+    device = build.cuda_device("flash_attention", q)
+    b, s, hq, hkv, hd = check_operands(q, k, v, window, device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    build.launch("flash_attention", LIB, _SYMBOLS[q.dtype], [q, k, v, out],
+    lib, symbol, errors = _ROUTES[q.dtype]
+    build.launch("flash_attention", lib, symbol, [q, k, v, out],
                  [b, s, hq, hkv, hd, int(causal),
                   0 if window is None else int(window), 1.0 / hd ** 0.5],
-                 device, "flash_attention_error_string")
+                 device, errors)
     flash_launches += 1
+    if lib == TC_LIB:
+        flash_tc_launches += 1
     return out

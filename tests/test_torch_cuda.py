@@ -19,11 +19,13 @@ dense mode; the server's cached path against its cold path (bitwise) and
 against the same server on the CPU; the serial and baseline trainers run.
 
 The SSD scan and flash attention kernels are held against their plain
-versions: f32 flash within 1e-5 · max |ref|; f32 SSD within 1e-4 · max
-(the chunk's cumsum is summed in another order, and the decay exp(cum_t −
-cum_u) turns its absolute error |cum| · 2^-24 into a relative one); bf16
-within 2^-7 · max, one bf16 ulp at the largest value (both sum in f32 and
-round the output once).  The reduced Mamba-2 forward through the SSD
+versions: f32 flash (the FFMA kernel) within 1e-5 · max |ref|; f32 SSD
+within 1e-4 · max (the chunk's cumsum is summed in another order, and the
+decay exp(cum_t − cum_u) turns its absolute error |cum| · 2^-24 into a
+relative one); bf16 within 2^-7 · max, one bf16 ulp at the largest value
+(both sum in f32 and round the output once; the tensor-core flash kernel
+also rounds P to bf16 before P·V, and normalises by the sum of the rounded
+P).  The reduced Mamba-2 forward through the SSD
 kernel matches the plain path in f32 within 1e-4 · max on the logits.
 """
 import numpy as np
@@ -35,7 +37,7 @@ from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
 from repro_torch.core.serial import BaselineTrainer, SerialADMMTrainer
 from repro_torch.core.subproblems import ADMMConfig
 from repro_torch.configs import get_config
-from repro_torch.kernels import community_spmm, ops, ref
+from repro_torch.kernels import build, community_spmm, ops, ref
 from repro_torch.kernels import flash_attention as flash_launcher
 from repro_torch.kernels import ssd_scan as ssd_launcher
 from repro_torch.models.build import make_model
@@ -212,9 +214,45 @@ def test_halo_kernel_matches_plain_version(cuda_device):
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("c_out", [1, 10, 1000])
+@pytest.mark.parametrize("c_in", [64, 127, 129, 767, 1000, 1025])
+def test_fused_cluster_kernel_at_the_chunk_edges(cuda_device, c_in, c_out):
+    """Widths on both sides of a 128-column chunk and of the 8-block
+    cluster (1025 columns: nine chunks, two on block 0), three lanes."""
+    blocks, off, mask, z, w, rows, nbrs = _packed_operands(
+        4, 3, 4, 70, c_in, c_out, cuda_device)
+    got = ops.community_spmm_ell_fused(blocks, off, mask, z, w, rows, nbrs)
+    agg = ops.community_spmm_ell_packed(blocks, off, mask, z, rows, nbrs)
+    two_step = agg @ w
+    assert float((got - two_step).abs().max()) \
+        <= 1e-5 * float(two_step.abs().max())
+    plain = ref.community_spmm_ell_fused_einsum(blocks, off, mask, z, w, rows,
+                                                nbrs)
+    assert float((got - plain).abs().max()) <= 1e-4 * float(plain.abs().max())
+    eye = torch.eye(c_in, device=cuda_device)
+    assert torch.equal(
+        ops.community_spmm_ell_fused(blocks, off, mask, z, eye, rows, nbrs),
+        agg)
+
+
+def test_fused_layout_matches_the_launcher(cuda_device):
+    """The kernel's own cluster size and shared-memory bytes equal the
+    launcher's ``fused_cluster`` / ``fused_smem_bytes`` at every width."""
+    import ctypes
+    lib = build.load(community_spmm.FUSED_LIB)
+    query = lib.community_spmm_ell_fused_layout
+    query.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 3)()
+    for c_in in range(1, 12290):
+        query(c_in, out)
+        assert (out[0], out[1], out[2]) == (
+            community_spmm.fused_cluster(c_in)[0], 32,
+            community_spmm.fused_smem_bytes(c_in))
+
+
 def test_fused_kernel_refuses_too_wide_c_in(cuda_device):
     blocks, off, mask, z, w, rows, nbrs = _packed_operands(
-        3, 1, 1, 16, 3400, 4, cuda_device)
+        3, 1, 1, 16, 12289, 4, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         community_spmm.community_spmm_ell_fused(
             blocks, off, mask.to(torch.int32), z, w, rows, nbrs)
@@ -430,6 +468,60 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, hq, hkv, hd,
     assert flash_launcher.flash_launches == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     _within(got, want, 1e-5 if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 1)])
+@pytest.mark.parametrize("window", ["1", "127", ">= S"])
+@pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 4097])
+def test_flash_tensor_core_kernel_at_the_tile_edges(cuda_device, s, hd,
+                                                    window, hq, hkv):
+    """The bf16 (wgmma) kernel, batch 2, causal: sequences on both sides of
+    the 64-row and 64-key tiles, head dims that are not multiples of 64,
+    windows of one key, 127 keys and the whole sequence, GQA and MQA."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s * 1000 + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for shape in ((2, s, hq, hd),
+                                                 (2, s, hkv, hd),
+                                                 (2, s, hkv, hd)))
+    w = s + 1 if window == ">= S" else int(window)
+    before = flash_launcher.flash_tc_launches
+    got = ops.flash_attention(q, k, v, causal=True, window=w)
+    torch.cuda.synchronize()
+    assert flash_launcher.flash_tc_launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=w)
+    _within(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_route_counts(cuda_device, dtype):
+    """A bf16 call counts one tensor-core launch, an f32 call one FFMA
+    launch; both count in ``flash_launches``."""
+    q = torch.randn((1, 96, 2, 64), device=cuda_device).to(dtype)
+    before = (flash_launcher.flash_launches,
+              flash_launcher.flash_tc_launches)
+    ops.flash_attention(q, q[:, :, :1].contiguous(),
+                        q[:, :, :1].contiguous())
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (flash_launcher.flash_launches,
+            flash_launcher.flash_tc_launches) == (before[0] + 1,
+                                                  before[1] + tc)
+
+
+def test_flash_layout_matches_the_launcher(cuda_device):
+    """The tensor-core kernel's own tiles equal ``tc_layout`` for every
+    head_dim."""
+    import ctypes
+    lib = build.load(flash_launcher.TC_LIB)
+    query = lib.flash_attention_bf16_layout
+    query.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 5)()
+    for hd in range(1, 257):
+        assert query(hd, out) == 0
+        t = flash_launcher.tc_layout(hd)
+        assert list(out) == [t["head_pad"], t["block_q"], t["block_k"],
+                             t["threads"], t["smem_bytes"]]
 
 
 def test_flash_launcher_refuses_bad_operands(cuda_device):

@@ -193,8 +193,8 @@ def test_every_source_is_a_registered_library():
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sorted(build.LIBRARIES) == sources
     assert {community_spmm.LIB, community_spmm.FUSED_LIB,
-            community_spmm.DENSE_LIB, ssd_launcher.LIB,
-            flash_launcher.LIB} == set(build.LIBRARIES)
+            community_spmm.DENSE_LIB, ssd_launcher.LIB, flash_launcher.LIB,
+            flash_launcher.TC_LIB} == set(build.LIBRARIES)
 
 
 def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
@@ -412,10 +412,95 @@ def test_packed_launchers_refuse_cpu_tensors(kernel):
 
 
 def test_fused_shared_memory_fits_the_serving_widths():
-    assert community_spmm.fused_smem_bytes(1000) == 16 * 1024 * 4 + 19456
-    assert community_spmm.fused_smem_bytes(767) == 16 * 768 * 4 + 19456
-    assert community_spmm.fused_smem_bytes(3328) <= community_spmm._SMEM_LIMIT
-    assert community_spmm.fused_smem_bytes(3329) > community_spmm._SMEM_LIMIT
+    """One 128-column chunk of the (32, C_in) aggregate per block at the
+    serving widths, plus the (32, 36) and (32, 132) f32 staging tiles; the
+    widest C_in is 12,288 (12 chunks on each of 8 blocks), past the
+    one-block kernel's 3,328."""
+    staging = 4 * 32 * (36 + 132)
+    assert community_spmm.fused_smem_bytes(1000) == 32 * 128 * 4 + staging
+    assert community_spmm.fused_smem_bytes(767) == 32 * 128 * 4 + staging
+    assert community_spmm.fused_smem_bytes(3328) == 4 * 32 * 128 * 4 + staging
+    assert community_spmm.fused_smem_bytes(12288) <= community_spmm._SMEM_LIMIT
+    assert community_spmm.fused_smem_bytes(12289) > community_spmm._SMEM_LIMIT
+
+
+def test_fused_cluster_layout_across_widths():
+    """Every C_in the launcher takes: ceil(C_in / 128) chunks (at least one)
+    over a cluster of at most 8 blocks, each block owning ceil(chunks /
+    cluster) of them in shared memory within the block's limit; 162 and 216
+    blocks at the serving shapes (one lane, n_pad 864)."""
+    limit = community_spmm._SMEM_LIMIT
+    widths = [c for c in range(1, 12290)
+              if community_spmm.fused_smem_bytes(c) <= limit]
+    assert widths == list(range(1, 12289))
+    for c_in in widths:
+        chunks = max(1, -(-c_in // 128))
+        cluster, owned = community_spmm.fused_cluster(c_in)
+        assert cluster == min(chunks, 8)
+        assert owned == -(-chunks // cluster)
+        assert (owned - 1) * cluster < chunks <= owned * cluster
+        assert community_spmm.fused_smem_bytes(c_in) \
+            == owned * 32 * 128 * 4 + 4 * 32 * (36 + 132)
+    assert community_spmm.fused_grid(1, 864, 767) == (6, 27, 1)
+    assert community_spmm.fused_grid(1, 864, 1000) == (8, 27, 1)
+    assert community_spmm.fused_grid(3, 70, 64) == (1, 3, 3)
+    for c_in in (767, 1000):
+        assert np.prod(community_spmm.fused_grid(1, 864, c_in)) >= 132
+
+
+def _fused_cpu_operands():
+    blocks, off, mask, z, w, rows, nbrs = _port(*_packed_operands(
+        0, 2, 3, 16, 8, 5, layout_valid=True))
+    return [blocks, off, mask.to(torch.int32), z, w, rows, nbrs]
+
+
+FUSED_REFUSALS = {   # operand index -> bad value, error, message
+    "blocks not 4-D": (0, lambda t: t[0], ValueError, "expected blocks"),
+    "blocks f16": (0, lambda t: t.half(), TypeError, "dtype"),
+    "offsets int64": (1, lambda t: t.long(), TypeError, "dtype"),
+    "offsets shape": (1, lambda t: t[:, :2].contiguous(), ValueError,
+                      "shape"),
+    "mask float": (2, lambda t: t.float(), TypeError, "dtype"),
+    "plane 3-D": (3, lambda t: t[None], ValueError, "expected z_plane"),
+    "plane f64": (3, lambda t: t.double(), TypeError, "dtype"),
+    "plane not contiguous": (3, lambda t: t.t().contiguous().t(),
+                             ValueError, "contiguous"),
+    "w rows": (4, lambda t: t[:-1].contiguous(), ValueError, "shape"),
+    "w f64": (4, lambda t: t.double(), TypeError, "dtype"),
+    "row_counts shape": (5, lambda t: t[:1].contiguous(), ValueError,
+                         "shape"),
+    "nbr_counts int64": (6, lambda t: t.long(), TypeError, "dtype"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_REFUSALS))
+def test_fused_launcher_refuses_bad_operands(case):
+    """Every operand check of the fused launcher, run on the CPU through
+    ``check_fused_operands`` (the launcher calls it with the CUDA device)."""
+    args = _fused_cpu_operands()
+    community_spmm.check_fused_operands(torch.device("cpu"), *args)
+    i, bad, error, message = FUSED_REFUSALS[case]
+    args[i] = bad(args[i])
+    with pytest.raises(error, match=message):
+        community_spmm.check_fused_operands(torch.device("cpu"), *args)
+
+
+def test_fused_launcher_refuses_a_width_past_the_limit():
+    blocks, off, mask, _, _, rows, nbrs = _fused_cpu_operands()
+    for c_in, fits in ((12288, True), (12289, False)):
+        z = torch.zeros((blocks.shape[0] * 64, c_in))
+        w = torch.zeros((c_in, 1))
+        if fits:
+            community_spmm.check_fused_operands(
+                torch.device("cpu"), blocks, off, mask, z, w, rows, nbrs)
+            continue
+        with pytest.raises(ValueError, match="shared memory"):
+            community_spmm.check_fused_operands(
+                torch.device("cpu"), blocks, off, mask, z, w, rows, nbrs)
+    other = torch.device("meta")
+    with pytest.raises(ValueError, match="is on"):
+        community_spmm.check_fused_operands(
+            other, blocks, off, mask, z, w, rows, nbrs)
 
 
 def test_library_path_is_keyed_by_shared_headers(monkeypatch, tmp_path):
@@ -725,3 +810,90 @@ def test_ssd_and_flash_ops_route_device_tensors_to_the_launchers(
     args, kwargs = calls.pop("flash")
     assert all(t.is_contiguous() for t in args)
     assert kwargs == {"causal": False, "window": 5}
+
+
+def test_flash_tensor_core_tiles_fit_every_head_dim():
+    """The tensor-core kernel's tiles for every head_dim 1..256: the head
+    padded to the next multiple of 64, two 64-row warpgroups up to hd 192
+    with 128-key tiles (64 at hd 192), one warpgroup and 32-key tiles at
+    256; q plus two
+    stages of k and v, with 1 KB to align the swizzled blocks, fit a
+    block's 232,448 bytes of shared memory."""
+    for hd in range(1, 257):
+        t = flash_launcher.tc_layout(hd)
+        assert t["head_pad"] % 64 == 0
+        assert hd <= t["head_pad"] < hd + 64
+        assert (t["block_q"], t["block_k"], t["threads"]) == {
+            256: (64, 32, 128), 192: (128, 64, 256)}.get(t["head_pad"],
+                                                         (128, 128, 256))
+        assert t["smem_bytes"] == 2 * t["head_pad"] * (
+            t["block_q"] + 4 * t["block_k"]) + 1024
+        assert t["smem_bytes"] <= 232448
+    assert flash_launcher.tc_layout(128)["smem_bytes"] == 164864
+    for hd in (0, 257):
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_launcher.tc_layout(hd)
+
+
+def _flash_cpu(b=1, s=8, hq=4, hkv=2, hd=16, dtype=torch.bfloat16):
+    return [torch.zeros(shape, dtype=dtype) for shape in
+            ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd))]
+
+
+FLASH_REFUSALS = {   # mutation of (q, k, v, window) -> error, message
+    "q 3-D": (lambda a: [a[0][0]] + a[1:], ValueError, "expected q"),
+    "q f16": (lambda a: [t.half() for t in a[:3]] + a[3:], TypeError,
+              "dtype"),
+    "k f32 beside bf16 q": (lambda a: [a[0], a[1].float()] + a[2:],
+                            TypeError, "dtype"),
+    "k other length": (lambda a: [a[0], a[1][:, :4].contiguous()] + a[2:],
+                       ValueError, "shape"),
+    "v other heads": (lambda a: [a[0], a[1], a[2][:, :, :1].contiguous(),
+                                 a[3]], ValueError, "shape"),
+    "q not contiguous": (lambda a: [a[0].transpose(1, 2).contiguous()
+                                    .transpose(1, 2)] + a[1:], ValueError,
+                         "contiguous"),
+    "kv heads do not divide": (lambda a: [a[0]] + _flash_cpu(hkv=3)[1:]
+                               + a[3:], ValueError, "kv heads"),
+    "head_dim 257": (lambda a: _flash_cpu(hd=257) + a[3:], ValueError,
+                     "head_dim"),
+    "window 0": (lambda a: a[:3] + [0], ValueError, "window"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_REFUSALS))
+def test_flash_launcher_refuses_bad_operands_on_the_host(case):
+    """Every operand check of the flash launcher, on the CPU through
+    ``check_operands`` (the launcher calls it with the CUDA device)."""
+    cpu = torch.device("cpu")
+    args = _flash_cpu() + [None]
+    assert flash_launcher.check_operands(*args, cpu) == (1, 8, 4, 2, 16)
+    mutate, error, message = FLASH_REFUSALS[case]
+    with pytest.raises(error, match=message):
+        flash_launcher.check_operands(*mutate(args), cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_dispatch_is_fixed_by_dtype(monkeypatch, dtype):
+    """bf16 reaches the tensor-core library, f32 the FFMA one; every call
+    counts in ``flash_launches``, tensor-core calls in ``flash_tc_launches``
+    (launch recorded in place of the kernel, the device check bypassed)."""
+    calls = []
+    monkeypatch.setattr(flash_launcher.build, "cuda_device",
+                        lambda kernel, t: t.device)
+    monkeypatch.setattr(flash_launcher.build, "launch",
+                        lambda *a: calls.append(a))
+    monkeypatch.setattr(flash_launcher, "flash_launches", 0)
+    monkeypatch.setattr(flash_launcher, "flash_tc_launches", 0)
+    q, k, v = _flash_cpu(dtype=dtype)
+    out = flash_launcher.flash_attention(q, k, v, causal=False, window=3)
+    assert out.dtype == dtype and out.shape == q.shape
+    (kernel, lib, symbol, tensors, scalars, _, errors), = calls
+    tc = dtype == torch.bfloat16
+    assert lib == (flash_launcher.TC_LIB if tc else flash_launcher.LIB)
+    assert symbol == ("flash_attention_bf16" if tc else
+                      "flash_attention_f32")
+    assert errors.startswith(lib)
+    assert scalars == [1, 8, 4, 2, 16, 0, 3, 0.25]
+    assert (flash_launcher.flash_launches,
+            flash_launcher.flash_tc_launches) == (1, int(tc))
