@@ -12,7 +12,10 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. hold every kernel against its plain PyTorch version on the card:
      the ELL kernel at the trainer's shapes, on a ragged layout, with bf16
      blocks and with masked slots whose indices point anywhere
-     (max |diff| <= 1e-5 max |ref|); the dense kernel at the trainer's
+     (max |diff| <= 1e-5 max |ref|), each case with the tile
+     configuration, grid, stage ring and copy widths the launch picked
+     (128 x 128 tiles at the trainer's shapes, 64 x 32 / 64 x 64 at the
+     server's, 64 x 16 at C = 10); the dense kernel at the trainer's
      shapes (k = M = 3, n_pad = 4584, C = 767 / 1000 / 10), with per-lane
      masks whose absent blocks hold random values, on the ragged M = 32
      layout's blocks and neighbour mask, and through ``ops`` with a shared
@@ -33,14 +36,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      dense-adjacency Parallel ADMM through the dense kernel for 3 epochs
      (finite, launched, objectives of kernel and plain paths <= 1e-5 apart,
      a profiled step, and the dense kernel against the ELL kernel on the
-     layout's compressed view, bitwise reported, <= 1e-5 asserted); Serial
+     layout's compressed view at C = 1000, bitwise equal asserted); Serial
      ADMM for 3 epochs (finite; the Table 3 ratio of serial to dense
      parallel step time, reported); the Adam baseline for 3 epochs
      (finite); and packed ELL with bf16 blocks for 2 epochs (finite, the
      ELL kernel launched on bf16 blocks holding half the f32 block bytes);
   4. time the ELL and dense kernels, their plain versions and the library
      composition (gather + einsum, masked einsum) at the trainer's shapes,
-     beside the card's bound;
+     beside the card's bound, with the ELL launch's tile configuration;
   5. serve: train the same model at M = 16 for 2 epochs, build a
      CommunityServer with the serving launcher's defaults, drive the
      launcher's Zipf stream (2,048 requests in batches of 64) cached, then
@@ -51,7 +54,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      runs and the fused kernel in the fused run;
   6. time the packed and fused kernels, their plain versions and the
      gather + einsum (+ matmul) composition at the server's shapes, beside
-     the card's bound, with the fused kernel's grid and cluster size;
+     the card's bound, with the packed launch's tile configuration and the
+     fused kernel's grid and cluster size;
   7. hold the SSD scan kernel against its plain version (f32 limit 1e-4,
      bf16 one ulp, 2^-7 of max) at the Mamba-2 prefill shape (4 x 4096,
      64 heads of 64, d_state 128) in bf16 and f32, at 1 x 32768, at a
@@ -59,7 +63,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      the flash attention kernels (bf16: the tensor-core kernel, limit
      2^-7; f32: the FFMA kernel, limit 1e-5) at qwen2-7b's, gemma-2b's and
      recurrentgemma-9b's attention shapes (causal; window 2048), one
-     non-causal case, a ragged S = 3000, head_dim 80, and one f32 case;
+     non-causal case, a ragged S = 3000, head_dim 80, one f32 case and one
+     non-causal case with a window;
   8. Mamba-2 1.3B at its published widths and depth (48 layers, d_model
      2048, bf16, random weights from a generator on the card): prefill
      4 x 4096 tokens through the kernel and through the plain path
@@ -101,6 +106,12 @@ REPLACES = "src/repro/kernels/community_spmm.py:359"
 DENSE_REPLACES = "src/repro/kernels/community_spmm.py:273"
 BF16_EPOCHS = 2
 PACKED_REPLACES = "src/repro/kernels/community_spmm.py:421"
+ELL_DESIGN = ("FFMA from a cp.async ring of 32-row stages, one FFMA chain "
+              "per output in slot and row order; tile chosen by "
+              "community_spmm_ell_layout: 128x128 (8x8 per thread, one block "
+              "per SM) where its grid fills the SMs twice, else 64x64 (8x4) "
+              "or 64x32 (4x4), whichever loads the busiest SM less; 64x16 "
+              "(4x1) where C <= 32")
 FUSED_REPLACES = "src/repro/kernels/community_spmm.py:531"
 
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
@@ -232,6 +243,17 @@ def work(blocks, idx, mask, rows, nbrs, c: int) -> tuple[float, float]:
     return 2.0 * c * pairs, nbytes
 
 
+def layout_text(lay: dict) -> str:
+    """One line of an ELL / packed launch's configuration
+    (``community_spmm.operand_layout``)."""
+    g = lay["grid"]
+    return (f"{lay['tile']} tile {lay['bm']}x{lay['bn']} ({lay['tm']}x"
+            f"{lay['tn']} per thread, {lay['threads']} threads), "
+            f"{lay['stages']} stages, grid {g} = "
+            f"{math.prod(g)} blocks, {lay['smem_bytes']} B shared, copies "
+            f"A {lay['a_copy']} B / Z {lay['z_copy']} B")
+
+
 def check_case(name, blocks, idx, mask, z, rows, nbrs, log) -> float:
     import torch
 
@@ -241,9 +263,11 @@ def check_case(name, blocks, idx, mask, z, rows, nbrs, log) -> float:
     want = ref.community_spmm_ell_einsum(blocks, idx, mask, z, rows, nbrs)
     err, rel = rel_err(out, want)
     ok = bool(torch.isfinite(out).all()) and rel <= TOL
-    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel})
+    lay = community_spmm.operand_layout(blocks, z)
+    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel,
+                "layout": lay})
     print(f"[2] {name}: max_abs_err {err:.3e} rel {rel:.3e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{'ok' if ok else 'FAIL'}; {layout_text(lay)}", flush=True)
     if not ok:
         fail(f"kernel disagrees with its plain version on {name}")
     return err
@@ -281,7 +305,7 @@ def check_packed_case(name, blocks, off, mask, z, rows, nbrs, log,
     split) against its plain version on the same CUDA tensors."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import community_spmm, ops, ref
     if self_mask is None:
         out = ops.community_spmm_ell_packed(blocks, off, mask, z, rows, nbrs)
     else:
@@ -294,9 +318,11 @@ def check_packed_case(name, blocks, off, mask, z, rows, nbrs, log,
                                                 nbrs)
     err, rel = rel_err(out, want)
     ok = bool(torch.isfinite(out).all()) and rel <= TOL
-    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel})
+    lay = community_spmm.operand_layout(blocks, z)
+    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel,
+                "layout": lay})
     print(f"[2] packed {name}: max_abs_err {err:.3e} rel {rel:.3e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{'ok' if ok else 'FAIL'}; {layout_text(lay)}", flush=True)
     if not ok:
         fail(f"the packed kernel disagrees with its plain version on {name}")
 
@@ -555,9 +581,12 @@ def dense_train_phase(cfg, admm, g, card: str, dev) -> dict:
     err, rel = rel_err(out_d, out_e)
     print(f"[3d] dense kernel vs ELL kernel on the M=3 layout (max_deg "
           f"{csr.max_deg}, row counts {rows.tolist()}), C=1000: bitwise "
-          f"equal {bitwise}, max_abs_err {err:.3e} rel {rel:.3e}", flush=True)
-    if not rel <= TOL:
-        fail("the dense and ELL kernels disagree on the M=3 layout")
+          f"equal {bitwise}, max_abs_err {err:.3e} rel {rel:.3e}; ELL "
+          f"{layout_text(community_spmm.operand_layout(ell[0], z))}",
+          flush=True)
+    if not bitwise:
+        fail(f"the dense and ELL kernels are not bitwise equal on the M=3 "
+             f"layout (rel {rel:.3e}): their FFMA order differs")
     steps = log.epoch_time_s
     out = {"launches": launches, "per_step": per_step,
            "steps_ms": [1e3 * t for t in steps],
@@ -874,11 +903,14 @@ def time_packed(blocks, off, mask, rows, nbrs, z, peak_flops, peak_bw,
                                 z.shape[1],
                                 None if w is None else w.shape[1])
     t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bw
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "live_slots": int((mask != 0).sum())}
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "live_slots": int((mask != 0).sum())}
+    if w is None:
+        out["layout"] = community_spmm.operand_layout(blocks, z)
+    return out
 
 
 def objective_gap(trainer) -> float:
@@ -990,6 +1022,8 @@ FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
      "bfloat16"),
     ("qwen2-7b heads S=2048 causal f32", 1, 2048, 28, 4, 128, True, None,
      "float32"),
+    ("non-causal window 127 S=1000 Hq8 Hkv2 hd128 bf16", 1, 1000, 8, 2, 128,
+     False, 127, "bfloat16"),
 ]
 FLASH_TIMED = [FLASH_CHECKS[i] for i in (0, 1, 2, 6)]   # three bf16, the f32
 FLASH_INNER = 10    # flash and SDPA calls per timed window (sub-ms kernels)
@@ -1560,15 +1594,18 @@ def main() -> int:
         flops, nbytes = work(blocks_full, idx_full, ones, rows_full,
                              nbrs_full, c)
         t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bw
+        lay = community_spmm.operand_layout(blocks_full, z)
         per_c[c] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
-        print(f"[4] C={c}: kernel {ms:.3f} ms, plain version {plain_ms:.3f} "
+                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                    "tflops": flops / ms / 1e9, "layout": lay}
+        print(f"[4] C={c}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s), plain version {plain_ms:.3f} "
               f"ms, gather+einsum {lib_ms:.3f} ms, bound "
               f"{per_c[c]['bound_ms']:.3f} ms ({per_c[c]['bound_by']}; "
-              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) "
-              f"[{card}]", flush=True)
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+              f"{layout_text(lay)} [{card}]", flush=True)
         del z
     dense_c = {}
     for c in (767, 1000, 10):
@@ -1611,8 +1648,8 @@ def main() -> int:
               f"n_pad={n_s} C={c}: kernel {t['ms']:.3f} ms, plain version "
               f"{t['plain_ms']:.3f} ms, gather+einsum {t['library_ms']:.3f} "
               f"ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}; "
-              f"{t['gflop']:.2f} GFLOP, {t['mbytes']:.1f} MB) [{card}]",
-              flush=True)
+              f"{t['gflop']:.2f} GFLOP, {t['mbytes']:.1f} MB); "
+              f"{layout_text(t['layout'])} [{card}]", flush=True)
         del z
     for c_in, c_out in ((767, 1000), (1000, 10)):
         z = torch.randn((d_s * n_s, c_in), generator=gen, device=dev)
@@ -1652,6 +1689,7 @@ def main() -> int:
         "bound_by": per_c[main_c]["bound_by"],
         "library_ms": per_c[main_c]["library_ms"],
         "timed_at": {"k": k, "max_deg": d, "n_pad": n_full, "C": main_c},
+        "design": ELL_DESIGN, "layout": per_c[main_c]["layout"],
         "checked": True, "max_rel_err": max_rel,
         "per_c": {str(c): v for c, v in per_c.items()}}]
     head = packed_c[main_c]
@@ -1666,6 +1704,7 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "timed_at": {"k": 1, "max_deg": d_s, "live_slots": head["live_slots"],
                      "n_pad": n_s, "plane_rows": d_s * n_s, "C": main_c},
+        "design": ELL_DESIGN, "layout": head["layout"],
         "checked": True,
         "launches_cold_run": serve["launches"]["cold"]["packed"],
         "per_c": {str(c): v for c, v in packed_c.items()}})

@@ -19,6 +19,9 @@ that want the count of one phase reset it to 0 before the phase.
 ``fused_cluster``, ``fused_grid`` and ``fused_smem_bytes`` mirror the
 fused kernel's cluster launch, so that the width limit is refused here
 (the card tests hold them against ``community_spmm_ell_fused_layout``).
+``ell_layout`` mirrors the tile configuration the ELL / packed kernel
+picks for a launch (``community_spmm_ell_layout``), and ``operand_layout``
+reads it off a launch's operands.
 
 The launchers read no values from the device: the indices of live slots
 must lie in ``[0, M)`` and the plane rows a live packed slot reads must lie
@@ -27,6 +30,8 @@ once where the tables are built (``core.parallel.community_data``,
 ``serve.engine.CommunityServer``), not on every launch.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -50,6 +55,19 @@ _INT = (torch.int32,)
 _FUSED_ROWS, _FUSED_CHUNK, _FUSED_MAX_CLUSTER = 32, 128, 8
 _FUSED_STATIC = 4 * 32 * ((32 + 4) + (128 + 4))
 _SMEM_LIMIT = 232448
+# the ELL / packed kernel's tile configurations, (BM, BN, TM, TN, stages):
+# 128 x 128 output tiles with 8 x 8 per thread where that grid fills an
+# H100 SXM's 132 SMs twice over; else 64 x 64 with 8 x 4, or 64 x 32 with
+# 4 x 4 where its busiest SM carries less (a half tile costs ~1.2x per
+# FLOP: 3 half-tile slots against 5 small-tile slots); 64 x 16 with 4 x 1
+# where C <= 32.  A ring of 32-row stages, each an A tile (a row of 32
+# values and 16 bytes of pad per output row) and a (32, BN) f32 Z tile.
+ELL_TILES = {"large": (128, 128, 8, 8, 3), "small": (64, 64, 8, 4, 4),
+             "half": (64, 32, 4, 4, 4), "narrow": (64, 16, 4, 1, 4)}
+_ELL_BK, _ELL_A_PAD, _ELL_SMS = 32, 16, 132
+_ELL_LARGE_MIN_GRID = 2 * _ELL_SMS
+_ELL_HALF_COST, _ELL_SMALL_COST = 3, 5
+_ELL_NARROW_MAX_C = 32
 
 
 def _launch(kernel: str, lib_name: str, symbol: str, ptrs: list,
@@ -171,6 +189,62 @@ def community_spmm_ell_packed(ell_blocks: torch.Tensor,
              z_plane, out], [k, d, n_pad, c], device)
     packed_launches += 1
     return out
+
+
+def copy_align(ptr: int, row_bytes: int) -> int:
+    """Largest of 16, 8, 4, 2, 1 bytes dividing both a pointer and a row
+    stride: the widest copy every row of the operand allows."""
+    v = ptr | row_bytes
+    return 16 if v % 16 == 0 else v & -v
+
+
+def ell_layout(k: int, n_pad: int, c: int, block_bytes: int, z_align: int,
+               a_align: int) -> dict:
+    """The ELL / packed kernel's launch for k lanes, n_pad rows, C columns,
+    blocks of ``block_bytes`` (4 f32, 2 bf16) and the operands' alignments
+    in bytes (``copy_align``): the tile configuration, its grid, the
+    dynamic shared memory of its stage ring, and the copy width of each
+    operand (16 bytes where aligned; else 4, or 2 for bf16 rows of odd
+    length).  Mirrors ``community_spmm_ell_layout``."""
+    if block_bytes not in (2, 4):
+        raise ValueError(f"block_bytes must be 4 (f32) or 2 (bf16), got "
+                         f"{block_bytes}")
+
+    def grid(tile):
+        bm, bn = ELL_TILES[tile][:2]
+        return -(-c // bn), -(-n_pad // bm), k
+
+    def busiest(tile):          # tiles on the busiest SM
+        return -(-math.prod(grid(tile)) // _ELL_SMS)
+
+    if c <= _ELL_NARROW_MAX_C:
+        tile = "narrow"
+    elif math.prod(grid("large")) >= _ELL_LARGE_MIN_GRID:
+        tile = "large"
+    elif (_ELL_HALF_COST * busiest("half")
+          < _ELL_SMALL_COST * busiest("small")):
+        tile = "half"
+    else:
+        tile = "small"
+    bm, bn, tm, tn, stages = ELL_TILES[tile]
+    a_row = _ELL_BK * block_bytes + _ELL_A_PAD
+    return {"tile": tile, "bm": bm, "bn": bn, "tm": tm, "tn": tn,
+            "threads": bm // tm * (bn // tn), "stages": stages,
+            "grid": grid(tile),
+            "smem_bytes": stages * (bm * a_row + _ELL_BK * bn * 4),
+            "a_copy": (16 if a_align >= 16 else
+                       4 if block_bytes == 4 or a_align >= 4 else 2),
+            "z_copy": 16 if bn >= 32 and z_align >= 16 else 4}
+
+
+def operand_layout(ell_blocks: torch.Tensor, z: torch.Tensor) -> dict:
+    """``ell_layout`` of a launch on these operands: blocks (k, D, n, n),
+    z the strided z_all (M, n, C) or the packed plane (R, C)."""
+    k, _, n_pad, _ = ell_blocks.shape
+    c = z.shape[-1]
+    bb = ell_blocks.element_size()
+    return ell_layout(k, n_pad, c, bb, copy_align(z.data_ptr(), 4 * c),
+                      copy_align(ell_blocks.data_ptr(), bb * n_pad))
 
 
 def fused_cluster(c_in: int) -> tuple[int, int]:

@@ -360,6 +360,160 @@ def test_dense_kernel_is_bitwise_the_ell_kernel_with_every_block(
     assert torch.equal(dense, ell)
 
 
+@pytest.mark.parametrize("tile,n_pad,c", [("large", 1500, 1000),
+                                          ("small", 400, 300),
+                                          ("half", 200, 130),
+                                          ("narrow", 1500, 10)])
+def test_dense_kernel_is_bitwise_the_ell_kernel_at_each_tile(
+        cuda_device, tile, n_pad, c):
+    """k = M = 3, every block live and listed in order by the ELL slots:
+    the dense kernel (64 x 64 tiles, ell_tile.cuh) and the ELL kernel in
+    each of its tile configurations sum one FFMA chain per output in the
+    same order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n_pad + c)
+    a = torch.randn((3, 3, n_pad, n_pad), generator=gen, device=cuda_device)
+    z = torch.randn((3, n_pad, c), generator=gen, device=cuda_device)
+    assert community_spmm.operand_layout(a, z)["tile"] == tile
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    ones = torch.ones((3, 3), **i32)
+    dense = ops.community_spmm(a, z, ones)
+    ell = ops.community_spmm_ell(a, torch.arange(3, **i32).repeat(3, 1),
+                                 ones, z)
+    assert torch.equal(dense, ell)
+
+
+@pytest.mark.parametrize("tile,k,d,n_pad,c", [
+    ("half", 1, 16, 864, 767), ("small", 1, 16, 864, 1000),
+    ("large", 3, 3, 1536, 1024), ("narrow", 1, 16, 864, 10)])
+def test_fused_identity_is_bitwise_the_packed_kernel_at_each_tile(
+        cuda_device, tile, k, d, n_pad, c):
+    """The fused kernel with W = I against the packed kernel in each of its
+    tile configurations, the halo shape (one lane, 16 slots of 864 rows)
+    among them: the same FFMA chain per output, bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    blocks = torch.randn((k, d, n_pad, n_pad), generator=gen,
+                         device=cuda_device)
+    plane = torch.randn((d * n_pad, c), generator=gen, device=cuda_device)
+    assert community_spmm.operand_layout(blocks, plane)["tile"] == tile
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    off = (torch.arange(d, **i32) * n_pad).repeat(k, 1)
+    mask = torch.ones((k, d), **i32)
+    rows = torch.full((k,), n_pad - 5, **i32)
+    nbrs = torch.full((k, d), n_pad, **i32)
+    nbrs[:, 1] = 33
+    packed = ops.community_spmm_ell_packed(blocks, off, mask, plane, rows,
+                                           nbrs)
+    eye = torch.eye(c, device=cuda_device)
+    fused = ops.community_spmm_ell_fused(blocks, off, mask, plane, eye, rows,
+                                         nbrs)
+    assert torch.equal(fused, packed)
+
+
+def test_ell_layout_matches_the_launcher(cuda_device):
+    """The kernel's own tile configuration, grid, stage ring and copy widths
+    equal ``ell_layout`` over a sweep of lanes, rows, columns, block types
+    and operand alignments."""
+    import ctypes
+    lib = build.load(community_spmm.LIB)
+    query = lib.community_spmm_ell_layout
+    query.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 11)()
+    for k in (1, 2, 3, 16, 132):
+        for n_pad in (1, 8, 63, 64, 65, 127, 128, 129, 131, 864, 4584):
+            for c in (1, 10, 16, 17, 32, 33, 64, 67, 128, 129, 767, 1000):
+                for bb in (4, 2):
+                    for z_align, a_align in ((16, 16), (4, 4), (4, 2),
+                                             (8, 16), (16, 1)):
+                        assert query(k, n_pad, c, bb, z_align, a_align,
+                                     out) == 0
+                        t = community_spmm.ell_layout(k, n_pad, c, bb,
+                                                      z_align, a_align)
+                        assert list(out) == [
+                            t["bm"], t["bn"], t["tm"], t["tn"], t["stages"],
+                            *t["grid"], t["smem_bytes"], t["a_copy"],
+                            t["z_copy"]]
+    assert query(1, 8, 8, 8, 16, 16, out) == 1
+
+
+# the ELL / packed kernel at its tile edges: n_pad and C on both sides of 64
+# and 128, C from 1 to 767, in each tile configuration (the fewest lanes
+# that select it)
+EDGE_N = (63, 64, 65, 127, 128, 129, 131)
+EDGE_C = {"narrow": (1, 10, 32),
+          "half": (33, 63, 64, 65, 67, 129, 767),
+          "small": (63, 64, 65, 67, 127, 128, 129, 767),
+          "large": (64, 65, 67, 128, 129, 767)}
+EDGE_CASES = [(tile, n, c) for tile, cs in EDGE_C.items() for n in EDGE_N
+              for c in cs]
+
+
+def _edge_operands(seed, tile, n_pad, c, packed, device):
+    """ELL (or packed-plane) operands that select ``tile``: ragged row
+    counts, neighbour counts that include 0 and values off the 32-row
+    stage, masked slots whose table entry and count hold values far out of
+    range (the kernel must not read them).  Returns the kernel's operands
+    and the plain version's (masked entries zeroed)."""
+    rng = np.random.default_rng(seed)
+    d = 3 if tile == "large" else 4
+    k = next(k for k in range(1, 600) if community_spmm.ell_layout(
+        k, n_pad, c, 4, 16, 16)["tile"] == tile)
+    mask = (rng.random((k, d)) < 0.7).astype(np.int32)
+    mask[np.arange(k), rng.integers(0, d, size=k)] = 1
+    nbrs = rng.integers(0, n_pad + 1, size=(k, d))
+    live = np.flatnonzero(mask)
+    special = np.array([0, 1, 31, 33, n_pad - 1, n_pad])[: live.size]
+    nbrs.flat[live[: special.size]] = special
+    rows = rng.integers(1, n_pad + 1, size=k)
+    rows[0] = n_pad
+    if packed:
+        z_rows = 3 * n_pad + 5
+        table = rng.integers(0, z_rows - n_pad + 1, size=(k, d))
+    else:
+        z_rows = 5
+        table = rng.integers(0, z_rows, size=(k, d))
+    dead = mask == 0
+    i32 = dict(dtype=torch.int32, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    blocks = torch.randn((k, d, n_pad, n_pad), generator=gen, device=device)
+    z = torch.randn((z_rows, c) if packed else (z_rows, n_pad, c),
+                    generator=gen, device=device)
+    kernel_ops = [torch.as_tensor(np.where(dead, 1 << 30, table), **i32),
+                  torch.as_tensor(mask, **i32), torch.as_tensor(rows, **i32),
+                  torch.as_tensor(np.where(dead, -7, nbrs), **i32)]
+    plain_ops = [torch.as_tensor(np.where(dead, 0, table), **i32),
+                 kernel_ops[1], kernel_ops[2],
+                 torch.as_tensor(np.where(dead, 0, nbrs), **i32)]
+    return blocks, z, kernel_ops, plain_ops
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("tile,n_pad,c", EDGE_CASES)
+def test_ell_kernel_at_the_tile_edges(cuda_device, tile, n_pad, c, packed,
+                                      bf16):
+    blocks, z, (table, mask, rows, nbrs), (ptable, _, _, pnbrs) = \
+        _edge_operands(n_pad * 1000 + c, tile, n_pad, c, packed,
+                       cuda_device)
+    if bf16:
+        blocks = blocks.to(torch.bfloat16)
+    lay = community_spmm.operand_layout(blocks, z)
+    assert lay["tile"] == tile
+    if packed:
+        got = community_spmm.community_spmm_ell_packed(blocks, table, mask,
+                                                       z, rows, nbrs)
+        want = ref.community_spmm_ell_packed_einsum(blocks, ptable, mask, z,
+                                                    rows, pnbrs)
+    else:
+        got = community_spmm.community_spmm_ell(blocks, table, mask, z, rows,
+                                                nbrs)
+        want = ref.community_spmm_ell_einsum(blocks, ptable, mask, z, rows,
+                                             pnbrs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= (1e-5 if bf16 else 1e-6) * scale
+
+
 def test_dense_launcher_refuses_bad_operands(cuda_device):
     a, z, lanes = _dense_operands(2, 2, 3, 16, 4, cuda_device)
     with pytest.raises(ValueError, match="shape"):
@@ -471,14 +625,18 @@ def test_flash_kernel_matches_plain_version(cuda_device, b, s, hq, hkv, hd,
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 1)])
-@pytest.mark.parametrize("window", ["1", "127", ">= S"])
+@pytest.mark.parametrize("causal,window", [
+    (True, "1"), (True, "127"), (True, ">= S"), (False, "1"),
+    (False, "127")])
 @pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("s", [1, 63, 65, 129, 4097])
 def test_flash_tensor_core_kernel_at_the_tile_edges(cuda_device, s, hd,
-                                                    window, hq, hkv):
-    """The bf16 (wgmma) kernel, batch 2, causal: sequences on both sides of
-    the 64-row and 64-key tiles, head dims that are not multiples of 64,
-    windows of one key, 127 keys and the whole sequence, GQA and MQA."""
+                                                    causal, window, hq, hkv):
+    """The bf16 (wgmma) kernel, batch 2: sequences on both sides of the
+    64-row and 64-key tiles, head dims that are not multiples of 64,
+    windows of one key, 127 keys and the whole sequence, GQA and MQA;
+    causal, and non-causal with a window (one-sided: q − k < window, so
+    every later key stays visible)."""
     gen = torch.Generator(device=cuda_device).manual_seed(s * 1000 + hd)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
                .to(torch.bfloat16) for shape in ((2, s, hq, hd),
@@ -486,10 +644,10 @@ def test_flash_tensor_core_kernel_at_the_tile_edges(cuda_device, s, hd,
                                                  (2, s, hkv, hd)))
     w = s + 1 if window == ">= S" else int(window)
     before = flash_launcher.flash_tc_launches
-    got = ops.flash_attention(q, k, v, causal=True, window=w)
+    got = ops.flash_attention(q, k, v, causal=causal, window=w)
     torch.cuda.synchronize()
     assert flash_launcher.flash_tc_launches == before + 1
-    want = ref.flash_attention_ref(q, k, v, causal=True, window=w)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=w)
     _within(got, want, BF16_TOL)
 
 

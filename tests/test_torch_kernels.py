@@ -448,6 +448,116 @@ def test_fused_cluster_layout_across_widths():
         assert np.prod(community_spmm.fused_grid(1, 864, c_in)) >= 132
 
 
+@pytest.mark.parametrize("c,grid", [(767, (6, 36, 3)), (1000, (8, 36, 3))])
+def test_ell_layout_large_tile_at_the_trainer_shapes(c, grid):
+    """k = 3 lanes of n_pad 4584: 128 x 128 tiles, 8 x 8 per thread, three
+    stages, 648 / 864 blocks (at least two per SM of 132)."""
+    lay = community_spmm.ell_layout(3, 4584, c, 4, 16, 16)
+    assert (lay["tile"], lay["bm"], lay["bn"], lay["tm"], lay["tn"],
+            lay["stages"]) == ("large", 128, 128, 8, 8, 3)
+    assert lay["grid"] == grid and np.prod(grid) >= 2 * 132
+    assert lay["smem_bytes"] == 3 * (128 * (32 * 4 + 16) + 32 * 128 * 4)
+    # two blocks share an SM: 228 KB of shared memory, 1 KB reserved each
+    assert 2 * (lay["smem_bytes"] + 1024) <= 233472
+    bf16 = community_spmm.ell_layout(3, 4584, c, 2, 16, 16)
+    assert bf16["tile"] == "large"
+    assert bf16["smem_bytes"] == 3 * (128 * (32 * 2 + 16) + 32 * 128 * 4)
+
+
+@pytest.mark.parametrize("c,tile,shape,grid", [
+    (767, "half", (64, 32, 4, 4), (24, 14, 1)),
+    (1000, "small", (64, 64, 8, 4), (16, 14, 1))])
+def test_ell_layout_small_tiles_at_the_halo_shape(c, tile, shape, grid):
+    """One lane of n_pad 864 gives only 42 / 56 large tiles.  At C = 1000
+    the 64 x 64 tile's 224 blocks put at most 2 on an SM; at C = 767 its
+    168 blocks put 2 on 36 SMs and 1 on the rest, so the 64 x 32 tile's
+    336 blocks (at most 3 half tiles an SM) finish first."""
+    lay = community_spmm.ell_layout(1, 864, c, 4, 16, 16)
+    assert (lay["tile"], lay["bm"], lay["bn"], lay["tm"], lay["tn"]) == (
+        tile, *shape)
+    assert lay["grid"] == grid and lay["stages"] == 4
+    assert lay["threads"] == 128
+    assert -(-c // 128) * -(-864 // 128) < 2 * 132
+
+
+def test_ell_layout_balances_the_busiest_sm():
+    """Below the large tile's grid, the half tile is taken exactly where 3
+    of its slots on the busiest SM weigh less than 5 of the small tile's."""
+    seen = set()
+    for k in range(1, 40):
+        for n_pad, c in ((864, 767), (864, 1000), (131, 67), (200, 130)):
+            lay = community_spmm.ell_layout(k, n_pad, c, 4, 16, 16)
+            if lay["tile"] == "large":
+                continue
+
+            def busiest(bm, bn):
+                return -(-(-(-c // bn) * -(-n_pad // bm) * k) // 132)
+            half = 3 * busiest(64, 32) < 5 * busiest(64, 64)
+            assert lay["tile"] == ("half" if half else "small")
+            seen.add(lay["tile"])
+    assert seen == {"half", "small"}
+
+
+@pytest.mark.parametrize("k,n_pad,c", [(3, 4584, 10), (1, 864, 1),
+                                       (3, 4584, 32), (200, 4584, 16)])
+def test_ell_layout_narrow_tile_up_to_32_columns(k, n_pad, c):
+    """C <= 32 takes 64 x 16 tiles with one column per thread, whatever the
+    grid: at C = 10, 216 blocks stream the trainer's blocks once."""
+    lay = community_spmm.ell_layout(k, n_pad, c, 4, 16, 16)
+    assert (lay["tile"], lay["bm"], lay["bn"], lay["tm"], lay["tn"]) == (
+        "narrow", 64, 16, 4, 1)
+    assert lay["grid"] == (-(-c // 16), -(-n_pad // 64), k)
+    assert lay["z_copy"] == 4
+    assert community_spmm.ell_layout(k, n_pad, 33, 4, 16, 16)["tile"] != \
+        "narrow"
+
+
+def test_ell_layout_copy_widths():
+    """16-byte copies only where pointer and row stride allow them: Z rows
+    of 767 f32 (3,068 bytes) and A rows of n_pad 131 take 4-byte copies,
+    bf16 rows of odd length 2-byte loads."""
+    align = community_spmm.copy_align
+    assert align(1 << 20, 4 * 767) == 4 and align(1 << 20, 4000) == 16
+    assert align(1 << 20, 4 * 131) == 4 and align(1 << 20, 2 * 131) == 2
+    assert align(1 << 20 | 8, 4096) == 8 and align(0, 0) == 16
+    trainer = community_spmm.ell_layout(3, 4584, 767, 4,
+                                        align(1 << 20, 4 * 767),
+                                        align(1 << 20, 4 * 4584))
+    assert (trainer["a_copy"], trainer["z_copy"]) == (16, 4)
+    for bb, want in ((4, 4), (2, 2)):
+        lay = community_spmm.ell_layout(3, 131, 64, bb, 16,
+                                        align(1 << 20, bb * 131))
+        assert (lay["a_copy"], lay["z_copy"]) == (want, 16)
+    # Z rows of the narrow tile always take 4-byte copies
+    assert community_spmm.ell_layout(3, 64, 16, 4, 16, 16)["z_copy"] == 4
+    lay = community_spmm.ell_layout(3, 130, 64, 2, 16, align(0, 2 * 130))
+    assert lay["a_copy"] == 4
+    # the operands' own pointers: a view one element in is 4-byte aligned
+    blocks = torch.zeros((2, 2, 64, 64))
+    plane = torch.zeros((100, 65))
+    assert community_spmm.operand_layout(blocks, plane)["z_copy"] == 4
+    assert community_spmm.operand_layout(
+        blocks, torch.zeros((100, 64)))["z_copy"] == 16
+
+
+def test_ell_layout_shared_memory_fits_every_configuration():
+    """Every tile, in f32 and bf16, stays within a block's 232,448 bytes,
+    and each needs its 48 KB-plus opt-in only as dynamic shared memory."""
+    seen = set()
+    for k, n_pad, c in ((3, 4584, 1000), (1, 864, 767), (1, 864, 1000),
+                        (3, 4584, 10)):
+        for bb in (4, 2):
+            lay = community_spmm.ell_layout(k, n_pad, c, bb, 16, 16)
+            seen.add(lay["tile"])
+            bm, bn, _, _, stages = community_spmm.ELL_TILES[lay["tile"]]
+            assert lay["smem_bytes"] == stages * (bm * (32 * bb + 16)
+                                                  + 32 * bn * 4)
+            assert lay["smem_bytes"] <= community_spmm._SMEM_LIMIT
+    assert seen == set(community_spmm.ELL_TILES)
+    with pytest.raises(ValueError, match="block_bytes"):
+        community_spmm.ell_layout(1, 8, 8, 8, 16, 16)
+
+
 def _fused_cpu_operands():
     blocks, off, mask, z, w, rows, nbrs = _port(*_packed_operands(
         0, 2, 3, 16, 8, 5, layout_valid=True))
