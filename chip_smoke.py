@@ -15,7 +15,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      (max |diff| <= 1e-5 max |ref|), each case with the tile
      configuration, grid, stage ring and copy widths the launch picked
      (128 x 128 tiles at the trainer's shapes, 64 x 32 / 64 x 64 at the
-     server's, 64 x 16 at C = 10); the dense kernel at the trainer's
+     server's, 64 x 16 at C = 10); the dense launch (the ELL kernel's
+     dense addressing, with the tile it picked) at the trainer's
      shapes (k = M = 3, n_pad = 4584, C = 767 / 1000 / 10), with per-lane
      masks whose absent blocks hold random values, on the ragged M = 32
      layout's blocks and neighbour mask, and through ``ops`` with a shared
@@ -33,17 +34,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      ELL kernel, for 3 epochs; every value must be finite and the kernel
      must have launched; compare objectives and one step of the kernel path
      and the plain path from one shared state; then, on the same graph:
-     dense-adjacency Parallel ADMM through the dense kernel for 3 epochs
+     dense-adjacency Parallel ADMM through the dense launch for 3 epochs
      (finite, launched, objectives of kernel and plain paths <= 1e-5 apart,
-     a profiled step, and the dense kernel against the ELL kernel on the
-     layout's compressed view at C = 1000, bitwise equal asserted); Serial
+     a profiled step, and the dense launch against the strided ELL launch
+     on the layout's compressed view at C = 1000, bitwise equal asserted,
+     with both launches' tiles); Serial
      ADMM for 3 epochs (finite; the Table 3 ratio of serial to dense
      parallel step time, reported); the Adam baseline for 3 epochs
      (finite); and packed ELL with bf16 blocks for 2 epochs (finite, the
      ELL kernel launched on bf16 blocks holding half the f32 block bytes);
-  4. time the ELL and dense kernels, their plain versions and the library
-     composition (gather + einsum, masked einsum) at the trainer's shapes,
-     beside the card's bound, with the ELL launch's tile configuration;
+  4. time the ELL and dense launches, their plain versions and the
+     library composition (gather + einsum, masked einsum) at the trainer's
+     shapes, beside the card's bound, with each launch's tile
+     configuration;
   5. serve: train the same model at M = 16 for 2 epochs, build a
      CommunityServer with the serving launcher's defaults, drive the
      launcher's Zipf stream (2,048 requests in batches of 64) cached, then
@@ -56,10 +59,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      gather + einsum (+ matmul) composition at the server's shapes, beside
      the card's bound, with the packed launch's tile configuration and the
      fused kernel's grid and cluster size;
-  7. hold the SSD scan kernel against its plain version (f32 limit 1e-4,
-     bf16 one ulp, 2^-7 of max) at the Mamba-2 prefill shape (4 x 4096,
-     64 heads of 64, d_state 128) in bf16 and f32, at 1 x 32768, at a
-     ragged S = 1000 (chunk 8), at S = 100 < chunk and with 2 groups; and
+  7. hold the SSD scan kernels against their plain version (f32 limit
+     1e-4, bf16 one ulp, 2^-7 of max) at the Mamba-2 prefill shape (4 x
+     4096, 64 heads of 64, d_state 128) in bf16 and f32, at 1 x 32768, at
+     a ragged S = 1000 (chunk 8), at S = 100 < chunk and with 2 groups
+     (bf16: the three-pass tensor-core kernel, each case also beside the
+     plain three-pass form with the kernel's bf16 roundings, reported;
+     f32: the FFMA kernel, a fixed route by dtype); and
      the flash attention kernels (bf16: the tensor-core kernel, limit
      2^-7; f32: the FFMA kernel, limit 1e-5) at qwen2-7b's, gemma-2b's and
      recurrentgemma-9b's attention shapes (causal; window 2048), one
@@ -69,14 +75,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      2048, bf16, random weights from a generator on the card): prefill
      4 x 4096 tokens through the kernel and through the plain path
      (last-token logits within LOGIT_TOL of max; exactly 48 ssd_scan
-     launches per kernel forward, 0 on the plain one), timed forwards
+     launches per kernel forward, all 48 on the tensor-core route, 0 on the
+     plain one), timed forwards
      (tokens/s, profiled idle share), 2 decode requests of 64 tokens
      (per-token latency), and decode against the kernel forward with the
      weights in f32 (probabilities within rtol 2e-2, atol 2e-3);
   9. time both kernels, their plain versions and (attention)
      scaled_dot_product_attention, beside the card's bound for the
-     inputs' type, with each flash shape's route, blocks and TFLOP/s (flash
-     and SDPA over windows of 10 calls, the SM clock printed beside);
+     inputs' type: the SSD scan in bf16 (tensor cores) at 4 x 4096 and
+     1 x 32768 with a profiled call's device time per pass, and in f32
+     (FFMA) at 4 x 4096; each flash shape's route, blocks and TFLOP/s (the
+     SSD, flash and SDPA over windows of 10 calls, the SM clock printed
+     beside);
   10. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
@@ -101,7 +111,6 @@ SERVE_EPOCHS = 2
 SERVE_PARTS = 16
 KERNEL_SRC = "src/repro_torch/kernels/csrc/community_spmm_ell.cu"
 FUSED_SRC = "src/repro_torch/kernels/csrc/community_spmm_ell_fused.cu"
-DENSE_SRC = "src/repro_torch/kernels/csrc/community_spmm_dense.cu"
 REPLACES = "src/repro/kernels/community_spmm.py:359"
 DENSE_REPLACES = "src/repro/kernels/community_spmm.py:273"
 BF16_EPOCHS = 2
@@ -113,8 +122,24 @@ ELL_DESIGN = ("FFMA from a cp.async ring of 32-row stages, one FFMA chain "
               "or 64x32 (4x4), whichever loads the busiest SM less; 64x16 "
               "(4x1) where C <= 32")
 FUSED_REPLACES = "src/repro/kernels/community_spmm.py:531"
+DENSE_DESIGN = ("the ELL kernel's dense addressing (a compile-time flag): "
+                "D = M slots, slot r live where mask[m, r] != 0, its Z rows "
+                "at r * n_pad, no slot or count table read; the ELL "
+                "kernel's cp.async ring, tiles and FFMA order, so dense = "
+                "ELL bitwise")
 
-SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"                # f32
+SSD_TC_SRC = "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu"
+SSD_DESIGN = ("bf16 on the tensor cores (wgmma) in three kernels: chunk "
+              "states in parallel (m64n64k16, both operands MN-major), the "
+              "state passed across chunks in f32, each chunk's output per "
+              "64-row tile (C.B^T and scores.x as flash's Q.K^T and P.V); "
+              f"f32 FFMA kernel in {SSD_SRC}")
+# the SSD kernels by the names the profiler shows
+SSD_KERNELS = {"ssd_scan_kernel": "ssd_scan f32 (FFMA)",
+               "ssd_chunk_states": "ssd pass 1 (chunk states)",
+               "ssd_state_passing": "ssd pass 2 (state passing)",
+               "ssd_chunk_output": "ssd pass 3 (output)"}
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"      # f32
 FLASH_TC_SRC = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:67"
@@ -383,6 +408,7 @@ def counts() -> dict:
             "fused": community_spmm.fused_launches,
             "dense": community_spmm.dense_launches,
             "ssd": ssd_scan.ssd_launches,
+            "ssd_tc": ssd_scan.ssd_tc_launches,
             "flash": flash.flash_launches,
             "flash_tc": flash.flash_tc_launches}
 
@@ -398,6 +424,7 @@ def reset_counts(to: "dict | None" = None) -> None:
     community_spmm.fused_launches = to["fused"]
     community_spmm.dense_launches = to["dense"]
     ssd_scan.ssd_launches = to["ssd"]
+    ssd_scan.ssd_tc_launches = to["ssd_tc"]
     flash.flash_launches = to["flash"]
     flash.flash_tc_launches = to["flash_tc"]
 
@@ -417,12 +444,14 @@ def dense_work(mask, n: int, c: int) -> tuple[float, float]:
 
 
 def check_dense_case(name, a_row, z, mask, log) -> None:
-    """The dense kernel (through ``ops``: mask None, (M,) or (k, M); a_row
+    """The dense launch (through ``ops``: mask None, (M,) or (k, M); a_row
     3-D or 4-D) against its plain version on the same CUDA tensors."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import community_spmm, ops, ref
     out = ops.community_spmm(a_row, z, mask)
+    lay = community_spmm.operand_layout(
+        a_row if a_row.dim() == 4 else a_row[None], z)
     torch.cuda.synchronize()
     if mask is None:
         mask = torch.ones(a_row.shape[-3], dtype=torch.int32, device=z.device)
@@ -430,9 +459,10 @@ def check_dense_case(name, a_row, z, mask, log) -> None:
     err, rel = rel_err(out, want)
     ok = (bool(torch.isfinite(out).all()) and out.shape == want.shape
           and rel <= TOL)
-    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel})
+    log.append({"case": name, "max_abs_err": err, "max_rel_err": rel,
+                "layout": lay})
     print(f"[2] dense {name}: max_abs_err {err:.3e} rel {rel:.3e} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{'ok' if ok else 'FAIL'}; {layout_text(lay)}", flush=True)
     if not ok:
         fail(f"the dense kernel disagrees with its plain version on {name}")
 
@@ -477,9 +507,10 @@ def profiled_idle(step) -> tuple[float, float, str]:
 
 
 def device_ms_by_kind(events, top: int = 4) -> dict:
-    """Device milliseconds of the traced device events: the SSD scan
-    kernel, the cuBLAS matrix products, and the ``top`` largest others by
-    name, with their count of events."""
+    """Device milliseconds of the traced device events: each SSD scan
+    kernel (the f32 FFMA kernel; the tensor-core route's three passes),
+    the cuBLAS matrix products, and the ``top`` largest others by name,
+    with their count of events."""
     from torch.autograd import DeviceType
     by_name: dict = {}
     for e in events:
@@ -490,8 +521,9 @@ def device_ms_by_kind(events, top: int = 4) -> dict:
 
     def kind(name: str) -> str:
         low = name.lower()
-        if "ssd_scan" in low:
-            return "ssd_scan kernel"
+        for key in SSD_KERNELS:
+            if key in low:
+                return SSD_KERNELS[key]
         if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
             return "matrix products"
         return name[:60]
@@ -499,7 +531,7 @@ def device_ms_by_kind(events, top: int = 4) -> dict:
     for name, (ms, n) in by_name.items():
         k_ms, k_n = kinds.get(kind(name), (0.0, 0))
         kinds[kind(name)] = (k_ms + ms, k_n + n)
-    named = ("ssd_scan kernel", "matrix products")
+    named = (*SSD_KERNELS.values(), "matrix products")
     others = sorted((k for k in kinds if k not in named),
                     key=lambda k: -kinds[k][0])
     out = {k: kinds[k] for k in named if k in kinds}
@@ -513,8 +545,8 @@ def device_ms_by_kind(events, top: int = 4) -> dict:
 
 def dense_train_phase(cfg, admm, g, card: str, dev) -> dict:
     """Phase 3, dense: Parallel ADMM on the dense block tensor through the
-    dense kernel; then the dense kernel against the ELL kernel on the same
-    layout's compressed view."""
+    dense launch; then the dense launch against the strided ELL launch on
+    the same layout's compressed view."""
     import torch
 
     from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
@@ -557,8 +589,9 @@ def dense_train_phase(cfg, admm, g, card: str, dev) -> dict:
           f"{busy_us / 1e3:.1f} ms, device idle share {idle} [{card}]",
           flush=True)
 
-    # the dense kernel against the ELL kernel on the compressed view of the
-    # same layout: one FFMA chain per output over the live blocks in order
+    # the dense launch against the strided ELL launch on the compressed
+    # view of the same layout: one FFMA chain per output over the live
+    # blocks in order
     csr = lay.compress()
     rows, nbrs = csr.ell_row_counts()
 
@@ -579,13 +612,14 @@ def dense_train_phase(cfg, admm, g, card: str, dev) -> dict:
     reset_counts(before)
     bitwise = torch.equal(out_d, out_e)
     err, rel = rel_err(out_d, out_e)
-    print(f"[3d] dense kernel vs ELL kernel on the M=3 layout (max_deg "
+    print(f"[3d] dense launch vs ELL launch on the M=3 layout (max_deg "
           f"{csr.max_deg}, row counts {rows.tolist()}), C=1000: bitwise "
-          f"equal {bitwise}, max_abs_err {err:.3e} rel {rel:.3e}; ELL "
-          f"{layout_text(community_spmm.operand_layout(ell[0], z))}",
+          f"equal {bitwise}, max_abs_err {err:.3e} rel {rel:.3e}; dense "
+          f"{layout_text(community_spmm.operand_layout(tr.data.a_blocks, z))}"
+          f"; ELL {layout_text(community_spmm.operand_layout(ell[0], z))}",
           flush=True)
     if not bitwise:
-        fail(f"the dense and ELL kernels are not bitwise equal on the M=3 "
+        fail(f"the dense and ELL launches are not bitwise equal on the M=3 "
              f"layout (rel {rel:.3e}): their FFMA order differs")
     steps = log.epoch_time_s
     out = {"launches": launches, "per_step": per_step,
@@ -688,7 +722,7 @@ def bf16_phase(cfg, admm, g, card: str, dev, f32_blocks: int,
 
 
 def time_dense(a_row, mask, z, peak_flops, peak_bw) -> dict:
-    """Phase 4: CUDA-event times of the dense kernel, its plain version and
+    """Phase 4: CUDA-event times of the dense launch, its plain version and
     the masked einsum on the same operands, beside the bound."""
     import torch
 
@@ -710,7 +744,8 @@ def time_dense(a_row, mask, z, peak_flops, peak_bw) -> dict:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "live_blocks": int((mask != 0).sum())}
+            "live_blocks": int((mask != 0).sum()),
+            "layout": community_spmm.operand_layout(a_row, z)}
 
 
 def serve_in_batches(server, ids, batch: int):
@@ -1026,25 +1061,50 @@ FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
      False, 127, "bfloat16"),
 ]
 FLASH_TIMED = [FLASH_CHECKS[i] for i in (0, 1, 2, 6)]   # three bf16, the f32
-FLASH_INNER = 10    # flash and SDPA calls per timed window (sub-ms kernels)
+SSD_PROFILED = 10   # SSD calls in the profiled window of phase 9
+# calls per timed window of the LM kernels and SDPA (the card runs one while
+# the host enqueues the next: a sub-millisecond kernel is not charged the
+# host's launch time)
+INNER = 10
 
 
 def check_lm_kernels(gen, dev) -> tuple[list, list]:
     """Phase 7: the SSD scan and flash attention kernels against their plain
-    versions on the same CUDA tensors."""
+    versions on the same CUDA tensors; each bf16 SSD case also against the
+    plain three-pass form with the tensor-core kernel's bf16 roundings
+    (reported)."""
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
     ssd_checks: list[dict] = []
     for name, b, s, h, p, g, n, dtype in SSD_CHECKS:
         dtype = getattr(torch, dtype)
+        tc = dtype == torch.bfloat16
         args = ssd_operands(gen, b, s, h, p, g, n, dtype, dev)
+        before = ssd.ssd_tc_launches
         out, _ = ops.ssd_scan(*args, chunk=256)
         torch.cuda.synchronize()
+        if ssd.ssd_tc_launches - before != int(tc):
+            fail(f"ssd_scan {name} took the wrong route: "
+                 f"{ssd.ssd_tc_launches - before} tensor-core launches")
         want = ref.ssd_scan_ref(*args, chunk=256)
         check_lm_case("ssd_scan", name, out, want,
                       SSD_F32_TOL if dtype == torch.float32 else BF16_TOL,
                       ssd_checks)
+        ssd_checks[-1]["route"] = "tensor cores (wgmma)" if tc else "FFMA"
+        if tc:
+            emulated = ref.ssd_scan_three_pass(*args, chunk=256,
+                                               round_bf16=True)
+            e_err, e_rel = rel_err(out, emulated)
+            p_err, p_rel = rel_err(emulated, want)
+            ssd_checks[-1].update(rel_err_vs_emulated=e_rel,
+                                  emulated_rel_err_vs_plain=p_rel)
+            print(f"[7]   tensor-core route; vs the three-pass form with "
+                  f"its bf16 roundings: max_abs_err {e_err:.3e} rel "
+                  f"{e_rel:.3e}; that form vs the plain version: rel "
+                  f"{p_rel:.3e} (reported)", flush=True)
+            del emulated
         del args, out, want
     flash_checks: list[dict] = []
     for name, b, s, hq, hkv, hd, causal, window, dtype in FLASH_CHECKS:
@@ -1140,10 +1200,13 @@ def mamba_phase(card: str, dev) -> dict:
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
         plain_launches = counts()
-    if launches["ssd"] != cfg.num_layers or plain_launches["ssd"] != 0:
-        fail(f"ssd_scan launches: {launches['ssd']} on the kernel forward "
-             f"(expected {cfg.num_layers}), {plain_launches['ssd']} on the "
-             f"plain one (expected 0)")
+    if (launches["ssd"] != cfg.num_layers
+            or launches["ssd_tc"] != cfg.num_layers
+            or plain_launches["ssd"] != 0):
+        fail(f"ssd_scan launches: {launches['ssd']} on the kernel forward, "
+             f"{launches['ssd_tc']} of them on the tensor cores (expected "
+             f"{cfg.num_layers} and {cfg.num_layers}), "
+             f"{plain_launches['ssd']} on the plain one (expected 0)")
     if tuple(logits_k.shape) != (b, 1, cfg.vocab_size) or not bool(
             torch.isfinite(logits_k).all() & torch.isfinite(logits_p).all()):
         fail(f"prefill logits of shape {tuple(logits_k.shape)} or not finite")
@@ -1153,11 +1216,13 @@ def mamba_phase(card: str, dev) -> dict:
           f"{tuple(logits_k.shape)} f32: kernel path vs plain path max "
           f"|diff| {err:.4e}, rel {rel:.4e} (limit {LOGIT_TOL:.1e}), argmax "
           f"agreement {agree:.2f}; ssd_scan launches {launches['ssd']} on the "
-          f"kernel forward, {plain_launches['ssd']} on the plain one; peak "
-          f"memory {peak_gb:.2f} GB", flush=True)
+          f"kernel forward ({launches['ssd_tc']} on the tensor cores), "
+          f"{plain_launches['ssd']} on the plain one; peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
     if not rel <= LOGIT_TOL:
         fail(f"prefill logits, kernel vs plain path: rel {rel:.3e}")
-    out.update(launches=launches["ssd"], flash_launches=launches["flash"],
+    out.update(launches=launches["ssd"], tc_launches=launches["ssd_tc"],
+               flash_launches=launches["flash"],
                flash_tc_launches=launches["flash_tc"],
                logits_max_abs_err=err,
                logits_rel_err=rel, argmax_agreement=agree)
@@ -1254,31 +1319,54 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
 
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
 
     def peak(dtype):
         return peak_bf16 if dtype == torch.bfloat16 else peak_fp32
 
     ssd_t = {}
-    for b, s in (PREFILL, SSD_LONG):
-        args = ssd_operands(gen, b, s, 64, 64, 1, 128, torch.bfloat16, dev)
+    for (b, s), dtype in ((PREFILL, torch.bfloat16),
+                          (SSD_LONG, torch.bfloat16),
+                          (PREFILL, torch.float32)):
+        args = ssd_operands(gen, b, s, 64, 64, 1, 128, dtype, dev)
+        tc = dtype == torch.bfloat16
         before = counts()
-        ms = median_ms(lambda: ops.ssd_scan(*args, chunk=256), 5)
+        ms = median_ms(lambda: ops.ssd_scan(*args, chunk=256), 5,
+                       inner=INNER)
+        passes = None
+        if tc:          # device time per pass over 10 profiled calls
+            events = profiled(lambda: [ops.ssd_scan(*args, chunk=256)
+                                       for _ in range(SSD_PROFILED)])[3]
+            passes = {k: round(v["ms"] / SSD_PROFILED, 4)
+                      for k, v in device_ms_by_kind(events).items()
+                      if k.startswith("ssd pass")}
         reset_counts(before)            # timing launches do not count
         plain_ms = median_ms(lambda: ref.ssd_scan_ref(*args, chunk=256), 3,
                              warmup=1)
         flops, nbytes = ssd_work(args[0], args[3], 256)
-        bnd, by = bound(flops, nbytes, peak(args[0].dtype), peak_bw)
-        key = f"{b}x{s}"
+        bnd, by = bound(flops, nbytes, peak(dtype), peak_bw)
+        key = f"{b}x{s}" + ("" if tc else " f32")
+        if tc:
+            lay = ssd.tc_layout(b, s, 64, 64, 128, 256)
+            blocks = (f"{math.prod(lay['pass1_grid'])} / "
+                      f"{math.prod(lay['pass2_grid'])} / "
+                      f"{math.prod(lay['pass3_grid'])} blocks in passes 1-3, "
+                      f"{lay['scratch_bytes'] / 1e6:.1f} MB of scratch")
+        else:
+            blocks = f"{b * 64} blocks"
         ssd_t[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                       "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9,
                       "mbytes": nbytes / 1e6,
-                      "tflop_per_s": flops / ms / 1e9}
-        print(f"[9] ssd_scan {key} bf16 (H 64, P 64, N 128, chunk 256, "
-              f"{b * 64} blocks): kernel {ms:.3f} ms "
-              f"({ssd_t[key]['tflop_per_s']:.1f} TFLOP/s), plain version "
-              f"{plain_ms:.3f} ms, no single PyTorch call, bound {bnd:.4f} "
-              f"ms ({by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) "
-              f"[{card}]", flush=True)
+                      "tflop_per_s": flops / ms / 1e9,
+                      "route": "tensor cores (wgmma)" if tc else "FFMA",
+                      "device_ms_by_pass": passes}
+        print(f"[9] ssd_scan {key} {'bf16' if tc else ''} (H 64, P 64, N "
+              f"128, chunk 256), {ssd_t[key]['route']}, {blocks}: kernel "
+              f"{ms:.3f} ms ({ssd_t[key]['tflop_per_s']:.1f} TFLOP/s), plain "
+              f"version {plain_ms:.3f} ms, no single PyTorch call, bound "
+              f"{bnd:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB); device ms a call by pass "
+              f"{json.dumps(passes)} [{card}]", flush=True)
         del args
     flash_t = {}
     F = torch.nn.functional
@@ -1302,11 +1390,11 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
 
         before = counts()
         ms = median_ms(lambda: ops.flash_attention(
-            q, k, v, causal=causal, window=window), 5, inner=FLASH_INNER)
+            q, k, v, causal=causal, window=window), 5, inner=INNER)
         reset_counts(before)            # timing launches do not count
         plain_ms = median_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=causal, window=window), 3, warmup=1)
-        lib_ms = median_ms(sdpa, 5, inner=FLASH_INNER)
+        lib_ms = median_ms(sdpa, 5, inner=INNER)
         flops, nbytes = flash_work(q, k, causal, window)
         bnd, by = bound(flops, nbytes, peak(dtype), peak_bw)
         tc = dtype == torch.bfloat16
@@ -1360,7 +1448,7 @@ def main() -> int:
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     build.load_all(build.LIBRARIES)
-    print(f"[1] built {KERNEL_SRC}, {FUSED_SRC}, {DENSE_SRC}, {SSD_SRC}, "
+    print(f"[1] built {KERNEL_SRC}, {FUSED_SRC}, {SSD_SRC}, {SSD_TC_SRC}, "
           f"{FLASH_SRC} and {FLASH_TC_SRC} in {time.perf_counter() - t0:.2f} "
           f"s", flush=True)
 
@@ -1613,10 +1701,11 @@ def main() -> int:
         t = dense_c[c] = time_dense(blocks_full, all_live, z, peak_flops,
                                     peak_bw)
         print(f"[4] dense C={c} ({t['live_blocks']} live blocks): kernel "
-              f"{t['ms']:.3f} ms, plain version {t['plain_ms']:.3f} ms, "
-              f"masked einsum {t['library_ms']:.3f} ms, bound "
-              f"{t['bound_ms']:.3f} ms ({t['bound_by']}; {t['gflop']:.1f} "
-              f"GFLOP, {t['mbytes']:.1f} MB) [{card}]", flush=True)
+              f"{t['ms']:.3f} ms ({t['gflop'] / t['ms']:.1f} TFLOP/s), plain "
+              f"version {t['plain_ms']:.3f} ms, masked einsum "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_by']}; {t['gflop']:.1f} GFLOP, {t['mbytes']:.1f} "
+              f"MB); {layout_text(t['layout'])} [{card}]", flush=True)
         del z
     steps = log.epoch_time_s
     print(f"[4] full-width step, packed ELL: median "
@@ -1731,7 +1820,8 @@ def main() -> int:
     head = dense_c[main_c]
     rows_out.append({
         "name": "community_spmm", "route": "cuda",
-        "source": DENSE_SRC, "replaces": DENSE_REPLACES,
+        "source": KERNEL_SRC, "replaces": DENSE_REPLACES,
+        "design": DENSE_DESIGN, "layout": head["layout"],
         "launches": dense["launches"],
         "max_abs_err": max(ch["max_abs_err"] for ch in dense_checks),
         "max_rel_err": max(ch["max_rel_err"] for ch in dense_checks),
@@ -1746,8 +1836,9 @@ def main() -> int:
         "per_c": {str(c): v for c, v in dense_c.items()}})
     head = ssd_t[f"{PREFILL[0]}x{PREFILL[1]}"]
     rows_out.append({
-        "name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
+        "name": "ssd_scan", "route": "cuda", "source": SSD_TC_SRC,
         "replaces": SSD_REPLACES, "launches": mamba["launches"],
+        "design": SSD_DESIGN, "tensor_core_launches": mamba["tc_launches"],
         "max_abs_err": max(ch["max_abs_err"] for ch in ssd_checks),
         "max_rel_err": max(ch["max_rel_err"] for ch in ssd_checks),
         "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -33,12 +33,12 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
-# every library, one per csrc/<name>.cu: the ELL and packed kernels, the
-# fused ELL→GEMM kernel, the dense block-row kernel, the Mamba-2 SSD scan,
-# flash attention in f32 (FFMA) and in bf16 (tensor cores)
-LIBRARIES = ("community_spmm_ell", "community_spmm_ell_fused",
-             "community_spmm_dense", "ssd_scan", "flash_attention",
-             "flash_attention_wgmma")
+# every library, one per csrc/<name>.cu: the ELL kernel (strided, packed
+# and dense launches), the fused ELL→GEMM kernel, the Mamba-2 SSD scan in
+# f32 (FFMA) and in bf16 (tensor cores, three passes), flash attention in
+# f32 (FFMA) and in bf16 (tensor cores)
+LIBRARIES = ("community_spmm_ell", "community_spmm_ell_fused", "ssd_scan",
+             "ssd_scan_wgmma", "flash_attention", "flash_attention_wgmma")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _locks: dict[str, threading.Lock] = {}

@@ -1,12 +1,13 @@
 """Launchers for the hand-written Hopper community aggregation kernels.
 
 ``csrc/community_spmm_ell.cu`` replaces the Pallas TPU kernels
-``community_spmm_ell`` and ``community_spmm_ell_packed``,
-``csrc/community_spmm_ell_fused.cu`` replaces ``community_spmm_ell_fused``
-and ``csrc/community_spmm_dense.cu`` replaces the dense ``community_spmm``
-(src/repro/kernels/community_spmm.py).  This module checks the operands,
-allocates the output, and launches a kernel on the current CUDA stream
-through the library ``build.load`` compiles at first use.  No output needs
+``community_spmm_ell``, ``community_spmm_ell_packed`` and the dense
+``community_spmm`` (one kernel in three addressings; the dense one reads
+no slot table), and ``csrc/community_spmm_ell_fused.cu`` replaces
+``community_spmm_ell_fused`` (src/repro/kernels/community_spmm.py).  This
+module checks the operands, allocates the output, and launches a kernel on
+the current CUDA stream through the library ``build.load`` compiles at
+first use.  No output needs
 a gradient (the trainer's reach every objective as constants; serving is
 inference), so there is no ``autograd.Function``: the launchers run on
 detached inputs.
@@ -19,9 +20,9 @@ that want the count of one phase reset it to 0 before the phase.
 ``fused_cluster``, ``fused_grid`` and ``fused_smem_bytes`` mirror the
 fused kernel's cluster launch, so that the width limit is refused here
 (the card tests hold them against ``community_spmm_ell_fused_layout``).
-``ell_layout`` mirrors the tile configuration the ELL / packed kernel
-picks for a launch (``community_spmm_ell_layout``), and ``operand_layout``
-reads it off a launch's operands.
+``ell_layout`` mirrors the tile configuration the ELL / packed / dense
+kernel picks for a launch (``community_spmm_ell_layout``), and
+``operand_layout`` reads it off a launch's operands.
 
 The launchers read no values from the device: the indices of live slots
 must lie in ``[0, M)`` and the plane rows a live packed slot reads must lie
@@ -39,9 +40,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import check_operand as _check
 from repro_torch.kernels.build import cuda_device as _cuda_device
 
-LIB = "community_spmm_ell"          # the ELL and packed kernels
+LIB = "community_spmm_ell"          # the ELL, packed and dense launches
 FUSED_LIB = "community_spmm_ell_fused"
-DENSE_LIB = "community_spmm_dense"
 launches = 0
 packed_launches = 0
 fused_launches = 0
@@ -239,7 +239,8 @@ def ell_layout(k: int, n_pad: int, c: int, block_bytes: int, z_align: int,
 
 def operand_layout(ell_blocks: torch.Tensor, z: torch.Tensor) -> dict:
     """``ell_layout`` of a launch on these operands: blocks (k, D, n, n),
-    z the strided z_all (M, n, C) or the packed plane (R, C)."""
+    z the strided z_all (M, n, C) or the packed plane (R, C); or the dense
+    launch's a_row (k, M, n, n) and z_all (M, n, C)."""
     k, _, n_pad, _ = ell_blocks.shape
     c = z.shape[-1]
     bb = ell_blocks.element_size()
@@ -318,8 +319,10 @@ def community_spmm_ell_fused(ell_blocks: torch.Tensor,
 
 def community_spmm(a_row: torch.Tensor, z_all: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
-    """Σ_r [mask[m,r] ≠ 0] · a_row[m,r] @ z_all[r] on the card; a block
-    whose mask is 0 is never read.
+    """Σ_r [mask[m,r] ≠ 0] · a_row[m,r] @ z_all[r] on the card: the ELL
+    kernel's dense addressing (slot r is block r, live where its mask is
+    nonzero), with ``ell_layout``'s tile for f32 blocks.  A block whose
+    mask is 0 is never read.
 
     a_row: (k, M, n_pad, n_pad) f32
     z_all: (M, n_pad, C) f32
@@ -341,7 +344,7 @@ def community_spmm(a_row: torch.Tensor, z_all: torch.Tensor,
     out = torch.empty((k, n_pad, c), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _launch("community_spmm", DENSE_LIB, "community_spmm_dense_f32",
+    _launch("community_spmm", LIB, "community_spmm_dense_f32",
             [a_row, z_all, mask, out], [k, m_total, n_pad, c], device)
     dense_launches += 1
     return out

@@ -1,15 +1,22 @@
-// ELL community aggregation for Hopper (sm_90a), in two addressings:
+// ELL community aggregation for Hopper (sm_90a), in three addressings:
 //
 //   strided: out[m] = sum_d [mask[m,d] != 0] * blocks[m,d] @ z_all[idx[m,d]]
 //   packed:  out[m] = sum_d [mask[m,d] != 0] * blocks[m,d]
 //                                      @ plane[off[m,d] : off[m,d] + n_pad]
+//   dense:   out[m] = sum_r [mask[m,r] != 0] * a_row[m,r] @ z_all[r]
 //
 // Replaces the Pallas TPU kernels `community_spmm_ell` and
-// `community_spmm_ell_packed` (both run `_spmm_ell_kernel`,
-// src/repro/kernels/community_spmm.py).  One kernel serves both: the slot
-// table holds a community id (strided, `unit` = n_pad rows) or a plane row
-// offset (packed, `unit` = 1 row), and neighbour d's Z rows start at row
-// table[m,d] * unit of the Z operand.  The packed kernel reads exactly the
+// `community_spmm_ell_packed` (both run `_spmm_ell_kernel`) and the dense
+// `community_spmm` (`_spmm_kernel`, src/repro/kernels/community_spmm.py,
+// which the reference vmaps over the k lanes with a per-lane mask).  One
+// kernel serves all three: the slot table holds a community id (strided,
+// `unit` = n_pad rows) or a plane row offset (packed, `unit` = 1 row), and
+// neighbour d's Z rows start at row table[m,d] * unit of the Z operand.
+// The dense launch is the strided one with a compile-time flag: D = M
+// slots, slot r live exactly when mask[m,r] != 0, its Z rows at r * n_pad,
+// every slot and the output n_pad rows long; no slot, row or neighbour
+// table is read, and a block whose mask is 0 is never read (as the TPU
+// kernel's `@pl.when(mask_ref[r] != 0)`).  The packed kernel reads exactly the
 // rows [off, off + nbr_counts) — the TPU version passes off / 8 because its
 // DMA moves 8-row slabs; the two agree on every 8-aligned layout.
 // Semantics follow the oracles (`community_spmm_ell_einsum`,
@@ -31,9 +38,10 @@
 // fmaf chain over the live slots in ascending d and, within a slot, over the
 // rows p in ascending order, starting from 0; a zero-filled row past a
 // neighbour's count adds fmaf(0, 0, acc) == acc.  The dense kernel and the
-// fused kernel (ell_tile.cuh) sum in the same order, so the dense kernel
-// equals this one bitwise where the slots list every block, and the fused
-// kernel's aggregate equals the packed output bitwise.  Tile shape, staging
+// fused kernel (ell_tile.cuh) sums in the same order, so the dense launch
+// equals the strided one bitwise where the slots list every block in
+// ascending order, and the fused kernel's aggregate equals the packed
+// output bitwise.  Tile shape, staging
 // and pipelining leave that order alone; split-K, splitting over slots and
 // atomics would not, and are not used.
 //
@@ -230,7 +238,7 @@ __device__ __forceinline__ void load_stage(
   }
 }
 
-template <class L, typename TA, int ACP, int ZCP>
+template <class L, typename TA, int ACP, int ZCP, bool DENSE>
 __global__ void __launch_bounds__(L::THREADS, L::MIN_BLOCKS)
 ell_spmm_kernel(const TA* __restrict__ blocks,
                 const int32_t* __restrict__ table,
@@ -252,7 +260,7 @@ ell_spmm_kernel(const TA* __restrict__ blocks,
   const int col0 = blockIdx.x * BN;
   const int tx = threadIdx.x % L::TX;
   const int ty = threadIdx.x / L::TX;
-  const int row_count = min(rows[m], n_pad);
+  const int row_count = DENSE ? n_pad : min(rows[m], n_pad);
 
   float acc[TM][TN];
 #pragma unroll
@@ -262,10 +270,12 @@ ell_spmm_kernel(const TA* __restrict__ blocks,
 
   if (row0 < row_count) {
     const int32_t* mk = mask + (size_t)m * max_deg;
-    const int32_t* nb = nbrs + (size_t)m * max_deg;
+    const int32_t* nb = DENSE ? nullptr : nbrs + (size_t)m * max_deg;
     int total = 0;                   // stages of the lane's contraction
     for (int d = 0; d < max_deg; ++d)
-      if (mk[d] != 0) total += (max(min(nb[d], n_pad), 0) + BK - 1) / BK;
+      if (mk[d] != 0)
+        total += ((DENSE ? n_pad : max(min(nb[d], n_pad), 0)) + BK - 1)
+                 / BK;
 
     // the producer's place in the stream: slot d, its rows, next row p0
     int d = -1, kmax = 0, p0 = 0, filled = 0;
@@ -277,12 +287,13 @@ ell_spmm_kernel(const TA* __restrict__ blocks,
         if (filled == 0 || p0 >= kmax) {       // the next live slot
           for (++d;; ++d) {
             if (mk[d] == 0) continue;          // its table entry unread
-            kmax = min(nb[d], n_pad);
+            kmax = DENSE ? n_pad : min(nb[d], n_pad);
             if (kmax > 0) break;
           }
           const size_t slot = (size_t)m * max_deg + d;
           a_src = blocks + (slot * n_pad + row0) * n_pad;
-          z_src = z + (size_t)table[slot] * unit * c;
+          z_src = z + (DENSE ? (size_t)d * n_pad
+                             : (size_t)table[slot] * unit) * c;
           p0 = 0;
         }
         load_stage<L, TA, ACP, ZCP>(a_ring + stage * BM * AS,
@@ -363,12 +374,18 @@ int align_of(const void* p, long long row_bytes) {
   return (v & 15u) ? (int)(v & (~v + 1)) : 16;
 }
 
-// Each configuration, and its Z copy width, is its own instantiation.
-template <class L, typename TA, int ACP, int ZCP>
-int run(const int* lay, const void* blocks, const void* table,
-        const void* mask, const void* rows, const void* nbrs, const void* z,
-        void* out, int max_deg, int n_pad, int c, int unit, void* stream) {
-  auto kernel = ell_spmm_kernel<L, TA, ACP, ZCP>;
+// A launch's operands: device pointers, sizes and the stream.
+struct Args {
+  const void *blocks, *table, *mask, *rows, *nbrs, *z;
+  void* out;
+  int max_deg, n_pad, c, unit;
+  void* stream;
+};
+
+// Each configuration, and its copy widths, is its own instantiation.
+template <class L, typename TA, int ACP, int ZCP, bool DENSE>
+int run(const int* lay, const Args& a) {
+  auto kernel = ell_spmm_kernel<L, TA, ACP, ZCP, DENSE>;
   const int smem = lay[8];
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -378,42 +395,28 @@ int run(const int* lay, const void* blocks, const void* table,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(lay[5], lay[6], lay[7]), L::THREADS, smem,
-           (cudaStream_t)stream>>>(
-      (const TA*)blocks, (const int32_t*)table, (const int32_t*)mask,
-      (const int32_t*)rows, (const int32_t*)nbrs, (const float*)z,
-      (float*)out, max_deg, n_pad, c, unit);
+           (cudaStream_t)a.stream>>>(
+      (const TA*)a.blocks, (const int32_t*)a.table, (const int32_t*)a.mask,
+      (const int32_t*)a.rows, (const int32_t*)a.nbrs, (const float*)a.z,
+      (float*)a.out, a.max_deg, a.n_pad, a.c, a.unit);
   return (int)cudaGetLastError();
 }
 
-template <class L, typename TA, int ACP>
-int run_z(const int* lay, const void* blocks, const void* table,
-          const void* mask, const void* rows, const void* nbrs,
-          const void* z, void* out, int max_deg, int n_pad, int c, int unit,
-          void* stream) {
+template <class L, typename TA, int ACP, bool DENSE>
+int run_z(const int* lay, const Args& a) {
   if constexpr (L::BN >= 32) {
-    if (lay[10] == 16)
-      return run<L, TA, ACP, 16>(lay, blocks, table, mask, rows, nbrs, z,
-                                 out, max_deg, n_pad, c, unit, stream);
+    if (lay[10] == 16) return run<L, TA, ACP, 16, DENSE>(lay, a);
   }
-  return run<L, TA, ACP, 4>(lay, blocks, table, mask, rows, nbrs, z, out,
-                            max_deg, n_pad, c, unit, stream);
+  return run<L, TA, ACP, 4, DENSE>(lay, a);
 }
 
-template <class L, typename TA>
-int run_a(const int* lay, const void* blocks, const void* table,
-          const void* mask, const void* rows, const void* nbrs,
-          const void* z, void* out, int max_deg, int n_pad, int c, int unit,
-          void* stream) {
-  if (lay[9] == 16)
-    return run_z<L, TA, 16>(lay, blocks, table, mask, rows, nbrs, z, out,
-                            max_deg, n_pad, c, unit, stream);
+template <class L, typename TA, bool DENSE>
+int run_a(const int* lay, const Args& a) {
+  if (lay[9] == 16) return run_z<L, TA, 16, DENSE>(lay, a);
   if constexpr (sizeof(TA) == 2) {
-    if (lay[9] == 2)
-      return run_z<L, TA, 2>(lay, blocks, table, mask, rows, nbrs, z, out,
-                             max_deg, n_pad, c, unit, stream);
+    if (lay[9] == 2) return run_z<L, TA, 2, DENSE>(lay, a);
   }
-  return run_z<L, TA, 4>(lay, blocks, table, mask, rows, nbrs, z, out,
-                         max_deg, n_pad, c, unit, stream);
+  return run_z<L, TA, 4, DENSE>(lay, a);
 }
 
 }  // namespace
@@ -460,25 +463,19 @@ extern "C" int community_spmm_ell_layout(int k, int n_pad, int c,
 
 namespace {
 
-template <typename TA>
-int launch(const void* blocks, const void* table, const void* mask,
-           const void* rows, const void* nbrs, const void* z, void* out,
-           int k, int max_deg, int n_pad, int c, int unit, void* stream) {
+template <typename TA, bool DENSE = false>
+int launch(const Args& a, int k) {
   int lay[11];
   community_spmm_ell_layout(
-      k, n_pad, c, (int)sizeof(TA), align_of(z, 4LL * c),
-      align_of(blocks, (long long)sizeof(TA) * n_pad), lay);
+      k, a.n_pad, a.c, (int)sizeof(TA), align_of(a.z, 4LL * a.c),
+      align_of(a.blocks, (long long)sizeof(TA) * a.n_pad), lay);
   if (lay[0] == Large::BM && lay[1] == Large::BN)
-    return run_a<Large, TA>(lay, blocks, table, mask, rows, nbrs, z, out,
-                            max_deg, n_pad, c, unit, stream);
+    return run_a<Large, TA, DENSE>(lay, a);
   if (lay[0] == Small::BM && lay[1] == Small::BN)
-    return run_a<Small, TA>(lay, blocks, table, mask, rows, nbrs, z, out,
-                            max_deg, n_pad, c, unit, stream);
+    return run_a<Small, TA, DENSE>(lay, a);
   if (lay[0] == Half::BM && lay[1] == Half::BN)
-    return run_a<Half, TA>(lay, blocks, table, mask, rows, nbrs, z, out,
-                           max_deg, n_pad, c, unit, stream);
-  return run_a<Narrow, TA>(lay, blocks, table, mask, rows, nbrs, z, out,
-                           max_deg, n_pad, c, unit, stream);
+    return run_a<Half, TA, DENSE>(lay, a);
+  return run_a<Narrow, TA, DENSE>(lay, a);
 }
 
 }  // namespace
@@ -494,8 +491,9 @@ extern "C" int community_spmm_ell_f32(const void* blocks, const void* idx,
                                       const void* nbrs, const void* z,
                                       void* out, int k, int max_deg,
                                       int n_pad, int c, void* stream) {
-  return launch<float>(blocks, idx, mask, rows, nbrs, z, out, k, max_deg,
-                       n_pad, c, n_pad, stream);
+  return launch<float>(
+      {blocks, idx, mask, rows, nbrs, z, out, max_deg, n_pad, c, n_pad,
+       stream}, k);
 }
 
 extern "C" int community_spmm_ell_bf16(const void* blocks, const void* idx,
@@ -503,24 +501,39 @@ extern "C" int community_spmm_ell_bf16(const void* blocks, const void* idx,
                                        const void* nbrs, const void* z,
                                        void* out, int k, int max_deg,
                                        int n_pad, int c, void* stream) {
-  return launch<__nv_bfloat16>(blocks, idx, mask, rows, nbrs, z, out, k,
-                               max_deg, n_pad, c, n_pad, stream);
+  return launch<__nv_bfloat16>(
+      {blocks, idx, mask, rows, nbrs, z, out, max_deg, n_pad, c, n_pad,
+       stream}, k);
 }
 
 extern "C" int community_spmm_ell_packed_f32(
     const void* blocks, const void* off, const void* mask, const void* rows,
     const void* nbrs, const void* plane, void* out, int k, int max_deg,
     int n_pad, int c, void* stream) {
-  return launch<float>(blocks, off, mask, rows, nbrs, plane, out, k, max_deg,
-                       n_pad, c, 1, stream);
+  return launch<float>(
+      {blocks, off, mask, rows, nbrs, plane, out, max_deg, n_pad, c, 1,
+       stream}, k);
 }
 
 extern "C" int community_spmm_ell_packed_bf16(
     const void* blocks, const void* off, const void* mask, const void* rows,
     const void* nbrs, const void* plane, void* out, int k, int max_deg,
     int n_pad, int c, void* stream) {
-  return launch<__nv_bfloat16>(blocks, off, mask, rows, nbrs, plane, out, k,
-                               max_deg, n_pad, c, 1, stream);
+  return launch<__nv_bfloat16>(
+      {blocks, off, mask, rows, nbrs, plane, out, max_deg, n_pad, c, 1,
+       stream}, k);
+}
+
+// The dense launch: a_row (k, m_total, n_pad, n_pad) f32, z_all (m_total,
+// n_pad, c) f32, mask (k, m_total) int32, out (k, n_pad, c) f32; the tile
+// is community_spmm_ell_layout's for (k, n_pad, c) with f32 blocks.
+extern "C" int community_spmm_dense_f32(const void* a_row, const void* z,
+                                        const void* mask, void* out, int k,
+                                        int m_total, int n_pad, int c,
+                                        void* stream) {
+  return launch<float, true>(
+      {a_row, nullptr, mask, nullptr, nullptr, z, out, m_total, n_pad, c,
+       n_pad, stream}, k);
 }
 
 extern "C" const char* community_spmm_error_string(int code) {

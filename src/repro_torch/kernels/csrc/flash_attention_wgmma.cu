@@ -52,229 +52,17 @@
 // for each wgmma before the softmax that needs it and copies with cp.async
 // from every thread; a TMA producer warp and softmax/MMA ping-pong between
 // the warpgroups are later work (PERF.md).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
+using namespace wg;
 typedef __nv_bfloat16 bf16;
 
 constexpr float NEG = -1073741824.0f;     // -2^30, the TPU kernel's mask
 constexpr float LOG2E = 1.4426950408889634f;
-
-// ---- wgmma m64nNk16, bf16 x bf16 -> f32 -----------------------------------
-// mma_ss: A (64 x 16) and B (16 x N) from shared memory, both K-major.
-// mma_rs: A from four registers per thread, B from shared memory MN-major
-// (imm-trans-b = 1).  scale_d = 0 overwrites d, 1 accumulates into it.
-// Accumulator fragment: thread t of the warpgroup holds d[4j + 2h + c] =
-// D[16 (t / 32) + (t % 32) / 4 + 8h][8j + 2 (t % 4) + c].
-
-#define WG_D8(i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-template <int N>
-__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
-                                       uint64_t db, int scale_d);
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
-                                       const uint32_t (&a)[4], uint64_t db,
-                                       int scale_d);
-
-template <>
-__device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_ss<64>(float (&d)[32], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_ss<128>(float (&d)[64], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24),
-        WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<64>(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<128>(float (&d)[64],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24),
-        WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<192>(float (&d)[96],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24),
-        WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56),
-        WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void mma_rs<256>(float (&d)[128],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24),
-        WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56),
-        WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88),
-        WG_D8(96), WG_D8(104), WG_D8(112), WG_D8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-#undef WG_D8
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep a register array's reads and writes on their side of a wgmma: the
-// asm redefines each register, so arithmetic cannot move across it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Matrix descriptor of a 128-byte-swizzled shared-memory operand: start
-// address, leading and stride byte offsets (each stored in 16-byte units).
-// K-major: rows 128 bytes apart, stride 1024 bytes to the next 8 rows,
-// leading offset unused.  MN-major: leading offset = bytes to the next
-// 64-wide block of N, stride 1024 bytes to the next 8 rows of K.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4)
-         | ((uint64_t)(lbo >> 4) << 16)
-         | ((uint64_t)(sbo >> 4) << 32)
-         | (1ull << 62);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x on the special-function unit (relative error ~2^-22; the result is
-// rounded to bf16 before it is used, and 2^-inf = 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Stage rows [0, ROWS) x columns [0, HD) of a bf16 slab whose row r starts at
 // g + r * step into shared memory at dst: HD / 64 column blocks of ROWS rows

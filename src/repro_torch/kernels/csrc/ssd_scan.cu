@@ -1,7 +1,8 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), f32, on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `ssd_scan` (`_ssd_kernel`,
-// src/repro/kernels/ssd_scan.py).  For every (batch, head) and every chunk
+// src/repro/kernels/ssd_scan.py) for f32 operands; bf16 operands run the
+// three-pass tensor-core kernel of ssd_scan_wgmma.cu.  For every (batch, head) and every chunk
 // of L positions, in order:
 //
 //   cum   = cumsum(dt * a)                       (within the chunk)
@@ -9,8 +10,8 @@
 //           + exp(cum_t) C_t . state             (state: N x P, f32)
 //   state = exp(cum_L) state + sum_u B_u w_u x_u^T,  w_u = exp(cum_L - cum_u) dt_u
 //
-// Head h reads group h / (H / G) of B and C.  x, B and C are f32 or bf16,
-// dt and a f32; every sum is f32 and y is written in x's type.
+// Head h reads group h / (H / G) of B and C.  Every operand and every sum
+// is f32.
 //
 // Design.  The TPU runs the chunk axis of its grid in order and keeps the
 // state in VMEM scratch.  Here one block of 256 threads owns one (batch,
@@ -25,21 +26,18 @@
 // and 0 * inf would be NaN), and accumulates scores . x_U.  The last row
 // tile walks every U, so it also sums the new state's term in registers;
 // the state is overwritten only after a barrier that follows every row's
-// read of the old one.  Each thread owns a 4 x 4 (rows x columns) piece of
+// read of the old one.  The f32 products stay off the tensor cores: there
+// they would be TF32, outside the f32 limit of 1e-4.  Each thread owns a 4 x 4 (rows x columns) piece of
 // every 64 x 64 tile, strided by 16 so that the shared-memory reads of a
 // warp hit distinct banks or broadcast.
 //
 // What bounds it.  At the Mamba-2 1.3B prefill shape (4 x 4096 tokens, 64
 // heads, P = 64, N = 128, L = 256) the work is ~86 GFLOP (causal half of
-// the dual form) against ~280 MB moved: with bf16 inputs the card's
-// tensor-core ridge puts the bound at ~0.09 ms.  This first version is an
-// FFMA kernel fed from shared memory (two shared loads per four FMAs), so
-// it runs far below that; the grid is batch x heads blocks with the chunk
-// loop serial inside each, which leaves SMs idle when batch x heads is
-// small (64 blocks on 132 SMs at 1 x 32768).  A three-phase form (chunk
-// states in parallel, a short scan over chunks, then the inter-chunk term)
-// and wgmma are later work.
-#include <cuda_bf16.h>
+// the dual form) against ~560 MB moved in f32: bound by the FP32 rate at
+// ~1.3 ms.  This is an FFMA kernel fed from shared memory (two shared loads
+// per four FMAs); the grid is batch x heads blocks with the chunk loop
+// serial inside each, which leaves SMs idle when batch x heads is small
+// (64 blocks on 132 SMs at 1 x 32768).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,20 +53,10 @@ constexpr int SMEM_FLOATS = 2 * MAX_N * LD + TILE * MAX_P + TILE * LD
                             + MAX_N * MAX_P + 3 * MAX_L;
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;   // 135,424
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ bm,
-                const T* __restrict__ cm, T* __restrict__ y, int seq,
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ a, const float* __restrict__ bm,
+                const float* __restrict__ cm, float* __restrict__ y, int seq,
                 int heads, int p_dim, int groups, int n_dim, int chunk) {
   extern __shared__ float smem[];
   float* ct = smem;                   // C tile, transposed: ct[n * LD + t]
@@ -90,11 +78,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const size_t x_step = (size_t)heads * p_dim;   // between positions
   const size_t bc_step = (size_t)groups * n_dim;
-  const T* xb = x + ((size_t)b * seq * heads + h) * p_dim;
-  T* yb = y + ((size_t)b * seq * heads + h) * p_dim;
+  const float* xb = x + ((size_t)b * seq * heads + h) * p_dim;
+  float* yb = y + ((size_t)b * seq * heads + h) * p_dim;
   const float* dtb = dt + (size_t)b * seq * heads + h;
-  const T* bb = bm + ((size_t)b * seq * groups + g) * n_dim;
-  const T* cb = cm + ((size_t)b * seq * groups + g) * n_dim;
+  const float* bb = bm + ((size_t)b * seq * groups + g) * n_dim;
+  const float* cb = cm + ((size_t)b * seq * groups + g) * n_dim;
 
   for (int i = tid; i < MAX_N * MAX_P; i += THREADS) st[i] = 0.f;
 
@@ -138,7 +126,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = tid; i < TILE * n_dim; i += THREADS) {
         const int r = i / n_dim, n = i % n_dim;
         ct[n * LD + r] =
-            r < tn ? to_f(cb[(size_t)(s0 + t0 + r) * bc_step + n]) : 0.f;
+            r < tn ? cb[(size_t)(s0 + t0 + r) * bc_step + n] : 0.f;
       }
       __syncthreads();
 
@@ -175,12 +163,12 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         for (int i = tid; i < TILE * n_dim; i += THREADS) {
           const int r = i / n_dim, n = i % n_dim;
           bt[n * LD + r] =
-              r < un ? to_f(bb[(size_t)(s0 + u0 + r) * bc_step + n]) : 0.f;
+              r < un ? bb[(size_t)(s0 + u0 + r) * bc_step + n] : 0.f;
         }
         for (int i = tid; i < TILE * MAX_P; i += THREADS) {
           const int r = i / MAX_P, p = i % MAX_P;
           xs[i] = (r < un && p < p_dim)
-                      ? to_f(xb[(size_t)(s0 + u0 + r) * x_step + p])
+                      ? xb[(size_t)(s0 + u0 + r) * x_step + p]
                       : 0.f;
         }
         __syncthreads();
@@ -247,11 +235,11 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = 0; i < 4; ++i) {
         const int t = ty + 16 * i;
         if (t >= tn) continue;
-        T* yr = yb + (size_t)(s0 + t0 + t) * x_step;
+        float* yr = yb + (size_t)(s0 + t0 + t) * x_step;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int p = tx + 16 * j;
-          if (p < p_dim) store(yr + p, acc[i][j]);
+          if (p < p_dim) yr[p] = acc[i][j];
         }
       }
     }
@@ -271,46 +259,29 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const void* a, const void* bm,
-           const void* cm, void* y, int batch, int seq, int heads, int p_dim,
-           int groups, int n_dim, int chunk, void* stream) {
-  if (chunk < 1 || chunk > MAX_L || seq % chunk != 0 || p_dim > MAX_P ||
-      n_dim > MAX_N || groups < 1 || heads % groups != 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  ssd_scan_kernel<T><<<batch * heads, THREADS, SMEM_BYTES,
-                       (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)dt, (const float*)a, (const T*)bm,
-      (const T*)cm, (T*)y, seq, heads, p_dim, groups, n_dim, chunk);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer of a
-// contiguous tensor: x (batch, seq, heads, p_dim), dt (batch, seq, heads)
-// f32, a (heads,) f32, bm and cm (batch, seq, groups, n_dim), y like x.
-// x, bm, cm and y are f32 (`ssd_scan_f32`) or bf16 (`ssd_scan_bf16`).
-// `chunk` divides seq and is at most 256; p_dim <= 64, n_dim <= 128.
-// Returns the cudaError_t of the launch.
+// contiguous f32 tensor: x and y (batch, seq, heads, p_dim), dt (batch, seq,
+// heads), a (heads,), bm and cm (batch, seq, groups, n_dim).  `chunk`
+// divides seq and is at most 256; p_dim <= 64, n_dim <= 128.  Returns the
+// cudaError_t of the launch.
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* a,
                             const void* bm, const void* cm, void* y,
                             int batch, int seq, int heads, int p_dim,
                             int groups, int n_dim, int chunk, void* stream) {
-  return launch<float>(x, dt, a, bm, cm, y, batch, seq, heads, p_dim, groups,
-                       n_dim, chunk, stream);
-}
-
-extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a,
-                             const void* bm, const void* cm, void* y,
-                             int batch, int seq, int heads, int p_dim,
-                             int groups, int n_dim, int chunk, void* stream) {
-  return launch<__nv_bfloat16>(x, dt, a, bm, cm, y, batch, seq, heads, p_dim,
-                               groups, n_dim, chunk, stream);
+  if (chunk < 1 || chunk > MAX_L || seq % chunk != 0 || p_dim > MAX_P ||
+      n_dim > MAX_N || groups < 1 || heads % groups != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_kernel<<<batch * heads, THREADS, SMEM_BYTES,
+                    (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)dt, (const float*)a, (const float*)bm,
+      (const float*)cm, (float*)y, seq, heads, p_dim, groups, n_dim, chunk);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

@@ -5,7 +5,9 @@ Counterparts of ``community_spmm_ref``, ``community_spmm_ell_einsum``,
 ``community_spmm_ell_fused_einsum``, ``flash_attention_ref`` and
 ``ssd_scan_ref`` in src/repro/kernels/ref.py.  The CPU dispatch in
 ``kernels.ops`` runs the einsum forms; ``chip_smoke.py`` holds each CUDA
-kernel against its plain version on the card.
+kernel against its plain version on the card.  ``ssd_scan_three_pass`` is
+the tensor-core SSD kernel's decomposition in plain PyTorch, for the tests
+and ``chip_smoke.py`` only.
 """
 from __future__ import annotations
 
@@ -183,3 +185,55 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y, _ = ssd_chunked(x.to(f32), dt.to(f32), a.to(f32), b_mat.to(f32),
                        c_mat.to(f32), ssd_chunk_length(x.shape[1], chunk))
     return y.to(x.dtype)
+
+
+def ssd_scan_three_pass(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                        chunk: int = 256,
+                        round_bf16: bool = False) -> torch.Tensor:
+    """The SSD scan as the tensor-core kernel (csrc/ssd_scan_wgmma.cu)
+    splits it, in f32: chunk states S_c = Σ_u (B_u w_u) x_uᵀ with
+    w_u = exp(cum_L − cum_u)·dt_u; the state entering each chunk, in_0 = 0,
+    in_{c+1} = exp(cum_L)·in_c + S_c; and the output
+    y_t = exp(cum_t)·C_t·in_c
+          + Σ_{u≤t} (C_t·B_u)·exp(cum_t − cum_u)·dt_u·x_u.
+
+    ``round_bf16`` rounds to bf16 the three operands the kernel rounds
+    before a tensor-core product: B·w, the entering state and the decayed
+    scores.  y in x's dtype."""
+    f32 = torch.float32
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    length = ssd_chunk_length(s, chunk)
+    nc = s // length
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(f32) if round_bf16 else t
+
+    xc = x.to(f32).reshape(bsz, nc, length, h, p)
+    dtc = dt.to(f32).reshape(bsz, nc, length, h)
+    bc, cc = (m.to(f32).reshape(bsz, nc, length, g, n)
+              .repeat_interleave(h // g, dim=3) for m in (b_mat, c_mat))
+    cum = torch.cumsum(dtc * a.to(f32), dim=2)             # (B, NC, L, H)
+
+    # 1. chunk states
+    w = torch.exp(cum[:, :, -1:] - cum) * dtc
+    states = torch.einsum("bcuhn,bcuhp->bchnp", rnd(bc * w[..., None]), xc)
+    # 2. the state entering each chunk, carried in f32
+    decay = torch.exp(cum[:, :, -1])                      # (B, NC, H)
+    entering = [torch.zeros_like(states[:, 0])]
+    for c in range(nc - 1):
+        entering.append(decay[:, c, :, None, None] * entering[-1]
+                        + states[:, c])
+    entering = rnd(torch.stack(entering, dim=1))          # (B, NC, H, N, P)
+    # 3. the output: the carried-in state's term, then the chunk's own
+    y = torch.exp(cum)[..., None] * torch.einsum("bcthn,bchnp->bcthp", cc,
+                                                 entering)
+    li = torch.arange(length, device=x.device)
+    causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B, NC, T, U, H)
+    scores = torch.einsum("bcthn,bcuhn->bctuh", cc, bc)
+    scores = torch.where(causal, scores * torch.exp(torch.where(
+        causal, seg, 0.0)) * dtc[:, :, None], 0.0)
+    y = y + torch.einsum("bctuh,bcuhp->bcthp", rnd(scores), xc)
+    return y.reshape(bsz, s, h, p).to(x.dtype)

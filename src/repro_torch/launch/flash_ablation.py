@@ -101,7 +101,8 @@ def build_variant(name: str):
     cu, lib = OUT / f"{stem}.cu", OUT / f"lib{stem}.so"
     cu.write_text(variant_source(name))
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas",
-                           "-v", "-o", str(lib), str(cu)],
+                           "-v", "-I", str(build.CSRC), "-o", str(lib),
+                           str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")

@@ -13,7 +13,8 @@ plain version, and bitwise equal to the packed kernel with W = I; the
 dense kernel within 1e-5 · max of its plain version (cuBLAS sums the
 plain einsum in another order), with absent blocks holding random values
 or NaN (never read), and bitwise equal to the ELL kernel where the ELL
-slots list every block in order.  The trainer's
+slots list every block in order (the dense launch is the ELL kernel's
+dense addressing).  The trainer's
 kernel path is held against its plain path at one shared state, in ELL and
 dense mode; the server's cached path against its cold path (bitwise) and
 against the same server on the CPU; the serial and baseline trainers run.
@@ -25,8 +26,10 @@ decay exp(cum_t − cum_u) turns its absolute error |cum| · 2^-24 into a
 relative one); bf16 within 2^-7 · max, one bf16 ulp at the largest value
 (both sum in f32 and round the output once; the tensor-core flash kernel
 also rounds P to bf16 before P·V, and normalises by the sum of the rounded
-P).  The reduced Mamba-2 forward through the SSD
-kernel matches the plain path in f32 within 1e-4 · max on the logits.
+P; the tensor-core SSD kernel rounds B·w, the carried state and the
+decayed scores to bf16 before its products).  The reduced Mamba-2
+forward through the SSD kernel matches the plain path in f32 within
+1e-4 · max on the logits.
 """
 import numpy as np
 import pytest
@@ -367,9 +370,9 @@ def test_dense_kernel_is_bitwise_the_ell_kernel_with_every_block(
 def test_dense_kernel_is_bitwise_the_ell_kernel_at_each_tile(
         cuda_device, tile, n_pad, c):
     """k = M = 3, every block live and listed in order by the ELL slots:
-    the dense kernel (64 x 64 tiles, ell_tile.cuh) and the ELL kernel in
-    each of its tile configurations sum one FFMA chain per output in the
-    same order."""
+    the dense launch and the strided ELL launch take the same tile
+    configuration (the ELL kernel, dense addressing) and sum one FFMA chain
+    per output in the same order."""
     gen = torch.Generator(device=cuda_device).manual_seed(n_pad + c)
     a = torch.randn((3, 3, n_pad, n_pad), generator=gen, device=cuda_device)
     z = torch.randn((3, n_pad, c), generator=gen, device=cuda_device)
@@ -585,6 +588,67 @@ def test_ssd_kernel_matches_plain_version(cuda_device, b, s, h, p, g, n,
     assert none is None and ssd_launcher.ssd_launches == before + 1
     want = ref.ssd_scan_ref(*args, chunk=chunk)
     _within(got, want, 1e-4 if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("n", [16, 64, 128])
+@pytest.mark.parametrize("p", [16, 32, 64])
+@pytest.mark.parametrize("chunk", [8, 64, 100, 192, 256])
+def test_ssd_tensor_core_kernel_at_the_edges(cuda_device, chunk, p, n, g):
+    """The bf16 (wgmma) kernel, batch 2, 4 heads, three chunks: chunks of
+    one partial 64-row tile (8), one whole tile (64), a ragged second tile
+    (100), three tiles (192) and four (256); head_dim and d_state below
+    the 64- and 128-wide tiles; 1, 2 and 4 groups."""
+    args = _ssd_operands(chunk + p + n + g, 2, 3 * chunk, 4, p, g, n,
+                         torch.bfloat16, cuda_device)
+    before = ssd_launcher.ssd_tc_launches
+    got, _ = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_launcher.ssd_tc_launches == before + 1
+    _within(got, ref.ssd_scan_ref(*args, chunk=chunk), BF16_TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(200, 100), (64, 8)])
+def test_ssd_tensor_core_kernel_on_unaligned_rows(cuda_device, s, chunk):
+    """head_dim 20 and d_state 24 (rows not on 16 bytes): element loads
+    in place of 16-byte copies, and the same result."""
+    args = _ssd_operands(s, 2, s, 4, 20, 2, 24, torch.bfloat16, cuda_device)
+    got, _ = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _within(got, ref.ssd_scan_ref(*args, chunk=chunk), BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_route_counts(cuda_device, dtype):
+    """A bf16 call counts one tensor-core launch, an f32 call one FFMA
+    launch; both count in ``ssd_launches``."""
+    args = _ssd_operands(5, 1, 128, 2, 16, 1, 16, dtype, cuda_device)
+    before = (ssd_launcher.ssd_launches, ssd_launcher.ssd_tc_launches)
+    ops.ssd_scan(*args, chunk=64)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (ssd_launcher.ssd_launches, ssd_launcher.ssd_tc_launches) == (
+        before[0] + 1, before[1] + tc)
+
+
+def test_ssd_tc_layout_matches_the_launcher(cuda_device):
+    """The tensor-core kernel's own grids and shared memory equal
+    ``tc_layout`` over a sweep of shapes and chunks."""
+    import ctypes
+    lib = build.load(ssd_launcher.TC_LIB)
+    query = lib.ssd_scan_wgmma_layout
+    query.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 11)()
+    for b, s, h, p, n, chunk in ((4, 4096, 64, 64, 128, 256),
+                                 (1, 32768, 64, 64, 128, 256),
+                                 (2, 300, 4, 20, 24, 100),
+                                 (1, 1000, 4, 32, 64, 8)):
+        assert query(b, s, h, p, n, chunk, out) == 0
+        t = ssd_launcher.tc_layout(b, s, h, p, n, chunk)
+        assert list(out) == [*t["pass1_grid"], t["pass1_smem_bytes"],
+                             *t["pass2_grid"], *t["pass3_grid"],
+                             t["pass3_threads"], t["pass3_smem_bytes"]]
+    assert query(1, 512, 4, 64, 128, 512, out) != 0
 
 
 def test_ssd_launcher_refuses_bad_operands(cuda_device):

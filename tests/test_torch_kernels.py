@@ -192,9 +192,11 @@ def test_every_source_is_a_registered_library():
     only registered libraries."""
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sorted(build.LIBRARIES) == sources
-    assert {community_spmm.LIB, community_spmm.FUSED_LIB,
-            community_spmm.DENSE_LIB, ssd_launcher.LIB, flash_launcher.LIB,
+    assert {community_spmm.LIB, community_spmm.FUSED_LIB, ssd_launcher.LIB,
+            ssd_launcher.TC_LIB, flash_launcher.LIB,
             flash_launcher.TC_LIB} == set(build.LIBRARIES)
+    # the dense launch is an addressing of the ELL kernel, not a library
+    assert "community_spmm_dense" not in sources
 
 
 def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
@@ -538,6 +540,28 @@ def test_ell_layout_copy_widths():
     assert community_spmm.operand_layout(blocks, plane)["z_copy"] == 4
     assert community_spmm.operand_layout(
         blocks, torch.zeros((100, 64)))["z_copy"] == 16
+
+
+@pytest.mark.parametrize("k,c,tile,grid", [
+    (3, 767, "large", (6, 36, 3)), (3, 1000, "large", (8, 36, 3)),
+    (3, 10, "narrow", (1, 72, 3)), (1, 1000, "large", (8, 36, 1)),
+    (1, 767, "small", (12, 72, 1)), (1, 10, "narrow", (1, 72, 1))])
+def test_dense_launch_takes_the_ell_layout(k, c, tile, grid):
+    """The dense launch is the ELL kernel's: its tile is
+    ``community_spmm_ell_layout``'s for f32 blocks of the (k, M, n, n)
+    block row, read off the operands by ``operand_layout``.  At the
+    trainer's n_pad 4584, k = 3 lanes take the large tile at C = 767 and
+    1000 and the narrow one at C = 10; one lane keeps the large tile at
+    C = 1000 (288 blocks) and drops to 64 x 64 at C = 767 (216 large
+    tiles are too few)."""
+    a_row = torch.empty((k, 3, 4584, 4584), device="meta")
+    z = torch.empty((3, 4584, c), device="meta")
+    want = community_spmm.ell_layout(k, 4584, c, 4, 4 if c == 767 else 16,
+                                     16)
+    assert (want["tile"], want["grid"]) == (tile, grid)
+    assert community_spmm.operand_layout(a_row, z) == want
+    assert want["a_copy"] == 16
+    assert want["z_copy"] == (16 if tile != "narrow" and c != 767 else 4)
 
 
 def test_ell_layout_shared_memory_fits_every_configuration():
