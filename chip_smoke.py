@@ -43,6 +43,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      parallel step time, reported); the Adam baseline for 3 epochs
      (finite); and packed ELL with bf16 blocks for 2 epochs (finite, the
      ELL kernel launched on bf16 blocks holding half the f32 block bytes);
+     3m. the paper's multi-agent form on the same graph: M = 3 communities
+     over 3 logical shards of the card (the loopback transport runs each
+     exchange round as row copies), packed, through the packed kernel
+     (one launch over every shard's lanes per aggregation) for 3 epochs and
+     with ``fused=True`` (the fused kernel at the four Z-update sites) for
+     3, then 1 epoch each of overlap, the bf16 wire and a 1/3 batch: step
+     ms, launches per step, wire bytes, profiled idle share, kernel vs
+     plain route objectives after every run (<= 1e-5; fused <= 1e-4), one
+     step against the one-shard trainer from the same state (tau/theta
+     equal, <= 1e-4), fused vs unfused objectives (<= 1e-4), and the
+     stacked packed and fused launches at the trainer's shapes against one
+     launch per shard (bitwise) and their plain versions, then timed;
   4. time the ELL and dense launches, their plain versions and the
      library composition (gather + einsum, masked einsum) at the trainer's
      shapes, beside the card's bound, with each launch's tile
@@ -114,6 +126,9 @@ FUSED_SRC = "src/repro_torch/kernels/csrc/community_spmm_ell_fused.cu"
 REPLACES = "src/repro/kernels/community_spmm.py:359"
 DENSE_REPLACES = "src/repro/kernels/community_spmm.py:273"
 BF16_EPOCHS = 2
+SHARDS = 3                     # phase 3m: M = 3 over 3 loopback shards
+SHARD_MODE_EPOCHS = 1          # overlap, bf16 wire, batch 1/3
+SHARD_TOL = 1e-4               # 3 shards vs 1 (the psum reassociated)
 PACKED_REPLACES = "src/repro/kernels/community_spmm.py:421"
 ELL_DESIGN = ("FFMA from a cp.async ring of 32-row stages, one FFMA chain "
               "per output in slot and row order; tile chosen by "
@@ -721,6 +736,271 @@ def bf16_phase(cfg, admm, g, card: str, dev, f32_blocks: int,
     return out
 
 
+def trained(tr, tag: str, epochs: int):
+    """Train ``epochs`` epochs with every launch count set to 0 just before
+    and read just after; then one more step's counts.  Returns (log, the
+    run's counts, one step's counts)."""
+    import torch
+    reset_counts()
+    log = tr.train(epochs)
+    run = counts()
+    print_log(tag, log)
+    check_finite_log(log, tag)
+    st = tr.state
+    for t in st.weights + st.zs + (st.u,) + st.taus + st.thetas:
+        if not bool(torch.isfinite(t).all()):
+            fail(f"a non-finite value in the {tag} trainer state")
+    reset_counts()
+    tr.step()
+    return log, run, counts()
+
+
+def objectives_gap(a: dict, b: dict) -> float:
+    """Largest relative difference between two ``objectives()`` results."""
+    worst = 0.0
+    for kind in ("w", "z"):
+        for (va, ga), (vb, gb) in zip(a[kind], b[kind]):
+            for x, y in ((va, vb), (ga, gb)):
+                worst = max(worst, rel_err(x, y)[1])
+    return worst
+
+
+def launch_text(c: dict) -> str:
+    return (f"ELL {c['ell']}, packed {c['packed']}, fused {c['fused']}")
+
+
+def multishard_phase(cfg, admm, g, card: str, dev, peak_flops: float,
+                     peak_bw: float) -> dict:
+    """Phase 3m: the paper's multi-agent Parallel ADMM, M = 3 communities
+    over 3 loopback shards of the card on the packed wire: unfused and
+    fused training, one epoch each of overlap, the bf16 wire and a 1/3
+    batch; a step against the one-shard trainer; the stacked launches
+    against per-shard launches and against their plain versions; and the
+    packed and fused kernels timed at the trainer's shapes."""
+    import torch
+
+    from repro_torch.core import graph
+    from repro_torch.core.parallel import (ParallelADMMTrainer,
+                                           ParallelState, TrainerConfig)
+    from repro_torch.kernels import community_spmm, ref
+    part = graph.partition_graph(g.num_nodes, g.edges, 3, seed=0,
+                                 method="bfs_kl")
+
+    def build(n_shards=SHARDS, **kw):
+        t0 = time.perf_counter()
+        tr = ParallelADMMTrainer(
+            cfg, admm, g, num_parts=3, seed=0, part=part, device=dev,
+            n_shards=n_shards,
+            config=TrainerConfig.packed(use_kernel=True,
+                                        partitioner="bfs_kl", **kw))
+        torch.cuda.synchronize()
+        return tr, time.perf_counter() - t0
+
+    out: dict = {}
+    tr, setup = build()
+    plan, cs = tr._plan, tr.comm_stats
+    print(f"[3m] set-up {setup:.1f} s: M=3 over {tr.n_shards} loopback "
+          f"shards, row counts {tr.layout.eff_row_counts().tolist()}, "
+          f"{plan.num_rounds} exchange rounds, r_pad {plan.r_pad}, receive "
+          f"planes {tr.n_shards} x {plan.recv_plane_rows} rows, state planes "
+          f"{tr.n_shards} x {tr.packed_layout.plane_rows} rows; wire "
+          f"{cs['wire_bytes']} B per step (all-gather {cs['full_bytes']} "
+          f"B), overlap model efficiency "
+          f"{cs['overlap']['overlap_efficiency']:.4f}", flush=True)
+    log, run, per = trained(tr, "3m", EPOCHS)
+    if run["packed"] == 0:
+        fail("the 3-shard packed training run never launched the packed "
+             "kernel")
+    if run["fused"] != 0:
+        fail("the unfused 3-shard run launched the fused kernel")
+    wall_us, busy_us, idle, events = profiled(tr.step)
+    kinds = device_ms_by_kind(events, top=6)
+    print(f"[3m] unfused: launches in {EPOCHS} epochs {launch_text(run)}; "
+          f"per step {launch_text(per)}; wire {cs['wire_bytes']} B per "
+          f"step; profiled step wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms, device idle share {idle}; device ms by "
+          f"kind {json.dumps(kinds)} [{card}]", flush=True)
+    worst = objective_gap(tr)
+    print(f"[3m] trained state: objectives and gradients, kernel vs plain "
+          f"route on the card: max rel diff {worst:.3e}", flush=True)
+    if not worst <= TOL:
+        fail(f"3-shard objectives differ between routes by {worst:.3e}")
+    out["unfused"] = {"steps_ms": [1e3 * t for t in log.epoch_time_s],
+                      "launches": run, "per_step": per, "idle": idle,
+                      "busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+                      "by_kind": kinds, "objective_gap": worst,
+                      "wire_bytes": cs["wire_bytes"]}
+
+    # the stacked launches at the trainer's shapes: against one launch per
+    # shard (bitwise) and their plain versions; then their times
+    body, batch = tr._body, tr._full
+    rpr, k = plan.recv_plane_rows, body.k
+    csr = tr.layout.compress()
+    local = torch.as_tensor(plan.localized_offsets(
+        csr.ell_indices, csr.ell_mask), dtype=torch.int32, device=dev)
+    ops_ = (body.ell_rows, body.offsets, body.ell_live)
+    counts_ = (body.ell_rcnt, body.ell_ncnt)
+    inputs = [(body.z0, tr.state.weights[0]),
+              (body.from_plane(tr.state.zs[0]), tr.state.weights[1])]
+    stacked, timed = [], {}
+    before = counts()
+    for x, w in inputs:
+        c_in, c_out = w.shape
+        plane = body.gather(x, batch)
+        p_out = community_spmm.community_spmm_ell_packed(*ops_, plane,
+                                                         *counts_)
+        f_out = community_spmm.community_spmm_ell_fused(*ops_, plane, w,
+                                                        *counts_)
+        per_p, per_f = [], []
+        for s in range(tr.n_shards):
+            lanes = slice(s * k, (s + 1) * k)
+            args = (body.ell_rows[lanes], local[lanes].contiguous(),
+                    body.ell_live[lanes], plane[s * rpr:(s + 1) * rpr])
+            cnt = (body.ell_rcnt[lanes], body.ell_ncnt[lanes])
+            per_p.append(community_spmm.community_spmm_ell_packed(*args,
+                                                                  *cnt))
+            per_f.append(community_spmm.community_spmm_ell_fused(
+                *args, w, *cnt))
+        torch.cuda.synchronize()
+        same_p = torch.equal(p_out, torch.cat(per_p))
+        same_f = torch.equal(f_out, torch.cat(per_f))
+        err_p, rel_p = rel_err(p_out, ref.community_spmm_ell_packed_einsum(
+            *ops_, plane, *counts_))
+        err_f, rel_f = rel_err(f_out, ref.community_spmm_ell_fused_einsum(
+            *ops_, plane, w, *counts_))
+        _, rel_pm = rel_err(f_out, p_out @ w)
+        ok = (same_p and same_f and rel_p <= TOL and rel_f <= FUSED_TOL
+              and rel_pm <= TOL)
+        rec = {"c_in": c_in, "c_out": c_out, "plane_rows": plane.shape[0],
+               "packed_bitwise_per_shard": same_p,
+               "fused_bitwise_per_shard": same_f,
+               "packed_max_abs_err": err_p, "packed_max_rel_err": rel_p,
+               "fused_max_abs_err": err_f, "fused_max_rel_err": rel_f,
+               "fused_rel_err_vs_packed_then_matmul": rel_pm}
+        stacked.append(rec)
+        print(f"[3m] stacked launch, {tr.n_shards} shards' lanes, plane "
+              f"{plane.shape[0]} rows, {c_in}->{c_out}: packed = per-shard "
+              f"launches bitwise {same_p}, fused = per-shard bitwise "
+              f"{same_f}; packed vs plain max_abs_err {err_p:.3e} rel "
+              f"{rel_p:.3e}, fused vs plain rel {rel_f:.3e}, fused vs "
+              f"packed+matmul rel {rel_pm:.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"a stacked launch disagrees at {c_in}->{c_out}")
+        reset_counts(before)
+        t_p = time_packed(*ops_, *counts_, plane, peak_flops, peak_bw)
+        t_f = time_packed(*ops_, *counts_, plane, peak_flops, peak_bw, w=w)
+        grid = community_spmm.fused_grid(body.m, body.ell_rows.shape[2],
+                                         c_in)
+        t_f.update(grid=grid, cluster=grid[0], blocks=math.prod(grid))
+        timed[c_in] = {"packed": t_p, "fused": t_f}
+        for name, t in (("packed", t_p), ("fused", t_f)):
+            print(f"[3m] {name} kernel at the trainer's shape k={body.m} "
+                  f"D={body.ell_rows.shape[1]} n_pad="
+                  f"{body.ell_rows.shape[2]} plane {plane.shape[0]} "
+                  f"{c_in}->{c_out if name == 'fused' else c_in}: kernel "
+                  f"{t['ms']:.3f} ms, plain version {t['plain_ms']:.3f} ms, "
+                  f"library {t['library_ms']:.3f} ms, bound "
+                  f"{t['bound_ms']:.3f} ms ({t['bound_by']}; "
+                  f"{t['gflop']:.2f} GFLOP, {t['mbytes']:.1f} MB) [{card}]",
+                  flush=True)
+        del plane, p_out, f_out, per_p, per_f
+    reset_counts(before)
+    out["stacked"], out["timed"] = stacked, timed
+
+    # one step of the 3-shard trainer against the one-shard packed trainer
+    t1, _ = build(n_shards=1)
+    dl3, dl1 = tr.packed_layout, t1.packed_layout
+
+    def move(p):                      # 3-shard planes -> the 1-shard plane
+        blk = dl3.unpack_state(p.cpu().numpy())
+        return torch.as_tensor(dl1.pack_state(blk), device=dev)
+    st = tr.state
+    t1.state = ParallelState(st.weights, tuple(move(z) for z in st.zs),
+                             move(st.u), st.taus, st.thetas)
+    obj_gap = objectives_gap(tr.objectives(), t1.objectives())
+    s3, s1 = tr.next_state(), t1.next_state()
+    same = all(torch.equal(a, b) for a, b in
+               zip(s3.taus + s3.thetas, s1.taus + s1.thetas))
+    worst = max(rel_err(a, b)[1] for a, b in
+                zip(s3.weights + tuple(tr._unfold(z) for z in s3.zs)
+                    + (tr._unfold(s3.u),),
+                    s1.weights + tuple(t1._unfold(z) for z in s1.zs)
+                    + (t1._unfold(s1.u),)))
+    print(f"[3m] one step, 3 shards vs 1 shard from the trained state: "
+          f"tau/theta equal {same}, W/Z/U max rel diff {worst:.3e} (limit "
+          f"{SHARD_TOL}); objectives and gradients max rel diff "
+          f"{obj_gap:.3e}", flush=True)
+    if not (same and worst <= SHARD_TOL and obj_gap <= SHARD_TOL):
+        fail("the 3-shard step disagrees with the one-shard step")
+    out["vs_one_shard"] = {"tau_theta_equal": same, "max_rel_err": worst,
+                           "objectives_rel_err": obj_gap}
+    del t1, s3, s1
+    torch.cuda.empty_cache()
+
+    # fused: the four Z-update sites through the fused kernel
+    tf, setup = build(fused=True)
+    log_f, run_f, per_f = trained(tf, "3m-fused", EPOCHS)
+    if run_f["fused"] == 0:
+        fail("the fused 3-shard training run never launched the fused "
+             "kernel")
+    wall_us, busy_us, idle_f, events = profiled(tf.step)
+    kinds_f = device_ms_by_kind(events, top=6)
+    worst_f = objective_gap(tf)
+    print(f"[3m] fused, trained state: objectives and gradients, kernel vs "
+          f"plain route (the reassociated A·(Z·W)) on the card: max rel "
+          f"diff {worst_f:.3e} (limit {FUSED_TOL})", flush=True)
+    if not worst_f <= FUSED_TOL:
+        fail(f"fused objectives differ between routes by {worst_f:.3e}")
+    tf.state = tr.state
+    gap = objectives_gap(tf.objectives(), tr.objectives())
+    print(f"[3m] fused: set-up {setup:.1f} s; launches in {EPOCHS} epochs "
+          f"{launch_text(run_f)}; per step {launch_text(per_f)}; profiled "
+          f"step wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms, device idle share {idle_f}; device ms "
+          f"by kind {json.dumps(kinds_f)}; fused vs "
+          f"unfused objectives and gradients at one state: max rel diff "
+          f"{gap:.3e} (limit {FUSED_TOL}) [{card}]", flush=True)
+    if not gap <= FUSED_TOL:
+        fail(f"fused and unfused objectives differ by {gap:.3e}")
+    out["fused"] = {"steps_ms": [1e3 * t for t in log_f.epoch_time_s],
+                    "launches": run_f, "per_step": per_f, "idle": idle_f,
+                    "busy_ms": busy_us / 1e3, "wall_ms": wall_us / 1e3,
+                    "by_kind": kinds_f, "objective_gap": worst_f,
+                    "vs_unfused_rel_err": gap}
+    del tf, tr
+    torch.cuda.empty_cache()
+
+    for name, kw in (("overlap", {"overlap": True}),
+                     ("bf16-wire", {"comm_bf16": True}),
+                     ("batch-1/3", {"batch_fraction": 1 / 3})):
+        tm, setup = build(**kw)
+        log_m, run_m, per_m = trained(tm, f"3m-{name}", SHARD_MODE_EPOCHS)
+        if run_m["packed"] == 0:
+            fail(f"the {name} run never launched the packed kernel")
+        cs = tm.comm_stats
+        mb = cs["minibatch"]
+        wire = mb["sampled_wire_bytes"] if mb["enabled"] else cs["wire_bytes"]
+        worst_m = objective_gap(tm)
+        print(f"[3m] {name}: set-up {setup:.1f} s; launches in "
+              f"{SHARD_MODE_EPOCHS} epoch {launch_text(run_m)}; per step "
+              f"{launch_text(per_m)}; wire {wire} B per step; overlap "
+              f"groups {cs['overlap']['num_groups']} (enabled "
+              f"{cs['overlap']['enabled']}); trained state: objectives and "
+              f"gradients, kernel vs plain route: max rel diff "
+              f"{worst_m:.3e} (limit {TOL}) [{card}]", flush=True)
+        if not worst_m <= TOL:
+            fail(f"{name} objectives differ between routes by "
+                 f"{worst_m:.3e}")
+        out[name] = {"steps_ms": [1e3 * t for t in log_m.epoch_time_s],
+                     "launches": run_m, "per_step": per_m,
+                     "wire_bytes": wire, "objective_gap": worst_m}
+        del tm
+        torch.cuda.empty_cache()
+    print(f"[3m] summary {json.dumps(out)}", flush=True)
+    return out
+
+
 def time_dense(a_row, mask, z, peak_flops, peak_bw) -> dict:
     """Phase 4: CUDA-event times of the dense launch, its plain version and
     the masked einsum on the same operands, beside the bound."""
@@ -912,12 +1192,14 @@ def time_packed(blocks, off, mask, rows, nbrs, z, peak_flops, peak_bw,
     if self_mask is not None:           # the halo pass: self slot masked
         mask = mask * (1 - self_mask.to(mask.dtype))
         nbrs = (nbrs * (mask != 0)).to(torch.int32)
-    maskf = (mask != 0).float()
     n = blocks.shape[2]
-    idx = off.long()[..., None] + torch.arange(n, device=z.device)
+    lane = torch.arange(n, device=z.device)
+    # rows past a slot's count (or past the plane) contribute nothing
+    idx = torch.clamp(off.long()[..., None] + lane, max=z.shape[0] - 1)
+    keep = ((lane < nbrs[..., None]) & (mask[..., None] != 0)).float()
 
     def composition():
-        zg = z[idx] * maskf[..., None, None]
+        zg = z[idx] * keep[..., None]
         out = torch.einsum("mdip,mdpc->mic", blocks, zg)
         return out if w is None else out @ w
 
@@ -1663,8 +1945,11 @@ def main() -> int:
     serial = serial_phase(cfg, admm, g, card, dev, dense["median_step_ms"])
     bf16 = bf16_phase(cfg, admm, g, card, dev, f32_blocks, f32_resident)
 
-    # ---- 4. times -----------------------------------------------------------
+    # ---- 3m. M = 3 over 3 loopback shards: the packed and fused kernels ---
     peak_flops, peak_bf16, peak_bw = peaks(name)
+    multi = multishard_phase(cfg, admm, g, card, dev, peak_flops, peak_bw)
+
+    # ---- 4. times -----------------------------------------------------------
     per_c = {}
     for c in (767, 1000, 10):
         z = torch.randn((k, n_full, c), generator=gen, device=dev)
@@ -1781,42 +2066,67 @@ def main() -> int:
         "design": ELL_DESIGN, "layout": per_c[main_c]["layout"],
         "checked": True, "max_rel_err": max_rel,
         "per_c": {str(c): v for c, v in per_c.items()}}]
-    head = packed_c[main_c]
+    # the packed and fused rows: launches of the 3-shard training runs
+    # (phase 3m, the trainer's path), timed at its stacked shapes; the
+    # server's shapes and launch counts beside them
+    stacked = multi["stacked"]
+    head = multi["timed"][main_c]["packed"]
     rows_out.append({
         "name": "community_spmm_ell_packed", "route": "cuda",
         "source": KERNEL_SRC, "replaces": PACKED_REPLACES,
-        "launches": serve["launches"]["cached"]["packed"],
-        "max_abs_err": max(ch["max_abs_err"] for ch in packed_checks),
-        "max_rel_err": max(ch["max_rel_err"] for ch in packed_checks),
+        "launches": multi["unfused"]["launches"]["packed"],
+        "max_abs_err": max([ch["max_abs_err"] for ch in packed_checks]
+                           + [r["packed_max_abs_err"] for r in stacked]),
+        "max_rel_err": max([ch["max_rel_err"] for ch in packed_checks]
+                           + [r["packed_max_rel_err"] for r in stacked]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "timed_at": {"k": 1, "max_deg": d_s, "live_slots": head["live_slots"],
-                     "n_pad": n_s, "plane_rows": d_s * n_s, "C": main_c},
+        "timed_at": {"k": 3, "max_deg": 3, "shards": SHARDS,
+                     "live_slots": head["live_slots"], "n_pad": n_full,
+                     "plane_rows": stacked[1]["plane_rows"], "C": main_c},
         "design": ELL_DESIGN, "layout": head["layout"],
         "checked": True,
-        "launches_cold_run": serve["launches"]["cold"]["packed"],
-        "per_c": {str(c): v for c, v in packed_c.items()}})
-    head = fused_c[(767, 1000)]
+        "stacked_bitwise_per_shard": all(
+            r["packed_bitwise_per_shard"] for r in stacked),
+        "launches_fused_run": multi["fused"]["launches"]["packed"],
+        "launches_serving_cached_run": serve["launches"]["cached"]["packed"],
+        "launches_serving_cold_run": serve["launches"]["cold"]["packed"],
+        "trainer_per_c": {str(c): v["packed"]
+                          for c, v in multi["timed"].items()},
+        "serving_per_c": {str(c): v for c, v in packed_c.items()}})
+    head = multi["timed"][767]["fused"]
     rows_out.append({
         "name": "community_spmm_ell_fused", "route": "cuda",
         "source": FUSED_SRC, "replaces": FUSED_REPLACES,
-        "launches": serve["launches"]["fused_cold"]["fused"],
-        "max_abs_err": max(ch["max_abs_err"] for ch in fused_checks),
-        "max_rel_err": max(ch["max_rel_err"] for ch in fused_checks),
+        "launches": multi["fused"]["launches"]["fused"],
+        "max_abs_err": max([ch["max_abs_err"] for ch in fused_checks]
+                           + [r["fused_max_abs_err"] for r in stacked]),
+        "max_rel_err": max([ch["max_rel_err"] for ch in fused_checks]
+                           + [r["fused_max_rel_err"] for r in stacked]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "timed_at": {"k": 1, "max_deg": d_s, "live_slots": head["live_slots"],
-                     "n_pad": n_s, "plane_rows": d_s * n_s, "C_in": 767,
+        "timed_at": {"k": 3, "max_deg": 3, "shards": SHARDS,
+                     "live_slots": head["live_slots"], "n_pad": n_full,
+                     "plane_rows": stacked[0]["plane_rows"], "C_in": 767,
                      "C_out": 1000},
         "design": "32-row tile per thread-block cluster, C_in chunks over "
                   "the cluster, aggregate in distributed shared memory",
         "cluster": head["cluster"], "blocks": head["blocks"],
         "checked": True,
+        "stacked_bitwise_per_shard": all(
+            r["fused_bitwise_per_shard"] for r in stacked),
         "max_rel_err_vs_packed_then_matmul": max(
-            ch["rel_err_vs_packed_then_matmul"] for ch in fused_checks),
-        "per_shape": {f"{a}->{b}": v for (a, b), v in fused_c.items()}})
+            [ch["rel_err_vs_packed_then_matmul"] for ch in fused_checks]
+            + [r["fused_rel_err_vs_packed_then_matmul"] for r in stacked]),
+        "launches_serving_fused_cold_run":
+            serve["launches"]["fused_cold"]["fused"],
+        "trainer_per_shape": {
+            f"{c}->{1000 if c == 767 else 10}": v["fused"]
+            for c, v in multi["timed"].items()},
+        "serving_per_shape": {f"{a}->{b}": v
+                              for (a, b), v in fused_c.items()}})
     head = dense_c[main_c]
     rows_out.append({
         "name": "community_spmm", "route": "cuda",

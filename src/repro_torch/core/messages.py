@@ -1,17 +1,43 @@
-"""Host-side (numpy) accounting of the community messages.
+"""Community messages: byte accounting, the neighbour-exchange plan and
+its loopback transport.
 
-The port's copy of ``gather_bytes``, ``adjacency_bytes``, ``pad_stats``,
-``plane_read_offsets`` and ``self_slot_mask`` from ``repro.core.messages``:
-per-iteration payload bytes, device-resident adjacency bytes and
-residual-padding work of a layout, and the single-plane read tables of the
-serving engine.  The neighbour exchange plan and its transports come with
-the multi-shard slice.
+The port's copy of ``repro.core.messages``.  Host side (numpy), equal to
+the reference table for table (tests/test_torch_messages.py):
+
+  * ``gather_bytes``, ``adjacency_bytes``, ``pad_stats``: per-iteration
+    payload bytes, device-resident adjacency bytes and residual-padding
+    work of a layout;
+  * ``plane_read_offsets``, ``self_slot_mask``: the single-plane read
+    tables of the serving engine;
+  * the neighbour-exchange plan (``NeighborExchange``,
+    ``build_neighbor_exchange``, ``restrict_exchange``, ``arrival_rounds``)
+    and its pricing (``exchange_bytes``, ``overlap_stats``,
+    ``verify_transport_bytes``).
+
+The transports run the plan on one device for ``n_shards`` logical shards
+(``exchange_neighbors``, ``exchange_neighbors_packed``, ``allgather``): the
+tensors carry every shard at once, and each round of the plan — one
+``lax.ppermute`` in the reference — is a row copy from the source shard's
+rows into the destination shard's receive buffer.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.core.graph import shard_neighbor_graph
+from repro_torch.sharding.partition import ring_round_coloring
+
+Tensor = torch.Tensor
+
+# The overlap model's device (``overlap_stats``): an H100 SXM's published
+# FP32 peak (the aggregation kernels run FP32 FMAs) and one direction of
+# its NVLink 4 (18 links of 25 GB/s), the link between two agents' cards.
+PEAK_FLOPS = 67e12
+LINK_BW = 450e9
 
 
 def gather_bytes(neighbor_mask: np.ndarray, n_pad: int,
@@ -147,3 +173,667 @@ def self_slot_mask(ell_indices: np.ndarray, ell_mask: np.ndarray
     msk = np.asarray(ell_mask) > 0
     rows = np.arange(idx.shape[0])[:, None]
     return ((idx == rows) & msk).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the neighbour-exchange plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeRound:
+    """One round of the neighbour exchange.
+
+    Every pair of the round moves a ``(rows_pad, C)`` buffer; shards
+    outside ``pairs`` move nothing.  Rows are *node* rows: a
+    community contributes only its true ``sizes[r]`` rows (row-exact), or
+    all ``n_pad`` rows when the plan was built without sizes (the
+    global-pad / whole-block behaviour).  ``send_idx[s]`` lists the flat
+    local node-row indices (into the (k·n_pad, C)-flattened local payload)
+    shard s packs, 0-padded past its true row count; ``recv_slot[s]`` the
+    flat receive-buffer rows (into (r_pad·n_pad, C)) the arriving rows
+    scatter into, with pad positions pointing one past the buffer end so
+    the scatter discards them.  For each pair both tables are
+    written from the same ordered row list, so row t on the source lines up
+    with row t on the destination.
+    """
+    offset: int                      # colour id of the round (edge colouring)
+    pairs: tuple[tuple[int, int], ...]
+    rows_pad: int                    # padded node rows per participating shard
+    send_idx: np.ndarray             # (n_shards, rows_pad) int32 flat rows
+    recv_slot: np.ndarray            # (n_shards, rows_pad) int32; OOB=drop
+    true_rows: int                   # Σ real node rows over pairs (no padding)
+    # packed-plane twins (plans built with row_counts): rows into the local
+    # (plane_rows, C) state plane / the (recv_plane_rows, C) receive plane
+    send_rows_packed: "np.ndarray | None" = None
+    recv_rows_packed: "np.ndarray | None" = None
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighborExchange:
+    """Static neighbour-only exchange plan over the community topology.
+
+    Built host-side from ``neighbor_mask`` (equivalently the per-shard
+    union of ``BlockCSR.ell_indices``): shard s must end up holding the
+    payload rows of ``needed_ids[s]`` — its own k lanes (resident, no
+    wire) plus every neighbour community of any of its lanes.  Messages
+    (src shard → dst shard, list of community ids) are coloured into
+    rounds (sharding.partition.ring_round_coloring), so one exchange is
+    ``len(rounds)`` static rounds moving ``(rows_pad, C)`` node-row
+    buffers — no ``(M, n_pad, C)`` gathered tensor is ever materialised.  Receive
+    buffers are lane-major: ``(r_pad, n_pad, C)`` with each shard's own
+    lanes and neighbour rows at the slots ``localize_indices`` remaps the
+    ELL indices onto.
+
+    Row-exact mode (``sizes`` given, ``row_exact=True``): each wired
+    community contributes only its true node rows, so on a size-skewed
+    partition the wire volume tracks Σ sizes over cross-shard messages
+    instead of (#messages)·n_pad — the pad rows never leave the device.
+    Receive-buffer rows past a community's size simply stay zero, exactly
+    the value the whole-block transport would have delivered.
+    """
+    n_shards: int
+    lanes_per_shard: int
+    n_pad: int
+    r_pad: int                       # receive-buffer rows (max over shards)
+    needed_ids: tuple[tuple[int, ...], ...]   # per shard, slot -> global id
+    own_slots: np.ndarray            # (n_shards, k) int32
+    rounds: tuple[ExchangeRound, ...]
+    sizes: tuple[int, ...] = ()      # per community wired rows (n_pad if not
+    row_exact: bool = False          # row-exact)
+    # packed-plane metadata (plans built with row_counts): the send side is
+    # the shard's (plane_rows, C) state plane (PackedDeviceLayout); the
+    # receive side a (recv_plane_rows, C) plane with slot j's community at
+    # recv_offsets[s, j] for row_counts[gid] bucket rows
+    row_counts: tuple[int, ...] = ()
+    plane_rows: int = 0
+    recv_plane_rows: int = 0
+    local_offsets: "np.ndarray | None" = None   # (M,) row in the home plane
+    recv_offsets: "np.ndarray | None" = None    # (n_shards, r_pad); OOB=unused
+    own_copy_rows: "np.ndarray | None" = None   # (n_shards, recv_plane_rows)
+    recv_unpack_rows: "np.ndarray | None" = None  # (n_shards, r_pad·n_pad)
+
+    @property
+    def num_rounds(self) -> int:
+        return len(self.rounds)
+
+    @property
+    def packed(self) -> bool:
+        """True when the plan carries packed-plane routing tables."""
+        return self.recv_offsets is not None
+
+    def slot_of(self, shard: int) -> dict[int, int]:
+        """global community id -> receive-buffer slot on ``shard``."""
+        return {int(r): i for i, r in enumerate(self.needed_ids[shard])}
+
+    def localize_indices(self, ell_indices: np.ndarray,
+                         ell_mask: np.ndarray) -> np.ndarray:
+        """Remap global ELL neighbour ids to receive-buffer slots.
+
+        ``ell_indices``: (M, max_deg) global community ids (community-major
+        rows, as BlockCSR stores them).  Row m belongs to shard m // k;
+        every masked-in id is in that shard's needed set by construction.
+        Masked-out (padding) entries map to slot 0 — they are multiplied by
+        the zero mask by every consumer, any in-range slot is fine.
+        """
+        idx = np.asarray(ell_indices)
+        msk = np.asarray(ell_mask) > 0
+        k = self.lanes_per_shard
+        slot_tables = [self.slot_of(s) for s in range(self.n_shards)]
+        out = np.zeros_like(idx, dtype=np.int32)
+        for m in range(idx.shape[0]):
+            slots = slot_tables[m // k]
+            for d in np.flatnonzero(msk[m]):
+                out[m, d] = slots[int(idx[m, d])]
+        return out
+
+    def localized_offsets(self, ell_indices: np.ndarray,
+                          ell_mask: np.ndarray) -> np.ndarray:
+        """Receive-plane *row offsets* of every ELL neighbour slot.
+
+        The packed twin of ``localize_indices``: instead of a buffer slot
+        (a multiple-of-``n_pad`` stride), each masked-in (m, d) entry maps
+        to the first receive-plane row of its neighbour's bucket —
+        ``recv_offsets[shard(m), slot]`` — which is what the offset-indexed
+        ELL kernel reads to address its Z rows.  Masked-out
+        entries map to row 0 (in range, multiplied away by the mask).
+        """
+        if self.recv_offsets is None:
+            raise ValueError("plan built without row_counts has no packed "
+                             "receive plane — pass row_counts to "
+                             "build_neighbor_exchange")
+        loc = self.localize_indices(ell_indices, ell_mask)
+        msk = np.asarray(ell_mask) > 0
+        k = self.lanes_per_shard
+        out = np.zeros_like(loc, dtype=np.int32)
+        for m in range(loc.shape[0]):
+            offs = self.recv_offsets[m // k]
+            for d in np.flatnonzero(msk[m]):
+                out[m, d] = offs[loc[m, d]]
+        return out
+
+
+def build_neighbor_exchange(neighbor_mask: np.ndarray, n_shards: int,
+                            n_pad: int,
+                            sizes: np.ndarray | None = None,
+                            row_counts: np.ndarray | None = None
+                            ) -> NeighborExchange:
+    """Construct the static round schedule for a community topology.
+
+    ``sizes`` (optional, (M,) true rows per community) switches the plan to
+    row-exact packing: each cross-shard message carries only the true node
+    rows of its communities.  Without it every community wires all
+    ``n_pad`` rows — byte-identical to the historic whole-block schedule.
+
+    ``row_counts`` (optional, (M,) bucket rows per community,
+    ``CommunityLayout.eff_row_counts``) additionally equips the plan with
+    *packed-plane* routing tables: send rows index the shard's packed
+    Σ-bucket-rows state plane (``PackedDeviceLayout``) and receive rows a
+    packed receive plane with one bucket per needed slot, so a packed
+    trainer never materialises a strided ``(r_pad, n_pad, C)`` buffer on
+    the wire path.  The wired rows themselves are unchanged — packed and
+    strided plans schedule byte-identical rounds.
+    """
+    nbr = np.asarray(neighbor_mask, bool)
+    m = nbr.shape[0]
+    needed, _ = shard_neighbor_graph(nbr, n_shards)
+    k = m // n_shards
+    row_exact = sizes is not None
+    wired = np.full(m, n_pad, dtype=np.int64) if sizes is None \
+        else np.asarray(sizes, dtype=np.int64)
+    if wired.shape != (m,) or (wired < 0).any() or (wired > n_pad).any():
+        raise ValueError(f"sizes must be (M,) in [0, n_pad={n_pad}]")
+    r_pad = max(len(ids) for ids in needed)
+    slot_of = [{int(r): i for i, r in enumerate(ids)} for ids in needed]
+
+    packed = row_counts is not None
+    if packed:
+        rc = np.asarray(row_counts, dtype=np.int64)
+        if rc.shape != (m,) or (rc > n_pad).any() or (rc < wired).any():
+            raise ValueError("row_counts must be (M,) in [wired rows, "
+                             f"n_pad={n_pad}] — buckets cover what is wired")
+        local_offsets = np.zeros(m, dtype=np.int32)
+        for s in range(n_shards):
+            local_offsets[s * k:(s + 1) * k] = np.concatenate(
+                [[0], np.cumsum(rc[s * k:(s + 1) * k])[:-1]])
+        plane_rows = max(int(rc.reshape(n_shards, k).sum(axis=1).max()), 8)
+        recv_offsets = np.full((n_shards, r_pad), 0, dtype=np.int32)
+        recv_rows = np.zeros(n_shards, dtype=np.int64)
+        for s in range(n_shards):
+            cnts = [int(rc[g]) for g in needed[s]]
+            offs = np.concatenate([[0], np.cumsum(cnts)]).astype(np.int32)
+            recv_offsets[s, :len(cnts)] = offs[:-1]
+            recv_rows[s] = offs[-1]
+        recv_plane_rows = max(int(recv_rows.max()), 8)
+        # unused trailing slots point one past the plane (drop/fill)
+        for s in range(n_shards):
+            recv_offsets[s, len(needed[s]):] = recv_plane_rows
+        own_copy_rows = np.full((n_shards, recv_plane_rows), plane_rows,
+                                dtype=np.int32)
+        recv_unpack = np.full((n_shards, r_pad * n_pad), recv_plane_rows,
+                              dtype=np.int32)
+        for s in range(n_shards):
+            for slot, gid in enumerate(needed[s]):
+                cnt = int(rc[gid])
+                rows = np.arange(cnt)
+                recv_unpack[s, slot * n_pad: slot * n_pad + cnt] = \
+                    recv_offsets[s, slot] + rows
+                if gid // k == s:           # resident lane: local plane copy
+                    own_copy_rows[s, recv_offsets[s, slot]:
+                                  recv_offsets[s, slot] + cnt] = \
+                        local_offsets[gid] + rows
+    else:
+        rc = None
+        local_offsets = recv_offsets = own_copy_rows = recv_unpack = None
+        plane_rows = recv_plane_rows = 0
+
+    own_slots = np.zeros((n_shards, k), dtype=np.int32)
+    for s in range(n_shards):
+        for i in range(k):
+            own_slots[s, i] = slot_of[s][s * k + i]
+
+    # messages grouped by ring offset; ids kept sorted per (src, dst) pair
+    msgs: dict[tuple[int, int], list[int]] = {}
+    for dst in range(n_shards):
+        for r in needed[dst]:
+            src = int(r) // k
+            if src != dst:
+                msgs.setdefault((src, dst), []).append(int(r))
+    colored = ring_round_coloring(msgs.keys(), n_shards)
+
+    def msg_rows(pair):                 # true node rows of one message
+        return int(sum(wired[r] for r in msgs[pair]))
+
+    rounds = []
+    for offset, pairs in colored.items():
+        # Row-exact plans may split a colour round into power-of-two
+        # size-bucketed sub-rounds: every round's buffer pads to its
+        # largest message, so letting a 10-row and a 500-row message share
+        # a round would wire 490 pad rows — grouping pairs whose row
+        # counts share a bucket bounds round padding by the bucket ratio
+        # (< 2×) instead of the offset's largest message.  Each sub-round
+        # is a subset of a partial permutation, hence still one.  The
+        # split is taken only when it at least halves the round's
+        # scheduled wire: each extra round is one more send buffer that
+        # every shard materialises, so on near-uniform
+        # message sizes (where padding is small anyway) one round per
+        # offset stays cheaper end-to-end.  Whole-block plans always keep
+        # one round per offset (all messages are count·n_pad rows — the
+        # historic schedule, byte-identical).
+        grouped = [list(pairs)]
+        if row_exact:
+            groups: dict[int, list] = {}
+            for p in pairs:
+                rows = msg_rows(p)
+                bucket = 1 << max(0, int(np.ceil(np.log2(max(1, rows)))))
+                groups.setdefault(bucket, []).append(p)
+            split = [grp for _, grp in sorted(groups.items())]
+            plain_wire = len(pairs) * max(msg_rows(p) for p in pairs)
+            split_wire = sum(len(g) * max(msg_rows(p) for p in g)
+                             for g in split)
+            if 2 * split_wire <= plain_wire:
+                grouped = split
+        for grp in grouped:
+            rows_pad = max(msg_rows(p) for p in grp)
+            if rows_pad == 0:
+                continue                # all-empty messages: nothing to wire
+            send_idx = np.zeros((n_shards, rows_pad), dtype=np.int32)
+            recv_slot = np.full((n_shards, rows_pad), r_pad * n_pad,
+                                dtype=np.int32)
+            send_pk = np.zeros((n_shards, rows_pad), dtype=np.int32) \
+                if packed else None
+            recv_pk = np.full((n_shards, rows_pad), recv_plane_rows,
+                              dtype=np.int32) if packed else None
+            for src, dst in grp:
+                t = 0
+                for r in msgs[(src, dst)]:
+                    rows = int(wired[r])
+                    send_idx[src, t:t + rows] = \
+                        (r - src * k) * n_pad + np.arange(rows)
+                    recv_slot[dst, t:t + rows] = \
+                        slot_of[dst][r] * n_pad + np.arange(rows)
+                    if packed:
+                        send_pk[src, t:t + rows] = \
+                            local_offsets[r] + np.arange(rows)
+                        recv_pk[dst, t:t + rows] = \
+                            recv_offsets[dst, slot_of[dst][r]] \
+                            + np.arange(rows)
+                    t += rows
+            rounds.append(ExchangeRound(
+                offset=offset, pairs=tuple(grp), rows_pad=rows_pad,
+                send_idx=send_idx, recv_slot=recv_slot,
+                true_rows=sum(msg_rows(p) for p in grp),
+                send_rows_packed=send_pk, recv_rows_packed=recv_pk))
+
+    return NeighborExchange(
+        n_shards=n_shards, lanes_per_shard=k, n_pad=n_pad, r_pad=r_pad,
+        needed_ids=tuple(tuple(int(r) for r in ids) for ids in needed),
+        own_slots=own_slots, rounds=tuple(rounds),
+        sizes=tuple(int(v) for v in wired), row_exact=row_exact,
+        row_counts=tuple(int(v) for v in rc) if packed else (),
+        plane_rows=plane_rows, recv_plane_rows=recv_plane_rows,
+        local_offsets=local_offsets, recv_offsets=recv_offsets,
+        own_copy_rows=own_copy_rows, recv_unpack_rows=recv_unpack)
+
+
+def restrict_exchange(plan: NeighborExchange,
+                      sampled_shards) -> NeighborExchange:
+    """Sampled-round sub-schedule: the plan restricted to the pairs a
+    community minibatch actually reads.
+
+    Under stochastic community minibatching only the *sampled* shards'
+    subproblems run, so only they need to receive — a pair
+    ``(src, dst)`` survives iff ``dst`` is sampled.  The source side is
+    NOT filtered: an unsampled neighbour's (stale, exact) Z/U rows still
+    feed every sampled consumer's coupling terms, so unsampled shards
+    keep sending.  Unsampled edges — pairs into unsampled shards — carry
+    zero wire: their rounds either shrink or vanish.
+
+    Buffer geometry is untouched (``needed_ids``/slots/``r_pad``/packed
+    plane tables), so ELL indices and offsets localized against the full
+    plan stay valid on the sub-schedule; rows a dropped pair would have
+    delivered simply stay zero, values an unsampled consumer never
+    reads.  Kept rounds re-pad to their largest surviving message and
+    all-dropped rounds disappear, so ``exchange_bytes`` on the sub-plan
+    prices exactly the sampled wire.  Restricting to the full shard set
+    returns ``plan`` itself — the full-batch step is the
+    batch_fraction=1.0 step, bit for bit.
+    """
+    sampled = frozenset(int(s) for s in sampled_shards)
+    if not sampled:
+        raise ValueError("sampled_shards must be non-empty")
+    if not sampled <= set(range(plan.n_shards)):
+        raise ValueError(f"sampled shards {sorted(sampled)} out of range "
+                         f"for n_shards={plan.n_shards}")
+    if len(sampled) == plan.n_shards:
+        return plan
+    limit = plan.r_pad * plan.n_pad
+    rounds = []
+    for rnd in plan.rounds:
+        kept = tuple(p for p in rnd.pairs if p[1] in sampled)
+        if not kept:
+            continue
+        # per-pair true rows: a round is a partial permutation, so each
+        # destination receives exactly one message — its in-range
+        # recv_slot entries count that message's rows
+        rows_of = {p: int((rnd.recv_slot[p[1]] < limit).sum())
+                   for p in kept}
+        rows_pad = max(rows_of.values())
+        if rows_pad == 0:
+            continue
+        rounds.append(ExchangeRound(
+            offset=rnd.offset, pairs=kept, rows_pad=rows_pad,
+            send_idx=rnd.send_idx[:, :rows_pad],
+            recv_slot=rnd.recv_slot[:, :rows_pad],
+            true_rows=sum(rows_of.values()),
+            send_rows_packed=None if rnd.send_rows_packed is None
+            else rnd.send_rows_packed[:, :rows_pad],
+            recv_rows_packed=None if rnd.recv_rows_packed is None
+            else rnd.recv_rows_packed[:, :rows_pad]))
+    return dataclasses.replace(plan, rounds=tuple(rounds))
+
+
+# ---------------------------------------------------------------------------
+# the loopback transport: every shard's rows on one device
+# ---------------------------------------------------------------------------
+
+def bf16_wire(payload: Tensor) -> Tensor:
+    """``payload`` as it arrives over the bf16 wire: an f32 payload rounded
+    to bf16 (to nearest even) and restored to f32; any other dtype moves
+    as it is."""
+    if payload.dtype != torch.float32:
+        return payload
+    return payload.to(torch.bfloat16).to(torch.float32)
+
+
+def loopback_tables(plan: NeighborExchange, device: torch.device) -> dict:
+    """The plan's row tables as index tensors on ``device``: build them
+    once per plan and pass them to the exchanges (``tables=``).
+
+    Shard s's rows sit at ``s · rows_per_shard`` of every stacked tensor,
+    and each scatter target has one scratch row past its end: a receive
+    position the reference drops (``mode="drop"``, pad rows one past the
+    buffer) lands there and is sliced off, never in a real row.
+    """
+    s_n, k, n = plan.n_shards, plan.lanes_per_shard, plan.n_pad
+    sid = np.arange(s_n)[:, None]
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+
+    limit = plan.r_pad * n
+    own = plan.own_slots.astype(np.int64)[:, :, None] * n + np.arange(n)
+    tables = {
+        "own_dst": dev(sid * (limit + 1) + own.reshape(s_n, k * n)),
+        "rounds": [],
+    }
+    for rnd in plan.rounds:
+        src = np.array([p[0] for p in rnd.pairs])
+        dst = np.array([p[1] for p in rnd.pairs])
+        tables["rounds"].append((
+            dev(src[:, None] * (k * n) + rnd.send_idx[src]),
+            dev(dst[:, None] * (limit + 1) + rnd.recv_slot[dst])))
+    if plan.packed:
+        rpr, pr = plan.recv_plane_rows, plan.plane_rows
+        own_rows = plan.own_copy_rows.astype(np.int64)
+        live = own_rows < pr
+        tables["own_plane_dst"] = dev(np.nonzero(live.reshape(-1))[0])
+        tables["own_plane_src"] = dev((sid * pr + own_rows)[live])
+        tables["plane_rounds"] = []
+        for rnd in plan.rounds:
+            src = np.array([p[0] for p in rnd.pairs])
+            dst = np.array([p[1] for p in rnd.pairs])
+            recv = rnd.recv_rows_packed[dst].astype(np.int64)
+            tables["plane_rounds"].append((
+                dev(src[:, None] * pr + rnd.send_rows_packed[src]),
+                dev(np.where(recv < rpr, dst[:, None] * rpr + recv,
+                             s_n * rpr))))
+    return tables
+
+
+def exchange_neighbors(plan: NeighborExchange, x: Tensor,
+                       comm_bf16: bool = False,
+                       tables: "dict | None" = None) -> Tensor:
+    """Run the plan for every shard at once: the stacked local payloads
+    (n_shards · k, n_pad, C) -> the receive buffers (n_shards, r_pad,
+    n_pad, C).
+
+    Shard s's buffer holds exactly the payload rows its subproblems read:
+    its own lanes copied at ``own_slots[s]``, neighbour rows delivered by
+    the rounds at the slots ``localize_indices`` remaps the ELL indices
+    onto, every other row zero.  With ``comm_bf16`` only the rows that
+    cross the wire are rounded to bf16 (``bf16_wire``); own rows stay f32.
+    ``tables`` are the plan's ``loopback_tables`` (built here when None).
+    """
+    s_n, k, n = plan.n_shards, plan.lanes_per_shard, plan.n_pad
+    feat = tuple(x.shape[2:])
+    if s_n == 1:
+        # one shard hosts every community: its slots are its lanes
+        return x[None]
+    t = tables if tables is not None else loopback_tables(plan, x.device)
+    x_flat = x.reshape((s_n * k * n,) + feat)
+    limit = plan.r_pad * n
+    buf = x.new_zeros((s_n * (limit + 1),) + feat)
+    buf[t["own_dst"].reshape(-1)] = x_flat
+    for send, recv in t["rounds"]:
+        payload = x_flat[send.reshape(-1)]
+        buf[recv.reshape(-1)] = bf16_wire(payload) if comm_bf16 else payload
+    buf = buf.reshape((s_n, limit + 1) + feat)[:, :limit]
+    return buf.reshape((s_n, plan.r_pad, n) + feat)
+
+
+def exchange_neighbors_packed(plan: NeighborExchange, x_plane: Tensor,
+                              comm_bf16: bool = False, staged: bool = False,
+                              tables: "dict | None" = None):
+    """Run the plan on the stacked packed state planes: (n_shards ·
+    plane_rows, C) -> the receive planes laid end to end, (n_shards ·
+    recv_plane_rows, C).
+
+    Shard s's receive plane starts at row s · recv_plane_rows and holds slot
+    j's bucket rows at ``recv_offsets[s, j]``: own lanes copied from the
+    shard's state plane, neighbour rows delivered by the same rounds as
+    ``exchange_neighbors`` (same pairs, same rows).  With ``staged=True``
+    the buffer after each stage is returned as a list, ``[after the own
+    copy, after round 0, ..., final]``, each its own tensor, so that a
+    consumer can aggregate the slots already delivered
+    (``arrival_rounds``).  ``tables`` as in ``exchange_neighbors``.
+    """
+    if plan.recv_offsets is None:
+        raise ValueError("plan built without row_counts cannot route the "
+                         "packed plane")
+    if plan.n_shards == 1:
+        # one shard hosts every community and the needed-ids slot order is
+        # the lane order, so the receive plane IS the local plane
+        return [x_plane] if staged else x_plane
+    t = tables if tables is not None \
+        else loopback_tables(plan, x_plane.device)
+    rows = plan.n_shards * plan.recv_plane_rows
+    feat = tuple(x_plane.shape[1:])
+    buf = x_plane.new_zeros((rows + 1,) + feat)
+    buf[t["own_plane_dst"]] = x_plane[t["own_plane_src"]]
+    stages = [buf[:rows]]
+    for send, recv in t["plane_rounds"]:
+        payload = x_plane[send.reshape(-1)]
+        if comm_bf16:
+            payload = bf16_wire(payload)
+        if staged:
+            buf = buf.index_put((recv.reshape(-1),), payload)
+            stages.append(buf[:rows])
+        else:
+            buf[recv.reshape(-1)] = payload
+    return stages if staged else buf[:rows]
+
+
+def allgather(x: Tensor, comm_bf16: bool = False) -> Tensor:
+    """The all-gather transport for every shard at once: each shard
+    receives every community's rows (M, n_pad, C), so one copy serves them
+    all.  The reference masks a shard's copy down to its lanes'
+    neighbourhoods; a lane reads only its neighbours' rows, which that mask
+    keeps, so the copy goes unmasked.  With ``comm_bf16`` every row travels
+    bf16, the shard's own rows too, as in the reference."""
+    return bf16_wire(x) if comm_bf16 else x
+
+
+def arrival_rounds(plan: NeighborExchange) -> np.ndarray:
+    """(n_shards, r_pad) int32: index of the round that delivers
+    each receive slot's payload; -1 for resident own lanes (available
+    before any wire) and never-wired padding slots."""
+    arr = np.full((plan.n_shards, plan.r_pad), -1, dtype=np.int32)
+    limit = plan.r_pad * plan.n_pad
+    for ri, rnd in enumerate(plan.rounds):
+        for _, dst in rnd.pairs:
+            rows = rnd.recv_slot[dst]
+            slots = np.unique(rows[rows < limit] // plan.n_pad)
+            arr[dst, slots] = ri
+    return arr
+
+
+def overlap_stats(plan: NeighborExchange, neighbor_mask: np.ndarray,
+                  feature_dims: Sequence[int], itemsize: int = 4,
+                  enabled: bool = False,
+                  peak_flops: float = PEAK_FLOPS,
+                  ici_bw: float = LINK_BW) -> dict:
+    """Analytic exposed-vs-total wire time of the round schedule.
+
+    Models the double-buffered overlap the staged exchange enables: while
+    round r is on the wire, a shard can aggregate every ELL slot whose
+    payload is already resident (own lanes before round 0, round r' < r
+    arrivals after).  Per round, the exposed wire time is what the
+    available aggregation work cannot hide:
+
+        exposed_r = max(0, t_wire(r) − credit_r)
+
+    with ``credit`` the pipelined budget of hideable compute (unspent
+    credit carries forward; compute of slots arriving in the final round
+    runs after the wire and hides nothing).  Wire time prices each
+    round's per-pair payload over one link of ``ici_bw`` bytes/s; compute
+    prices the row-exact block-aggregation FLOPs (2·rc_m·rc_src·ΣC per
+    consumed ELL slot) at ``peak_flops`` — by default the H100 model of
+    ``PEAK_FLOPS`` and ``LINK_BW`` (the reference prices its own device),
+    so the metric is a deterministic property of the schedule, not a
+    wall-clock sample.  The worst shard's exposure is reported (rounds
+    advance at the slowest participant).
+
+    ``overlap_efficiency`` = hidden / total wire time ∈ [0, 1];
+    ``exposed_wire_bytes`` = exposed seconds × link bandwidth.
+    """
+    nbr = np.asarray(neighbor_mask, bool)
+    m = nbr.shape[0]
+    k = plan.lanes_per_shard
+    rc = np.asarray(plan.row_counts, dtype=np.int64) if plan.row_counts \
+        else np.full(m, plan.n_pad, dtype=np.int64)
+    total_c = int(np.sum(list(feature_dims)))
+    n_gathers = len(list(feature_dims))
+    arr = arrival_rounds(plan)
+    t_wire = [r.rows_pad * total_c * itemsize / ici_bw for r in plan.rounds]
+    total = float(sum(t_wire))
+
+    # per-shard hideable compute per arrival group (seconds, all gathers)
+    worst_exposed = 0.0
+    for s in range(plan.n_shards):
+        slot_gid = plan.needed_ids[s]
+        group_flops = np.zeros(plan.num_rounds + 1)
+        for lane in range(s * k, (s + 1) * k):
+            for slot, gid in enumerate(slot_gid):
+                if not nbr[lane, gid]:
+                    continue
+                g = int(arr[s, slot]) + 1          # own lanes -> group 0
+                group_flops[g] += 2.0 * int(rc[lane]) * int(rc[gid]) \
+                    * total_c
+        credit = group_flops[0] / peak_flops
+        exposed = 0.0
+        for ri, tw in enumerate(t_wire):
+            hidden = min(tw, credit)
+            exposed += tw - hidden
+            credit += group_flops[ri + 1] / peak_flops - hidden
+        worst_exposed = max(worst_exposed, exposed)
+
+    eff = 1.0 - worst_exposed / total if total > 0 else 0.0
+    # scheduled bytes of the priced plan — every pair of every round moves
+    # its rows_pad rows; this is exactly exchange_bytes(plan)["wire_bytes"]
+    # (the per-second totals above price per *round* over one link, so
+    # they are not byte-convertible when a round carries several pairs)
+    wire_rows = sum(len(r.pairs) * r.rows_pad for r in plan.rounds)
+    return {
+        "enabled": bool(enabled),
+        "num_rounds": plan.num_rounds,
+        "num_groups": plan.num_rounds + 1,
+        "total_wire_s": total,
+        "exposed_wire_s": worst_exposed,
+        "hidden_wire_s": total - worst_exposed,
+        "overlap_efficiency": eff,
+        "total_wire_bytes": int(wire_rows * total_c * itemsize),
+        "exposed_wire_bytes": int(worst_exposed * ici_bw),
+        "num_gathers": n_gathers,
+        "model": {"peak_flops": peak_flops, "ici_bw": ici_bw,
+                  "itemsize": itemsize},
+    }
+
+
+def exchange_bytes(plan: NeighborExchange, feature_dims: Sequence[int],
+                   itemsize: int = 4) -> dict:
+    """Scheduled wire volume of the p2p transport per ADMM iteration.
+
+    ``wire_bytes`` is what the rounds actually move: per round,
+    every participating pair transmits the round's padded ``rows_pad``
+    *node* rows (shards outside the round's partial permutation move
+    nothing).  A whole-block plan wires ``n_pad`` rows per community; a
+    row-exact plan only the true sizes.  ``p2p_needed_bytes`` counts only
+    the true (round-padding-free) rows, so ``wire_bytes ==
+    p2p_needed_bytes + padding_bytes`` exactly — the invariant
+    ``verify_transport_bytes`` enforces against the mask-derived
+    ``gather_bytes`` accounting.
+    """
+    wire_rows = sum(len(r.pairs) * r.rows_pad for r in plan.rounds)
+    true_rows = sum(r.true_rows for r in plan.rounds)
+    wire = sum(wire_rows * c * itemsize for c in feature_dims)
+    needed = sum(true_rows * c * itemsize for c in feature_dims)
+    return {"wire_bytes": wire, "p2p_needed_bytes": needed,
+            "padding_bytes": wire - needed, "wire_rows": wire_rows,
+            "true_rows": true_rows, "num_rounds": plan.num_rounds,
+            "r_pad": plan.r_pad, "row_exact": plan.row_exact,
+            "lanes_per_shard": plan.lanes_per_shard}
+
+
+def verify_transport_bytes(stats: dict) -> dict:
+    """Invariant check tying the p2p schedule to the mask-derived stats.
+
+    Hard invariants (raise — true by construction, a violation means the
+    schedule or accounting is broken): (a) the transport never moves more
+    than the all-gather it replaces, (b) wire == true scheduled rows +
+    round padding, (c) the true rows stay within the block-level
+    ``needed_bytes`` the masks record (per-shard deduplication only
+    shrinks them).
+
+    ``wire_bytes <= needed_bytes`` *including* padding additionally holds
+    whenever each shard hosts one community (k=1: every round row is a
+    real row, zero padding) *and* the plan is whole-block — the benchmark
+    sweeps and CI guards (benchmarks/check_bench.py) run in that regime
+    and assert it strictly.  Row-exact plans can carry round padding even
+    at k=1 (messages of different true sizes share a round), so there —
+    as on multi-lane shards — padding overshoot is recorded as
+    ``wire_within_needed`` rather than raised; the schedule is still
+    correct, still bounded by the all-gather volume, and its *true* rows
+    are strictly fewer than the whole-block plan's.
+    """
+    wire = stats["wire_bytes"]
+    if wire > stats["full_bytes"]:
+        raise ValueError(
+            f"p2p transport moves more than all-gather: wire={wire} > "
+            f"full={stats['full_bytes']}")
+    if wire != stats["p2p_needed_bytes"] + stats["padding_bytes"]:
+        raise ValueError(
+            f"wire accounting inconsistent: {wire} != "
+            f"{stats['p2p_needed_bytes']} + {stats['padding_bytes']}")
+    if stats["p2p_needed_bytes"] > stats["needed_bytes"]:
+        raise ValueError(
+            f"scheduled rows exceed the mask-derived needed volume: "
+            f"{stats['p2p_needed_bytes']} > {stats['needed_bytes']}")
+    stats["wire_within_needed"] = wire <= stats["needed_bytes"]
+    if stats.get("lanes_per_shard") == 1 and not stats.get("row_exact") \
+            and not stats["wire_within_needed"]:
+        raise ValueError(
+            f"k=1 whole-block schedule has padding ({wire} > "
+            f"{stats['needed_bytes']}) — impossible by construction, "
+            f"accounting is broken")
+    return stats
+

@@ -1,43 +1,54 @@
 """Parallel (community-distributed) ADMM trainer — Algorithm 1 on one device.
 
-The port's counterpart of ``repro.core.parallel`` for one shard: one device
-hosts all ``k = M`` community agents as lanes.  One ADMM iteration:
+The port's counterpart of ``repro.core.parallel``.  M community agents run
+over ``n_shards`` logical shards (k = M / n_shards lanes each), all on one
+device: the shards' lanes are stacked in community order, so every
+aggregation of a step is one call over all M lanes.  One ADMM iteration:
 
-  * W update — layer-parallel (Jacobi): every layer's objective is the sum
-    over lanes, and the backtracking test runs on that global objective
-    (``subproblems.backtracking_step``: the reference's psum over shards is
-    the identity on one shard).
+  * W update — layer-parallel (Jacobi): each shard's objective over its
+    lanes, summed across shards (the reference's psum), and one
+    backtracking test on that global objective
+    (``subproblems.backtracking_step``).
   * Z update — community-parallel: each lane solves its ψ_{l,m} (eq. 5/6)
-    with its own backtracking θ_{l,m} (``backtracking_step_lanes``); Z_L by
-    per-lane FISTA (eq. 7, ``fista_lanes``).
+    from its neighbours' relayed aggregates with its own backtracking
+    θ_{l,m} (``backtracking_step_lanes``); Z_L by per-lane FISTA (eq. 7,
+    ``fista_lanes``).
   * U update — local dual ascent (eq. 3).
 
-Every aggregation Σ_{r∈N_m} Ã_{m,r} Z_r runs over one of two adjacency
-representations, either through a hand-written CUDA kernel
-(``use_kernel=True``) or through a plain einsum:
+Transports (``messages``; every round of the reference's ``ppermute``
+schedule is a row copy between the shards' buffers on the device):
 
-  * dense (``compressed=False``, the default): the (M, M, n_pad, n_pad)
-    block tensor, through ``kernels.ops.community_spmm`` (absent blocks
-    skipped by the per-lane neighbour mask) or the masked einsum;
-  * block-compressed ELL (``compressed=True``): through
-    ``kernels.ops.community_spmm_ell`` or the gather-einsum, with f32 or
-    (``adjacency_bf16``) bf16 blocks accumulated in f32.
+  * allgather — every shard receives every community's rows, one copy
+    for all shards; with ``comm_bf16`` every row is rounded to bf16;
+  * p2p — the neighbour-exchange plan: each shard receives only the rows
+    its lanes read, into an (r_pad, n_pad, C) buffer; ELL indices are
+    remapped to its slots; with ``comm_bf16`` only wired rows are rounded;
+  * the packed wire (``packed=True``) — the same rounds on Σ-bucket-rows
+    planes into the shards' receive planes, laid end to end, which the
+    packed ELL kernel reads through per-slot offsets (shard s's shifted by
+    s · recv_plane_rows).  ``fused=True`` sends the four Z-update
+    aggregation→GEMM sites through the fused kernel; ``overlap=True``
+    splits each aggregation by the round that delivered its rows.
 
-With one shard nothing crosses a wire: the reference drops the packed wire
-and the p2p plan from its one-shard program (repro/core/parallel.py:
-1023-1028), and its all-gather at one shard is the lanes themselves masked
-by the union of their neighbourhoods.  So ``transport`` changes nothing
-here, ``fused`` and ``overlap`` are inert, and ``packed=True`` only changes
-how the state is stored (Σ-bucket-rows planes, unpacked to blocked views
-with take-with-fill tables inside the step).
+With one shard nothing crosses a wire: the reference drops the plan from
+its one-shard program (repro/core/parallel.py:1023-1028), so the step is
+the all-gather body, ``fused`` and ``overlap`` are inert, and the plan
+only prices the p2p accounting (``comm_stats``).
+
+Every aggregation runs over one of two adjacency representations, either
+through a hand-written CUDA kernel (``use_kernel=True``) or a plain einsum:
+dense (``compressed=False``) through ``kernels.ops.community_spmm``, or
+block-compressed ELL through ``community_spmm_ell`` (strided buffers) or
+``community_spmm_ell_packed`` / ``community_spmm_ell_fused`` (packed
+planes).  ``batch_fraction`` samples shard batches
+(``sharding.partition.CommunityBatchSampler``): the step runs the plan
+restricted to the sampled shards, unsampled lanes keep their iterates, and
+stale neighbours' coupling terms are damped by ``stale_decay``.
 
 Each ``lax.while_loop`` of the reference is a host loop with the same
 acceptance test; each ``lax.scan`` a Python loop.  Gradients come from
 autograd; the aggregates reach every objective as constants, so no
 gradient flows through the kernel.
-
-Not in this slice (they raise ``NotImplementedError``): ``batch_fraction``
-and ``comm_bf16``; more than one shard has no entry point yet.
 """
 from __future__ import annotations
 
@@ -51,9 +62,10 @@ import torch
 from repro_torch.core import gcn, graph, messages
 from repro_torch.core.serial import TrainLog
 from repro_torch.core.subproblems import (ADMMConfig, backtracking_step,
-                                          value_and_grad)
-from repro_torch.kernels import community_spmm
+                                          stale_weights, value_and_grad)
+from repro_torch.kernels import community_spmm, ref
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding import partition
 from repro_torch.util.device import resolve_device
 
 Tensor = torch.Tensor
@@ -311,18 +323,6 @@ TrainerConfig.packed = classmethod(_preset_packed)
 TrainerConfig.minibatch = classmethod(_preset_minibatch)
 
 
-def _unsupported(config: TrainerConfig) -> "str | None":
-    """Why this slice cannot run ``config``, naming the ROADMAP item (queue
-    A) that brings it; None when it can."""
-    if config.batch_fraction is not None:
-        return ("batch_fraction (community minibatching) is not ported yet: "
-                "ROADMAP queue A, 'Multi-shard transport'")
-    if config.comm_bf16:
-        return ("comm_bf16 (the bf16 wire) is not ported yet: ROADMAP queue "
-                "A, 'Multi-shard transport'")
-    return None
-
-
 # ---------------------------------------------------------------------------
 # backtracking primitives
 # ---------------------------------------------------------------------------
@@ -399,7 +399,7 @@ def fista_lanes(admm: ADMMConfig, b: Tensor, u: Tensor, labels: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# one ADMM iteration (k = M lanes on one device)
+# one ADMM iteration (every shard's lanes on one device)
 # ---------------------------------------------------------------------------
 
 def _take_fill(x: Tensor, idx: Tensor) -> Tensor:
@@ -411,21 +411,53 @@ def _take_fill(x: Tensor, idx: Tensor) -> Tensor:
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-class _Body:
-    """The per-step program of the reference's ``_iteration_body`` at one
-    shard, with its static operands bound: dense or compressed adjacency.
+class _Batch(NamedTuple):
+    """What a step depends on beyond the trainer's static operands: the
+    exchange plan it runs (restricted to the sampled shards under
+    minibatching) with its loopback index tables, the ELL slot masks of its
+    arrival groups (overlap), and the sampled lanes."""
+    plan: "messages.NeighborExchange | None"
+    tables: "dict | None"                      # messages.loopback_tables
+    group_masks: "tuple[Tensor, ...] | None"   # per arrival group, (M, D)
+    smask: "Tensor | None"                     # (M,) f32, 1 = sampled lane
 
-    ``gather`` is the reference's all-gather at one shard: the lanes are
-    already every community, masked by the union of the lanes'
-    neighbourhoods (all ones here — every lane neighbours itself).
+
+class _Body:
+    """The per-step program of the reference's ``_iteration_body`` for all
+    ``n_shards`` logical shards at once, with its static operands bound.
+
+    The M = n_shards · k lanes are stacked in community order (shard s owns
+    lanes [s·k, (s+1)·k)), so every aggregation of the step is one call over
+    all lanes.  ``gather`` returns what the aggregation reads, and
+    ``blocked`` of it stacks every shard's received rows, (X, n_pad, C),
+    which ``nbr_idx`` reads lane by lane — X = M after the all-gather (one
+    copy serves every shard; ``nbr_idx`` the global ids), n_shards · r_pad
+    after the exchange (the localized slots shifted by s · r_pad).
+    On the packed wire ``gather`` returns the shards' receive planes laid
+    end to end (their stages, with overlap), read through ``offsets``: the
+    plan's localized offsets shifted by s · recv_plane_rows; their blocked
+    view is made only where a consumer indexes it.
+
+    With one shard there is no plan (the reference drops it there) and the
+    step runs the all-gather body.
     """
 
     def __init__(self, cfg: gcn.GCNConfig, admm: ADMMConfig,
-                 data: CommunityData, packed_aux: "dict | None"):
+                 data: CommunityData, n_shards: int,
+                 plan: "messages.NeighborExchange | None", wire: dict,
+                 packed_aux: "dict | None", fused: bool, overlap: bool,
+                 comm_bf16: bool):
         self.cfg, self.admm = cfg, admm
         self.f = gcn.activation_fn(cfg.activation)
         self.dense = not data.compressed
+        self.comm_bf16 = comm_bf16
+        m = int(data.neighbor_mask.shape[0])
+        self.m, self.n_shards, self.k = m, n_shards, m // n_shards
         nbrf = data.neighbor_mask.float()                         # (M, M)
+        self.plan = plan
+        self.packed_wire = packed_aux is not None and plan is not None
+        self.fused = fused and self.packed_wire
+        self.overlap = overlap and self.packed_wire
         if self.dense:
             # the kernel takes the blocks and the mask and never reads an
             # absent block; the plain einsum takes the blocks masked once
@@ -436,91 +468,201 @@ class _Body:
             self.nbr_wt = nbrf[:, :, None, None]                  # (k,M,1,1)
         else:
             self.ell_rows = data.ell_blocks
-            self.ell_idx = data.ell_indices.long()
-            # the kernel's int32 operands, made once rather than per launch
-            self.ell_idx32 = data.ell_indices.to(torch.int32).contiguous()
+            self.nbr_idx = wire["nbr_idx"]
+            # the kernels' int32 operands, made once rather than per launch
+            self.nbr_idx32 = self.nbr_idx.to(torch.int32).contiguous()
             self.ell_live = (data.ell_mask != 0).to(torch.int32)
             self.ell_f = data.ell_mask.float()
             self.ell_rcnt, self.ell_ncnt = data.row_counts, data.nbr_counts
-        self.shard_nbr = nbrf.amax(dim=0)                         # (M,)
+        if self.packed_wire:
+            self.offsets = wire["offsets"]
+            self.recv_unpack = wire["recv_unpack"]
         self.packed_aux = packed_aux
         self.denom = data.denom
         self.z0 = self.from_plane(data.z0)
         self.labels = self.from_plane(data.labels)
         self.mask = self.from_plane(data.train_mask)
 
+    # -- layouts -------------------------------------------------------------
+
     def from_plane(self, p: Tensor) -> Tensor:
         if self.packed_aux is None:
             return p
-        k, n = self.packed_aux["k"], self.packed_aux["n"]
         flat = _take_fill(p, self.packed_aux["unpack"])
-        return flat.reshape((k, n) + tuple(p.shape[1:]))
+        return flat.reshape((self.m, self.packed_aux["n"])
+                            + tuple(p.shape[1:]))
 
     def to_plane(self, blk: Tensor) -> Tensor:
         if self.packed_aux is None:
             return blk
-        k, n = self.packed_aux["k"], self.packed_aux["n"]
-        flat = blk.reshape((k * n,) + tuple(blk.shape[2:]))
+        flat = blk.reshape((self.m * self.packed_aux["n"],)
+                           + tuple(blk.shape[2:]))
         return _take_fill(flat, self.packed_aux["pack"])
 
-    def rowagg(self, zh: Tensor, use_kernel: bool) -> Tensor:
+    def shard_sum(self, parts_of) -> Tensor:
+        """Σ over shards of ``parts_of(s)``, each shard's value from its
+        own lanes only, summed in shard order: the reference's psum of a
+        per-shard objective."""
+        vals = [parts_of(s) for s in range(self.n_shards)]
+        return sum(vals[1:], vals[0])
+
+    def lanes(self, x: Tensor, s: int) -> Tensor:
+        return x if self.n_shards == 1 else x[s * self.k:(s + 1) * self.k]
+
+    # -- transport -----------------------------------------------------------
+
+    def gather(self, x: Tensor, batch: _Batch):
+        """Every shard's received rows of the stacked blocked payload x
+        (M, n_pad, C): the (X, n_pad, C) stack, or on the packed wire the
+        receive planes (a list of stages with overlap)."""
+        feat = tuple(x.shape[1:])
+        if self.plan is None:
+            return messages.allgather(x, self.comm_bf16)
+        if not self.packed_wire:
+            buf = messages.exchange_neighbors(batch.plan, x, self.comm_bf16,
+                                              tables=batch.tables)
+            return buf.reshape((-1,) + feat)
+        return messages.exchange_neighbors_packed(
+            batch.plan, self.to_plane(x), self.comm_bf16,
+            staged=self.overlap, tables=batch.tables)
+
+    def blocked(self, agg) -> Tensor:
+        """The (X, n_pad, C) stack of a ``gather`` result: on the packed
+        wire the final receive planes unpacked to the shards' (r_pad,
+        n_pad, C) buffers, take-with-fill."""
+        if not self.packed_wire:
+            return agg
+        final = agg[-1] if self.overlap else agg
+        return _take_fill(final, self.recv_unpack).reshape(
+            (-1, self.packed_aux["n"]) + tuple(final.shape[1:]))
+
+    # -- aggregation ---------------------------------------------------------
+
+    def agg_plane(self, plane: Tensor, mask: Tensor, use_kernel: bool
+                  ) -> Tensor:
+        """Packed-plane aggregation of every lane in one call."""
+        spmm = kops.community_spmm_ell_packed if use_kernel \
+            else ref.community_spmm_ell_packed_einsum
+        return spmm(self.ell_rows, self.offsets, mask, plane, self.ell_rcnt,
+                    self.ell_ncnt)
+
+    def agg_plane_mm(self, plane: Tensor, mask: Tensor, w: Tensor,
+                     use_kernel: bool) -> Tensor:
+        """(packed aggregate) @ w: the fused kernel, or the reference's
+        reassociated plain version A·(Z·W)."""
+        if use_kernel:
+            return kops.community_spmm_ell_fused(
+                self.ell_rows, self.offsets, mask, plane, w, self.ell_rcnt,
+                self.ell_ncnt)
+        return self.agg_plane(plane @ w, mask, use_kernel=False)
+
+    def by_group(self, agg_fn, agg, batch: _Batch) -> Tensor:
+        """``agg_fn(plane, slot mask)`` over the packed wire: one call on
+        the final planes, or (overlap) the sum over arrival groups, group g
+        read from stage g of the exchange."""
+        if not self.overlap:
+            return agg_fn(agg, self.ell_live)
+        acc = agg_fn(agg[0], batch.group_masks[0])
+        for stage, msk in zip(agg[1:], batch.group_masks[1:]):
+            acc = acc + agg_fn(stage, msk)
+        return acc
+
+    def rowagg(self, agg, batch: _Batch, use_kernel: bool) -> Tensor:
         """Σ_{r∈N_m} Ã_{m,r} Z_r per lane: Σ_d Ã[m,d] Z[idx[m,d]] over the
         ELL slots, or over the dense block row masked by N_m."""
+        if self.packed_wire:
+            return self.by_group(
+                lambda plane, msk: self.agg_plane(plane, msk, use_kernel),
+                agg, batch)
         if self.dense:
             if use_kernel:
-                return kops.community_spmm(self.a_row, zh, self.nbr_live)
+                return kops.community_spmm(self.a_row, agg, self.nbr_live)
             # one product per lane, as ref.community_spmm_ref and the ELL
             # gather-einsum run
             return torch.einsum("kmip,kmpc->kic", self.a_masked,
-                                zh.expand(len(self.a_masked), *zh.shape))
+                                self.nbr_vals(agg).expand(
+                                    self.m, *agg.shape))
         if use_kernel:
-            return kops.community_spmm_ell(self.ell_rows, self.ell_idx32,
-                                           self.ell_live, zh, self.ell_rcnt,
+            return kops.community_spmm_ell(self.ell_rows, self.nbr_idx32,
+                                           self.ell_live, agg, self.ell_rcnt,
                                            self.ell_ncnt)
-        zg = zh[self.ell_idx] * self.ell_f[..., None, None]
+        zg = agg[self.nbr_idx] * self.ell_f[..., None, None]
         return torch.einsum("kdip,kdpc->kic", self.ell_rows.float(),
                             zg.float())
 
-    def gather(self, x_loc: Tensor) -> Tensor:
-        return x_loc * self.shard_nbr[:, None, None].to(x_loc.dtype)
+    def agg_mm(self, x, agg, w: Tensor, batch: _Batch, use_kernel: bool
+               ) -> Tensor:
+        """The aggregation→GEMM of a Z-update site: ``rowagg(x) @ w`` from
+        the aggregate ``agg`` already made (computed here when None), or on
+        the fused path one fused call per arrival group, which no unfused
+        aggregate stands in for."""
+        if self.fused:
+            return self.by_group(
+                lambda plane, msk: self.agg_plane_mm(plane, msk, w,
+                                                     use_kernel),
+                x, batch)
+        if agg is None:
+            agg = self.rowagg(x, batch, use_kernel)
+        return agg @ w
 
-    def w_objectives(self, aggs, zs, u) -> list:
-        """The W-update objective of each layer (Line 3)."""
+    def nbr_vals(self, blk: Tensor) -> Tensor:
+        """Every lane's neighbour rows of a gathered stack: (M, D, n, C)
+        over the ELL slots, or in dense mode the one all-gathered (M, n, C)
+        copy as (1, M, n, C), broadcast over the lanes."""
+        return blk[None] if self.dense else blk[self.nbr_idx]
+
+    # -- objectives ----------------------------------------------------------
+
+    def w_objectives(self, aggs, zs, u, batch: _Batch) -> list:
+        """The W-update objective of each layer (Line 3): the shards'
+        local objectives summed, unsampled lanes masked out."""
         admm, f, n_l = self.admm, self.f, self.cfg.num_layers
+        sm = None if batch.smask is None else batch.smask[:, None, None]
+        lanes = self.lanes
         objs = []
         for l in range(n_l):
             if l < n_l - 1:
                 def local_obj(w, agg=aggs[l], z=zs[l]):
                     r = z - f(agg @ w)
-                    return 0.5 * admm.nu * torch.sum(r * r)
+                    if sm is not None:
+                        r = r * sm
+                    rr = r * r
+                    return self.shard_sum(
+                        lambda s: 0.5 * admm.nu * torch.sum(lanes(rr, s)))
             else:
                 def local_obj(w, agg=aggs[l], z=zs[l]):
                     r = z - agg @ w
-                    return torch.sum(u * r) + \
-                        0.5 * admm.rho * torch.sum(r * r)
+                    if sm is not None:
+                        r = r * sm
+                    ur, rr = u * r, r * r
+                    return self.shard_sum(
+                        lambda s: torch.sum(lanes(ur, s))
+                        + 0.5 * admm.rho * torch.sum(lanes(rr, s)))
             objs.append(local_obj)
         return objs
 
-    def z_objective(self, l: int, aggs, zh, zs, u, w_l, w_next):
-        """ψ_{l,m} per lane for hidden layer l (eq. 5/6), with W^{k+1}."""
+    def z_objective(self, l: int, aggs, zh_in, zh, zs, u, w_l, w_next,
+                    batch: _Batch, sdr: "Tensor | None", use_kernel: bool):
+        """ψ_{l,m} per lane for hidden layer l (eq. 5/6), with W^{k+1};
+        ``sdr`` (M, D) is √ of each stored neighbour's staleness weight
+        (minibatching), None for a full batch."""
         admm, f, n_l = self.admm, self.f, self.cfg.num_layers
         # coupling term: Ã_{r,m} = Ã_{m,r}ᵀ (Ã symmetric), so the stored
         # row blocks are consumed transposed — over the max_deg stored
         # neighbours (ELL), or over all M weighted by N_m (dense)
         if self.dense:
             rows, spec, wt = self.a_row, "kmnp,knc->kmpc", self.nbr_wt
-
-            def nbr_vals(x_all):              # (M, n, C) -> (1, M, n, C)
-                return x_all[None]
         else:
             rows, spec = self.ell_rows.float(), "kdnp,knc->kdpc"
-            wt = self.ell_f[..., None, None]                 # (k, D, 1, 1)
-
-            def nbr_vals(x_all):              # (M, n, C) -> (k, D, n, C)
-                return x_all[self.ell_idx]
-        target1 = f(aggs[l - 1] @ w_l)                     # (k, n, C_l)
+            # staleness: √d_r folded into the coupling weight, so every
+            # squared residual carries the full d_r
+            wt = (self.ell_f if sdr is None
+                  else self.ell_f * sdr)[..., None, None]    # (k, D, 1, 1)
+        target1 = f(self.agg_mm(zh_in[l - 1], aggs[l - 1], w_l, batch,
+                                use_kernel))               # (k, n, C_l)
         # relay aggregates q_{l,r}: rowagg(zh[l-1]) is aggs[l]
-        q_nbr = nbr_vals(self.gather(aggs[l] @ w_next))
+        q_loc = self.agg_mm(zh[l - 1], aggs[l], w_next, batch, use_kernel)
+        q_nbr = self.nbr_vals(self.blocked(self.gather(q_loc, batch)))
         z_ref = zs[l - 1]
 
         def pre_nbr(z):
@@ -528,7 +670,7 @@ class _Body:
             return q_nbr + torch.einsum(spec, rows, delta)
 
         if l + 1 < n_l:
-            nxt = nbr_vals(zh[l])
+            nxt = self.nbr_vals(self.blocked(zh[l]))
 
             def obj_lanes(z):
                 r1 = z - target1
@@ -537,7 +679,11 @@ class _Body:
                 v2 = 0.5 * admm.nu * torch.sum(r2 * r2, dim=(1, 2, 3))
                 return v1 + v2
         else:
-            last, uv = nbr_vals(zh[l]), nbr_vals(self.gather(u))
+            last = self.nbr_vals(self.blocked(zh[l]))
+            uv = self.nbr_vals(self.blocked(self.gather(u, batch)))
+            if sdr is not None:
+                # the second √d_r: the dual term carries the full d_r
+                uv = uv * sdr[..., None, None]
 
             def obj_lanes(z):
                 r1 = z - target1
@@ -548,32 +694,42 @@ class _Body:
                 return v1 + lin + quad
         return obj_lanes
 
-    def inputs(self, zs_plane, u_plane, use_kernel: bool):
+    def inputs(self, zs_plane, u_plane, batch: _Batch, use_kernel: bool):
         """Blocked iterates, gathered copies and the layer-input aggregates.
 
         The reference aggregates the same gathered tensor more than once
         per step (``rowagg(zh[0])`` at repro/core/parallel.py:786, :813 and
         :892, and ``rowagg(zh0)`` at :786 and :811).  Here each layer input
-        is aggregated once and reused: the same operands give the same
-        value, so no result changes and the kernel runs L + 1 times per
-        step instead of 3L.
+        is aggregated once and reused wherever the reference takes the
+        unfused aggregate: the same operands give the same value, so no
+        result changes.  The fused sites (``agg_mm`` with ``fused``) make
+        their own calls.
         """
         zs = [self.from_plane(z) for z in zs_plane]
         u = self.from_plane(u_plane)
-        zh0 = self.gather(self.z0)
-        zh = [self.gather(z) for z in zs]
-        zh_in = [zh0] + zh[:-1]
-        aggs = [self.rowagg(x, use_kernel) for x in zh_in]
-        return zs, u, zh, aggs
+        zh = [self.gather(z, batch) for z in zs]
+        zh_in = [self.gather(self.z0, batch)] + zh[:-1]
+        aggs = [self.rowagg(x, batch, use_kernel) for x in zh_in]
+        return zs, u, zh_in, zh, aggs
 
-    def __call__(self, state: ParallelState, use_kernel: bool
+    def __call__(self, state: ParallelState, use_kernel: bool,
+                 batch: _Batch, sdr: "Tensor | None" = None
                  ) -> ParallelState:
         admm, n_l = self.admm, self.cfg.num_layers
-        zs, u, zh, aggs = self.inputs(state.zs, state.u, use_kernel)
+        zs, u, zh_in, zh, aggs = self.inputs(state.zs, state.u, batch,
+                                             use_kernel)
+        keep = None if batch.smask is None else batch.smask > 0
+
+        def sampled(new, old):
+            # unsampled lanes keep their iterates bit for bit
+            if keep is None:
+                return new
+            return torch.where(keep.view((-1,) + (1,) * (new.dim() - 1)),
+                               new, old)
 
         # ---- Line 3: W update (layer-parallel, Jacobi over Z^k) ----
         new_ws, new_taus = [], []
-        for l, obj in enumerate(self.w_objectives(aggs, zs, u)):
+        for l, obj in enumerate(self.w_objectives(aggs, zs, u, batch)):
             w_new, tau = backtracking_step(obj, state.weights[l],
                                            state.taus[l], admm)
             new_ws.append(w_new)
@@ -582,26 +738,29 @@ class _Body:
         # ---- Line 4: Z update (community-parallel, reads W^{k+1}, Z^k) ----
         new_zs, new_thetas = [], []
         for l in range(1, n_l):
-            obj_lanes = self.z_objective(l, aggs, zh, zs, u, new_ws[l - 1],
-                                         new_ws[l])
+            obj_lanes = self.z_objective(l, aggs, zh_in, zh, zs, u,
+                                         new_ws[l - 1], new_ws[l], batch,
+                                         sdr, use_kernel)
             z_new, theta = backtracking_step_lanes(
                 obj_lanes, zs[l - 1], state.thetas[l - 1], admm)
-            new_zs.append(z_new)
-            new_thetas.append(theta)
+            new_zs.append(sampled(z_new, zs[l - 1]))
+            new_thetas.append(sampled(theta, state.thetas[l - 1]))
 
         # ---- Z_L: per-community FISTA prox (eq. 7) ----
-        b = aggs[n_l - 1] @ new_ws[-1]
+        b = self.agg_mm(zh_in[n_l - 1], aggs[n_l - 1], new_ws[-1], batch,
+                        use_kernel)
         z_last = fista_lanes(admm, b, u, self.labels, self.mask, zs[-1],
                              self.denom)
-        new_zs.append(z_last)
+        new_zs.append(sampled(z_last, zs[-1]))
         new_thetas.append(state.thetas[-1])
 
         # ---- Line 5: dual ascent (eq. 3) with updated iterates ----
         if n_l >= 2:
-            agg_pen = self.rowagg(self.gather(new_zs[n_l - 2]), use_kernel)
+            pen, agg_pen = self.gather(new_zs[n_l - 2], batch), None
         else:
-            agg_pen = aggs[0]
-        new_u = u + admm.rho * (new_zs[-1] - agg_pen @ new_ws[-1])
+            pen, agg_pen = zh_in[0], aggs[0]
+        b_new = self.agg_mm(pen, agg_pen, new_ws[-1], batch, use_kernel)
+        new_u = sampled(u + admm.rho * (new_zs[-1] - b_new), u)
 
         return ParallelState(tuple(new_ws),
                              tuple(self.to_plane(z) for z in new_zs),
@@ -614,24 +773,25 @@ class _Body:
 # ---------------------------------------------------------------------------
 
 class ParallelADMMTrainer:
-    """The paper's 'Parallel ADMM': M community agents as lanes of one
-    device.  ``device=None`` means ``cuda`` (RuntimeError without one);
-    tests pass ``device="cpu"``."""
+    """The paper's 'Parallel ADMM': M community agents over ``n_shards``
+    logical shards of one device (``n_shards`` must divide M; shard s hosts
+    communities [s·k, (s+1)·k), k = M / n_shards).  ``device=None`` means
+    ``cuda`` (RuntimeError without one); tests pass ``device="cpu"``."""
 
     def __init__(self, cfg: gcn.GCNConfig, admm: ADMMConfig, g: graph.Graph,
                  num_parts: int, seed: int = 0,
                  config: TrainerConfig | None = None,
                  part: np.ndarray | None = None,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None,
+                 n_shards: int = 1):
         config = TrainerConfig() if config is None else config
-        why = _unsupported(config)
-        if why is not None:
-            raise NotImplementedError(why)
         self.device = device = resolve_device(device)
         self.config = config
         self.cfg, self.admm, self.graph = cfg, admm, g
+        self.compressed = compressed = config.compressed
         self.transport = config.transport
         self.packed = packed = config.packed
+        self.overlap, self.fused = config.overlap, config.fused
         self.pad_mode = pad_mode = config.pad_mode
         self.use_kernel = config.use_kernel
         partitioner = config.partitioner
@@ -644,14 +804,18 @@ class ParallelADMMTrainer:
         self.partitioner = partitioner
         self.partition_stats = graph.partition_quality(
             g.num_nodes, g.edges, part, num_parts)
-        self.layout = graph.build_community_layout(
-            g.num_nodes, g.edges, part, compressed=config.compressed,
+        self.layout = lay = graph.build_community_layout(
+            g.num_nodes, g.edges, part, compressed=compressed,
             pad_mode=pad_mode)
-        m = int(np.asarray(self.layout.neighbor_mask).shape[0])
+        m = int(np.asarray(lay.neighbor_mask).shape[0])
+        if n_shards < 1 or m % n_shards:
+            raise ValueError(f"n_shards={n_shards} must divide the {m} "
+                             f"communities")
+        self.n_shards = n_shards
+        k = m // n_shards
 
-        self.packed_layout = self.layout.device_layout(1) if packed else None
-        self.data = community_data(g, self.layout,
-                                   compressed=config.compressed,
+        self.packed_layout = lay.device_layout(n_shards) if packed else None
+        self.data = community_data(g, lay, compressed=compressed,
                                    adjacency_bf16=config.adjacency_bf16,
                                    device_layout=self.packed_layout,
                                    device=device)
@@ -672,17 +836,77 @@ class ParallelADMMTrainer:
                                   device=device) for _ in zs)
         self.state = ParallelState(tuple(ws), zs, u, taus, thetas)
 
+        # the exchange plan: the p2p transport's accounting at any shard
+        # count; the step runs it only across shards (with one shard the
+        # reference drops it: nothing crosses a wire)
+        self._plan = None
+        if self.transport == "p2p":
+            self._plan = messages.build_neighbor_exchange(
+                lay.neighbor_mask, n_shards, lay.n_pad,
+                sizes=lay.sizes if pad_mode == "bucketed" else None,
+                row_counts=lay.eff_row_counts() if packed else None)
+        body_plan = self._plan if n_shards > 1 else None
+        overlap_on = bool(config.overlap and body_plan is not None)
+
+        def dev(x, dtype=torch.long):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+        lane_shard = (np.arange(m) // k)[:, None]
+        wire, self._slots = {}, None
+        if compressed:
+            csr = lay.compress()
+            if body_plan is None:
+                # all-gather: global ids into the one gathered copy
+                wire["nbr_idx"] = dev(csr.ell_indices)
+            else:
+                self._slots = body_plan.localize_indices(csr.ell_indices,
+                                                         csr.ell_mask)
+                wire["nbr_idx"] = dev(self._slots
+                                      + lane_shard * body_plan.r_pad)
         packed_aux = None
         if packed:
             dl = self.packed_layout
+            packed_aux = {"n": int(dl.n_pad),
+                          "unpack": dev(dl.global_unpack_rows()),
+                          "pack": dev(dl.global_pack_rows())}
+            if body_plan is not None:
+                # the shards' receive planes end to end: shard s's offsets
+                # shifted by s · recv_plane_rows, one launch for all lanes
+                rpr = body_plan.recv_plane_rows
+                off = body_plan.localized_offsets(
+                    csr.ell_indices, csr.ell_mask) + lane_shard * rpr
+                _, nbrs = csr.ell_row_counts()
+                community_spmm.check_plane_offsets(off, csr.ell_mask, nbrs,
+                                                   n_shards * rpr)
+                wire["offsets"] = dev(off, torch.int32).contiguous()
+                ru = np.asarray(body_plan.recv_unpack_rows, dtype=np.int64)
+                wire["recv_unpack"] = dev(np.where(
+                    ru < rpr, np.arange(n_shards)[:, None] * rpr + ru,
+                    n_shards * rpr).reshape(-1))
+        self._body = _Body(cfg, admm, self.data, n_shards, body_plan, wire,
+                           packed_aux, config.fused, overlap_on,
+                           config.comm_bf16)
+        self._body_plan, self._overlap_on = body_plan, overlap_on
 
-            def table(x):
-                return torch.as_tensor(np.asarray(x)[0], dtype=torch.long,
-                                       device=device)
-            packed_aux = {"k": int(dl.lanes_per_shard), "n": int(dl.n_pad),
-                          "unpack": table(dl.unpack_rows),
-                          "pack": table(dl.pack_rows)}
-        self._body = _Body(cfg, admm, self.data, packed_aux)
+        # minibatching: one _Batch per distinct shard batch
+        self._batches: dict = {}
+        self._sampler = None
+        self._round = 0
+        if config.batch_fraction is None:
+            self._full = self._make_batch(None)
+            self._active_plan = self._plan
+        else:
+            # shard batch weights = Σ bucket rows hosted, so the greedy
+            # balance targets resident/wire work, not shard count alone
+            rc_shard = np.asarray(lay.eff_row_counts(), dtype=np.float64
+                                  ).reshape(n_shards, k).sum(axis=1)
+            self._sampler = partition.CommunityBatchSampler(
+                n_shards, config.batch_fraction, seed=config.sample_seed,
+                weights=rc_shard)
+            self._mb_nbr = np.asarray(lay.compress().ell_indices)  # (M, D)
+            self._ages = np.zeros(m, dtype=np.int64)
+            plan0 = self._batch_for(self._current_shards()).plan
+            self._active_plan = plan0 if plan0 is not None else self._plan
         self.comm_stats = self._comm_stats()
 
         # metrics/Lagrangian run on the blocked (M, n_pad, ...) view; in
@@ -690,15 +914,15 @@ class ParallelADMMTrainer:
         # layout's global row table (take-with-fill, lossless under the
         # zero-outside-counts contract)
         if packed:
-            self._gup = torch.as_tensor(
-                self.packed_layout.global_unpack_rows(), dtype=torch.long,
-                device=device)
+            self._gup = packed_aux["unpack"]
         data = self.data
         self._z0_blk = self._unfold(data.z0)
         self._labels_blk = self._unfold(data.labels)
         self._train_blk = self._unfold(data.train_mask)
         self._test_blk = self._unfold(data.test_mask)
         self._row_mask = data.row_mask[..., None]
+        if compressed:
+            self._ell_idx32 = data.ell_indices.to(torch.int32).contiguous()
 
     # -- state layout ------------------------------------------------------
 
@@ -715,45 +939,108 @@ class ParallelADMMTrainer:
         m, n = self.layout.num_parts, self.layout.n_pad
         return _take_fill(p, self._gup).reshape((m, n) + tuple(p.shape[1:]))
 
+    # -- minibatching --------------------------------------------------------
+
+    def _make_batch(self, sampled: "frozenset | None") -> _Batch:
+        """The step program's per-batch operands: ``sampled`` shard ids, or
+        None for the full batch.  A sampled batch runs the plan restricted
+        to the pairs into sampled shards (``messages.restrict_exchange``)
+        and masks the unsampled lanes; with overlap, each ELL slot's
+        arrival group comes from the rounds of the plan this batch runs
+        (0 = resident, g = delivered by round g - 1; a slot the restricted
+        plan never delivers falls in group 0 and reaches only unsampled
+        lanes)."""
+        m, s_n = self.layout.num_parts, self.n_shards
+        plan, smask, tables = self._body_plan, None, None
+        if sampled is not None:
+            if plan is not None:
+                plan = messages.restrict_exchange(plan, sampled)
+            lanes = np.zeros((s_n, m // s_n), dtype=np.float32)
+            lanes[sorted(sampled)] = 1.0
+            smask = torch.as_tensor(lanes.reshape(m), device=self.device)
+        groups = None
+        if self._overlap_on:
+            csr = self.layout.compress()
+            live = np.asarray(csr.ell_mask) != 0
+            arr = messages.arrival_rounds(plan)
+            shard = (np.arange(m) // (m // s_n))[:, None]
+            grp = np.where(live, arr[shard, self._slots] + 1, 0)
+            groups = tuple(
+                torch.as_tensor((live & (grp == gi)).astype(np.int32),
+                                device=self.device)
+                for gi in range(plan.num_rounds + 1))
+        if plan is not None:
+            tables = messages.loopback_tables(plan, self.device)
+        return _Batch(plan, tables, groups, smask)
+
+    def _batch_for(self, shards: frozenset) -> _Batch:
+        batch = self._batches.get(shards)
+        if batch is None:
+            batch = self._batches[shards] = self._make_batch(shards)
+        return batch
+
+    def _current_shards(self) -> frozenset:
+        return frozenset(self._sampler.batch(self._round))
+
+    def _nbr_decay(self) -> np.ndarray:
+        """Per-ELL-slot staleness weight d_r = stale_decay**age_r, looked
+        up by the global neighbour community id, (M, max_deg) f32."""
+        d = stale_weights(self._ages, self.config.stale_decay)
+        return d[self._mb_nbr]
+
+    def _current_batch(self) -> tuple[_Batch, "Tensor | None"]:
+        """This round's batch and √ of its staleness weights."""
+        if self._sampler is None:
+            return self._full, None
+        decay = torch.as_tensor(self._nbr_decay(), device=self.device)
+        return self._batch_for(self._current_shards()), torch.sqrt(decay)
+
     # -- accounting ----------------------------------------------------------
 
     def _comm_stats(self) -> dict:
-        """The reference's ``comm_stats`` keys that need no exchange plan:
-        gathered bytes, padding, adjacency and resident-state accounting.
-        The plan-derived keys (wire bytes of the p2p schedule, overlap
-        pricing) come with the multi-shard slice."""
-        cfg, lay = self.cfg, self.layout
+        """The reference's ``comm_stats``, key for key: gathered and wired
+        bytes, padding, adjacency and resident-state accounting, the
+        exchange plan's pricing (``overlap`` on the port's H100 model,
+        ``messages.PEAK_FLOPS`` / ``LINK_BW``) and the minibatch schedule."""
+        cfg, lay, config = self.cfg, self.layout, self.config
+        item = 2 if config.comm_bf16 else 4
         dims = list(cfg.layer_dims)
         gathered_cs = [dims[0]] + dims[1:]
         if cfg.num_layers >= 2:
             gathered_cs += dims[2:] + [dims[-1], dims[-2]]
         cs = messages.gather_bytes(lay.neighbor_mask, lay.n_pad, gathered_cs,
-                                   itemsize=4)
+                                   itemsize=item)
         cs["transport"] = self.transport
         cs["pad_mode"] = self.pad_mode
         # pad rows drop out of the FLOPs only in the guarded ELL kernel
-        kernel_ragged = self.config.compressed and self.use_kernel
+        kernel_ragged = self.compressed and self.use_kernel
         wire_ragged = self.transport == "p2p"
         ps_flops = messages.pad_stats(
             lay.neighbor_mask, lay.sizes,
             lay.row_counts if kernel_ragged else None, lay.n_pad,
-            gathered_cs, itemsize=4)
+            gathered_cs, itemsize=item)
         ps_wire = messages.pad_stats(
             lay.neighbor_mask, lay.sizes,
             lay.row_counts if wire_ragged else None, lay.n_pad,
-            gathered_cs, itemsize=4)
+            gathered_cs, itemsize=item)
         cs.update(ps_wire)
         cs.update({k: ps_flops[k] for k in
                    ("pad_flops", "agg_flops", "pad_flop_frac")})
         cs["pad_guards"] = {"kernel": kernel_ragged, "wire": wire_ragged}
         cs["partitioner"] = self.partitioner
         cs["partition"] = dict(self.partition_stats)
-        if self.transport == "allgather":
+        if self._plan is not None:
+            # scheduled p2p wire volume, tied to the mask-derived stats by
+            # the transport invariant: wire == true rows + round padding
+            cs.update(messages.exchange_bytes(self._plan, gathered_cs,
+                                              itemsize=item))
+            messages.verify_transport_bytes(cs)
+        else:
             # an all-gather moves every row to every shard
             cs["wire_bytes"] = cs["full_bytes"]
         cs["adjacency"] = messages.adjacency_bytes(
             lay.neighbor_mask, lay.n_pad,
-            itemsize=2 if self.config.adjacency_bf16 else 4)
+            itemsize=2 if config.adjacency_bf16 else 4)
         cs["adjacency"]["resident_bytes"] = int(self.data.adjacency_nbytes)
         z_cols = sum(dims[1:])
         state_cols = dims[0] + z_cols + dims[-1]
@@ -773,7 +1060,44 @@ class ParallelADMMTrainer:
             "resident_bytes": int(rows * (state_cols + 3) * 4),
             "strided_equiv_bytes": int(strided_rows * (state_cols + 3) * 4),
         }
-        cs["minibatch"] = {"enabled": False}
+        if self._plan is not None:
+            # the overlap pricing of the plan the step runs (the restricted
+            # one under minibatching; ``step`` re-prices it)
+            def pricing(plan):
+                return messages.overlap_stats(
+                    plan, lay.neighbor_mask, gathered_cs, itemsize=item,
+                    enabled=self._overlap_on)
+            self._overlap_pricing = pricing
+            cs["overlap"] = pricing(self._active_plan)
+        if self._sampler is None:
+            cs["minibatch"] = {"enabled": False}
+            return cs
+        # sampled-round accounting over the first sampler cycle, each
+        # batch's restricted schedule priced like the full plan
+        s_n = self.n_shards
+        rc_sh = rc_eff.reshape(s_n, lay.num_parts // s_n)
+        cyc = self._sampler.cycle(0)
+        wires, rows_b = [], []
+        for b in cyc:
+            sub = self._plan if len(b) == s_n else \
+                messages.restrict_exchange(self._plan, frozenset(b))
+            wires.append(int(messages.exchange_bytes(
+                sub, gathered_cs, itemsize=item)["wire_bytes"]))
+            rows_b.append(int(rc_sh[list(b)].sum()))
+        cs["minibatch"] = {
+            "enabled": True,
+            "batch_fraction": float(config.batch_fraction),
+            "stale_decay": float(config.stale_decay),
+            "sample_seed": int(config.sample_seed),
+            "num_batches": int(self._sampler.num_batches),
+            "schedule": [list(b) for b in cyc],
+            "sampled_wire_bytes": wires[0],
+            "mean_sampled_wire_bytes": float(np.mean(wires)),
+            "full_wire_bytes": int(cs["wire_bytes"]),
+            "sampled_state_rows": rows_b[0],
+            "mean_sampled_state_rows": float(np.mean(rows_b)),
+            "full_state_rows": int(rc_sh.sum()),
+        }
         return cs
 
     # -- the step ------------------------------------------------------------
@@ -782,14 +1106,37 @@ class ParallelADMMTrainer:
     def next_state(self, state: "ParallelState | None" = None,
                    use_kernel: "bool | None" = None) -> ParallelState:
         """One ADMM iteration from ``state`` (default: the current state)
-        without changing the trainer; ``use_kernel`` overrides the
-        configured aggregation path."""
+        on this round's batch, without changing the trainer; ``use_kernel``
+        overrides the configured aggregation path."""
         state = self.state if state is None else state
         use_kernel = self.use_kernel if use_kernel is None else use_kernel
-        return self._body(state, use_kernel)
+        batch, sdr = self._current_batch()
+        return self._body(state, use_kernel, batch, sdr)
 
     def step(self) -> None:
+        if self._sampler is None:
+            self.state = self.next_state()
+            return
+        shards = self._current_shards()
+        plan = self._batch_for(shards).plan
+        self._active_plan = plan if plan is not None else self._plan
+        if "overlap" in self.comm_stats:
+            # keep the overlap pricing tied to the plan this round runs
+            self.comm_stats["overlap"] = self._overlap_pricing(
+                self._active_plan)
         self.state = self.next_state()
+        # ages advance after the round: a community sampled this round
+        # ends it fresh (age 0), everyone else's consensus terms are one
+        # round staler
+        self._ages += 1
+        k = self.layout.num_parts // self.n_shards
+        for s in shards:
+            self._ages[s * k:(s + 1) * k] = 0
+        self._round += 1
+        mb = self.comm_stats["minibatch"]
+        mb["rounds"] = self._round
+        mb["last_batch"] = sorted(shards)
+        mb["max_age"] = int(self._ages.max())
 
     def objectives(self, use_kernel: "bool | None" = None) -> dict:
         """Branch-free diagnostics at the current state: the values and
@@ -802,25 +1149,37 @@ class ParallelADMMTrainer:
         """
         use_kernel = self.use_kernel if use_kernel is None else use_kernel
         body, st = self._body, self.state
+        batch, sdr = self._current_batch()
         with torch.no_grad():
-            zs, u, zh, aggs = body.inputs(st.zs, st.u, use_kernel)
+            zs, u, zh_in, zh, aggs = body.inputs(st.zs, st.u, batch,
+                                                 use_kernel)
         out = {"w": [], "z": []}
-        for l, obj in enumerate(body.w_objectives(aggs, zs, u)):
+        for l, obj in enumerate(body.w_objectives(aggs, zs, u, batch)):
             out["w"].append(value_and_grad(obj, st.weights[l]))
         for l in range(1, self.cfg.num_layers):
-            obj = body.z_objective(l, aggs, zh, zs, u, st.weights[l - 1],
-                                   st.weights[l])
+            with torch.no_grad():
+                obj = body.z_objective(l, aggs, zh_in, zh, zs, u,
+                                       st.weights[l - 1], st.weights[l],
+                                       batch, sdr, use_kernel)
             out["z"].append(value_and_grad(obj, zs[l - 1]))
         return out
 
     # -- metrics -------------------------------------------------------------
 
     def _agg_full(self, z: Tensor) -> Tensor:
-        """Full-M aggregation of the metrics and the Lagrangian, whatever
-        ``use_kernel`` says, as in the reference (repro/core/parallel.py:
-        1317-1334): the ELL kernel on the card in compressed mode, the
-        masked einsum in dense mode."""
-        return self._body.rowagg(z, use_kernel=self.config.compressed)
+        """Full-M aggregation of the metrics and the Lagrangian over the
+        global ELL indices at every shard count, whatever ``use_kernel``
+        says, as in the reference (repro/core/parallel.py:1317-1334): the
+        ELL kernel on the card in compressed mode, the masked einsum in
+        dense mode."""
+        body = self._body
+        if not self.compressed:
+            return torch.einsum("kmip,kmpc->kic", body.a_masked,
+                                z.expand(len(body.a_masked), *z.shape))
+        d = self.data
+        return kops.community_spmm_ell(d.ell_blocks, self._ell_idx32,
+                                       body.ell_live, z, d.row_counts,
+                                       d.nbr_counts)
 
     def _forward_blocked(self, weights) -> Tensor:
         """Community-blocked forward pass — logits (M, n_pad, C_L)."""

@@ -12,7 +12,14 @@ ELL adjacency with packed state through the ELL kernel:
       --compressed --packed --use-kernel [--adjacency-bf16]
 
 Add ``--device cpu`` to run on the CPU (the CUDA kernels' plain versions
-then do the aggregation).
+then do the aggregation).  ``--shards N`` runs the communities over N
+logical shards of the device, which exchange neighbour rows through the
+loopback transport; with ``--packed`` the packed and fused kernels do the
+aggregation:
+
+  PYTHONPATH=src python -m repro_torch.launch.train_gcn --parts 4 \
+      --shards 4 --compressed --packed [--fused] [--overlap] \
+      [--comm-bf16] [--batch-fraction 0.5] --device cpu
 """
 from __future__ import annotations
 
@@ -59,6 +66,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--packed", action="store_true",
                     help="store Z/U/z0 as packed Σ-bucket-rows planes "
                          "(requires --compressed)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="split each aggregation by the exchange round "
+                         "that delivered its rows (requires --packed)")
+    ap.add_argument("--fused", action="store_true",
+                    help="the four Z-update aggregation→GEMM sites through "
+                         "the fused kernel (requires --packed)")
+    ap.add_argument("--comm-bf16", action="store_true",
+                    help="bf16 payloads on the wire (rounded where they "
+                         "cross between shards)")
+    ap.add_argument("--batch-fraction", type=float, default=None,
+                    help="community minibatching: sample this fraction of "
+                         "the shards each round (requires --packed)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="logical shards on the one device (must divide "
+                         "--parts); above 1 the shards exchange neighbour "
+                         "rows through the loopback transport")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the "
                          "CPU)")
@@ -83,10 +106,16 @@ def main(argv=None) -> dict:
 
     trainer = ParallelADMMTrainer(cfg, admm, g, num_parts=args.parts,
                                   seed=0, part=part, device=args.device,
-                                  config=TrainerConfig.from_cli_args(args))
+                                  config=TrainerConfig.from_cli_args(args),
+                                  n_shards=args.shards)
     cs = trainer.comm_stats
     print(f"device: {trainer.device}; layout n_pad={trainer.layout.n_pad}, "
           f"row counts {trainer.layout.eff_row_counts().tolist()}")
+    print(f"shards: {trainer.n_shards} [{cs['transport']}], wire "
+          f"{cs['wire_bytes'] / 1e6:.3f} MB per step (all-gather "
+          f"{cs['full_bytes'] / 1e6:.3f} MB); fused {args.fused}, overlap "
+          f"{args.overlap}, bf16 wire {args.comm_bf16}, batch fraction "
+          f"{args.batch_fraction}")
     adj = cs["adjacency"]
     mode = "compressed (ELL"
     mode += ", bf16 blocks)" if args.adjacency_bf16 else ")"

@@ -134,6 +134,94 @@ def test_trainer_kernel_path_matches_plain_path(cuda_device, mode):
     assert all(np.isfinite(log.lagrangian)) and all(np.isfinite(log.residual))
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["packed", "fused"])
+def test_multishard_trainer_kernel_path_matches_plain_path(cuda_device,
+                                                           fused):
+    """Four loopback shards on the packed wire: each aggregation is one
+    launch of the packed kernel over every shard's lanes (the fused kernel
+    at the four Z-update sites with ``fused``), and the kernel path's
+    objectives match the plain path's at one shared state."""
+    g, _ = graph.synthetic_powerlaw_communities(
+        8, nodes_per_part=16, size_skew=1.0, feat_dim=16, seed=0)
+    tr = ParallelADMMTrainer(gcn.GCNConfig((16, 32, g.num_classes)),
+                             ADMMConfig(nu=1e-3, rho=1e-3), g, 8, seed=0,
+                             config=TrainerConfig.packed(use_kernel=True,
+                                                         fused=fused),
+                             n_shards=4)
+    for _ in range(5):
+        tr.step()
+    community_spmm.packed_launches = community_spmm.fused_launches = 0
+    tr.step()
+    # two W-update aggregates; unfused also the dual refresh, fused the
+    # target, relay, FISTA and dual sites
+    assert community_spmm.packed_launches == (2 if fused else 3)
+    assert community_spmm.fused_launches == (4 if fused else 0)
+    got, want = tr.objectives(use_kernel=True), tr.objectives(use_kernel=False)
+    tol = 1e-4 if fused else 1e-5
+    for (va, ga), (vb, gb) in zip(got["w"] + got["z"],
+                                  want["w"] + want["z"]):
+        assert float((va - vb).abs().max()) <= tol * float(vb.abs().max())
+        assert float((ga - gb).abs().max()) <= tol * float(gb.abs().max())
+    log = tr.train(2)
+    assert all(np.isfinite(log.lagrangian)) and all(np.isfinite(log.residual))
+
+
+def _stacked_trainer_operands(c_in, c_out, device, shards=3, n_pad=4584):
+    """The 3-shard trainer's stacked packed-wire operands at full width:
+    one lane per shard, three slots each reading one of the three buckets
+    of its shard's receive plane; the planes laid end to end and the
+    offsets shifted by s · recv_plane_rows."""
+    gen = torch.Generator(device=device).manual_seed(c_in)
+    d = 3
+    rpr = d * n_pad
+    blocks = torch.randn((shards, d, n_pad, n_pad), generator=gen,
+                         device=device)
+    local = (torch.arange(d, device=device) * n_pad).repeat(shards, 1)
+    shift = (torch.arange(shards, device=device) * rpr)[:, None]
+    off = (local + shift).to(torch.int32).contiguous()
+    mask = torch.ones((shards, d), dtype=torch.int32, device=device)
+    planes = torch.randn((shards * rpr, c_in), generator=gen, device=device)
+    w = torch.randn((c_in, c_out), generator=gen, device=device) / 30.0
+    rows = torch.full((shards,), n_pad, dtype=torch.int32, device=device)
+    nbrs = torch.full((shards, d), n_pad, dtype=torch.int32, device=device)
+    return blocks, off, local.to(torch.int32), mask, planes, w, rows, nbrs, rpr
+
+
+@pytest.mark.parametrize("c_in,c_out", [(767, 1000), (1000, 10)])
+def test_stacked_launches_at_the_trainer_shapes(cuda_device, c_in, c_out):
+    """The packed and fused launches over the three shards' stacked lanes:
+    against their plain versions, and bitwise equal to one launch per
+    shard on its own receive plane with unshifted offsets."""
+    blocks, off, local, mask, planes, w, rows, nbrs, rpr = \
+        _stacked_trainer_operands(c_in, c_out, cuda_device)
+    packed = community_spmm.community_spmm_ell_packed(blocks, off, mask,
+                                                      planes, rows, nbrs)
+    fused = community_spmm.community_spmm_ell_fused(blocks, off, mask,
+                                                    planes, w, rows, nbrs)
+    want = ref.community_spmm_ell_packed_einsum(blocks, off, mask, planes,
+                                                rows, nbrs)
+    assert float((packed - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    plain = ref.community_spmm_ell_fused_einsum(blocks, off, mask, planes,
+                                                w, rows, nbrs)
+    assert float((fused - plain).abs().max()) <= \
+        1e-4 * float(plain.abs().max())
+    two_step = packed @ w
+    assert float((fused - two_step).abs().max()) <= \
+        1e-5 * float(two_step.abs().max())
+    per_p, per_f = [], []
+    for s in range(blocks.shape[0]):
+        lane = slice(s, s + 1)
+        plane = planes[s * rpr:(s + 1) * rpr]
+        args = (blocks[lane], local[lane].contiguous(), mask[lane])
+        per_p.append(community_spmm.community_spmm_ell_packed(
+            *args, plane, rows[lane], nbrs[lane]))
+        per_f.append(community_spmm.community_spmm_ell_fused(
+            *args, plane, w, rows[lane], nbrs[lane]))
+    assert torch.equal(packed, torch.cat(per_p))
+    assert torch.equal(fused, torch.cat(per_f))
+
+
 def _packed_operands(seed, k, max_deg, n_pad, c_in, c_out, device):
     """Random packed-plane operands with ragged counts; masked slots point
     anywhere in the plane."""

@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert n_modules >= 30, proc.stdout
     for name in ("repro_torch.core.serial", "repro_torch.core.subproblems",
                  "repro_torch.optim.optimizers",
-                 "repro_torch.kernels.community_spmm"):
+                 "repro_torch.kernels.community_spmm",
+                 "repro_torch.core.messages", "repro_torch.sharding.partition"):
         assert name in proc.stdout.split(), name
 
 

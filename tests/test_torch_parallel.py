@@ -33,6 +33,7 @@ import torch
 
 from repro.core import gcn as jgcn
 from repro.core import graph as jgraph
+from repro.core import messages as jmessages
 from repro.core.parallel import AXIS
 from repro.core.parallel import ParallelADMMTrainer as JaxTrainer
 from repro.core.parallel import TrainerConfig as JaxConfig
@@ -41,7 +42,7 @@ from repro.core.subproblems import stale_weights as jax_stale_weights
 from repro.kernels import ops as jops
 from repro.util.compat import make_mesh
 from repro_torch.convert import state_from_numpy, weights_from_numpy
-from repro_torch.core import gcn
+from repro_torch.core import gcn, messages
 from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
 from repro_torch.core.subproblems import ADMMConfig, stale_weights
 from repro_torch.launch import train_gcn
@@ -100,10 +101,18 @@ def test_fields_presets_and_cli_match_the_reference():
     TrainerConfig.minibatch(), TrainerConfig.packed(comm_bf16=True)],
     ids=["minibatch", "comm_bf16"])
 def test_unported_configs_raise_naming_the_roadmap(config):
+    """The two configurations that once raised (naming the ROADMAP item
+    that would port them) now build on one shard and take a finite step;
+    tests/test_torch_multishard.py holds them against the reference."""
     g, _ = _case_graph()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ParallelADMMTrainer(gcn.GCNConfig(DIMS), ADMMConfig(), g, 8,
-                            config=config, device="cpu")
+    tt = ParallelADMMTrainer(gcn.GCNConfig(DIMS), ADMMConfig(), g, 8,
+                             config=config, device="cpu")
+    tt.step()
+    st = tt.state
+    assert all(bool(torch.isfinite(t).all())
+               for t in st.weights + st.zs + (st.u,) + st.taus + st.thetas)
+    assert tt.comm_stats["minibatch"]["enabled"] == \
+        (config.batch_fraction is not None)
 
 
 def test_admm_config_and_stale_weights_match_the_reference():
@@ -311,18 +320,41 @@ def test_objectives_and_gradients_match_reference(pairs, mode, use_kernel):
 
 @pytest.mark.parametrize("mode,use_kernel,dims", CONFIGS, ids=IDS)
 def test_comm_stats_match_reference(pairs, mode, use_kernel, dims):
-    """Every ``comm_stats`` key the port computes (those that need no
-    exchange plan) equals the reference's.  In dense mode the kernel
-    computes every pad row, so ``pad_flops`` is the unguarded count even
-    with ``use_kernel=True``; the all-gather's wire is the full payload."""
+    """Every ``comm_stats`` key equals the reference's, the exchange plan's
+    wire and overlap pricing included; the overlap model is priced on the
+    port's device (``messages.PEAK_FLOPS`` / ``LINK_BW``), so it is held
+    against the reference's ``overlap_stats`` on the reference's plan at
+    those constants.  In dense mode the kernel computes every pad row, so
+    ``pad_flops`` is the unguarded count even with ``use_kernel=True``;
+    the all-gather's wire is the full payload."""
     jt, tt = pairs(mode, use_kernel, dims)
+    assert set(tt.comm_stats) == set(jt.comm_stats)
     for key, val in tt.comm_stats.items():
-        assert jt.comm_stats[key] == val, key
+        if key == "overlap":
+            want = _reference_overlap(jt)
+            assert val == want
+            assert val["model"]["ici_bw"] == messages.LINK_BW
+        else:
+            assert jt.comm_stats[key] == val, key
     if mode == "dense":
         assert tt.comm_stats["pad_guards"]["kernel"] is False
         assert tt.comm_stats["wire_bytes"] == tt.comm_stats["full_bytes"]
     if mode.endswith("bf16"):
         assert tt.data.ell_blocks.dtype == torch.bfloat16
+
+
+def _reference_overlap(jt):
+    """The reference's overlap pricing of its active plan, at the port's
+    device model."""
+    got = jt.comm_stats["overlap"]
+    dims = list(jt.cfg.layer_dims)
+    gathered_cs = [dims[0]] + dims[1:]
+    if jt.cfg.num_layers >= 2:
+        gathered_cs += dims[2:] + [dims[-1], dims[-2]]
+    return jmessages.overlap_stats(
+        jt._active_plan, jt.layout.neighbor_mask, gathered_cs,
+        itemsize=got["model"]["itemsize"], enabled=got["enabled"],
+        peak_flops=messages.PEAK_FLOPS, ici_bw=messages.LINK_BW)
 
 
 def test_adjacency_bf16_halves_the_resident_blocks():
