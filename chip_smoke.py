@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one GPU: train the community-ADMM GCN
 (dense and ELL Parallel ADMM, Serial ADMM, a backprop baseline), serve it,
-then run Mamba-2 1.3B inference through the SSD scan kernel and check the
-flash attention kernel.
+run Mamba-2 1.3B inference through the SSD scan kernel, and run the
+attention families (qwen2-7b at full width and depth among them) through
+the flash attention kernel.
 
     python3 chip_smoke.py
 
@@ -99,7 +100,30 @@ Phases (each prints its own lines; any failure exits non-zero):
      (FFMA) at 4 x 4096; each flash shape's route, blocks and TFLOP/s (the
      SSD, flash and SDPA over windows of 10 calls, the SM clock printed
      beside);
-  10. print the kernels line, the card's name and power limit, and a last
+  10. the attention families through the flash kernel, with random bf16
+     weights from a generator on the card, each model freed before the
+     next: qwen2-7b (28 layers, d_model 3584, 28 heads over 4, QKV bias,
+     SwiGLU 18,944) and recurrentgemma-9b (38 layers, the local window of
+     2,048) at their published widths and depth, prefill 2 x 4096 tokens,
+     and deepseek-moe-16b (64 experts top-6 + 2 shared) at 2 x 2048:
+     kernel route vs plain route (last-token logits within LOGIT_TOL of
+     max; exactly 28 / 12 / 28 flash launches per kernel forward, all on
+     the tensor-core route, 0 on the plain one; deepseek-moe-16b's bf16
+     gap reported, since top-k routing is discontinuous, and held within
+     1e-4 of max in f32 on its first 4 layers), tokens/s (median of 3),
+     profiled idle share and device ms by kind, cached decode (2 x 64 /
+     2 x 64 through the rolling cache / 2 x 32, per-token latency); for
+     qwen2-7b also a batch of 32 against a 4,096-slot cache (ms a step,
+     the cache's bytes) and decode against the kernel forward with the
+     weights in f32 (the FFMA flash route; probabilities within rtol 2e-2,
+     atol 2e-3); then gemma-2b, nemotron-4-15b, deepseek-v3-671b (MLA, v
+     padded to the q/k head_dim), moonshot-v1-16b-a3b, internvl2-2b
+     (vision prefix) and seamless-m4t-medium (non-causal encoder, decoder
+     cross-attention) at their reduced configurations, 2 x 4096
+     positions, kernel vs plain in f32 (1e-4 of max) and bf16 (LOGIT_TOL;
+     the MoE models' bf16 gap reported), with their flash launch counts;
+     each model's peak memory;
+  11. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
@@ -155,6 +179,10 @@ SSD_KERNELS = {"ssd_scan_kernel": "ssd_scan f32 (FFMA)",
                "ssd_chunk_states": "ssd pass 1 (chunk states)",
                "ssd_state_passing": "ssd pass 2 (state passing)",
                "ssd_chunk_output": "ssd pass 3 (output)"}
+# the flash kernels by the names the profiler shows
+FLASH_KERNELS = {"flash_wgmma_kernel": "flash_attention bf16 (tensor cores)",
+                 "flash_kernel": "flash_attention f32 (FFMA)"}
+NAMED_KERNELS = {**SSD_KERNELS, **FLASH_KERNELS}
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"      # f32
 FLASH_TC_SRC = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:67"
@@ -524,8 +552,8 @@ def profiled_idle(step) -> tuple[float, float, str]:
 def device_ms_by_kind(events, top: int = 4) -> dict:
     """Device milliseconds of the traced device events: each SSD scan
     kernel (the f32 FFMA kernel; the tensor-core route's three passes),
-    the cuBLAS matrix products, and the ``top`` largest others by name,
-    with their count of events."""
+    each flash attention kernel, the cuBLAS matrix products, and the
+    ``top`` largest others by name, with their count of events."""
     from torch.autograd import DeviceType
     by_name: dict = {}
     for e in events:
@@ -536,9 +564,9 @@ def device_ms_by_kind(events, top: int = 4) -> dict:
 
     def kind(name: str) -> str:
         low = name.lower()
-        for key in SSD_KERNELS:
+        for key in NAMED_KERNELS:
             if key in low:
-                return SSD_KERNELS[key]
+                return NAMED_KERNELS[key]
         if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
             return "matrix products"
         return name[:60]
@@ -546,7 +574,7 @@ def device_ms_by_kind(events, top: int = 4) -> dict:
     for name, (ms, n) in by_name.items():
         k_ms, k_n = kinds.get(kind(name), (0.0, 0))
         kinds[kind(name)] = (k_ms + ms, k_n + n)
-    named = (*SSD_KERNELS.values(), "matrix products")
+    named = (*NAMED_KERNELS.values(), "matrix products")
     others = sorted((k for k in kinds if k not in named),
                     key=lambda k: -kinds[k][0])
     out = {k: kinds[k] for k in named if k in kinds}
@@ -1701,6 +1729,422 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
     return ssd_t, flash_t
 
 
+# ---------------------------------------------------------------------------
+# the attention families: full-width qwen2-7b, deepseek-moe-16b and
+# recurrentgemma-9b, the other families at their reduced configurations
+# ---------------------------------------------------------------------------
+
+# (arch, prefill batch × tokens, decode requests × tokens, flash launches a
+# forward): the published widths and depth in bf16; qwen2-7b and
+# recurrentgemma-9b prefill above the attention chunk (2,048), where the
+# plain route runs its chunk loop and recurrentgemma's local window bites
+FAMILIES = [("qwen2-7b", (2, 4096), (2, 64), 28),
+            ("deepseek-moe-16b", (2, 2048), (2, 32), 28),
+            ("recurrentgemma-9b", (2, 4096), (2, 64), 12)]
+# qwen2-7b: one batch of requests against a cache of max_len, steps timed
+BATCH_DECODE = (32, 4096, 16)
+# the other families at their reduced configurations, kernel route vs plain
+# route, in f32 (the FFMA flash kernel; last-token logits within
+# F32_LOGIT_TOL · max) and bf16 (the tensor-core kernel; LOGIT_TOL):
+# (arch, flash launches a forward)
+REDUCED_FAMILIES = [("gemma-2b", 2), ("nemotron-4-15b", 2),
+                    ("deepseek-v3-671b", 2), ("moonshot-v1-16b-a3b", 2),
+                    ("internvl2-2b", 2), ("seamless-m4t-medium", 4)]
+REDUCED_SEQ = (2, 4096)        # batch × positions (vision prefix included)
+F32_LOGIT_TOL = 1e-4
+# an MoE model's bf16 kernel vs plain gap is reported, not held: top-k
+# routing is discontinuous, and a one-ulp bf16 difference at a router input
+# moves a token to another expert.  Its limit is held in f32, where the
+# routes agree to rounding; at full width on the first F32_CUT_LAYERS
+# layers (1 dense + 3 MoE for deepseek-moe-16b; the f32 weights of every
+# layer would not fit beside the bf16 ones)
+F32_CUT_LAYERS = 4
+
+
+class FlashCalls:
+    """Records (dtype, S, head_dim, causal, window) of every call that
+    reaches the flash launcher while active (the launcher's own counts are
+    what the checks read)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as flash
+        self.module, self.launch, self.calls = flash, flash.flash_attention, []
+
+        def record(q, k, v, *, causal=True, window=None):
+            self.calls.append((str(q.dtype).removeprefix("torch."),
+                               q.shape[1], q.shape[-1], causal, window))
+            return self.launch(q, k, v, causal=causal, window=window)
+        flash.flash_attention = record
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.flash_attention = self.launch
+
+
+def calls_text(calls) -> str:
+    kinds: dict = {}
+    for call in calls:
+        kinds[call] = kinds.get(call, 0) + 1
+    return ", ".join(f"{n} x ({dt}, S {s}, hd {hd}, "
+                     f"{'causal' if causal else 'non-causal'}, window "
+                     f"{window})" for (dt, s, hd, causal, window), n
+                     in kinds.items())
+
+
+def family_batch(cfg, b: int, s: int, dev, gen) -> dict:
+    """Tokens from the synthetic stream; a vision model's prefix (random
+    embeddings) and its text make ``s`` positions; an encoder-decoder's
+    ``s`` random frames go with ``s // 2`` decoder tokens."""
+    import torch
+
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import layers
+    dt = layers.dtype_of(cfg)
+    toks = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=0))
+    batch = {"tokens": torch.as_tensor(toks["tokens"], device=dev)}
+    if cfg.arch_type == "vlm":
+        npfx = cfg.frontend.num_embeddings
+        batch["tokens"] = batch["tokens"][:, npfx:]
+        batch["vision_embeds"] = torch.randn(
+            (b, npfx, cfg.d_model), generator=gen, device=dev).to(dt)
+    if cfg.is_encoder_decoder:
+        batch["tokens"] = batch["tokens"][:, :s // 2]
+        batch["frames"] = torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device=dev).to(dt)
+    return batch
+
+
+def kernel_vs_plain(model, params, batch) -> dict:
+    """One forward through the flash kernel and one through the plain
+    route (last-token logits), each with the launch counts set to 0 just
+    before and read just after."""
+    import torch
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        for route in (True, False):
+            reset_counts()
+            with FlashCalls() as rec:
+                t0 = time.perf_counter()
+                logits, _, _ = model.forward(params, batch, use_kernel=route,
+                                             last_only=True)
+                torch.cuda.synchronize()
+            key = "kernel" if route else "plain"
+            out[key] = {"logits": logits, "launches": counts(),
+                        "calls": rec.calls,
+                        "ms": 1e3 * (time.perf_counter() - t0)}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    err, rel = rel_err(out["kernel"]["logits"], out["plain"]["logits"])
+    out["max_abs_err"], out["rel_err"] = err, rel
+    out["finite"] = bool(torch.isfinite(out["kernel"]["logits"]).all()
+                         & torch.isfinite(out["plain"]["logits"]).all())
+    return out
+
+
+def check_routes(tag: str, res: dict, expect: int, tc: bool,
+                 limit: "float | None") -> None:
+    """Launch counts of both routes; the logits finite and, unless
+    ``limit`` is None (an MoE model in bf16), within ``limit``."""
+    k, p = res["kernel"]["launches"], res["plain"]["launches"]
+    if (k["flash"] != expect or k["flash_tc"] != (expect if tc else 0)
+            or p["flash"] != 0):
+        fail(f"{tag}: flash launches {k['flash']} on the kernel forward "
+             f"({k['flash_tc']} on the tensor cores; expected {expect}), "
+             f"{p['flash']} on the plain one (expected 0)")
+    if not (res["finite"] and (limit is None or res["rel_err"] <= limit)):
+        fail(f"{tag}: kernel vs plain last-token logits rel "
+             f"{res['rel_err']:.3e} ({limit_text(limit)}), finite "
+             f"{res['finite']}")
+
+
+def limit_text(limit: "float | None") -> str:
+    return ("reported: MoE routing in bf16" if limit is None
+            else f"limit {limit:.1e}")
+
+
+def routed_f32_check(cfg, params, batch, card: str) -> dict:
+    """An MoE model's kernel vs plain route in f32 (the FFMA flash kernel)
+    on its first F32_CUT_LAYERS layers, the bf16 weights cast up."""
+    import dataclasses
+
+    from repro_torch.models import transformer
+    from repro_torch.models.build import make_model
+    cut = dataclasses.replace(cfg, dtype="float32", num_layers=F32_CUT_LAYERS)
+    stack = {seg.kind: transformer.tree_map(
+        lambda t, n=seg.count: t[:n].float(), params["stack"][seg.kind])
+        for seg in transformer.arch_segments(cut)}
+    p32 = {k: transformer.tree_map(lambda t: t.float(), v)
+           for k, v in params.items() if k != "stack"}
+    p32["stack"] = stack
+    res = kernel_vs_plain(make_model(cut), p32, batch)
+    tag = f"{cfg.name} f32, first {F32_CUT_LAYERS} layers"
+    print(f"[10] {tag}: last-token logits kernel vs plain route rel "
+          f"{res['rel_err']:.3e} (limit {F32_LOGIT_TOL:.0e}); flash "
+          f"launches {res['kernel']['launches']['flash']} "
+          f"({calls_text(res['kernel']['calls'])}), "
+          f"{res['plain']['launches']['flash']} on the plain route; peak "
+          f"memory {res['peak_gb']:.2f} GB [{card}]", flush=True)
+    check_routes(tag, res, F32_CUT_LAYERS, False, F32_LOGIT_TOL)
+    return {"layers": F32_CUT_LAYERS, "rel_err": res["rel_err"],
+            "max_abs_err": res["max_abs_err"],
+            "launches": res["kernel"]["launches"]["flash"]}
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models import transformer
+    leaves = []
+    transformer.tree_map(leaves.append, tree)
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def family_phase(arch: str, prefill, decode, expect: int, card: str, dev,
+                 gen) -> dict:
+    """Phase 10, one model at its published widths and depth (bf16, random
+    weights from a generator on the card): prefill through the flash
+    kernel and the plain route, timed forwards, cached decode; for
+    qwen2-7b also a batch of 32 against a 4,096-slot cache and decode
+    against the forward with the weights in f32."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import transformer
+    from repro_torch.models.build import make_model
+
+    cfg = get_config(arch)
+    model = make_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    transformer.tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    print(f"[10] {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} kv heads, "
+          f"head_dim {cfg.resolved_head_dim}, {cfg.dtype}; {n_params:,} "
+          f"parameters on the card ({tree_bytes(params) / 1e9:.2f} GB), "
+          f"init {init_s:.2f} s", flush=True)
+    out = {"parameters": n_params, "init_s": init_s}
+
+    b, s = prefill
+    batch = family_batch(cfg, b, s, dev, gen)
+    res = kernel_vs_plain(model, params, batch)
+    k_calls = res["kernel"]["calls"]
+    limit = None if cfg.moe is not None else LOGIT_TOL
+    agree = float((res["kernel"]["logits"].argmax(-1)
+                   == res["plain"]["logits"].argmax(-1)).float().mean())
+    print(f"[10] {arch} prefill {b} x {s}: last-token logits kernel vs "
+          f"plain route max |diff| {res['max_abs_err']:.4e}, rel "
+          f"{res['rel_err']:.4e} ({limit_text(limit)}), argmax agreement "
+          f"{agree:.2f}; flash launches "
+          f"{res['kernel']['launches']['flash']} on the kernel forward "
+          f"({res['kernel']['launches']['flash_tc']} on the tensor cores: "
+          f"{calls_text(k_calls)}), {res['plain']['launches']['flash']} on "
+          f"the plain one; peak memory {res['peak_gb']:.2f} GB [{card}]",
+          flush=True)
+    check_routes(f"{arch} prefill", res, expect, True, limit)
+    out.update(argmax_agreement=agree)
+    if cfg.moe is not None:
+        out["f32_cut"] = routed_f32_check(cfg, params, batch, card)
+    out.update(launches=res["kernel"]["launches"]["flash"],
+               tc_launches=res["kernel"]["launches"]["flash_tc"],
+               plain_launches=res["plain"]["launches"]["flash"],
+               windows=sorted({str(c[4]) for c in k_calls}),
+               logits_max_abs_err=res["max_abs_err"],
+               logits_rel_err=res["rel_err"], prefill_peak_gb=res["peak_gb"],
+               first_forward_ms=res["kernel"]["ms"],
+               plain_forward_ms=res["plain"]["ms"])
+    del res
+
+    def forward():
+        model.forward(params, batch, use_kernel=True, last_only=True)
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        before = counts()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            forward()
+            times.append(1e3 * (time.perf_counter() - t0))
+        wall_us, busy_us, idle, events = profiled(forward)
+        reset_counts(before)            # timing launches do not count
+    med = statistics.median(times)
+    kinds = device_ms_by_kind(events)
+    flash_kind = kinds.get(FLASH_KERNELS["flash_wgmma_kernel"])
+    out.update(forward_ms=times, forward_median_ms=med,
+               tokens_per_s=b * s / (med / 1e3), idle=idle,
+               forward_wall_ms=wall_us / 1e3,
+               forward_busy_ms=busy_us / 1e3, forward_device_ms=kinds,
+               flash_ms_per_call=(flash_kind["ms"] / flash_kind["events"]
+                                  if flash_kind else None))
+    print(f"[10] {arch} prefill forward through the kernel: median "
+          f"{med:.1f} ms of {[round(t, 1) for t in times]} = "
+          f"{out['tokens_per_s']:,.0f} tokens/s; plain forward "
+          f"{out['plain_forward_ms']:.1f} ms (one call); profiled forward: "
+          f"wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms, "
+          f"idle share {idle}; device ms by kind {json.dumps(kinds)} "
+          f"[{card}]", flush=True)
+
+    b, steps = decode
+    toks = next(synthetic_token_batches(cfg.vocab_size, b, steps, seed=0))
+    tokens = torch.as_tensor(toks["tokens"], device=dev)
+    with torch.inference_mode():
+        reset_counts()
+        dec_logits, step_ms = decode_run(model, params, tokens)
+        caches = model.init_cache(b, steps, device=dev)
+        d_wall, d_busy, d_idle, d_events = profiled(
+            lambda: model.decode_step(params, caches, tokens[:, :1]))
+        dec_launches = counts()["flash"]
+    del caches
+    n_dev = sum(1 for e in d_events if e.device_type == DeviceType.CUDA)
+    ordered = sorted(step_ms[1:])
+    out.update(decode_step_ms=step_ms,
+               decode_median_ms=statistics.median(step_ms[1:]),
+               decode_p90_ms=ordered[int(0.9 * (len(ordered) - 1))],
+               decode_flash_launches=dec_launches,
+               decode_profiled={"wall_ms": d_wall / 1e3,
+                                "busy_ms": d_busy / 1e3, "idle": d_idle,
+                                "device_events": n_dev})
+    print(f"[10] {arch} decode {b} requests x {steps} tokens "
+          f"(init_cache({b}, {steps}), one decode_step per token): per "
+          f"token median {out['decode_median_ms']:.2f} ms, p90 "
+          f"{out['decode_p90_ms']:.2f} ms, first {step_ms[0]:.2f} ms = "
+          f"{b * 1e3 / out['decode_median_ms']:,.0f} tokens/s; flash "
+          f"launches {dec_launches} (decode is plain torch); profiled step: "
+          f"wall {d_wall / 1e3:.2f} ms, device busy {d_busy / 1e3:.2f} ms, "
+          f"idle share {d_idle}, {n_dev} device events [{card}]", flush=True)
+    if not bool(torch.isfinite(dec_logits).all()) or dec_launches:
+        fail(f"{arch} decode: logits not finite or the flash kernel "
+             f"launched ({dec_launches})")
+    del dec_logits
+
+    if arch == "qwen2-7b":
+        bb, max_len, n_steps = BATCH_DECODE
+        toks = next(synthetic_token_batches(cfg.vocab_size, bb, n_steps,
+                                            seed=1))
+        many = torch.as_tensor(toks["tokens"], device=dev)
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            caches = model.init_cache(bb, max_len, device=dev)
+            cache_gb = tree_bytes(caches) / 1e9
+            ms = []
+            for t in range(n_steps):
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(params, caches,
+                                                   many[:, t:t + 1])
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            finite = bool(torch.isfinite(logits).all())
+        del caches, logits
+        batch_med = statistics.median(ms[1:])
+        out["batch_decode"] = {
+            "batch": bb, "max_len": max_len, "steps": n_steps,
+            "cache_gb": cache_gb, "step_ms": ms,
+            "median_step_ms": batch_med,
+            "tokens_per_s": bb * 1e3 / batch_med,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[10] {arch} decode batch {bb} against init_cache({bb}, "
+              f"{max_len}) ({cache_gb:.2f} GB of KV cache; decode_32k's "
+              f"batch of 128 would need {4 * cache_gb * 32768 / max_len:.0f} "
+              f"GB, not attempted): {n_steps} steps, median "
+              f"{batch_med:.2f} ms a step = "
+              f"{out['batch_decode']['tokens_per_s']:,.0f} tokens/s, first "
+              f"{ms[0]:.2f} ms; peak memory "
+              f"{out['batch_decode']['peak_gb']:.2f} GB [{card}]", flush=True)
+        if not finite:
+            fail(f"{arch} batch decode: logits not finite")
+
+        # decode against the kernel forward (the FFMA flash route) in f32
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = make_model(cfg32)
+        params32 = transformer.tree_map(lambda t: t.float(), params)
+        with torch.inference_mode():
+            reset_counts()
+            dec32, _ = decode_run(model32, params32, tokens)
+            full32, _, _ = model32.forward(params32, {"tokens": tokens},
+                                           use_kernel=True)
+            f32_launches = counts()
+        torch.cuda.synchronize()
+        gap32, ok32 = probs_gap(dec32, full32)
+        _, rel32 = rel_err(dec32, full32)
+        out.update(decode_f32_max_abs_dp=gap32, decode_f32_logits_rel=rel32,
+                   decode_f32_flash_launches=f32_launches["flash"])
+        print(f"[10] {arch} decode vs the kernel forward over the same "
+              f"{steps} tokens, f32 weights at full depth (no cut; "
+              f"{f32_launches['flash']} FFMA flash launches, "
+              f"{f32_launches['flash_tc']} on the tensor cores): max |dp| "
+              f"{gap32:.3e}, allclose rtol {DECODE_RTOL} atol {DECODE_ATOL}: "
+              f"{'ok' if ok32 else 'FAIL'}; logits rel {rel32:.3e} "
+              f"(reported)", flush=True)
+        if not (ok32 and f32_launches["flash"] == cfg.num_layers
+                and f32_launches["flash_tc"] == 0):
+            fail(f"{arch}: f32 decode disagrees with the kernel forward "
+                 f"(max |dp| {gap32:.3e}) or the FFMA route did not run")
+        del params32, model32, dec32, full32
+    del params, batch, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_families_phase(card: str, dev, gen) -> dict:
+    """Phase 10, the other families at their reduced configurations on the
+    card: kernel route vs plain route in f32 and bf16."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.build import make_model
+    out = {}
+    b, s = REDUCED_SEQ
+    for arch, expect in REDUCED_FAMILIES:
+        for dtype, limit in (("float32", F32_LOGIT_TOL),
+                             ("bfloat16", LOGIT_TOL)):
+            cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                      dtype=dtype)
+            if cfg.moe is not None and dtype == "bfloat16":
+                limit = None
+            model = make_model(cfg)
+            params = model.init(seed=0, device=dev)
+            batch = family_batch(cfg, b, s, dev, gen)
+            res = kernel_vs_plain(model, params, batch)
+            tc = dtype == "bfloat16"
+            tag = f"{arch} reduced {dtype}"
+            print(f"[10] {tag} ({b} x {s} positions): last-token logits "
+                  f"kernel vs plain rel {res['rel_err']:.3e} "
+                  f"({limit_text(limit)}); flash launches "
+                  f"{res['kernel']['launches']['flash']} "
+                  f"({calls_text(res['kernel']['calls'])}), "
+                  f"{res['plain']['launches']['flash']} on the plain route",
+                  flush=True)
+            check_routes(tag, res, expect, tc, limit)
+            out[f"{arch} {dtype}"] = {
+                "launches": res["kernel"]["launches"]["flash"],
+                "rel_err": res["rel_err"],
+                "max_abs_err": res["max_abs_err"]}
+            del model, params, batch, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_phase(card: str, dev) -> dict:
+    """Phase 10: the attention families through the flash kernel."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(10)
+    t0 = time.perf_counter()
+    out = {arch: family_phase(arch, prefill, decode, expect, card, dev, gen)
+           for arch, prefill, decode, expect in FAMILIES}
+    out["reduced"] = reduced_families_phase(card, dev, gen)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[10] attention families phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2052,7 +2496,10 @@ def main() -> int:
     ssd_t, flash_t = time_lm_kernels(gen, dev, peak_flops, peak_bf16,
                                      peak_bw, card)
 
-    # ---- 10. the kernels line, the card, the result ------------------------
+    # ---- 10. the attention families through the flash kernel --------------
+    families = families_phase(card, dev)
+
+    # ---- 11. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",
@@ -2158,20 +2605,33 @@ def main() -> int:
                      "G": 1, "N": 128, "chunk": 256, "dtype": "bfloat16"},
         "checked": True, "launches_per_forward": mamba["launches"],
         "per_shape": ssd_t, "checks": ssd_checks})
+    # the flash row: launches of the qwen2-7b kernel forward (phase 10, this
+    # kernel's model path), timed at qwen2-7b's attention shape; each
+    # model's launches a forward and device ms a call beside them
     head = flash_t[FLASH_CHECKS[0][0]]
+    qwen = families["qwen2-7b"]
+    per_forward = {arch: families[arch]["launches"]
+                   for arch, *_ in FAMILIES}
+    per_forward.update({f"{k} (reduced)": v["launches"]
+                        for k, v in families["reduced"].items()})
     rows_out.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_TC_SRC,
-        "replaces": FLASH_REPLACES, "launches": mamba["flash_launches"],
+        "replaces": FLASH_REPLACES, "launches": qwen["launches"],
         "design": "bf16 on the tensor cores (wgmma); f32 FFMA kernel in "
                   f"{FLASH_SRC}",
-        "tensor_core_launches": mamba["flash_tc_launches"],
+        "tensor_core_launches": qwen["tc_launches"],
+        "launches_per_forward": per_forward,
+        "device_ms_per_call_in_models": {
+            arch: families[arch]["flash_ms_per_call"]
+            for arch, *_ in FAMILIES},
+        "launches_mamba2_forward": mamba["flash_launches"],
         "max_abs_err": max(ch["max_abs_err"] for ch in flash_checks),
         "max_rel_err": max(ch["max_rel_err"] for ch in flash_checks),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "timed_at": FLASH_CHECKS[0][0], "checked": True,
-        "on_main_path": False, "per_shape": flash_t,
+        "on_main_path": True, "per_shape": flash_t,
         "checks": flash_checks})
     print(json.dumps({"kernels": rows_out}))
     print(card)

@@ -9,10 +9,11 @@ operands' dtype, not chosen on failure:
 * f32 runs ``csrc/flash_attention.cu``, an FFMA kernel (tensor cores in
   f32 would mean TF32, outside the f32 limit of 1e-5 of max).
 
-No model path of either package calls attention through it (every
-attention in ``repro.models`` runs the jnp ``block_causal_attention``), so
-the port carries the kernels, their plain version and their dispatch
-(``ops.flash_attention``), as the reference does.  This module checks the
+The reference's models run the jnp ``block_causal_attention`` and never
+this kernel; the port's models call it (through ``ops.flash_attention``)
+for every full-sequence self-attention under ``use_kernel=True``
+(``models.attention.attend``), and run the plain route otherwise.  This
+module checks the
 operands, allocates the output and launches on the current CUDA stream; the
 kernels pick their own tiles (the TPU wrapper's ``block_q`` and ``block_k``
 are tiling only); ``tc_layout`` mirrors the tensor-core kernel's choice.

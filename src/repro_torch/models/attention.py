@@ -1,0 +1,370 @@
+"""Attention variants: MHA/GQA/MQA (+bias, RoPE), MLA, sliding window, caches.
+
+The port of src/repro/models/attention.py.  Full-sequence self-attention
+(``attend``) takes one of two routes:
+
+* ``use_kernel=False``: ``block_causal_attention``, the reference's
+  chunked form: a loop over query chunks where chunk i only contracts
+  against keys [lo_i, hi_i), so no full S² score buffer is made;
+* ``use_kernel=True``: ``kernels.ops.flash_attention``, the hand-written
+  CUDA kernel on a CUDA tensor (bf16 on the tensor cores, f32 on FFMA) and
+  its plain version on a CPU tensor.  The kernel masks q − k ≥ window with
+  or without ``causal``, while the reference applies the window only when
+  ``causal`` if S ≤ CHUNK, and always if S > CHUNK; ``attend`` passes the
+  window only where the reference applies it.  MLA's v (v_hd < qk_hd) is
+  padded with zero columns to qk_hd and the output sliced back, which is
+  exact; the kernel's scale 1/√qk_hd is ``_sdpa``'s.  Both routes take the
+  same inputs: above CHUNK, S must be a multiple of it.
+
+Cross-attention and every decode step stay plain torch (``_sdpa``, one
+query row), as in the reference.  The reference's ``hints.hint_qkv`` is
+left out: it only places q/k/v on a device mesh and does nothing without
+one.
+
+Caches (a decode step writes its token into the cache it is given, in
+place, and returns the same tensors; a caller that keeps the pre-step
+cache clones it first):
+  full cache    {'k','v': (B, S_max, Hkv, hd), 'slot_pos': (S_max,),
+                 'pos': ()}
+  rolling cache the same with S_max = W (sliding window / long_500k)
+  MLA cache     {'c_kv': (B, S, r), 'k_rope': (B, S, 1, hd_r), 'pos': ()}
+                (compressed latent — the point of MLA)
+``pos`` and ``slot_pos`` are int32 tensors: a step reads them on the
+device, with no copy to the host.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers
+from repro_torch.models.layers import Params, apply_rope, dense_init, dtype_of
+
+NEG_INF = -2.0 ** 30  # large-negative in f32 (avoids bf16 overflow on cast)
+CHUNK = 2048          # query/key chunk for block-causal attention
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    dt = dtype_of(cfg)
+    hd = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "q_down": dense_init(gen, (cfg.d_model, m.q_lora_rank), dt),
+            "q_norm": {"scale": torch.ones((m.q_lora_rank,), dtype=dt,
+                                           device=gen.device)},
+            "q_up": dense_init(gen, (m.q_lora_rank, cfg.num_heads * qk_hd),
+                               dt),
+            "kv_down": dense_init(gen, (cfg.d_model, m.kv_lora_rank
+                                        + m.qk_rope_head_dim), dt),
+            "kv_norm": {"scale": torch.ones((m.kv_lora_rank,), dtype=dt,
+                                            device=gen.device)},
+            "kv_up": dense_init(gen, (m.kv_lora_rank, cfg.num_heads
+                                      * (m.qk_nope_head_dim + m.v_head_dim)),
+                                dt),
+            "o": dense_init(gen, (cfg.num_heads * m.v_head_dim, cfg.d_model),
+                            dt),
+        }
+    p = {
+        "q": dense_init(gen, (cfg.d_model, cfg.num_heads * hd), dt),
+        "k": dense_init(gen, (cfg.d_model, cfg.num_kv_heads * hd), dt),
+        "v": dense_init(gen, (cfg.d_model, cfg.num_kv_heads * hd), dt),
+        "o": dense_init(gen, (cfg.num_heads * hd, cfg.d_model), dt),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("q_b", cfg.num_heads), ("k_b", cfg.num_kv_heads),
+                            ("v_b", cfg.num_kv_heads)):
+            p[name] = torch.zeros((heads * hd,), dtype=dt, device=gen.device)
+    return p
+
+
+def init_cross_attention(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    return init_attention(cfg, gen)   # same projections, keys from memory
+
+
+# ---------------------------------------------------------------------------
+# core score/combine (single q-block vs single kv-block)
+# ---------------------------------------------------------------------------
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q/k: (B,S,*,qk_hd); v: (B,Sk,Hkv,v_hd); mask bcastable (B,1,Sq,Sk).
+
+    Scores in f32 (the reference's ``preferred_element_type``: products of
+    bf16 values are exact in f32), probabilities cast to v's dtype.  v_hd
+    may differ from qk_hd (MLA decompresses to different dims)."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(hd))
+    if mask is not None:
+        scores = torch.where(mask[:, :, None] if mask.dim() == 4 else mask,
+                             scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def _check_length(s: int, chunk: int) -> None:
+    if s > chunk and s % chunk:
+        raise ValueError(f"sequence length {s} above the chunk {chunk} is "
+                         f"not a multiple of it")
+
+
+def block_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: Optional[int] = None,
+                           chunk: int = CHUNK) -> torch.Tensor:
+    """Chunked attention with static per-chunk key slices (causal FLOPs only).
+
+    q/k/v over the same sequence; q: (B,S,H,hd), k/v: (B,S,Hkv,hd).
+    """
+    s = q.shape[1]
+    dev = q.device
+    if s <= chunk:
+        mask = None
+        if causal:
+            qpos = torch.arange(s, device=dev)
+            mask = qpos[:, None] >= qpos[None, :]
+            if window is not None:
+                mask &= qpos[:, None] - qpos[None, :] < window
+            mask = mask[None, None]
+        return _sdpa(q, k, v, mask)
+
+    _check_length(s, chunk)
+    outs = []
+    for i in range(s // chunk):
+        q_lo, q_hi = i * chunk, (i + 1) * chunk
+        k_lo = 0 if window is None else max(0, q_lo - window)
+        k_lo = (k_lo // chunk) * chunk           # align to chunk
+        k_hi = q_hi if causal else s
+        qpos = torch.arange(q_lo, q_hi, device=dev)
+        kpos = torch.arange(k_lo, k_hi, device=dev)
+        mask = torch.ones((chunk, k_hi - k_lo), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        outs.append(_sdpa(q[:, q_lo:q_hi], k[:, k_lo:k_hi], v[:, k_lo:k_hi],
+                          mask[None, None]))
+    return torch.cat(outs, dim=1)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, window: Optional[int] = None,
+           use_kernel: bool = False, chunk: int = CHUNK) -> torch.Tensor:
+    """Full-sequence self-attention through the plain route or the flash
+    kernel (module docstring); both return what the reference's
+    ``block_causal_attention`` returns.  q, k: (B,S,*,qk_hd); v:
+    (B,S,Hkv,v_hd) with v_hd ≤ qk_hd."""
+    if not use_kernel:
+        return block_causal_attention(q, k, v, causal=causal, window=window,
+                                      chunk=chunk)
+    s, qk_hd, v_hd = q.shape[1], q.shape[-1], v.shape[-1]
+    _check_length(s, chunk)
+    if s <= chunk and not causal:
+        window = None                # the reference's S ≤ CHUNK branch
+    if v_hd > qk_hd:
+        raise ValueError(f"v head_dim {v_hd} > q/k head_dim {qk_hd}")
+    if v_hd < qk_hd:
+        v = F.pad(v, (0, qk_hd - v_hd))
+    out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    return out[..., :v_hd]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention (train/prefill + cached decode)
+# ---------------------------------------------------------------------------
+
+def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    hd = cfg.resolved_head_dim
+    b, s, _ = x.shape
+    q, k, v = x @ p["q"], x @ p["k"], x @ p["v"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["q_b"], k + p["k_b"], v + p["v_b"]
+    return (q.reshape(b, s, cfg.num_heads, hd),
+            k.reshape(b, s, cfg.num_kv_heads, hd),
+            v.reshape(b, s, cfg.num_kv_heads, hd))
+
+
+def _positions(s: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None, :]
+
+
+def gqa_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                causal: bool = True, window: Optional[int] = None,
+                use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence attention (train / prefill)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = _positions(s, x.device)
+    q, k, v = _project_qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = attend(q, k, v, causal=causal, window=window,
+                 use_kernel=use_kernel)
+    return out.reshape(b, s, -1) @ p["o"]
+
+
+def gqa_cross_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      memory: torch.Tensor) -> torch.Tensor:
+    """Cross-attention: queries from x, keys/values from encoder memory."""
+    hd = cfg.resolved_head_dim
+    b, s, _ = x.shape
+    sm = memory.shape[1]
+    q = (x @ p["q"]).reshape(b, s, cfg.num_heads, hd)
+    k = (memory @ p["k"]).reshape(b, sm, cfg.num_kv_heads, hd)
+    v = (memory @ p["v"]).reshape(b, sm, cfg.num_kv_heads, hd)
+    if cfg.qkv_bias:
+        q = q + p["q_b"].reshape(cfg.num_heads, hd)
+        k = k + p["k_b"].reshape(cfg.num_kv_heads, hd)
+        v = v + p["v_b"].reshape(cfg.num_kv_heads, hd)
+    out = _sdpa(q, k, v, None)
+    return out.reshape(b, s, -1) @ p["o"]
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   rolling: bool = False,
+                   device: torch.device | None = None) -> Params:
+    hd = cfg.resolved_head_dim
+    dt = dict(dtype=dtype_of(cfg), device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    size = min(max_len, cfg.sliding_window) if rolling and cfg.sliding_window \
+        else max_len
+    return {
+        "k": torch.zeros((batch, size, cfg.num_kv_heads, hd), **dt),
+        "v": torch.zeros((batch, size, cfg.num_kv_heads, hd), **dt),
+        "slot_pos": torch.full((size,), -1, **i32),
+        "pos": torch.zeros((), **i32),
+    }
+
+
+def gqa_decode_step(cfg: ModelConfig, p: Params, cache: Params,
+                    x_t: torch.Tensor, rolling: bool = False
+                    ) -> tuple[torch.Tensor, Params]:
+    """One token: x_t (B, 1, D) against the cache, written in place."""
+    b = x_t.shape[0]
+    pos = cache["pos"]
+    q, k, v = _project_qkv(cfg, p, x_t)
+    positions = pos.expand(b, 1)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    size = cache["k"].shape[1]
+    slot = (pos % size if rolling else pos.clamp(max=size - 1)).long()
+    slot = slot.view(1)
+    cache["k"].index_copy_(1, slot, k)
+    cache["v"].index_copy_(1, slot, v)
+    cache["slot_pos"].index_copy_(0, slot, pos.view(1))
+
+    slot_pos = cache["slot_pos"]
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if cfg.sliding_window is not None:
+        valid &= slot_pos > pos - cfg.sliding_window
+    out = _sdpa(q, cache["k"], cache["v"], valid[None, None, None, :])
+    cache["pos"].add_(1)
+    return out.reshape(b, 1, -1) @ p["o"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3) — compressed-latent cache; absorbed decode
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+             positions: torch.Tensor):
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = layers.apply_norm(cfg, p["q_norm"], x @ p["q_down"])
+    q = (cq @ p["q_up"]).reshape(b, s, cfg.num_heads, m.qk_nope_head_dim
+                                 + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = x @ p["kv_down"]
+    c_kv, k_rope = torch.split(kv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                               dim=-1)
+    c_kv = layers.apply_norm(cfg, p["kv_norm"], c_kv)       # (B,S,r)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                      # (B,S,1,hd_r)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                window: Optional[int] = None,
+                use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence MLA (train / prefill): decompress k/v, then attend."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    if positions is None:
+        positions = _positions(s, x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    kv = (c_kv @ p["kv_up"]).reshape(b, s, h,
+                                     m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    out = attend(q, k, v, causal=True, window=window, use_kernel=use_kernel)
+    return out.reshape(b, s, h * m.v_head_dim) @ p["o"]
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device: torch.device | None = None) -> Params:
+    m = cfg.mla
+    dt = dict(dtype=dtype_of(cfg), device=device)
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), **dt),
+        "k_rope": torch.zeros((batch, max_len, 1, m.qk_rope_head_dim), **dt),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode_step(cfg: ModelConfig, p: Params, cache: Params,
+                    x_t: torch.Tensor) -> tuple[torch.Tensor, Params]:
+    """Absorbed MLA decode: scores in latent space — O(S·r) per head group,
+    the compressed cache never decompresses to per-head K/V."""
+    m = cfg.mla
+    b = x_t.shape[0]
+    h = cfg.num_heads
+    nope = m.qk_nope_head_dim
+    pos = cache["pos"]
+    q_nope, q_rope, c_kv_t, k_rope_t = _mla_qkv(cfg, p, x_t,
+                                                pos.expand(b, 1))
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    s_max = c_kv.shape[1]
+    at = pos.clamp(max=s_max - 1).long().view(1)
+    c_kv.index_copy_(1, at, c_kv_t)
+    k_rope.index_copy_(1, at, k_rope_t)
+
+    # absorb W_uk into q: q_lat (B,1,H,r).  kv_up columns are laid out
+    # per-head interleaved [k_nope | v] (matching mla_forward's reshape)
+    w_full = p["kv_up"].reshape(m.kv_lora_rank, h, nope + m.v_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_full[:, :, :nope])
+    scores = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), c_kv.float())
+    scores = scores + torch.einsum("bqhd,bkzd->bhqk", q_rope.float(),
+                                   k_rope.float())
+    scores = scores * (1.0 / math.sqrt(nope + m.qk_rope_head_dim))
+    valid = torch.arange(s_max, device=x_t.device) <= pos
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+
+    # combine in latent space, then decompress through W_uv
+    lat = torch.einsum("bhqk,bkr->bqhr", probs.to(c_kv.dtype), c_kv)
+    out = torch.einsum("bqhr,rhd->bqhd", lat, w_full[:, :, nope:])
+    cache["pos"].add_(1)
+    return out.reshape(b, 1, h * m.v_head_dim) @ p["o"], cache

@@ -1,17 +1,21 @@
-"""Top-level Model API of the port: init / forward / loss / prefill /
-decode_step / input_specs — the counterpart of src/repro/models/build.py
-for the ``ssm`` architecture (Mamba-2).
+"""Top-level Model API of the port: init / forward / encode / loss /
+prefill / decode_step / input_specs — the counterpart of
+src/repro/models/build.py for every architecture family.
 
-Batch format: {'tokens': (B, S) int, 'targets': (B, S) int}.  Parameters
-are nested dicts of tensors with the reference's key paths and its stacked
-leading layer axis (``convert.model_params_from_numpy`` carries a JAX tree
-across).  ``init`` draws them from a ``torch.Generator`` on the device
-(the reference's distributions, not its numbers).  ``device=None`` means
-the card and raises without one (``util.device.resolve_device``).
+Batch formats (``input_specs`` returns matching stand-ins):
+  text archs   {'tokens': (B,S) int, 'targets': (B,S) int}
+  vlm          + 'vision_embeds': (B,P,D)   (stub frontend)
+  audio encdec {'frames': (B,S_enc,D), 'tokens': (B,S_dec), 'targets': ...}
 
-Training (``train_step``, ``train_step_deferred``, ``init_optimizer``, the
-MTP loss) and the encoder, vision and attention families raise
-NotImplementedError naming their ROADMAP item.
+Parameters are nested dicts of tensors with the reference's key paths and
+its stacked leading layer axis (``convert.model_params_from_numpy`` carries
+a JAX tree across).  ``init`` draws them from a ``torch.Generator`` on the
+device (the reference's distributions, not its numbers).  ``device=None``
+means the card and raises without one (``util.device.resolve_device``).
+
+Training (``train_step``, ``train_step_deferred``, ``init_optimizer``)
+raises NotImplementedError naming its ROADMAP item; the MTP block and its
+loss are forward computations and are ported.
 """
 from __future__ import annotations
 
@@ -26,11 +30,11 @@ from repro_torch.models import layers, transformer
 from repro_torch.models.layers import Params
 from repro_torch.util.device import resolve_device
 
+# vision prefix length comes from cfg.frontend.num_embeddings (stub ViT)
+AUDIO_MEMORY = 1536        # encoder frames held as decode memory
 DEC_FRACTION = 8           # enc-dec training: dec_len = seq_len // 8
 _TRAINING = ("ROADMAP queue A item 2 (language-model training: train_step, "
              "optim/schedules.py, launch/train.py, core/layerwise.py)")
-_FAMILIES = ("ROADMAP queue A item 1 (attention families: attention, MoE, "
-             "RG-LRU and encoder-decoder forward and decode)")
 
 
 @dataclasses.dataclass
@@ -50,7 +54,15 @@ class Model:
             "final_norm": layers.init_norm(cfg, cfg.d_model, device),
         }
         if cfg.mtp_depth:
-            raise NotImplementedError(f"the MTP block: {_TRAINING}")
+            params["mtp"] = {
+                "proj": layers.dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                          layers.dtype_of(cfg)),
+                "layer": transformer.init_layer(cfg, "attn_mlp", gen),
+                "norm": layers.init_norm(cfg, cfg.d_model, device),
+            }
+        if cfg.is_encoder_decoder:
+            params["enc_final_norm"] = layers.init_norm(cfg, cfg.d_model,
+                                                        device)
         return params
 
     def init_optimizer(self):
@@ -59,9 +71,10 @@ class Model:
     # --------------------------------------------------------------- forward
 
     def _embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
+        x = layers.embed(params["embedding"], batch["tokens"])
         if self.cfg.arch_type == "vlm":
-            raise NotImplementedError(f"vision embeddings: {_FAMILIES}")
-        return layers.embed(params["embedding"], batch["tokens"])
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+        return x
 
     def forward(self, params: Params, batch: dict, *,
                 window: Optional[int] = None,
@@ -74,20 +87,34 @@ class Model:
         avoids materializing the (B, S, V) logits buffer)."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
+        memory = None
         if cfg.is_encoder_decoder:
-            self.encode(params, batch["frames"], use_kernel=use_kernel)
+            memory = self.encode(params, batch["frames"],
+                                 use_kernel=use_kernel)
         x = self._embed_inputs(params, batch)
+        only = ("dec",) if cfg.is_encoder_decoder else None
         x, aux = transformer.apply_stack(cfg, params["stack"], x,
-                                         window=window,
-                                         use_kernel=use_kernel)
+                                         window=window, memory=memory,
+                                         use_kernel=use_kernel,
+                                         only_kinds=only)
         h = layers.apply_norm(cfg, params["final_norm"], x)
+        if cfg.arch_type == "vlm":
+            h = h[:, cfg.frontend.num_embeddings:]
         logits = layers.unembed(cfg, params["embedding"],
                                 h[:, -1:] if last_only else h)
         return logits, aux, h
 
     def encode(self, params: Params, frames: torch.Tensor,
                use_kernel: bool = False) -> torch.Tensor:
-        raise NotImplementedError(f"the encoder: {_FAMILIES}")
+        """Encoder over stubbed frame embeddings (enc-dec archs): the
+        ``enc`` segment (bidirectional, no window), then its final norm.
+        The reference's encoder runs no kernel; here ``use_kernel`` takes
+        its self-attention through the flash kernel, non-causal."""
+        cfg = self.cfg
+        x, _ = transformer.apply_stack(cfg, params["stack"], frames,
+                                       use_kernel=use_kernel,
+                                       only_kinds=("enc",))
+        return layers.apply_norm(cfg, params["enc_final_norm"], x)
 
     # ----------------------------------------------------------------- loss
 
@@ -105,7 +132,16 @@ class Model:
 
     def _mtp_loss(self, params: Params, h: torch.Tensor,
                   batch: dict) -> torch.Tensor:
-        raise NotImplementedError(f"the MTP loss: {_TRAINING}")
+        """DeepSeek-V3 multi-token prediction: one extra block predicts
+        token t+2 from [h_t ; emb(target_t)]."""
+        cfg = self.cfg
+        emb = layers.embed(params["embedding"], batch["targets"])
+        x = torch.cat([h, emb.to(h.dtype)], dim=-1) @ params["mtp"]["proj"]
+        x, _ = transformer.apply_layer(cfg, "attn_mlp",
+                                       params["mtp"]["layer"], x)
+        x = layers.apply_norm(cfg, params["mtp"]["norm"], x)
+        logits = layers.unembed(cfg, params["embedding"], x[:, :-1])
+        return _next_token_ce(logits, batch["targets"][:, 1:])
 
     # ------------------------------------------------------------ train step
 
@@ -124,7 +160,8 @@ class Model:
 
         As in the reference, the caches come back zero: the forward pass
         (logits and final hidden) is the prefill's work, and a server fills
-        the caches by decode steps."""
+        the caches by decode steps (an encoder-decoder's cross caches from
+        ``encode``'s memory)."""
         logits, _, _ = self.forward(params, batch)
         caches = self.init_cache(batch["tokens"].shape[0], max_len,
                                  rolling=rolling, device=logits.device)
@@ -132,8 +169,10 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, *, rolling: bool = False,
                    device: "str | torch.device | None" = None) -> Params:
+        memory_len = AUDIO_MEMORY if self.cfg.is_encoder_decoder else 0
         return transformer.init_stack_cache(self.cfg, batch, max_len,
-                                            rolling, resolve_device(device))
+                                            rolling, memory_len,
+                                            resolve_device(device))
 
     def decode_step(self, params: Params, caches: Params,
                     tokens: torch.Tensor, *, rolling: bool = False

@@ -1,12 +1,11 @@
-"""Shared layer primitives of the port's ``ssm`` path: dtypes, the
-truncated-normal init, norms, embeddings and the depthwise causal conv.
+"""Shared layer primitives: dtypes, the truncated-normal init, norms,
+gated and ungated MLPs, RoPE, embeddings and the depthwise causal conv.
 
 Counterparts of the same names in src/repro/models/layers.py, in the same
 functional style: ``init_*`` builds a dict of tensors, ``apply_*`` consumes
 it.  Parameters live in the config dtype (bf16 for the published
-architectures); norm statistics run in f32 and the unembedding gives f32
-logits.  The MLPs and RoPE come with the attention families (ROADMAP
-queue A).
+architectures); norm statistics and rotary math run in f32 and the
+unembedding gives f32 logits.
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ import weakref
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -68,6 +68,66 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) with no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# MLP variants (swiglu / geglu gated; relu2 = squared ReLU (Nemotron); gelu)
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model: int,
+             d_ff: int) -> Params:
+    dt = dtype_of(cfg)
+    p = {}
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["gate"] = dense_init(gen, (d_model, d_ff), dt)
+    p["up"] = dense_init(gen, (d_model, d_ff), dt)
+    p["down"] = dense_init(gen, (d_ff, d_model), dt)
+    return p
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``: the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    elif cfg.mlp == "geglu":
+        h = gelu(x @ p["gate"]) * (x @ p["up"])
+    elif cfg.mlp == "relu2":
+        h = torch.square(F.relu(x @ p["up"]))
+    else:
+        h = gelu(x @ p["up"])
+    return h @ p["down"]
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | None = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)              # (hd/2,)
+    angles = positions[..., :, None].float() * freqs     # (..., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]             # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
@@ -119,7 +179,7 @@ def unembed(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# depthwise causal conv (mamba2 blocks) with streaming state
+# depthwise causal conv (mamba2 / RG-LRU blocks) with streaming state
 # ---------------------------------------------------------------------------
 
 def init_conv(cfg: ModelConfig, gen: torch.Generator, width: int,

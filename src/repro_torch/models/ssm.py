@@ -36,11 +36,6 @@ def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, *(o.to(dtype) for o in ops))
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: log(1 + e^x) with no threshold."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def dims(cfg: ModelConfig):
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
@@ -158,7 +153,7 @@ def ssm_forward(cfg: ModelConfig, p: Params, xin: torch.Tensor,
     x = x.reshape(bsz, s, h, s_cfg.head_dim)
     b_mat = b_mat.reshape(bsz, s, g, n)
     c_mat = c_mat.reshape(bsz, s, g, n)
-    dt = _softplus(dt_raw.float() + p["dt_bias"])
+    dt = layers.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
 
     if use_kernel:
@@ -204,7 +199,7 @@ def ssm_decode_step(cfg: ModelConfig, p: Params, cache: Params,
     x = x.reshape(bsz, h, s_cfg.head_dim)
     b_mat = b_mat.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
     c_mat = c_mat.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
-    dt = _softplus(dt_raw.float() + p["dt_bias"])
+    dt = layers.softplus(dt_raw.float() + p["dt_bias"])
     decay = torch.exp(dt * -torch.exp(p["a_log"]))          # (B, H)
 
     h_new = cache["h"] * decay[:, :, None, None].to(x.dtype) + \

@@ -1,5 +1,4 @@
-"""Stacks of layers for the port: the segment plan of every architecture,
-and the ``ssm`` (Mamba-2) segment kind.
+"""Composable transformer stacks for every architecture family.
 
 The port of src/repro/models/transformer.py.  A model is a list of
 segments (kind, count); each segment's per-layer parameters are stacked
@@ -9,9 +8,19 @@ loop over index 0 of each stacked leaf here.  Its ``hints.hint_residual``
 is left out: it only places the residual stream on a device mesh, and with
 no mesh it does nothing.
 
-Only the ``ssm`` kind is ported.  The others (``attn_mlp``, ``attn_moe``,
-``hybrid``, ``rglru_mlp``, ``enc``, ``dec``) raise NotImplementedError
-naming their ROADMAP item.
+Segment kinds:
+  attn_mlp    pre-norm attention (GQA/MQA/MLA per cfg) + dense FFN
+  attn_moe    attention + MoE FFN (shared + routed experts)
+  ssm         Mamba-2 SSD mixer (no FFN)
+  hybrid      one (rglru, rglru, local-attn) period, each with FFN
+  rglru_mlp   single RG-LRU block + FFN (hybrid tail layers)
+  enc         bidirectional encoder layer (enc-dec archs)
+  dec         causal self-attn + cross-attn + FFN decoder layer
+
+``use_kernel`` routes the SSD scan and every full-sequence self-attention
+(``attn_mlp``, ``attn_moe``, the hybrid's local attention, ``enc`` and the
+``dec`` self-attention) through their kernels; cross-attention and decode
+steps are plain torch, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,20 +30,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, ssm
+from repro_torch.models import attention, layers, moe as moe_lib, rglru, ssm
 from repro_torch.models.layers import Params
-
-KINDS = ("attn_mlp", "attn_moe", "ssm", "hybrid", "rglru_mlp", "enc", "dec")
-_NOT_PORTED = ("ROADMAP queue A item 1 (attention families: attention, MoE, "
-               "RG-LRU and encoder-decoder forward and decode)")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in KINDS:
-        raise ValueError(kind)
-    if kind != "ssm":
-        raise NotImplementedError(f"segment kind {kind!r} is not ported to "
-                                  f"repro_torch yet: {_NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -86,12 +83,18 @@ def tree_map2(fn: Callable, a, b):
     return fn(a, b)
 
 
-def _stack(trees: list):
-    """Leaf-wise ``torch.stack`` of equal-shaped trees (a new leading
-    layer axis)."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(make: Callable[[], Params], count: int) -> Params:
+    """``count`` trees from ``make()`` stacked leaf-wise along a new leading
+    axis, filled one tree at a time: the peak is the stack and one tree,
+    not two stacks."""
+    out = None
+    for i in range(count):
+        tree = make()
+        if out is None:
+            out = tree_map(lambda leaf: leaf.new_empty((count,) + leaf.shape),
+                           tree)
+        tree_map2(lambda slot, leaf: slot.copy_(leaf), _layer(out, i), tree)
+    return out
 
 
 def _layer(tree, i: int):
@@ -99,44 +102,216 @@ def _layer(tree, i: int):
 
 
 # ---------------------------------------------------------------------------
-# per layer: init, forward (full sequence), cache, decode step
+# per-layer init
 # ---------------------------------------------------------------------------
 
+def _dense_ff_width(cfg: ModelConfig) -> int:
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        return cfg.moe.dense_d_ff or cfg.d_ff
+    return cfg.d_ff
+
+
 def init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator) -> Params:
-    _check_kind(kind)
-    return {
-        "norm": layers.init_norm(cfg, cfg.d_model, gen.device),
-        "mixer": ssm.init_ssm(cfg, gen),
-    }
+    dev = gen.device
+
+    def norm():
+        return layers.init_norm(cfg, cfg.d_model, dev)
+
+    def mlp(d_ff=cfg.d_ff):
+        return layers.init_mlp(cfg, gen, cfg.d_model, d_ff)
+
+    if kind in ("attn_mlp", "enc"):
+        d_ff = _dense_ff_width(cfg) if kind == "attn_mlp" else cfg.d_ff
+        return {"norm1": norm(), "attn": attention.init_attention(cfg, gen),
+                "norm2": norm(), "mlp": mlp(d_ff)}
+    if kind == "attn_moe":
+        return {"norm1": norm(), "attn": attention.init_attention(cfg, gen),
+                "norm2": norm(), "moe": moe_lib.init_moe(cfg, gen)}
+    if kind == "ssm":
+        return {"norm": norm(), "mixer": ssm.init_ssm(cfg, gen)}
+    if kind == "hybrid":
+        p: Params = {}
+        for i, blk in enumerate(cfg.hybrid.pattern):
+            sub = {"norm1": norm(), "norm2": norm(), "mlp": mlp()}
+            if blk == "rglru":
+                sub["rg"] = rglru.init_rglru_block(cfg, gen)
+            else:
+                sub["attn"] = attention.init_attention(cfg, gen)
+            p[f"blk{i}"] = sub
+        return p
+    if kind == "rglru_mlp":
+        return {"norm1": norm(), "rg": rglru.init_rglru_block(cfg, gen),
+                "norm2": norm(), "mlp": mlp()}
+    if kind == "dec":
+        return {"norm1": norm(), "attn": attention.init_attention(cfg, gen),
+                "norm_x": norm(),
+                "cross": attention.init_cross_attention(cfg, gen),
+                "norm2": norm(), "mlp": mlp()}
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# per-layer forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _attn_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor, *, causal=True,
+              window=None, use_kernel=False) -> torch.Tensor:
+    if cfg.mla is not None:
+        return attention.mla_forward(cfg, p, x, window=window,
+                                     use_kernel=use_kernel)
+    return attention.gqa_forward(cfg, p, x, causal=causal, window=window,
+                                 use_kernel=use_kernel)
 
 
 def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
                 window: Optional[int] = None,
+                memory: Optional[torch.Tensor] = None,
                 use_kernel: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux_loss)."""
-    _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + ssm.ssm_forward(cfg, p["mixer"],
-                            layers.apply_norm(cfg, p["norm"], x),
-                            use_kernel=use_kernel)
+
+    def mlp(sub, x):
+        return layers.apply_mlp(cfg, sub["mlp"],
+                                layers.apply_norm(cfg, sub["norm2"], x))
+
+    if kind in ("attn_mlp", "enc", "attn_moe", "dec"):
+        x = x + _attn_fwd(cfg, p["attn"],
+                          layers.apply_norm(cfg, p["norm1"], x),
+                          causal=kind != "enc", window=window,
+                          use_kernel=use_kernel)
+        if kind == "dec":
+            x = x + attention.gqa_cross_forward(
+                cfg, p["cross"], layers.apply_norm(cfg, p["norm_x"], x),
+                memory)
+        if kind == "attn_moe":
+            h, aux = moe_lib.apply_moe(cfg, p["moe"],
+                                       layers.apply_norm(cfg, p["norm2"], x))
+            x = x + h
+        else:
+            x = x + mlp(p, x)
+    elif kind == "ssm":
+        x = x + ssm.ssm_forward(cfg, p["mixer"],
+                                layers.apply_norm(cfg, p["norm"], x),
+                                use_kernel=use_kernel)
+    elif kind == "hybrid":
+        for i, blk in enumerate(cfg.hybrid.pattern):
+            sub = p[f"blk{i}"]
+            h_in = layers.apply_norm(cfg, sub["norm1"], x)
+            if blk == "rglru":
+                x = x + rglru.rglru_block_forward(cfg, sub["rg"], h_in)
+            else:
+                x = x + attention.gqa_forward(
+                    cfg, sub["attn"], h_in, causal=True,
+                    window=cfg.hybrid.local_window, use_kernel=use_kernel)
+            x = x + mlp(sub, x)
+    elif kind == "rglru_mlp":
+        x = x + rglru.rglru_block_forward(
+            cfg, p["rg"], layers.apply_norm(cfg, p["norm1"], x))
+        x = x + mlp(p, x)
+    else:
+        raise ValueError(kind)
     return x, aux
 
 
+# ---------------------------------------------------------------------------
+# per-layer decode step (one token against the layer's cache)
+# ---------------------------------------------------------------------------
+
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     rolling: bool, device: torch.device | None = None
-                     ) -> Params:
-    _check_kind(kind)
-    return ssm.init_ssm_cache(cfg, batch, device)
+                     rolling: bool, memory_len: int = 0,
+                     device: torch.device | None = None) -> Params:
+    if kind in ("attn_mlp", "attn_moe"):
+        if cfg.mla is not None:
+            return attention.init_mla_cache(cfg, batch, max_len, device)
+        return attention.init_gqa_cache(cfg, batch, max_len, rolling, device)
+    if kind == "ssm":
+        return ssm.init_ssm_cache(cfg, batch, device)
+    if kind == "hybrid":
+        c: Params = {}
+        for i, blk in enumerate(cfg.hybrid.pattern):
+            if blk == "rglru":
+                c[f"blk{i}"] = rglru.init_rglru_cache(cfg, batch, device)
+            else:
+                c[f"blk{i}"] = attention.init_gqa_cache(
+                    cfg, batch, min(max_len, cfg.hybrid.local_window),
+                    rolling=True, device=device)
+        return c
+    if kind == "rglru_mlp":
+        return rglru.init_rglru_cache(cfg, batch, device)
+    if kind == "dec":
+        hd = cfg.resolved_head_dim
+        cross = torch.zeros((batch, memory_len, cfg.num_kv_heads, hd),
+                            dtype=layers.dtype_of(cfg), device=device)
+        return {"self": attention.init_gqa_cache(cfg, batch, max_len,
+                                                 rolling, device),
+                "cross_k": cross, "cross_v": cross.clone()}
+    raise ValueError(kind)
 
 
 def apply_layer_step(cfg: ModelConfig, kind: str, p: Params, cache: Params,
                      x_t: torch.Tensor, *, rolling: bool = False
                      ) -> tuple[torch.Tensor, Params]:
-    _check_kind(kind)
-    h_in = layers.apply_norm(cfg, p["norm"], x_t)
-    h, cache = ssm.ssm_decode_step(cfg, p["mixer"], cache, h_in)
-    return x_t + h, cache
+    """One token through one layer.  Attention caches are written in place
+    (the returned cache holds the same tensors); recurrent states come back
+    as new tensors."""
+    def mlp(sub, x):
+        return layers.apply_mlp(cfg, sub["mlp"],
+                                layers.apply_norm(cfg, sub["norm2"], x))
+
+    if kind in ("attn_mlp", "attn_moe"):
+        h_in = layers.apply_norm(cfg, p["norm1"], x_t)
+        if cfg.mla is not None:
+            h, cache = attention.mla_decode_step(cfg, p["attn"], cache, h_in)
+        else:
+            h, cache = attention.gqa_decode_step(cfg, p["attn"], cache, h_in,
+                                                 rolling=rolling)
+        x_t = x_t + h
+        if kind == "attn_mlp":
+            return x_t + mlp(p, x_t), cache
+        h, _ = moe_lib.apply_moe(cfg, p["moe"],
+                                 layers.apply_norm(cfg, p["norm2"], x_t))
+        return x_t + h, cache
+    if kind == "ssm":
+        h_in = layers.apply_norm(cfg, p["norm"], x_t)
+        h, cache = ssm.ssm_decode_step(cfg, p["mixer"], cache, h_in)
+        return x_t + h, cache
+    if kind == "hybrid":
+        new_c: Params = {}
+        for i, blk in enumerate(cfg.hybrid.pattern):
+            sub = p[f"blk{i}"]
+            h_in = layers.apply_norm(cfg, sub["norm1"], x_t)
+            if blk == "rglru":
+                h, new_c[f"blk{i}"] = rglru.rglru_block_step(
+                    cfg, sub["rg"], cache[f"blk{i}"], h_in)
+            else:
+                h, new_c[f"blk{i}"] = attention.gqa_decode_step(
+                    cfg, sub["attn"], cache[f"blk{i}"], h_in, rolling=True)
+            x_t = x_t + h
+            x_t = x_t + mlp(sub, x_t)
+        return x_t, new_c
+    if kind == "rglru_mlp":
+        h_in = layers.apply_norm(cfg, p["norm1"], x_t)
+        h, cache = rglru.rglru_block_step(cfg, p["rg"], cache, h_in)
+        x_t = x_t + h
+        return x_t + mlp(p, x_t), cache
+    if kind == "dec":
+        h_in = layers.apply_norm(cfg, p["norm1"], x_t)
+        h, self_c = attention.gqa_decode_step(cfg, p["attn"], cache["self"],
+                                              h_in, rolling=rolling)
+        x_t = x_t + h
+        # cross-attention against the precomputed memory k/v (no q bias,
+        # as in the reference's step)
+        h_in = layers.apply_norm(cfg, p["norm_x"], x_t)
+        b = x_t.shape[0]
+        q = (h_in @ p["cross"]["q"]).reshape(b, 1, cfg.num_heads,
+                                             cfg.resolved_head_dim)
+        h = attention._sdpa(q, cache["cross_k"], cache["cross_v"], None)
+        x_t = x_t + h.reshape(b, 1, -1) @ p["cross"]["o"]
+        return x_t + mlp(p, x_t), {"self": self_c,
+                                   "cross_k": cache["cross_k"],
+                                   "cross_v": cache["cross_v"]}
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -144,33 +319,43 @@ def apply_layer_step(cfg: ModelConfig, kind: str, p: Params, cache: Params,
 # ---------------------------------------------------------------------------
 
 def init_stack(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    return {seg.kind: _stack([init_layer(cfg, seg.kind, gen)
-                              for _ in range(seg.count)])
+    return {seg.kind: _stacked(lambda kind=seg.kind:
+                               init_layer(cfg, kind, gen), seg.count)
             for seg in arch_segments(cfg)}
 
 
 def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 window: Optional[int] = None,
-                use_kernel: bool = False
+                memory: Optional[torch.Tensor] = None,
+                use_kernel: bool = False,
+                only_kinds: Optional[tuple[str, ...]] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run each segment's stacked layers in order. Returns (x, total_aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in arch_segments(cfg):
+        if only_kinds is not None and seg.kind not in only_kinds:
+            continue
         for i in range(seg.count):
             x, aux = apply_layer(cfg, seg.kind, _layer(params[seg.kind], i),
-                                 x, window=window, use_kernel=use_kernel)
+                                 x, window=window, memory=memory,
+                                 use_kernel=use_kernel)
             aux_total = aux_total + aux
     return x, aux_total
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
-                     rolling: bool, device: torch.device | None = None
-                     ) -> Params:
+                     rolling: bool, memory_len: int = 0,
+                     device: torch.device | None = None) -> Params:
+    """Every decoding segment's caches, stacked; the encoder has none."""
     caches: Params = {}
     for seg in arch_segments(cfg):
-        one = init_layer_cache(cfg, seg.kind, batch, max_len, rolling, device)
+        if seg.kind == "enc":
+            continue
+        one = init_layer_cache(cfg, seg.kind, batch, max_len, rolling,
+                               memory_len, device)
         caches[seg.kind] = tree_map(
-            lambda leaf, n=seg.count: leaf.new_zeros((n,) + leaf.shape), one)
+            lambda leaf, n=seg.count: leaf.expand((n,) + leaf.shape).clone(),
+            one)
     return caches
 
 
@@ -178,13 +363,20 @@ def decode_stack(cfg: ModelConfig, params: Params, caches: Params,
                  x_t: torch.Tensor, *, rolling: bool = False
                  ) -> tuple[torch.Tensor, Params]:
     """One token through every layer.  Each layer's new cache is written
-    over its slot of ``caches`` in place, so the stacked state is not copied
-    once per token; the same (updated) ``caches`` are returned."""
+    over its slot of ``caches`` in place (attention caches are written
+    there by the step itself), so the stacked state is not copied once per
+    token; the same (updated) ``caches`` are returned."""
+    def put(slot, leaf):
+        if leaf is not slot:
+            slot.copy_(leaf)
+
     for seg in arch_segments(cfg):
+        if seg.kind == "enc":
+            continue
         for i in range(seg.count):
             old = _layer(caches[seg.kind], i)
             x_t, new = apply_layer_step(
                 cfg, seg.kind, _layer(params[seg.kind], i), old, x_t,
                 rolling=rolling)
-            tree_map2(lambda slot, leaf: slot.copy_(leaf), old, new)
+            tree_map2(put, old, new)
     return x_t, caches

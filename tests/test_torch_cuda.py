@@ -862,3 +862,59 @@ def test_mamba2_kernel_forward_matches_plain_forward(cuda_device):
                                   use_kernel=True)
     assert ssd_launcher.ssd_launches == before + model.cfg.num_layers
     _within(got, want, 1e-4)
+
+
+# flash launches per forward of each family's reduced configuration: one
+# per full-sequence self-attention (the hybrid's one local attention per
+# period; the encoder-decoder's encoder and decoder layers)
+FAMILY_LAUNCHES = {"qwen2-7b": 2, "gemma-2b": 2, "nemotron-4-15b": 2,
+                   "deepseek-v3-671b": 2, "deepseek-moe-16b": 2,
+                   "moonshot-v1-16b-a3b": 2, "recurrentgemma-9b": 1,
+                   "internvl2-2b": 2, "seamless-m4t-medium": 4}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAUNCHES))
+def test_family_kernel_forward_matches_plain_forward(cuda_device, arch,
+                                                     dtype):
+    """Each attention family at its reduced configuration on the card,
+    2 x 4096 positions (above the attention chunk, so the plain route runs
+    its chunk loop and recurrentgemma's window of 64 bites): the kernel
+    forward launches the flash kernel once per full-sequence
+    self-attention (bf16 all on the tensor cores), and its logits are
+    within 1e-4 · max (f32) or 5e-2 · max (bf16, the rounding of P and of
+    each layer's output at other places) of the plain route's.  The MoE
+    families in bf16 are held to finite logits only: top-k routing is
+    discontinuous, and a one-ulp bf16 difference at a router input moves
+    that token to another expert (in f32 they are held to 1e-4)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype)
+    model = make_model(cfg)
+    params = model.init(seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    b, s = 2, 4096
+    dt = getattr(torch, dtype)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device=cuda_device)}
+    if cfg.arch_type == "vlm":
+        npfx = cfg.frontend.num_embeddings
+        batch["tokens"] = batch["tokens"][:, npfx:]
+        batch["vision_embeds"] = torch.randn(
+            (b, npfx, cfg.d_model), generator=gen, device=cuda_device).to(dt)
+    if cfg.is_encoder_decoder:
+        batch["tokens"] = batch["tokens"][:, :s // 2]
+        batch["frames"] = torch.randn((b, s, cfg.d_model), generator=gen,
+                                      device=cuda_device).to(dt)
+    with torch.no_grad():
+        want, _, _ = model.forward(params, batch)
+        before = (flash_launcher.flash_launches,
+                  flash_launcher.flash_tc_launches)
+        got, _, _ = model.forward(params, batch, use_kernel=True)
+    n = FAMILY_LAUNCHES[arch]
+    assert flash_launcher.flash_launches == before[0] + n
+    assert flash_launcher.flash_tc_launches == before[1] + (
+        n if dtype == "bfloat16" else 0)
+    if dtype == "bfloat16" and cfg.moe is not None:
+        assert bool(torch.isfinite(got).all())
+    else:
+        _within(got, want, 1e-4 if dtype == "float32" else 5e-2)

@@ -1,4 +1,5 @@
-"""The port's language-model path (Mamba-2) against the JAX package.
+"""The port's language-model path (Mamba-2) against the JAX package (the
+attention families: tests/test_torch_families.py).
 
 Configurations are compared field for field.  The reduced Mamba-2
 (``mamba2_1_3b.reduced()``, f32) runs from the JAX ``Model.init``
@@ -90,6 +91,26 @@ def test_mamba2_published_widths():
 # the SSD scan's plain tensor form
 # ---------------------------------------------------------------------------
 
+def _steady(fn):
+    """``fn()``'s tensors from two evaluations that agree bit for bit.
+
+    Under heavy parallel load some hosts' CPU torch ``exp`` has returned one
+    contiguous block of its output about 1.5e-4 relative off (one process
+    in 100–250, with or without JAX loaded): the same inputs, a different
+    answer.  A deterministic function agrees with itself, so a third
+    evaluation breaks a tie, and a fault in the port still fails the
+    comparison with the reference at its limit."""
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    runs = [fn(), fn()]
+    if not same(*runs):
+        third = fn()
+        runs = [third, runs[0] if same(third, runs[0]) else runs[1]]
+        assert same(*runs), "three evaluations, no two equal"
+    return runs[0]
+
+
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(2, 64, 4, 8, 2, 8, 16),
                                                (1, 96, 2, 16, 1, 16, 32)])
@@ -105,9 +126,9 @@ def test_ssd_chunked_matches_reference(b, s, h, p, g, n, chunk, with_h0):
     want_y, want_h = jssm.ssd_chunked(
         *(jnp.asarray(a) for a in args), chunk,
         None if h0 is None else jnp.asarray(h0))
-    got_y, got_h = ssm.ssd_chunked(
+    got_y, got_h = _steady(lambda: ssm.ssd_chunked(
         *(torch.as_tensor(a) for a in args), chunk,
-        None if h0 is None else torch.as_tensor(h0))
+        None if h0 is None else torch.as_tensor(h0)))
     _close(got_y, want_y, 1e-5)
     _close(got_h, want_h, 1e-5)
     assert got_h.dtype == torch.float32
@@ -347,19 +368,12 @@ def test_cache_specs_match_reference():
 # what is not ported
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.list_archs()
-                                  if a != ARCH])
-def test_unported_segment_kind_raises(arch):
-    model = make_model(configs.get_config(arch, reduced=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 1"):
-        model.init(device="cpu")
-
-
 def test_unported_entry_points_raise(pair):
+    """Language-model training is ROADMAP queue A item 2; an unknown
+    segment kind is refused.  (Every segment kind and the encoder run:
+    tests/test_torch_families.py.)"""
     _, _, model, params = pair
     x = torch.zeros((1, 4, model.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 1"):
-        transformer.apply_layer(model.cfg, "attn_mlp", {}, x)
     with pytest.raises(ValueError):
         transformer.apply_layer(model.cfg, "no-such-kind", {}, x)
     for call in (model.init_optimizer,
@@ -367,8 +381,6 @@ def test_unported_entry_points_raise(pair):
                  lambda: model.train_step_deferred(None, params, None, {})):
         with pytest.raises(NotImplementedError, match="item 2"):
             call()
-    with pytest.raises(NotImplementedError, match="item 1"):
-        model.encode(params, x)
 
 
 def test_init_without_device_raises_when_cuda_is_absent():
