@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one GPU: train the community-ADMM GCN
 (dense and ELL Parallel ADMM, Serial ADMM, a backprop baseline), serve it,
-run Mamba-2 1.3B inference through the SSD scan kernel, and run the
-attention families (qwen2-7b at full width and depth among them) through
-the flash attention kernel.
+run Mamba-2 1.3B inference through the SSD scan kernel, run the attention
+families (qwen2-7b at full width and depth among them) through the flash
+attention kernel, and train gemma-2b at full width (Adam, and the paper's
+layerwise ADMM).
 
     python3 chip_smoke.py
 
@@ -123,7 +124,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      positions, kernel vs plain in f32 (1e-4 of max) and bf16 (LOGIT_TOL;
      the MoE models' bf16 gap reported), with their flash launch counts;
      each model's peak memory;
-  11. print the kernels line, the card's name and power limit, and a last
+  11. language-model training, through the reference's plain route (no
+     kernel has a backward pass, so none may launch in this phase):
+     reduced f32 gemma-2b and deepseek-moe-16b on the card against the
+     CPU from the same weights (a train_step with SGD at lr 1 and
+     grad_accum 2, deltas within 1e-5 of max and the loss within 1e-5;
+     one layerwise ADMM iteration, tau and theta equal, tensors within
+     1e-4 of max); gemma-2b at its published widths and depth (18
+     layers, d_model 2048, 8 heads over 1 KV head of 256, GeGLU 16,384,
+     vocab 256,000, bf16, random weights) through launch/train.py's
+     main: Adam, grad_accum 4, remat, 4 x 4096 tokens a step, 1 warm-up
+     and 3 timed steps on pipeline batches (ms a step, tokens/s, the
+     model-FLOPs share, peak memory), then 4 steps on one fixed batch
+     (the loss after the last below the loss after the first) and a
+     profiled step (idle share, device ms by kind and by matrix-product
+     kernel); layerwise ADMM on the same model at 4 x 512 tokens, init
+     and 3 iterations (init residual, ms an iteration, probes a line
+     search, CE and residual finite, peak memory);
+  12. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
@@ -2145,6 +2163,290 @@ def families_phase(card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# language-model training: Model.train_step (Adam, gradient accumulation,
+# remat) and the paper's layerwise ADMM, gemma-2b at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH = (4, 4096)        # train_4k cut in batch only: 256 -> 4
+TRAIN_STEPS = 4                # through launch/train.py: 1 warm-up + 3 timed
+FIXED_STEPS = 4                # on one fixed batch: the loss must fall
+ADMM_BATCH = (4, 512)
+ADMM_ITERS = 3
+# reduced f32 card vs CPU: (arch, layerwise iterations before the one
+# compared).  A line search decides on objective differences of
+# backtrack_rtol (1e-6 relative) where the objective itself carries ~1e-5
+# relative rounding noise between two machines, so a state is chosen at
+# which no search of the compared iteration sits on a tie
+TRAIN_REDUCED = (("gemma-2b", 2), ("deepseek-moe-16b", 4))
+REDUCED_BATCH = (4, 64)
+# card vs CPU: each step's delta within 1e-5 · max |delta| of the leaf
+# (beside one f32 spacing of the new value: p + delta is rounded on each
+# side), loss within 1e-5 relative; one layerwise iteration's tensors
+# within 1e-4 · max, every tau and theta equal
+GRAD_TOL = 1e-5
+LW_TOL = 1e-4
+
+
+def step_gap(p, new_a, new_b) -> float:
+    """Worst leaf of max |new_a − new_b| − spacing(new_b), over max |new_b −
+    p|: the two steps' deltas compared, less the rounding of p + delta."""
+    import numpy as np
+
+    from repro_torch.util import tree
+    worst = 0.0
+    for p0, a, b in zip(tree.leaves(p), tree.leaves(new_a),
+                        tree.leaves(new_b)):
+        p0, a, b = (t.detach().float().cpu().double().numpy()
+                    for t in (p0, a, b))
+        scale = float(np.abs(b - p0).max())
+        slack = np.spacing(np.abs(b).astype(np.float32)).astype(np.float64)
+        over = float(np.max(np.abs(a - b) - slack))
+        if scale > 0:
+            worst = max(worst, over / scale)
+    return worst
+
+
+def tensors_gap(a, b) -> float:
+    """Worst leaf of max |a − b| over max |b|."""
+    from repro_torch.util import tree
+    worst = 0.0
+    for x, y in zip(tree.leaves(a), tree.leaves(b)):
+        worst = max(worst, rel_err(x.detach().cpu(), y.detach().cpu())[1])
+    return worst
+
+
+def reduced_training_check(arch: str, n_before: int, card: str, dev) -> dict:
+    """Phase 11a: the reduced f32 config on the card against the CPU from
+    the same weights: one train_step (SGD, lr 1, grad_accum 2) and one
+    layerwise ADMM iteration from the state after ``n_before``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.layerwise import LayerwiseADMMTrainer
+    from repro_torch.core.subproblems import ADMMConfig
+    from repro_torch.models.build import make_model
+    from repro_torch.util import tree
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              optimizer="sgd", learning_rate=1.0,
+                              grad_accum=2)
+    model = make_model(cfg)
+    rng = np.random.default_rng(0)
+    b, s = REDUCED_BATCH
+    batch = {k: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    p_cpu = model.init(seed=0, device="cpu")
+    p_card = tree.tree_map(lambda t: t.to(dev), p_cpu)
+    new_cpu, _, m_cpu = model.train_step(p_cpu, (), batch)
+    new_card, _, m_card = model.train_step(p_card, (), batch)
+    grad = step_gap(p_cpu, new_card, new_cpu)
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / \
+        abs(float(m_cpu["loss"]))
+
+    tr = LayerwiseADMMTrainer(cfg, ADMMConfig(nu=1e-2, rho=1e-2))
+    st, z0 = tr.init(0, batch, "cpu")
+    for _ in range(n_before):
+        st = tr.iteration(st, z0, batch["targets"])
+    st_card = tree.tree_map(lambda t: t.to(dev), st)
+    nxt_cpu = tr.iteration(st, z0, batch["targets"])
+    nxt_card = tr.iteration(st_card, z0.to(dev), batch["targets"])
+    curv = all(torch.equal(x.cpu(), y) for f in ("taus", "thetas", "tau_r")
+               for x, y in zip(tree.leaves(getattr(nxt_card, f)),
+                               tree.leaves(getattr(nxt_cpu, f))))
+    lw = max(tensors_gap(getattr(nxt_card, f), getattr(nxt_cpu, f))
+             for f in ("stack", "readout", "zs", "u"))
+    ok = grad <= GRAD_TOL and loss_rel <= GRAD_TOL and curv and lw <= LW_TOL
+    print(f"[11] {arch} reduced f32, card vs CPU: train_step (SGD lr 1, "
+          f"grad_accum 2) delta rel {grad:.3e}, loss rel {loss_rel:.3e} "
+          f"(limits {GRAD_TOL:g}); layerwise iteration {n_before + 1}: "
+          f"tau/theta equal {curv}, tensors rel {lw:.3e} (limit "
+          f"{LW_TOL:g}) {'ok' if ok else 'FAIL'} [{card}]", flush=True)
+    if not ok:
+        fail(f"{arch} training on the card disagrees with the CPU")
+    return {"delta_rel": grad, "loss_rel": loss_rel, "curvatures_equal": curv,
+            "layerwise_rel": lw}
+
+
+def gemm_ms_by_name(events, top: int = 6) -> dict:
+    """Device ms and events of the ``top`` cuBLAS kernels by name (the name
+    says the operand type: bf16 on the tensor cores, or f32)."""
+    from torch.autograd import DeviceType
+    by_name: dict = {}
+    for e in events:
+        low = e.name.lower()
+        if e.device_type == DeviceType.CUDA and any(
+                t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+    names = sorted(by_name, key=lambda k: -by_name[k][0])[:top]
+    return {k[:90]: {"ms": round(by_name[k][0], 3), "events": by_name[k][1]}
+            for k in names}
+
+
+def eval_loss(model, params, batch) -> float:
+    """The train step's loss at ``params`` (mean over its microbatches),
+    without gradients."""
+    import torch
+    with torch.no_grad():
+        micro = model._micro(batch, model.cfg.grad_accum)
+        return sum(float(model.loss(params, mb)[0]) for mb in micro) / \
+            len(micro)
+
+
+def training_phase(card: str, dev, peak_bf16: float) -> dict:
+    """Phase 11: reduced card vs CPU; gemma-2b at its published widths and
+    depth through launch/train.py (Adam, grad_accum 4, remat) and on one
+    fixed batch; layerwise ADMM on gemma-2b at full width; no kernel
+    launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import layerwise
+    from repro_torch.core.subproblems import ADMMConfig
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.util import tree
+
+    t_phase = time.perf_counter()
+    before = counts()
+    out: dict = {"reduced": {arch: reduced_training_check(arch, n, card, dev)
+                             for arch, n in TRAIN_REDUCED}}
+
+    # ---- 11b. gemma-2b at full width: the launcher's loop ----
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_launcher.main(["--arch", TRAIN_ARCH, "--steps",
+                               str(TRAIN_STEPS), "--batch", str(b), "--seq",
+                               str(s), "--log-every", "1"])
+    model, params, opt_state = run["model"], run["params"], run["opt_state"]
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    timed = run["step_s"][1:]
+    step_ms = 1e3 * statistics.median(timed)
+    tokens = b * s
+    mfu = 6.0 * n_params * tokens / (step_ms / 1e3 * peak_bf16)
+    print(f"[11] {TRAIN_ARCH}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} of "
+          f"{cfg.resolved_head_dim}, {cfg.mlp} {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; {n_params:,} parameters; "
+          f"{cfg.optimizer}, grad_accum {cfg.grad_accum}, remat {cfg.remat}; "
+          f"batch {b} x {s} [{card}]", flush=True)
+    print(f"[11] launcher steps (pipeline batches): "
+          f"{[round(1e3 * t, 1) for t in run['step_s']]} ms, losses "
+          f"{[round(v, 4) for v in run['losses']]}; median of the "
+          f"{len(timed)} after warm-up {step_ms:.1f} ms = "
+          f"{tokens / step_ms * 1e3:,.0f} tokens/s; model-FLOPs share "
+          f"(6 N tokens / (step time x {peak_bf16 / 1e12:g} TFLOP/s)) "
+          f"{mfu:.4f}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"[{card}]", flush=True)
+    out["full"] = {"parameters": n_params, "step_ms": step_ms,
+                   "steps_ms": [1e3 * t for t in run["step_s"]],
+                   "launcher_losses": run["losses"],
+                   "tokens_per_s": tokens / step_ms * 1e3, "mfu": mfu,
+                   "launcher_peak_gb":
+                       torch.cuda.max_memory_allocated() / 1e9}
+    del run
+
+    fixed = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=1))
+    fixed = {k: torch.as_tensor(v, device=dev) for k, v in fixed.items()}
+    losses, evals, fixed_ms = [], [], []
+    for i in range(FIXED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = model.train_step(params, opt_state, fixed)
+        losses.append(float(m["loss"]))
+        fixed_ms.append(1e3 * (time.perf_counter() - t0))
+        if i in (0, FIXED_STEPS - 1):
+            evals.append(eval_loss(model, params, fixed))
+    falls = evals[1] < evals[0]
+    print(f"[11] {FIXED_STEPS} train_steps on one fixed batch: step losses "
+          f"{[round(v, 4) for v in losses]}, {[round(t, 1) for t in fixed_ms]} "
+          f"ms; loss after step 1 {evals[0]:.4f}, after step {FIXED_STEPS} "
+          f"{evals[1]:.4f} ({'falls' if falls else 'FAIL: does not fall'}) "
+          f"[{card}]", flush=True)
+    if not (falls and all(math.isfinite(v) for v in losses + evals)):
+        fail("gemma-2b's loss does not fall on a fixed batch")
+
+    def one_step():
+        nonlocal params, opt_state
+        params, opt_state, _ = model.train_step(params, opt_state, fixed)
+    wall_us, busy_us, idle, events = profiled(one_step)
+    kinds = device_ms_by_kind(events, top=6)
+    gemms = gemm_ms_by_name(events)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[11] profiled step: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.1f} ms, idle share {idle}; device ms by kind "
+          f"{json.dumps(kinds)}; the matrix products by kernel "
+          f"{json.dumps(gemms)}; peak {peak:.2f} GB [{card}]", flush=True)
+    out["full"].update(fixed_losses=losses, fixed_ms=fixed_ms,
+                       loss_after_first=evals[0], loss_after_last=evals[1],
+                       wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                       idle=idle, device_ms=kinds, gemm_ms=gemms,
+                       peak_gb=peak)
+    del params, opt_state, model, fixed, events
+    torch.cuda.empty_cache()
+
+    # ---- 11c. layerwise ADMM on gemma-2b at full width ----
+    torch.cuda.reset_peak_memory_stats()
+    b, s = ADMM_BATCH
+    admm_batch = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=2))
+    tr = layerwise.LayerwiseADMMTrainer(cfg, ADMMConfig(nu=1e-2, rho=1e-2))
+    t0 = time.perf_counter()
+    st, z0 = tr.init(0, admm_batch, dev)
+    targets = torch.as_tensor(admm_batch["targets"], device=dev)
+    ce, init_res = (float(v) for v in tr.metrics(st, z0, targets))
+    print(f"[11] layerwise ADMM {TRAIN_ARCH} full width, batch {b} x {s}: "
+          f"init {time.perf_counter() - t0:.1f} s, ce {ce:.4f}, init "
+          f"residual {init_res:.3e} [{card}]", flush=True)
+    iters = []
+    for i in range(ADMM_ITERS):
+        p0, s0 = layerwise.probes, layerwise.searches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = tr.iteration(st, z0, targets)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        ce, res = (float(v) for v in tr.metrics(st, z0, targets))
+        n_probe, n_search = layerwise.probes - p0, layerwise.searches - s0
+        taus = {k: v.tolist() for k, v in st.taus.items()}
+        iters.append({"ms": ms, "ce": ce, "residual": res,
+                      "probes": n_probe, "searches": n_search,
+                      "tau_r": float(st.tau_r), "taus": taus})
+        print(f"[11] layerwise iteration {i + 1}: {ms:.1f} ms, {n_search} "
+              f"line searches, {n_probe} probes ({n_probe / n_search:.1f} "
+              f"host reads a search), ce {ce:.4f}, residual {res:.3e}, "
+              f"tau_r {float(st.tau_r):g}, taus {taus} [{card}]", flush=True)
+        if not (math.isfinite(ce) and math.isfinite(res)):
+            fail("layerwise ADMM gave a non-finite CE or residual")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[11] layerwise ADMM peak {peak:.2f} GB [{card}]", flush=True)
+    out["layerwise"] = {"init_residual": init_res,
+                        "iterations": iters, "peak_gb": peak}
+    del st, z0, tr
+    torch.cuda.empty_cache()
+
+    after = counts()
+    launched = {k: after[k] - before[k] for k in after}
+    print(f"[11] kernel launches in the training phase: {launched} "
+          f"(training runs the reference's plain route: no kernel has a "
+          f"backward pass) [{card}]", flush=True)
+    if any(launched.values()):
+        fail("the training phase launched a kernel")
+    out["launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[11] training phase {out['phase_s']:.1f} s; summary "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2499,7 +2801,10 @@ def main() -> int:
     # ---- 10. the attention families through the flash kernel --------------
     families = families_phase(card, dev)
 
-    # ---- 11. the kernels line, the card, the result ------------------------
+    # ---- 11. language-model training: no kernel launched -------------------
+    training_phase(card, dev, peak_bf16)
+
+    # ---- 12. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",

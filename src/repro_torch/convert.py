@@ -9,7 +9,10 @@ layouts of the two packages are equal array for array, so the leaves drop
 in unchanged.  A baseline's weights go through ``weights_from_numpy``.
 A language model's parameter tree (``repro.models.build.Model.init``, each
 leaf taken with ``np.asarray``) goes through ``model_params_from_numpy``:
-the port keeps the reference's key paths and stacked layer axis.
+the port keeps the reference's key paths and stacked layer axis.  Its
+optimizer state goes through ``opt_state_from_numpy``, and a layerwise
+ADMM state (``repro.core.layerwise``) with its Z_0 through
+``layerwise_state_from_numpy``.
 """
 from __future__ import annotations
 
@@ -73,11 +76,35 @@ def _model_leaf(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def model_params_from_numpy(tree, device: "str | torch.device | None" = None):
-    """The port's parameter tree from the reference's: nested dicts mapped
-    key for key, each leaf a tensor of the leaf's dtype (bf16 bits kept
-    exactly) on ``device`` (copies, never views of the numpy arrays)."""
-    device = resolve_device(device)
+def _tree_from_numpy(tree, device: torch.device):
     if isinstance(tree, dict):
-        return {k: model_params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_from_numpy(v, device) for v in tree)
     return _model_leaf(tree, device)
+
+
+def model_params_from_numpy(tree, device: "str | torch.device | None" = None):
+    """The port's parameter tree from the reference's: nested dicts (and
+    tuples, lists) mapped key for key, each leaf a tensor of the leaf's
+    dtype (bf16 bits kept exactly) on ``device`` (copies, never views of
+    the numpy arrays)."""
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+# an optimizer state of the reference (``Model.init_optimizer().init``, each
+# leaf taken with ``np.asarray``: Adam's {"m", "v", "t"}, SGD's ()) converts
+# the same way, structure and dtypes kept
+opt_state_from_numpy = model_params_from_numpy
+
+
+def layerwise_state_from_numpy(state, z0,
+                               device: "str | torch.device | None" = None):
+    """The reference's ``LayerwiseState`` (each leaf taken with
+    ``np.asarray``) and its Z_0 as the port's ``(LayerwiseState, z0)``:
+    stack, readout, Z, U, τ, θ and τ_R leaf for leaf, dtypes kept."""
+    from repro_torch.core.layerwise import LayerwiseState
+    device = resolve_device(device)
+    return LayerwiseState(*(_tree_from_numpy(getattr(state, f), device)
+                            for f in LayerwiseState._fields)), \
+        _model_leaf(z0, device)

@@ -13,9 +13,13 @@ a JAX tree across).  ``init`` draws them from a ``torch.Generator`` on the
 device (the reference's distributions, not its numbers).  ``device=None``
 means the card and raises without one (``util.device.resolve_device``).
 
-Training (``train_step``, ``train_step_deferred``, ``init_optimizer``)
-raises NotImplementedError naming its ROADMAP item; the MTP block and its
-loss are forward computations and are ported.
+Training (``init_optimizer``, ``train_step``, ``train_step_deferred``)
+takes the reference's plain route (``use_kernel=False``: no kernel of the
+port has a backward pass, as no Pallas kernel of the reference has a VJP).
+Gradients come from autograd; under ``cfg.remat`` each layer is
+recomputed in the backward pass (``transformer.apply_stack``).  A step
+returns new parameters and writes the optimizer's moments over the state
+passed in (``optim.optimizers``).
 """
 from __future__ import annotations
 
@@ -28,13 +32,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import layers, transformer
 from repro_torch.models.layers import Params
+from repro_torch.optim import optimizers
+from repro_torch.util import tree
 from repro_torch.util.device import resolve_device
 
 # vision prefix length comes from cfg.frontend.num_embeddings (stub ViT)
 AUDIO_MEMORY = 1536        # encoder frames held as decode memory
 DEC_FRACTION = 8           # enc-dec training: dec_len = seq_len // 8
-_TRAINING = ("ROADMAP queue A item 2 (language-model training: train_step, "
-             "optim/schedules.py, launch/train.py, core/layerwise.py)")
+_DATA_PARALLEL = ("data-parallel training over {n} devices is ROADMAP "
+                  "queue A item 5 (the process transport)")
 
 
 @dataclasses.dataclass
@@ -66,7 +72,7 @@ class Model:
         return params
 
     def init_optimizer(self):
-        raise NotImplementedError(_TRAINING)
+        return optimizers.make(self.cfg.optimizer, self.cfg.learning_rate)
 
     # --------------------------------------------------------------- forward
 
@@ -145,12 +151,92 @@ class Model:
 
     # ------------------------------------------------------------ train step
 
+    def _on_device(self, params: Params, batch: dict) -> dict:
+        dev = tree.leaves(params)[0].device
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def _micro(self, batch: dict, accum: int) -> list[dict]:
+        """The batch cut along its leading axis into ``accum`` microbatches
+        (the reference's reshape to (accum, B/accum, ...))."""
+        micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                 for k, v in batch.items()}
+        return [{k: v[i] for k, v in micro.items()} for i in range(accum)]
+
+    def _apply(self, params: Params, opt_state, grads: list, loss_val,
+               metrics: dict):
+        opt = self.init_optimizer()
+        updates, opt_state = opt.update(tree.unflatten(params, grads),
+                                        opt_state, params)
+        params = tree.tree_map(lambda w, u: w + u.to(w.dtype), params,
+                               updates)
+        return params, opt_state, dict(metrics, loss=loss_val)
+
     def train_step(self, params: Params, opt_state, batch: dict):
-        raise NotImplementedError(_TRAINING)
+        """One optimizer step; with cfg.grad_accum > 1 the global batch is
+        split into microbatches whose gradients are summed in the
+        parameters' dtype (the reference's ``zeros_like(params)`` scan
+        carry: here autograd's accumulation into ``.grad``), divided once
+        by the count, then applied."""
+        batch = self._on_device(params, batch)
+        accum = self.cfg.grad_accum
+        live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        live_tree = tree.unflatten(params, live)
+        if accum <= 1:
+            loss_val, metrics = self.loss(live_tree, batch)
+            grads = list(torch.autograd.grad(loss_val, live,
+                                             allow_unused=True,
+                                             materialize_grads=True))
+            loss_val = loss_val.detach()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=live[0].device)
+            mets = []
+            for mb in self._micro(batch, accum):
+                lv, m = self.loss(live_tree, mb)
+                lv.backward()
+                loss_sum = loss_sum + lv.detach()
+                mets.append({k: v.detach() for k, v in m.items()})
+            grads = [torch.zeros_like(p) if p.grad is None
+                     else p.grad.div_(accum) for p in live]
+            loss_val = loss_sum / accum
+            metrics = {k: torch.stack([m[k] for m in mets]).mean()
+                       for k in mets[0]}
+        del live, live_tree
+        return self._apply(params, opt_state, grads, loss_val, metrics)
 
     def train_step_deferred(self, mesh, params: Params, opt_state,
                             batch: dict):
-        raise NotImplementedError(_TRAINING)
+        """Gradient accumulation with the data-parallel reduction deferred
+        to one sum after the microbatches (the reference's shard_map form):
+        each microbatch's gradients are summed in f32.  On one device
+        (``mesh`` None, or ``launch.mesh``'s one-device mesh) that sum is
+        the whole reduction; more devices are the process transport's."""
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(_DATA_PARALLEL.format(n=mesh.size))
+        batch = self._on_device(params, batch)
+        accum = max(self.cfg.grad_accum, 1)
+        live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        live_tree = tree.unflatten(params, live)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in live]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=live[0].device)
+        mets = []
+        for mb in self._micro(batch, accum):
+            lv, m = self.loss(live_tree, mb)
+            g = torch.autograd.grad(lv, live, allow_unused=True,
+                                    materialize_grads=True)
+            for a, b in zip(acc, g):
+                a.add_(b)
+            del g
+            loss_sum = loss_sum + lv.detach()
+            mets.append({k: v.detach() for k, v in m.items()})
+        del live, live_tree
+        grads = [a.div_(accum) for a in acc]
+        loss_val = loss_sum / accum
+        metrics = {k: torch.stack([m[k] for m in mets]).mean()
+                   for k in mets[0]}
+        return self._apply(params, opt_state, grads, loss_val, metrics)
 
     # ------------------------------------------------------- prefill / decode
 

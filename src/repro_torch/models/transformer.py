@@ -28,6 +28,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe as moe_lib, rglru, ssm
@@ -99,6 +100,14 @@ def _stacked(make: Callable[[], Params], count: int) -> Params:
 
 def _layer(tree, i: int):
     return tree_map(lambda leaf: leaf[i], tree)
+
+
+def _layers(tree, count: int) -> list[Params]:
+    """The ``count`` layers of a stacked tree, as views.  ``unbind`` gives
+    them all at once, so under autograd each stacked leaf's gradient is one
+    ``stack`` of the layers' gradients, not a full-size tensor per layer."""
+    parts = tree_map(lambda leaf: leaf.unbind(0), tree)
+    return [tree_map(lambda p, i=i: p[i], parts) for i in range(count)]
 
 
 # ---------------------------------------------------------------------------
@@ -330,15 +339,25 @@ def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                 use_kernel: bool = False,
                 only_kinds: Optional[tuple[str, ...]] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run each segment's stacked layers in order. Returns (x, total_aux)."""
+    """Run each segment's stacked layers in order. Returns (x, total_aux).
+
+    With ``cfg.remat`` and gradients enabled each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+    scan body): only its input is kept, and the backward pass runs it
+    again.  Without gradients nothing changes."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = {"window": window, "memory": memory, "use_kernel": use_kernel}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in arch_segments(cfg):
         if only_kinds is not None and seg.kind not in only_kinds:
             continue
-        for i in range(seg.count):
-            x, aux = apply_layer(cfg, seg.kind, _layer(params[seg.kind], i),
-                                 x, window=window, memory=memory,
-                                 use_kernel=use_kernel)
+        for p in _layers(params[seg.kind], seg.count):
+            if remat:
+                x, aux = checkpoint(apply_layer, cfg, seg.kind, p, x,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
+            else:
+                x, aux = apply_layer(cfg, seg.kind, p, x, **kw)
             aux_total = aux_total + aux
     return x, aux_total
 

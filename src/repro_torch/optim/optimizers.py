@@ -1,27 +1,35 @@
-"""First-order optimizers over tuples of tensors (``repro.optim.optimizers``).
+"""First-order optimizers over trees of tensors (``repro.optim.optimizers``).
 
 The paper's §4.2 comparison methods — GD, Adam, Adagrad, Adadelta — plus
 momentum and AdamW, with the reference's update rules term for term (eps
 placement, f32 moments, bias correction); ``torch.optim`` differs in these
-details.  ``init(params)`` makes the state; ``update(grads, state, params)``
-returns the *delta* to add to each parameter and the new state.
+details.  ``init(params)`` makes the state; ``update(grads, state,
+params)`` returns the *delta* to add to each parameter and the new state.
+
+``params`` is any tree of ``util.tree``: a tuple of tensors (the GCN
+baselines) or a language model's nested dicts, whose state then has the
+reference's structure and key paths (Adam ``{"m": tree, "v": tree, "t":
+int32}``, SGD ``()``).  ``update`` writes each new moment over the old one,
+leaf by leaf, instead of building a second state beside the first (20 GB
+of Adam moments for a 2.5 B-parameter model): the reference's expressions,
+so its numbers, and the state passed in is consumed.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Sequence
+from typing import Any, Callable, NamedTuple
 
 import torch
 
-Tensors = Sequence[torch.Tensor]
+from repro_torch.util.tree import leaves, tree_map
 
 
 class Optimizer(NamedTuple):
-    init: Callable[[Tensors], Any]
-    update: Callable[..., tuple[tuple[torch.Tensor, ...], Any]]
+    init: Callable[[Any], Any]
+    update: Callable[..., tuple[Any, Any]]
 
 
-def _zeros(params: Tensors) -> tuple[torch.Tensor, ...]:
-    return tuple(torch.zeros_like(p) for p in params)
+def _zeros(params):
+    return tree_map(torch.zeros_like, params)
 
 
 def sgd(lr: float) -> Optimizer:
@@ -29,7 +37,7 @@ def sgd(lr: float) -> Optimizer:
         return ()
 
     def update(grads, state, params=None):
-        return tuple(-lr * g for g in grads), state
+        return tree_map(lambda g: -lr * g, grads), state
 
     return Optimizer(init, update)
 
@@ -39,8 +47,8 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
         return _zeros(params)
 
     def update(grads, vel, params=None):
-        vel = tuple(beta * v + g for v, g in zip(vel, grads))
-        return tuple(-lr * v for v in vel), vel
+        vel = tree_map(lambda v, g: v.copy_(beta * v + g), vel, grads)
+        return tree_map(lambda v: -lr * v, vel), vel
 
     return Optimizer(init, update)
 
@@ -52,29 +60,29 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
     def init(params):
         def f32(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        dev = params[0].device if len(params) else None
-        return {"m": tuple(f32(p) for p in params),
-                "v": tuple(f32(p) for p in params),
+        first = next(iter(leaves(params)), None)
+        dev = first.device if first is not None else None
+        return {"m": tree_map(f32, params), "v": tree_map(f32, params),
                 "t": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def update(grads, state, params=None):
         t = state["t"] + 1
-        m = tuple(b1 * m_ + (1 - b1) * g.float()
-                  for m_, g in zip(state["m"], grads))
-        v = tuple(b2 * v_ + (1 - b2) * g.float() * g.float()
-                  for v_, g in zip(state["v"], grads))
+        m = tree_map(lambda m_, g: m_.copy_(b1 * m_ + (1 - b1) * g.float()),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: v_.copy_(b2 * v_ + (1 - b2) * g.float()
+                                            * g.float()), state["v"], grads)
         tf = t.to(torch.float32)
         mh_scale = 1.0 / (1 - b1 ** tf)
         vh_scale = 1.0 / (1 - b2 ** tf)
 
-        def delta(m_, v_, p):
+        def delta(m_, v_, p=None):
             d = -lr * (m_ * mh_scale) / (torch.sqrt(v_ * vh_scale) + eps)
             if weight_decay and p is not None:
                 d = d - lr * weight_decay * p.float()
             return d.to(p.dtype) if p is not None else d
 
-        ps = (None,) * len(m) if params is None else params
-        deltas = tuple(delta(m_, v_, p) for m_, v_, p in zip(m, v, ps))
+        deltas = (tree_map(delta, m, v) if params is None
+                  else tree_map(delta, m, v, params))
         return deltas, {"m": m, "v": v, "t": t}
 
     return Optimizer(init, update)
@@ -85,9 +93,9 @@ def adagrad(lr: float, eps: float = 1e-8) -> Optimizer:
         return _zeros(params)
 
     def update(grads, acc, params=None):
-        acc = tuple(a + g * g for a, g in zip(acc, grads))
-        deltas = tuple(-lr * g / (torch.sqrt(a) + eps)
-                       for g, a in zip(grads, acc))
+        acc = tree_map(lambda a, g: a.copy_(a + g * g), acc, grads)
+        deltas = tree_map(lambda g, a: -lr * g / (torch.sqrt(a) + eps),
+                          grads, acc)
         return deltas, acc
 
     return Optimizer(init, update)
@@ -99,12 +107,13 @@ def adadelta(lr: float = 1.0, rho: float = 0.95,
         return {"acc_g": _zeros(params), "acc_d": _zeros(params)}
 
     def update(grads, state, params=None):
-        acc_g = tuple(rho * a + (1 - rho) * g * g
-                      for a, g in zip(state["acc_g"], grads))
-        deltas = tuple(-lr * g * torch.sqrt(ad + eps) / torch.sqrt(ag + eps)
-                       for g, ag, ad in zip(grads, acc_g, state["acc_d"]))
-        acc_d = tuple(rho * a + (1 - rho) * d * d
-                      for a, d in zip(state["acc_d"], deltas))
+        acc_g = tree_map(lambda a, g: a.copy_(rho * a + (1 - rho) * g * g),
+                         state["acc_g"], grads)
+        deltas = tree_map(
+            lambda g, ag, ad: -lr * g * torch.sqrt(ad + eps)
+            / torch.sqrt(ag + eps), grads, acc_g, state["acc_d"])
+        acc_d = tree_map(lambda a, d: a.copy_(rho * a + (1 - rho) * d * d),
+                         state["acc_d"], deltas)
         return deltas, {"acc_g": acc_g, "acc_d": acc_d}
 
     return Optimizer(init, update)

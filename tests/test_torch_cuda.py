@@ -918,3 +918,92 @@ def test_family_kernel_forward_matches_plain_forward(cuda_device, arch,
         assert bool(torch.isfinite(got).all())
     else:
         _within(got, want, 1e-4 if dtype == "float32" else 5e-2)
+
+
+# ---------------------------------------------------------------------------
+# language-model training on the card against the CPU (reduced, f32)
+# ---------------------------------------------------------------------------
+
+def _reduced_train_batch(cfg) -> dict:
+    rng = np.random.default_rng(0)
+    return {k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+            for k in ("tokens", "targets")}
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-moe-16b"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One train_step (SGD at lr 1, so the delta is −g; grad_accum 2) from
+    the same weights: each leaf's delta within 1e-5 · max |delta| beside
+    one f32 spacing of the new value (each side rounds p − g), the loss
+    within 1e-5 relative; no kernel launched."""
+    import dataclasses
+    from repro_torch.util import tree
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              optimizer="sgd", learning_rate=1.0,
+                              grad_accum=2)
+    model = make_model(cfg)
+    batch = _reduced_train_batch(cfg)
+    p_cpu = model.init(seed=0, device="cpu")
+    p_card = tree.tree_map(lambda t: t.to(cuda_device), p_cpu)
+    launches = (flash_launcher.flash_launches, ssd_launcher.ssd_launches)
+    new_cpu, _, m_cpu = model.train_step(p_cpu, (), batch)
+    new_card, _, m_card = model.train_step(p_card, (), batch)
+    assert launches == (flash_launcher.flash_launches,
+                        ssd_launcher.ssd_launches)
+    for p0, a, b in zip(tree.leaves(p_cpu), tree.leaves(new_card),
+                        tree.leaves(new_cpu)):
+        p0, a, b = (t.double().cpu().numpy() for t in (p0, a, b))
+        slack = np.spacing(np.abs(b).astype(np.float32))
+        assert float((np.abs(a - b) - slack).max()) <= \
+            1e-5 * float(np.abs(b - p0).max())
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= \
+        1e-5 * abs(float(m_cpu["loss"]))
+
+
+@pytest.mark.parametrize("arch,n_before", [("gemma-2b", 2),
+                                           ("deepseek-moe-16b", 4)])
+def test_layerwise_iteration_on_card_matches_cpu(cuda_device, arch,
+                                                 n_before):
+    """One layerwise ADMM iteration on the card and on the CPU from the
+    CPU's state after ``n_before`` (a depth at which no line search sits
+    on a tie: tests/test_torch_layerwise.py): τ, θ and τ_R equal, every
+    tensor within 1e-4 · max."""
+    from repro_torch.core.layerwise import LayerwiseADMMTrainer
+    from repro_torch.util import tree
+    tr = LayerwiseADMMTrainer(get_config(arch, reduced=True),
+                              ADMMConfig(nu=1e-2, rho=1e-2))
+    batch = _reduced_train_batch(tr.cfg)
+    st, z0 = tr.init(0, batch, "cpu")
+    for _ in range(n_before):
+        st = tr.iteration(st, z0, batch["targets"])
+    want = tr.iteration(st, z0, batch["targets"])
+    got = tr.iteration(tree.tree_map(lambda t: t.to(cuda_device), st),
+                       z0.to(cuda_device), batch["targets"])
+    for f in ("taus", "thetas", "tau_r"):
+        for a, b in zip(tree.leaves(getattr(got, f)),
+                        tree.leaves(getattr(want, f))):
+            assert torch.equal(a.cpu(), b), f
+    for f in ("stack", "readout", "zs", "u"):
+        for a, b in zip(tree.leaves(getattr(got, f)),
+                        tree.leaves(getattr(want, f))):
+            _within(a.cpu(), b, 1e-4)
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
+    """Card tensors (bf16, f32, int32) saved and restored onto the card,
+    bit for bit."""
+    from repro_torch import checkpoint
+    from repro_torch.util import tree
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state = {"params": {"w": torch.randn((64, 32), generator=gen,
+                                         device=cuda_device).bfloat16(),
+                        "b": torch.randn((32,), generator=gen,
+                                         device=cuda_device)},
+             "opt": {"t": torch.tensor(3, dtype=torch.int32,
+                                       device=cuda_device)}}
+    checkpoint.save(tmp_path, state, step=4)
+    back = checkpoint.restore(tmp_path, tree.tree_map(torch.zeros_like,
+                                                      state))
+    for a, b in zip(tree.leaves(back), tree.leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)

@@ -45,7 +45,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     for name in ("repro_torch.core.serial", "repro_torch.core.subproblems",
                  "repro_torch.optim.optimizers",
                  "repro_torch.kernels.community_spmm",
-                 "repro_torch.core.messages", "repro_torch.sharding.partition"):
+                 "repro_torch.core.messages", "repro_torch.sharding.partition",
+                 "repro_torch.core.layerwise",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.data.pipeline"):
         assert name in proc.stdout.split(), name
 
 

@@ -27,6 +27,7 @@ from repro.models.build import make_model as jmake_model
 from repro_torch import configs
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.data import synthetic_token_batches
+from repro_torch.launch.mesh import HostMesh
 from repro_torch.models import layers, ssm, transformer
 from repro_torch.models.build import make_model
 
@@ -369,18 +370,17 @@ def test_cache_specs_match_reference():
 # ---------------------------------------------------------------------------
 
 def test_unported_entry_points_raise(pair):
-    """Language-model training is ROADMAP queue A item 2; an unknown
-    segment kind is refused.  (Every segment kind and the encoder run:
-    tests/test_torch_families.py.)"""
+    """Data-parallel training over more than one device is ROADMAP queue A
+    item 5; an unknown segment kind is refused.  (Every segment kind and
+    the encoder run: tests/test_torch_families.py; training on one device:
+    tests/test_torch_train_step.py, tests/test_torch_training.py.)"""
     _, _, model, params = pair
     x = torch.zeros((1, 4, model.cfg.d_model))
     with pytest.raises(ValueError):
         transformer.apply_layer(model.cfg, "no-such-kind", {}, x)
-    for call in (model.init_optimizer,
-                 lambda: model.train_step(params, None, {}),
-                 lambda: model.train_step_deferred(None, params, None, {})):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            call()
+    two = HostMesh((torch.device("cpu"), torch.device("cpu")))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        model.train_step_deferred(two, params, (), {})
 
 
 def test_init_without_device_raises_when_cuda_is_absent():
