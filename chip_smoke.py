@@ -141,7 +141,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      kernel); layerwise ADMM on the same model at 4 x 512 tokens, init
      and 3 iterations (init residual, ms an iteration, probes a line
      search, CE and residual finite, peak memory);
-  12. print the kernels line, the card's name and power limit, and a last
+  12. the invariant linter (``repro_torch.analysis``) on the card, on the
+     kernel route: launch/analyze.py's full config set over 4 loopback
+     shards and both serving paths at the CLI's size, then the full-width
+     trainers of phases 3 and 3m (packed ELL on one shard; packed and
+     fused over 3 loopback shards), one recorded step each: every finding
+     printed, zero error findings, every kernel launch on the CUDA route,
+     each launch spec's shared memory within the card's per-block limit
+     and equal to its CUDA layout query;
+  13. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
@@ -149,6 +157,7 @@ and exits non-zero without one, or without the port beside it.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -228,14 +237,6 @@ DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3   # tests/test_decode_consistency.py
 # would pass whatever the logits below the top one did)
 DECODE_LOGIT_TOL = 1e-4
 
-# Published peaks per H100 variant (NVIDIA data sheets): FP32 outside the
-# tensor cores, dense bf16 on the tensor cores (FLOP/s), and HBM bandwidth
-# (bytes/s).
-PEAKS = {"H100 NVL": (60e12, 835e12, 3.9e12),
-         "H100 PCIe": (51e12, 756e12, 2.0e12),
-         "H100": (67e12, 989e12, 3.35e12)}
-
-
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -254,13 +255,6 @@ def clocks_line() -> str:
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
          "temperature.gpu", "--format=csv,noheader"], capture_output=True,
         text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def peaks(name: str) -> tuple[float, float, float]:
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    fail(f"no published peaks for card {name!r}")
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -1342,13 +1336,6 @@ def flash_work(q, k, causal: bool, window) -> tuple[float, float]:
     return flops, nbytes
 
 
-def bound(flops: float, nbytes: float, peak_ops: float,
-          peak_bw: float) -> tuple[float, str]:
-    t_ops, t_bytes = 1e3 * flops / peak_ops, 1e3 * nbytes / peak_bw
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def check_lm_case(kind: str, name: str, out, want, limit: float,
                   log) -> None:
     import torch
@@ -1648,6 +1635,7 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.roofline import bound
 
     def peak(dtype):
         return peak_bf16 if dtype == torch.bfloat16 else peak_fp32
@@ -2447,6 +2435,105 @@ def training_phase(card: str, dev, peak_bf16: float) -> dict:
     return out
 
 
+ANALYSIS_TRAINERS = (("1 shard, packed ELL", 1, {}),
+                     (f"{SHARDS} shards, packed", SHARDS, {}),
+                     (f"{SHARDS} shards, fused", SHARDS, {"fused": True}))
+
+
+def analysis_phase(cfg, admm, g, card: str, dev) -> dict:
+    """Phase 12: the invariant linter on the card, on the kernel route:
+    launch/analyze.py's full config set and both serving paths at the
+    CLI's size, then one recorded step of each full-width trainer of
+    phases 3 and 3m.  Prints every finding (the waived ones too); fails on
+    an error finding, a kernel event off the CUDA route, or a launch spec
+    over the card's shared memory or unequal to its CUDA layout query."""
+    import torch
+
+    from repro_torch import analysis
+    from repro_torch.analysis.registry import AnalysisContext
+    from repro_torch.analysis.rules.kernel import kernel_entries, smem_limit
+    from repro_torch.core import graph
+    from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
+    from repro_torch.kernels import community_spmm
+    from repro_torch.launch import analyze
+
+    t0 = time.perf_counter()
+    waivers = analyze.waivers()
+    specs: dict = {}
+    out: dict = {}
+
+    def lint(name: str, tape, exp: dict) -> None:
+        ctx = AnalysisContext(trace=tape, expectations=exp, config=name)
+        rep = analysis.run_rules(ctx, waivers=waivers)
+        for spec, _ in kernel_entries(ctx):
+            specs.setdefault(spec, name)
+        kernels = collections.Counter(
+            (e.name, e.info["route"]) for e in tape.of_kind("kernel"))
+        transports = collections.Counter(
+            e.kind for e in tape if e.kind not in ("op", "kernel"))
+        head, *lines = rep.summary().splitlines()
+        print(f"[12] {head}; {len(tape)} events, kernels "
+              f"{json.dumps({f'{k} ({r})': v for (k, r), v in kernels.items()})}"
+              f", transport {json.dumps(dict(transports))}", flush=True)
+        for line in lines + [f"  waived: {f}" for f in rep.waived]:
+            print(f"[12] {line}", flush=True)
+        off_card = [k for k, r in kernels if r != "cuda"]
+        if rep.errors() or off_card:
+            fail(f"analysis of {name}: {len(rep.errors())} error "
+                 f"finding(s), kernels off the card {off_card}")
+        out[name] = {"errors": 0, "warnings": len(rep.warnings()),
+                     "waived": [f.rule for f in rep.waived],
+                     "events": len(tape), "kernels": sum(kernels.values())}
+
+    for spec in analyze.FULL_CONFIGS:
+        tape, exp = analysis.record_step(analyze.build_trainer(spec, dev))
+        lint(spec["name"], tape, exp)
+    srv = analyze.build_server(dev)
+    lint("serve_hit", srv.hit_path_trace(bucket=64),
+         {"expect_zero_collectives": True,
+          "full_graph_rows": int(srv.dl.plane_rows)})
+    lint("serve_halo", srv.halo_path_trace(layer=1),
+         {"expect_zero_collectives": True})
+    del srv
+    t_cli = time.perf_counter() - t0
+
+    part = graph.partition_graph(g.num_nodes, g.edges, 3, seed=0,
+                                 method="bfs_kl")
+    for name, n_shards, kw in ANALYSIS_TRAINERS:
+        tr = ParallelADMMTrainer(
+            cfg, admm, g, num_parts=3, seed=0, part=part, device=dev,
+            n_shards=n_shards,
+            config=TrainerConfig.packed(use_kernel=True,
+                                        partitioner="bfs_kl", **kw))
+        tape, exp = analysis.record_step(tr)
+        lint(f"full width {cfg.layer_dims}, M=3, {name}", tape, exp)
+        del tr, tape, exp
+        torch.cuda.empty_cache()
+
+    limit = smem_limit()
+    bad = []
+    for spec, where in specs.items():
+        words = community_spmm.query_layout(spec)
+        ok = words == spec.layout_words() and spec.smem_bytes <= limit
+        print(f"[12] spec {spec.name} {spec.symbol} grid {spec.grid} x "
+              f"{spec.threads} threads, cluster {spec.cluster}, smem "
+              f"{spec.smem_bytes} B (limit {limit}), copies "
+              f"{[(a.name, a.copy_bytes) for a in spec.args if a.copy_bytes]}"
+              f" ({where}): layout query {list(words)} "
+              f"{'= spec' if ok else '!= spec ' + str(spec.layout_words())}",
+              flush=True)
+        if not ok:
+            bad.append(spec.name)
+    if bad:
+        fail(f"launch specs disagree with the card: {bad}")
+    secs = time.perf_counter() - t0
+    print(f"[12] analysis phase {secs:.1f} s (CLI configs {t_cli:.1f} s): "
+          f"{len(out)} runs, 0 error findings, {len(specs)} distinct launch "
+          f"specs, all equal to their layout queries and within {limit} B "
+          f"[{card}]", flush=True)
+    return {"seconds": secs, "runs": out, "specs": len(specs)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2464,6 +2551,7 @@ def main() -> int:
     from repro_torch.core import graph, messages
     from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
     from repro_torch.kernels import build, community_spmm, ref
+    from repro_torch.launch import roofline
     from repro_torch.util.device import strict_f32
 
     strict_f32()
@@ -2692,7 +2780,7 @@ def main() -> int:
     bf16 = bf16_phase(cfg, admm, g, card, dev, f32_blocks, f32_resident)
 
     # ---- 3m. M = 3 over 3 loopback shards: the packed and fused kernels ---
-    peak_flops, peak_bf16, peak_bw = peaks(name)
+    peak_flops, peak_bf16, peak_bw = roofline.peaks(name)
     multi = multishard_phase(cfg, admm, g, card, dev, peak_flops, peak_bw)
 
     # ---- 4. times -----------------------------------------------------------
@@ -2804,7 +2892,10 @@ def main() -> int:
     # ---- 11. language-model training: no kernel launched -------------------
     training_phase(card, dev, peak_bf16)
 
-    # ---- 12. the kernels line, the card, the result ------------------------
+    # ---- 12. the invariant linter on the card ------------------------------
+    analysis_phase(cfg, admm, g, card, dev)
+
+    # ---- 13. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",

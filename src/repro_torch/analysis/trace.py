@@ -1,0 +1,294 @@
+"""The op trace: the program form the port's rules read.
+
+The counterpart of ``repro.analysis.hlo``.  The reference lints the HLO
+text XLA compiles for a jitted step.  The port runs eagerly, so its rules
+read a trace recorded while one real step runs.  It has two parts:
+
+  * every aten op, logged by a ``TorchDispatchMode``: its name, the id,
+    shape, dtype and device of each input and output tensor, whether it
+    writes in place, and — for a host read — the line-search probe site
+    that asked for it (``decide``);
+  * events that the port's own code emits for what the dispatcher cannot
+    see: each hand-written kernel launch (through ``ctypes``; on the CPU the
+    plain version that stands in for it), with its launch spec and its
+    index tables; each loopback transport round (source → destination
+    pairs, rows, bytes) and the all-gather; and the shard-ordered sum that
+    stands for the reference's W-update psum.
+
+Why this form.  ``torch.fx`` and ``torch.export`` cannot hold the step:
+every line-search probe reads a bool on the host, and that data-dependent
+control flow stops both.  The profiler's kernel trace sees kernels only on
+a card, and carries no dtypes for the f32-accumulation checks.  A dispatch
+trace behaves the same on the CPU and on the card, and sees the backward
+passes the line searches run.
+
+The recorder is off by default: ``with record() as tape: tr.step()``.  The
+hooks in the port (``RECORDER is not None``) cost one module-attribute
+check when it is off.  It holds no tensor but the kernels' index tables,
+copies none and reads no value from the device: tensors are known by an id
+(a weak map from tensor to int), so nothing it keeps outlives the step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Iterable, Iterator, Mapping, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.weak import WeakIdKeyDictionary
+
+RECORDER: "Optional[Recorder]" = None
+
+# aten ops that multiply matrices: the consumers the product rules watch
+PRODUCT_OPS = frozenset({"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv",
+                         "addmv", "dot", "vdot", "_scaled_mm",
+                         "convolution", "_convolution"})
+# reductions whose accumulator the precision rules watch
+REDUCE_OPS = frozenset({"sum", "mean", "cumsum", "prod", "nansum",
+                        "linalg_vector_norm", "norm", "var", "std"})
+TRANSPORTS = ("exchange", "exchange_packed", "allgather")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMeta:
+    """A tensor as the trace knows it: an id unique within the trace, its
+    shape, dtype (``"float32"``) and device type."""
+    id: int
+    shape: tuple[int, ...]
+    dtype: str
+    device: str
+
+    @property
+    def itemsize(self) -> int:
+        return _ITEMSIZE.get(self.dtype, 4)
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.itemsize
+
+
+_ITEMSIZE = {"float64": 8, "complex128": 16, "int64": 8, "float32": 4,
+             "int32": 4, "complex64": 8, "bfloat16": 2, "float16": 2,
+             "int16": 2, "int8": 1, "uint8": 1, "bool": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """One recorded event.
+
+    ``kind`` is ``"op"`` (an aten op; ``name`` the op without its overload,
+    e.g. ``"mm"``), ``"kernel"`` (``name`` the kernel, ``info`` its
+    ``spec``, ``route`` "cuda" or "plain" and ``tables``), a transport
+    (``"exchange"``, ``"exchange_packed"``, ``"allgather"``; ``info`` the
+    ``rounds``: one ``(pairs, rows, bytes)`` per round, and the
+    ``itemsize`` on the wire) or ``"shard_sum"``.  ``host_read`` marks a
+    device → host read, ``probe`` the line-search site it decides."""
+    kind: str
+    name: str
+    inputs: tuple[TensorMeta, ...] = ()
+    outputs: tuple[TensorMeta, ...] = ()
+    inplace: bool = False
+    host_read: bool = False
+    probe: Optional[str] = None
+    info: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Census:
+    """Totals of a trace: aten ops, product FLOPs (aten products and
+    kernels), an HBM-traffic proxy (each op's and kernel's input and output
+    bytes), and the transport bytes per kind with their round counts."""
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    collective_bytes: float = 0.0
+    collectives: dict = dataclasses.field(
+        default_factory=lambda: {k: {"count": 0, "bytes": 0.0}
+                                 for k in TRANSPORTS + ("shard_sum",)})
+    ops: int = 0
+
+
+@dataclasses.dataclass
+class Trace:
+    """The events of one recorded run, in order."""
+    events: list[Event] = dataclasses.field(default_factory=list)
+
+    def __iter__(self) -> Iterator[Event]:
+        return iter(self.events)
+
+    def __len__(self) -> int:
+        return len(self.events)
+
+    def of_kind(self, *kinds: str) -> list[Event]:
+        return [e for e in self.events if e.kind in kinds]
+
+    def produced(self) -> set[int]:
+        """Ids of the tensors some recorded event made (not inputs)."""
+        out: set[int] = set()
+        for e in self.events:
+            if not e.inplace:
+                out.update(t.id for t in e.outputs)
+        return out
+
+    def tensors(self) -> dict[int, TensorMeta]:
+        """Every tensor the trace saw, by id."""
+        out: dict[int, TensorMeta] = {}
+        for e in self.events:
+            for t in e.inputs + e.outputs:
+                out.setdefault(t.id, t)
+        return out
+
+
+def trace_census(tr: Trace) -> Census:
+    """The census of a trace (the reference's ``hlo_census`` counterpart):
+    2·M·N·K for every aten product, each kernel's spec FLOPs (every slot at
+    full rows), each op's and kernel's bytes, and the transport bytes."""
+    c = Census()
+    for e in tr.events:
+        if e.kind == "op":
+            c.ops += 1
+            c.hbm_bytes += sum(t.nbytes for t in e.inputs + e.outputs)
+            if e.name in PRODUCT_OPS:
+                c.flops += _product_flops(e)
+        elif e.kind == "kernel":
+            spec = e.info.get("spec")
+            if spec is not None:
+                c.flops += spec.flops
+            c.hbm_bytes += sum(t.nbytes for t in e.inputs + e.outputs)
+        else:
+            nbytes = sum(r[2] for r in e.info.get("rounds", ()))
+            if e.kind == "shard_sum":
+                nbytes = sum(t.nbytes for t in e.inputs)
+            c.collectives[e.kind]["count"] += max(
+                len(e.info.get("rounds", ())), 1)
+            c.collectives[e.kind]["bytes"] += nbytes
+            if e.kind in TRANSPORTS:
+                c.collective_bytes += nbytes
+    return c
+
+
+def _product_flops(e: Event) -> float:
+    """2 per multiply-add: the output's elements times the contracted
+    extent (a matrix operand's rows, a matrix-vector product's columns, a
+    convolution weight's elements per output channel)."""
+    shapes = [t.shape for t in e.inputs if t.shape]
+    if e.name in ("dot", "vdot"):
+        return 2.0 * shapes[0][0]
+    out = math.prod(e.outputs[0].shape)
+    if e.name in ("convolution", "_convolution"):
+        return 2.0 * out * math.prod(shapes[1][1:])
+    mats = [s for s in shapes if len(s) >= 2]
+    k = mats[-1][-1] if e.name in ("mv", "addmv") else mats[-1][-2]
+    return 2.0 * out * k
+
+
+class Recorder:
+    """Collects a ``Trace``.  Use ``record()``; the port's hooks call
+    ``kernel``, ``transport`` and ``shard_sum`` while it is active."""
+
+    def __init__(self):
+        self.trace = Trace()
+        self._ids = WeakIdKeyDictionary()
+        self._next = 0
+        self.probe_site: Optional[str] = None
+
+    # -- tensor identity ---------------------------------------------------
+
+    def meta(self, t: torch.Tensor) -> TensorMeta:
+        i = self._ids.get(t)
+        if i is None:
+            i = self._ids[t] = self._next
+            self._next += 1
+        return TensorMeta(i, tuple(t.shape), str(t.dtype).split(".")[-1],
+                          t.device.type)
+
+    def metas(self, xs: Iterable[Any]) -> tuple[TensorMeta, ...]:
+        return tuple(self.meta(x) for x in tree_leaves(list(xs))
+                     if isinstance(x, torch.Tensor))
+
+    # -- events --------------------------------------------------------------
+
+    def op(self, func, args, kwargs, out) -> None:
+        name = func.__name__.split(".")[0]
+        schema = func._schema
+        inplace = any(a.alias_info is not None and a.alias_info.is_write
+                      for a in schema.arguments)
+        ins = self.metas([args, kwargs])
+        outs = self.metas([out])
+        host = name == "_local_scalar_dense" or (
+            name in ("_to_copy", "copy_", "to") and outs and ins
+            and outs[0].device == "cpu" and ins[-1].device != "cpu")
+        self.trace.events.append(Event(
+            "op", name, ins, outs, inplace=inplace, host_read=host,
+            probe=self.probe_site if host else None))
+
+    def kernel(self, spec, tensors: Mapping[str, torch.Tensor],
+               route: str) -> None:
+        """A kernel launch (``route="cuda"``) or the plain version that
+        stands in for it on the CPU (``route="plain"``): ``tensors`` by the
+        spec's operand names, the output last."""
+        names = [a.name for a in spec.args]
+        ins = [tensors[n] for n in names if n != "out"]
+        self.trace.events.append(Event(
+            "kernel", spec.name, self.metas(ins),
+            self.metas([tensors["out"]]),
+            info={"spec": spec, "route": route,
+                  "tables": {n: tensors[n] for n in spec.table_names}}))
+
+    def transport(self, kind: str, x: torch.Tensor, out, rounds,
+                  itemsize: int) -> None:
+        """A transport call: ``rounds`` one ``(pairs, rows, bytes)`` each."""
+        self.trace.events.append(Event(
+            kind, kind, self.metas([x]), self.metas([out]),
+            info={"rounds": tuple(rounds), "itemsize": itemsize}))
+
+    def shard_sum(self, parts, out) -> None:
+        self.trace.events.append(Event(
+            "shard_sum", "shard_sum", self.metas(parts), self.metas([out])))
+
+
+class _Mode(TorchDispatchMode):
+    def __init__(self, rec: Recorder):
+        super().__init__()
+        self.rec = rec
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.rec.op(func, args, kwargs, out)
+        return out
+
+
+class record:
+    """``with record() as tape:`` — every aten op and port event inside
+    lands in ``tape`` (a ``Trace``).  Not reentrant."""
+
+    def __enter__(self) -> Trace:
+        global RECORDER
+        if RECORDER is not None:
+            raise RuntimeError("a trace is already being recorded")
+        self._rec = RECORDER = Recorder()
+        self._mode = _Mode(self._rec)
+        self._mode.__enter__()
+        return self._rec.trace
+
+    def __exit__(self, *exc) -> None:
+        global RECORDER
+        try:
+            self._mode.__exit__(*exc)
+        finally:
+            RECORDER = None
+
+
+def decide(flag: torch.Tensor, site: str) -> bool:
+    """``bool(flag)``: a line-search decision, the one host read a step
+    makes on purpose.  Under a recorder the read is marked with ``site``,
+    so that ``memory/host-transfer`` can tell it from any other read."""
+    rec = RECORDER
+    if rec is None:
+        return bool(flag)
+    rec.probe_site = site
+    try:
+        return bool(flag)
+    finally:
+        rec.probe_site = None

@@ -18,26 +18,90 @@ The transports run the plan on one device for ``n_shards`` logical shards
 (``exchange_neighbors``, ``exchange_neighbors_packed``, ``allgather``): the
 tensors carry every shard at once, and each round of the plan — one
 ``lax.ppermute`` in the reference — is a row copy from the source shard's
-rows into the destination shard's receive buffer.
+rows into the destination shard's receive buffer.  Under an op-trace
+recorder (``analysis.trace``) each call records its rounds' pairs, rows
+and wire bytes.
+
+The paper's Appendix A messages (eq. 4) are functions here too:
+``row_aggregate``, ``first_order_messages`` (p), ``relay_aggregate`` (q),
+``second_order_from_relay`` (s², rebuilt by the receiver) and
+``neighbor_preactivations``.  The trainer computes q inline, per lane.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.core.graph import shard_neighbor_graph
+from repro_torch.launch.roofline import FP32_PEAK, LINK_BW
 from repro_torch.sharding.partition import ring_round_coloring
 
 Tensor = torch.Tensor
 
 # The overlap model's device (``overlap_stats``): an H100 SXM's published
 # FP32 peak (the aggregation kernels run FP32 FMAs) and one direction of
-# its NVLink 4 (18 links of 25 GB/s), the link between two agents' cards.
-PEAK_FLOPS = 67e12
-LINK_BW = 450e9
+# its NVLink 4, the link between two agents' cards (``launch.roofline``).
+PEAK_FLOPS = FP32_PEAK
+
+
+def row_aggregate(a_row: Tensor, z_all: Tensor,
+                  mask: "Tensor | None" = None) -> Tensor:
+    """Σ_{r∈N_m} Ã_{m,r} Z_r — community m's first-order aggregation.
+
+    a_row: (M, n_pad, n_pad) — m's row of Ã blocks (Ã_{m,r} for all r)
+    z_all: (M, n_pad, C)     — all communities' Z (gathered)
+    mask:  optional (M,) neighbour row; absent blocks contribute nothing
+    returns (n_pad, C)
+    """
+    if mask is not None:
+        a_row = a_row * mask[:, None, None].to(a_row.dtype)
+    return torch.einsum("rip,rpc->ic", a_row, z_all)
+
+
+def first_order_messages(a_row: Tensor, z_all: Tensor, w_next: Tensor,
+                         mask: "Tensor | None" = None) -> Tensor:
+    """Stacked p_{l,r→m} for all r: (M, n_pad, C_next).  p[r] = Ã_{m,r} Z_r W."""
+    if mask is not None:
+        a_row = a_row * mask[:, None, None].to(a_row.dtype)
+    return torch.einsum("rip,rpc->ric", a_row, z_all) @ w_next
+
+
+def relay_aggregate(a_row: Tensor, z_all: Tensor, w_next: Tensor,
+                    mask: "Tensor | None" = None) -> Tensor:
+    """q_{l,m} = (Σ_r Ã_{m,r} Z_r) W_{l+1} — the payload community m relays."""
+    return row_aggregate(a_row, z_all, mask) @ w_next
+
+
+def second_order_from_relay(q_all: Tensor, a_row: Tensor, z_local: Tensor,
+                            w_next: Tensor) -> Tensor:
+    """s²_{l,r→m} for all r, reconstructed receiver-side (eq. 4).
+
+    q_all:   (M, n_pad, C_next) — gathered relay aggregates q_{l,r}
+    a_row:   (M, n_pad, n_pad)  — Ã_{m,r}; Ã_{r,m} = Ã_{m,r}ᵀ
+    z_local: (n_pad, C_l)       — Z_{l,m}
+    returns  (M, n_pad, C_next)
+    """
+    own_contrib = torch.einsum("rnp,nc->rpc", a_row, z_local @ w_next)
+    return q_all - own_contrib
+
+
+def neighbor_preactivations(q_all: Tensor, a_row: Tensor, z_var: Tensor,
+                            z_ref: Tensor, w_next: Tensor) -> Tensor:
+    """Pre-activations of every community's next layer as a function of
+    this community's ``z_var``, the others frozen at their k-th iterates
+    (baked into ``q_all`` through ``z_ref``):
+
+        pre[r] = q_{l,r} + Ã_{r,m} (z_var − z_ref) W_{l+1}
+               = s²_{l,r→m} + Ã_{r,m} z_var W_{l+1}
+
+    For r ∉ N_m the Ã block is zero, so pre[r] is constant in z_var."""
+    delta = (z_var - z_ref) @ w_next
+    return q_all + torch.einsum("rnp,nc->rpc", a_row, delta)
 
 
 def gather_bytes(neighbor_mask: np.ndarray, n_pad: int,
@@ -618,7 +682,20 @@ def exchange_neighbors(plan: NeighborExchange, x: Tensor,
         payload = x_flat[send.reshape(-1)]
         buf[recv.reshape(-1)] = bf16_wire(payload) if comm_bf16 else payload
     buf = buf.reshape((s_n, limit + 1) + feat)[:, :limit]
-    return buf.reshape((s_n, plan.r_pad, n) + feat)
+    out = buf.reshape((s_n, plan.r_pad, n) + feat)
+    if trace.RECORDER is not None:
+        _record("exchange", plan, t["rounds"], x, out, feat, comm_bf16)
+    return out
+
+
+def _record(kind: str, plan: NeighborExchange, rounds, x: Tensor, out,
+            feat: tuple, comm_bf16: bool) -> None:
+    """One transport event: each round's pairs, rows and wire bytes."""
+    item = 2 if comm_bf16 else x.element_size()
+    row = math.prod(feat) * item
+    trace.RECORDER.transport(
+        kind, x, out, [(rnd.pairs, send.numel(), send.numel() * row)
+                       for rnd, (send, _) in zip(plan.rounds, rounds)], item)
 
 
 def exchange_neighbors_packed(plan: NeighborExchange, x_plane: Tensor,
@@ -660,7 +737,11 @@ def exchange_neighbors_packed(plan: NeighborExchange, x_plane: Tensor,
             stages.append(buf[:rows])
         else:
             buf[recv.reshape(-1)] = payload
-    return stages if staged else buf[:rows]
+    out = stages if staged else buf[:rows]
+    if trace.RECORDER is not None:
+        _record("exchange_packed", plan, t["plane_rounds"], x_plane, out,
+                feat, comm_bf16)
+    return out
 
 
 def allgather(x: Tensor, comm_bf16: bool = False) -> Tensor:
@@ -669,8 +750,14 @@ def allgather(x: Tensor, comm_bf16: bool = False) -> Tensor:
     all.  The reference masks a shard's copy down to its lanes'
     neighbourhoods; a lane reads only its neighbours' rows, which that mask
     keeps, so the copy goes unmasked.  With ``comm_bf16`` every row travels
-    bf16, the shard's own rows too, as in the reference."""
-    return bf16_wire(x) if comm_bf16 else x
+    bf16, the shard's own rows too, as in the reference.  A recorded event
+    carries one shard's copy (the rules count it once per shard)."""
+    out = bf16_wire(x) if comm_bf16 else x
+    if trace.RECORDER is not None:
+        item = 2 if comm_bf16 else x.element_size()
+        trace.RECORDER.transport("allgather", x, out,
+                                 [((), x.shape[0], x.numel() * item)], item)
+    return out
 
 
 def arrival_rounds(plan: NeighborExchange) -> np.ndarray:

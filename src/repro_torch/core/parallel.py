@@ -54,11 +54,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.core import gcn, graph, messages
 from repro_torch.core.serial import TrainLog
 from repro_torch.core.subproblems import (ADMMConfig, backtracking_step,
@@ -322,6 +324,22 @@ TrainerConfig.p2p = classmethod(_preset_p2p)
 TrainerConfig.packed = classmethod(_preset_packed)
 TrainerConfig.minibatch = classmethod(_preset_minibatch)
 
+# the historic flag kwargs the deprecation shim still accepts
+_LEGACY_FLAGS = ("use_kernel", "comm_bf16", "compressed", "transport",
+                 "partitioner", "pad_mode", "adjacency_bf16", "packed",
+                 "overlap")
+
+
+def gathered_widths(cfg: gcn.GCNConfig) -> list[int]:
+    """The feature widths a step gathers, one per transport call: Z_0
+    once, Z_1..Z_L, q per hidden layer, then U and the penultimate-Z
+    refresh for L >= 2."""
+    dims = list(cfg.layer_dims)
+    cs = [dims[0]] + dims[1:]
+    if cfg.num_layers >= 2:
+        cs += dims[2:] + [dims[-1], dims[-2]]
+    return cs
+
 
 # ---------------------------------------------------------------------------
 # backtracking primitives
@@ -332,7 +350,7 @@ def _lane_search(accepted, step0: Tensor, admm: ADMMConfig) -> Tensor:
     step = step0
     done = accepted(step)
     for _ in range(admm.max_backtracks):
-        if bool(done.all()):
+        if trace.decide(done.all(), "lane-search"):
             break
         step = torch.where(done, step, step * admm.backtrack_growth)
         done = done | accepted(step)
@@ -504,7 +522,10 @@ class _Body:
         own lanes only, summed in shard order: the reference's psum of a
         per-shard objective."""
         vals = [parts_of(s) for s in range(self.n_shards)]
-        return sum(vals[1:], vals[0])
+        out = sum(vals[1:], vals[0])
+        if trace.RECORDER is not None:
+            trace.RECORDER.shard_sum(vals, out)
+        return out
 
     def lanes(self, x: Tensor, s: int) -> Tensor:
         return x if self.n_shards == 1 else x[s * self.k:(s + 1) * self.k]
@@ -776,15 +797,33 @@ class ParallelADMMTrainer:
     """The paper's 'Parallel ADMM': M community agents over ``n_shards``
     logical shards of one device (``n_shards`` must divide M; shard s hosts
     communities [s·k, (s+1)·k), k = M / n_shards).  ``device=None`` means
-    ``cuda`` (RuntimeError without one); tests pass ``device="cpu"``."""
+    ``cuda`` (RuntimeError without one); tests pass ``device="cpu"``.  The
+    pre-``TrainerConfig`` flag kwargs are accepted with a
+    ``DeprecationWarning``, as in the reference."""
 
     def __init__(self, cfg: gcn.GCNConfig, admm: ADMMConfig, g: graph.Graph,
                  num_parts: int, seed: int = 0,
                  config: TrainerConfig | None = None,
                  part: np.ndarray | None = None,
                  device: "str | torch.device | None" = None,
-                 n_shards: int = 1):
-        config = TrainerConfig() if config is None else config
+                 n_shards: int = 1, **legacy_flags):
+        if legacy_flags:
+            unknown = sorted(set(legacy_flags) - set(_LEGACY_FLAGS))
+            if unknown:
+                raise TypeError(
+                    f"ParallelADMMTrainer got unexpected keyword arguments "
+                    f"{unknown}; pass config=TrainerConfig(...)")
+            if config is not None:
+                raise ValueError(
+                    "pass either config=TrainerConfig(...) or the legacy "
+                    "flag kwargs, not both")
+            warnings.warn(
+                "ParallelADMMTrainer flag kwargs are deprecated; pass "
+                "config=TrainerConfig(...) instead",
+                DeprecationWarning, stacklevel=2)
+            config = TrainerConfig(**legacy_flags)
+        elif config is None:
+            config = TrainerConfig()
         self.device = device = resolve_device(device)
         self.config = config
         self.cfg, self.admm, self.graph = cfg, admm, g
@@ -1005,9 +1044,7 @@ class ParallelADMMTrainer:
         cfg, lay, config = self.cfg, self.layout, self.config
         item = 2 if config.comm_bf16 else 4
         dims = list(cfg.layer_dims)
-        gathered_cs = [dims[0]] + dims[1:]
-        if cfg.num_layers >= 2:
-            gathered_cs += dims[2:] + [dims[-1], dims[-2]]
+        gathered_cs = gathered_widths(cfg)
         cs = messages.gather_bytes(lay.neighbor_mask, lay.n_pad, gathered_cs,
                                    itemsize=item)
         cs["transport"] = self.transport

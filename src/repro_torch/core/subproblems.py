@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.core import gcn
 
 Tensor = torch.Tensor
@@ -124,7 +125,8 @@ def backtracking_step(obj: Callable[[Tensor], Tensor], x: Tensor,
         for _ in range(admm.max_backtracks):
             bound = val - 0.5 * g_sq / tau
             tol = admm.backtrack_rtol * (torch.abs(bound) + 1e-12)
-            if not bool(bound + tol < obj(x - grad / tau)):
+            if not trace.decide(bound + tol < obj(x - grad / tau),
+                                "backtracking"):
                 break
             tau = tau * admm.backtrack_growth
     return x - grad / tau, tau

@@ -17,12 +17,21 @@ Each kernel has its own launch count, one per call that reaches it:
 ``dense_launches``.  Callers
 that want the count of one phase reset it to 0 before the phase.
 
-``fused_cluster``, ``fused_grid`` and ``fused_smem_bytes`` mirror the
-fused kernel's cluster launch, so that the width limit is refused here
-(the card tests hold them against ``community_spmm_ell_fused_layout``).
-``ell_layout`` mirrors the tile configuration the ELL / packed / dense
-kernel picks for a launch (``community_spmm_ell_layout``), and
-``operand_layout`` reads it off a launch's operands.
+Every launch is built from a declarative ``LaunchSpec`` (``ell_spec``,
+``ell_packed_spec``, ``ell_fused_spec``, ``spmm_spec``; the counterparts of
+the reference's ``KernelSpec`` builders): the C entry and its pointer and
+int arguments, the grid, threads, cluster and shared memory, the copy
+width of each operand, and each operand's extent with the index table that
+addresses it.  The launcher and the static checks
+(``repro_torch.analysis.rules.kernel``) read the same object.  The CUDA
+layout queries stay the source of truth for the launch geometry:
+``ell_layout`` mirrors ``community_spmm_ell_layout`` (the tile
+configuration the ELL / packed / dense kernel picks), ``fused_cluster``,
+``fused_grid`` and ``fused_smem_bytes`` mirror
+``community_spmm_ell_fused_layout`` (so that the width limit is refused
+here), and ``query_layout`` asks the built library for a spec's words
+(the card tests hold each spec equal to its query).  ``operand_layout``
+reads ``ell_layout`` off a launch's operands.
 
 The launchers read no values from the device: the indices of live slots
 must lie in ``[0, M)`` and the plane rows a live packed slot reads must lie
@@ -32,10 +41,14 @@ once where the tables are built (``core.parallel.community_data``,
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
+from typing import Optional
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.build import check_operand as _check
 from repro_torch.kernels.build import cuda_device as _cuda_device
@@ -48,11 +61,13 @@ fused_launches = 0
 dense_launches = 0
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_BYTES_DT = {4: "f32", 2: "bf16"}
 _INT = (torch.int32,)
 # the fused kernel spreads a 32-row tile's (32, C_in) f32 aggregate over a
 # cluster of up to 8 blocks in 128-column chunks; each block holds its
 # chunks (16 KB each) and 21,504 bytes of staging tiles in shared memory
 _FUSED_ROWS, _FUSED_CHUNK, _FUSED_MAX_CLUSTER = 32, 128, 8
+_FUSED_THREADS = 256
 _FUSED_STATIC = 4 * 32 * ((32 + 4) + (128 + 4))
 _SMEM_LIMIT = 232448
 # the ELL / packed kernel's tile configurations, (BM, BN, TM, TN, stages):
@@ -70,10 +85,214 @@ _ELL_HALF_COST, _ELL_SMALL_COST = 3, 5
 _ELL_NARROW_MAX_C = 32
 
 
-def _launch(kernel: str, lib_name: str, symbol: str, ptrs: list,
-            ints: list, device: torch.device) -> None:
-    build.launch(kernel, lib_name, symbol, ptrs, ints, device,
-                 "community_spmm_error_string")
+@dataclasses.dataclass(frozen=True)
+class Operand:
+    """One pointer argument of a launch, in the C entry's order.
+
+    ``role`` is "data", "table" (an int32 index table) or "out".  A data
+    operand read through a table names it: with ``addressing="index"`` a
+    live slot's value selects one leading entry of ``shape`` (a community of
+    z_all), with ``"rows"`` it is the first of the rows the slot reads, and
+    ``rows`` names the table of how many rows (``nbr_counts``).
+    ``copy_bytes`` is the ``cp.async`` width the kernel stages it with (0:
+    not staged) and ``copy_best`` the width the same tile takes on rows
+    aligned to 16 bytes; ``align`` is the largest power of two up to 16
+    dividing its pointer and row stride (``copy_align``)."""
+    name: str
+    shape: tuple[int, ...]
+    itemsize: int
+    role: str = "data"
+    table: Optional[str] = None
+    addressing: str = ""
+    rows: Optional[str] = None
+    copy_bytes: int = 0
+    copy_best: int = 0
+    align: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchSpec:
+    """One launch of a hand-written kernel, as its launcher makes it.
+
+    ``args`` are the C entry's pointers in order (the output last) and
+    ``ints`` its int arguments; ``grid`` is (x, y, z) blocks of ``threads``,
+    ``cluster`` blocks per cluster along x, ``smem_bytes`` the shared memory
+    one block takes; ``tile`` the (rows, columns) of output a block (the
+    fused kernel: a cluster) covers.  ``mask`` names the table whose
+    nonzero entries are the live slots.  ``query`` are the arguments of the
+    library's layout query and ``layout_words()`` what it must answer.
+    ``flops`` is the work of every slot at full rows (2 per multiply-add)."""
+    name: str
+    lib: str
+    symbol: str
+    args: tuple[Operand, ...]
+    ints: tuple[int, ...]
+    grid: tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+    tile: tuple[int, int]
+    mask: str
+    query_symbol: str
+    query: tuple[int, ...]
+    flops: float
+    cluster: int = 1
+    stages: int = 0
+    thread_tile: tuple[int, int] = (0, 0)
+    accumulate: str = "float32"
+
+    @property
+    def table_names(self) -> tuple[str, ...]:
+        return tuple(a.name for a in self.args if a.role == "table")
+
+    def operand(self, name: str) -> Operand:
+        return next(a for a in self.args if a.name == name)
+
+    def layout_words(self) -> tuple[int, ...]:
+        """What the layout query answers for this launch."""
+        if self.query_symbol == FUSED_QUERY:
+            return (self.cluster, self.tile[0], self.smem_bytes)
+        blocks = self.args[0]
+        z = next(a for a in self.args if a.role == "data" and a is not blocks)
+        return (self.tile[0], self.tile[1], *self.thread_tile, self.stages,
+                *self.grid, self.smem_bytes, blocks.copy_bytes, z.copy_bytes)
+
+
+ELL_QUERY = "community_spmm_ell_layout"
+FUSED_QUERY = "community_spmm_ell_fused_layout"
+
+
+def _ell_launch(name: str, symbol: str, blocks: Operand, tables: tuple,
+                z: Operand, mask: str, dense: bool = False) -> LaunchSpec:
+    """A launch of ``community_spmm_ell.cu``: ``ell_layout``'s tile for
+    these widths and alignments.  Pointers: the blocks, the tables, z and
+    the output (the dense entry: the blocks, z, its mask, the output)."""
+    k, d, n_pad, _ = blocks.shape
+    c = z.shape[-1]
+    lay = ell_layout(k, n_pad, c, blocks.itemsize, z.align, blocks.align)
+    best = ell_layout(k, n_pad, c, blocks.itemsize, 16, 16)
+    blocks = dataclasses.replace(blocks, copy_bytes=lay["a_copy"],
+                                 copy_best=best["a_copy"])
+    z = dataclasses.replace(z, copy_bytes=lay["z_copy"],
+                            copy_best=best["z_copy"])
+    out = Operand("out", (k, n_pad, c), 4, role="out")
+    return LaunchSpec(
+        name=name, lib=LIB, symbol=symbol,
+        args=(blocks, z, *tables, out) if dense
+        else (blocks, *tables, z, out),
+        ints=(k, d, n_pad, c), grid=lay["grid"], threads=lay["threads"],
+        smem_bytes=lay["smem_bytes"], tile=(lay["bm"], lay["bn"]),
+        mask=mask, query_symbol=ELL_QUERY,
+        query=(k, n_pad, c, blocks.itemsize, z.align, blocks.align),
+        flops=2.0 * k * d * n_pad * n_pad * c, stages=lay["stages"],
+        thread_tile=(lay["tm"], lay["tn"]))
+
+
+def _ell_tables(first: str, k: int, d: int) -> tuple:
+    """The ELL entries' tables: the slot table ``first`` (indices or
+    offsets), the mask, the row and neighbour counts."""
+    i32 = dict(itemsize=4, role="table")
+    return (Operand(first, (k, d), **i32), Operand("ell_mask", (k, d), **i32),
+            Operand("row_counts", (k,), **i32),
+            Operand("nbr_counts", (k, d), **i32))
+
+
+@functools.lru_cache(maxsize=512)
+def ell_spec(k: int, d: int, n_pad: int, c: int, m_z: int, *,
+             block_bytes: int = 4, z_align: int = 16,
+             a_align: int = 16) -> LaunchSpec:
+    """The strided ELL launch: lane m's slot d reads rows [0, nbr_counts)
+    of z_all[ell_indices[m, d]], z_all (m_z, n_pad, C) f32."""
+    return _ell_launch(
+        "community_spmm_ell", f"community_spmm_ell_{_BYTES_DT[block_bytes]}",
+        Operand("ell_blocks", (k, d, n_pad, n_pad), block_bytes,
+                align=a_align),
+        _ell_tables("ell_indices", k, d),
+        Operand("z_all", (m_z, n_pad, c), 4, table="ell_indices",
+                addressing="index", rows="nbr_counts", align=z_align),
+        "ell_mask")
+
+
+@functools.lru_cache(maxsize=512)
+def ell_packed_spec(k: int, d: int, n_pad: int, c: int, plane_rows: int, *,
+                    block_bytes: int = 4, z_align: int = 16,
+                    a_align: int = 16) -> LaunchSpec:
+    """The packed launch: lane m's slot d reads plane rows [ell_offsets[m,
+    d], + nbr_counts[m, d]) of the (plane_rows, C) f32 plane."""
+    return _ell_launch(
+        "community_spmm_ell_packed",
+        f"community_spmm_ell_packed_{_BYTES_DT[block_bytes]}",
+        Operand("ell_blocks", (k, d, n_pad, n_pad), block_bytes,
+                align=a_align),
+        _ell_tables("ell_offsets", k, d),
+        Operand("z_plane", (plane_rows, c), 4, table="ell_offsets",
+                addressing="rows", rows="nbr_counts", align=z_align),
+        "ell_mask")
+
+
+@functools.lru_cache(maxsize=512)
+def spmm_spec(k: int, m: int, n_pad: int, c: int, *, z_align: int = 16,
+              a_align: int = 16) -> LaunchSpec:
+    """The dense launch: lane i's slot r is block r of its row, live where
+    mask[i, r] != 0, reading z_all[r]; f32 blocks, ``ell_layout``'s tile."""
+    return _ell_launch(
+        "community_spmm", "community_spmm_dense_f32",
+        Operand("a_row", (k, m, n_pad, n_pad), 4, align=a_align),
+        (Operand("mask", (k, m), 4, role="table"),),
+        Operand("z_all", (m, n_pad, c), 4, align=z_align), "mask",
+        dense=True)
+
+
+@functools.lru_cache(maxsize=512)
+def ell_fused_spec(k: int, d: int, n_pad: int, c_in: int, c_out: int,
+                   plane_rows: int, *, block_bytes: int = 4) -> LaunchSpec:
+    """The fused launch: the packed addressing over a (plane_rows, C_in)
+    plane, then @ w (C_in, C_out); one 32-row tile per cluster of
+    ``fused_cluster(C_in)`` blocks of 256 threads."""
+    i32 = dict(itemsize=4, role="table")
+    args = (Operand("ell_blocks", (k, d, n_pad, n_pad), block_bytes),
+            Operand("ell_offsets", (k, d), **i32),
+            Operand("ell_mask", (k, d), **i32),
+            Operand("row_counts", (k,), **i32),
+            Operand("nbr_counts", (k, d), **i32),
+            Operand("z_plane", (plane_rows, c_in), 4, table="ell_offsets",
+                    addressing="rows", rows="nbr_counts"),
+            Operand("w", (c_in, c_out), 4),
+            Operand("out", (k, n_pad, c_out), 4, role="out"))
+    return LaunchSpec(
+        name="community_spmm_ell_fused", lib=FUSED_LIB,
+        symbol=f"community_spmm_ell_fused_{_BYTES_DT[block_bytes]}",
+        args=args, ints=(k, d, n_pad, c_in, c_out),
+        grid=fused_grid(k, n_pad, c_in), threads=_FUSED_THREADS,
+        smem_bytes=fused_smem_bytes(c_in), tile=(_FUSED_ROWS, c_out),
+        mask="ell_mask", query_symbol=FUSED_QUERY, query=(c_in,),
+        flops=2.0 * k * n_pad * (d * n_pad * c_in + c_in * c_out),
+        cluster=fused_cluster(c_in)[0])
+
+
+def query_layout(spec: LaunchSpec) -> tuple[int, ...]:
+    """The built library's answer to ``spec``'s layout query (needs the
+    card's toolchain: it loads the library)."""
+    import ctypes
+    lib = build.load(spec.lib)
+    fn = getattr(lib, spec.query_symbol)
+    fn.argtypes = [ctypes.c_int] * len(spec.query) + [
+        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    words = len(spec.layout_words())
+    out = (ctypes.c_int * words)()
+    if fn(*spec.query, out) != 0:
+        raise ValueError(f"{spec.query_symbol}{spec.query} refused")
+    return tuple(out)
+
+
+def _launch(spec: LaunchSpec, tensors: dict, device: torch.device) -> None:
+    """Launch ``spec`` on ``tensors`` (by operand name, the output
+    included) on the current stream of ``device``."""
+    build.launch(spec.name, spec.lib, spec.symbol,
+                 [tensors[a.name] for a in spec.args], list(spec.ints),
+                 device, "community_spmm_error_string")
+    if trace.RECORDER is not None:
+        trace.RECORDER.kernel(spec, tensors, "cuda")
 
 
 def check_indices(ell_indices: torch.Tensor, ell_mask: torch.Tensor,
@@ -144,10 +363,13 @@ def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
     out = torch.empty((k, n_pad, c), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _launch("community_spmm_ell", LIB,
-            f"community_spmm_ell_{_DTYPES[ell_blocks.dtype]}",
-            [ell_blocks, ell_indices, ell_mask, row_counts, nbr_counts,
-             z_all, out], [k, d, n_pad, c], device)
+    bb = ell_blocks.element_size()
+    spec = ell_spec(k, d, n_pad, c, m_total, block_bytes=bb,
+                    z_align=copy_align(z_all.data_ptr(), 4 * c),
+                    a_align=copy_align(ell_blocks.data_ptr(), bb * n_pad))
+    _launch(spec, dict(ell_blocks=ell_blocks, ell_indices=ell_indices,
+                       ell_mask=ell_mask, row_counts=row_counts,
+                       nbr_counts=nbr_counts, z_all=z_all, out=out), device)
     launches += 1
     return out
 
@@ -183,10 +405,15 @@ def community_spmm_ell_packed(ell_blocks: torch.Tensor,
     out = torch.empty((k, n_pad, c), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _launch("community_spmm_ell_packed", LIB,
-            f"community_spmm_ell_packed_{_DTYPES[ell_blocks.dtype]}",
-            [ell_blocks, ell_offsets, ell_mask, row_counts, nbr_counts,
-             z_plane, out], [k, d, n_pad, c], device)
+    bb = ell_blocks.element_size()
+    spec = ell_packed_spec(
+        k, d, n_pad, c, z_plane.shape[0], block_bytes=bb,
+        z_align=copy_align(z_plane.data_ptr(), 4 * c),
+        a_align=copy_align(ell_blocks.data_ptr(), bb * n_pad))
+    _launch(spec, dict(ell_blocks=ell_blocks, ell_offsets=ell_offsets,
+                       ell_mask=ell_mask, row_counts=row_counts,
+                       nbr_counts=nbr_counts, z_plane=z_plane, out=out),
+            device)
     packed_launches += 1
     return out
 
@@ -309,10 +536,12 @@ def community_spmm_ell_fused(ell_blocks: torch.Tensor,
     out = torch.empty((k, n_pad, c_out), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _launch("community_spmm_ell_fused", FUSED_LIB,
-            f"community_spmm_ell_fused_{_DTYPES[ell_blocks.dtype]}",
-            [ell_blocks, ell_offsets, ell_mask, row_counts, nbr_counts,
-             z_plane, w, out], [k, d, n_pad, c_in, c_out], device)
+    spec = ell_fused_spec(k, d, n_pad, c_in, c_out, z_plane.shape[0],
+                          block_bytes=ell_blocks.element_size())
+    _launch(spec, dict(ell_blocks=ell_blocks, ell_offsets=ell_offsets,
+                       ell_mask=ell_mask, row_counts=row_counts,
+                       nbr_counts=nbr_counts, z_plane=z_plane, w=w, out=out),
+            device)
     fused_launches += 1
     return out
 
@@ -344,7 +573,9 @@ def community_spmm(a_row: torch.Tensor, z_all: torch.Tensor,
     out = torch.empty((k, n_pad, c), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _launch("community_spmm", LIB, "community_spmm_dense_f32",
-            [a_row, z_all, mask, out], [k, m_total, n_pad, c], device)
+    spec = spmm_spec(k, m_total, n_pad, c,
+                     z_align=copy_align(z_all.data_ptr(), 4 * c),
+                     a_align=copy_align(a_row.data_ptr(), 4 * n_pad))
+    _launch(spec, dict(a_row=a_row, z_all=z_all, mask=mask, out=out), device)
     dense_launches += 1
     return out

@@ -3,12 +3,17 @@
 A CUDA tensor runs the hand-written CUDA kernel; a CPU tensor runs the
 plain PyTorch version — as src/repro/kernels/ops.py runs the Pallas kernel
 on a TPU and its jnp oracle elsewhere.  A kernel that fails to build or
-launch raises: nothing falls back to the plain version.
+launch raises: nothing falls back to the plain version.  Under an op-trace
+recorder (``analysis.trace``) a plain aggregation is recorded as the
+kernel launch it stands in for, with the launch spec the kernel would take,
+so that a trace on the CPU carries the same kernel events as one on the
+card.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.kernels import community_spmm as launchers
 from repro_torch.kernels import flash_attention as flash_launcher
 from repro_torch.kernels import ref
@@ -24,6 +29,18 @@ def _mask(t: torch.Tensor) -> torch.Tensor:
     if t.dtype != torch.int32:
         t = (t != 0).to(torch.int32)
     return t.contiguous()
+
+
+def _align(t: torch.Tensor, row: int) -> int:
+    return launchers.copy_align(t.data_ptr(), row * t.element_size())
+
+
+def _plain(spec, out: torch.Tensor, **tensors) -> torch.Tensor:
+    """``out`` of a plain version, recorded as the kernel event of ``spec``
+    when a trace is being recorded."""
+    if trace.RECORDER is not None:
+        trace.RECORDER.kernel(spec(), dict(tensors, out=out), "plain")
+    return out
 
 
 def community_spmm(a_row: torch.Tensor, z_all: torch.Tensor,
@@ -44,7 +61,13 @@ def community_spmm(a_row: torch.Tensor, z_all: torch.Tensor,
         mask = torch.ones((a_row.shape[-3],), dtype=torch.int32,
                           device=a_row.device)
     if z_all.device.type == "cpu":
-        return ref.community_spmm_ref(a_row, z_all, mask)
+        m_total, n_pad, c = z_all.shape
+        return _plain(
+            lambda: launchers.spmm_spec(
+                a_row.shape[0] if a_row.dim() == 4 else 1, m_total, n_pad,
+                c, z_align=_align(z_all, c), a_align=_align(a_row, n_pad)),
+            ref.community_spmm_ref(a_row, z_all, mask), a_row=a_row,
+            z_all=z_all, mask=mask)
     lanes = a_row if a_row.dim() == 4 else a_row[None]
     k, m_total = lanes.shape[:2]
     out = launchers.community_spmm(
@@ -70,11 +93,19 @@ def community_spmm_ell(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
     Without counts every row is live (the global-pad layout).  Operands
     already int32 and contiguous reach the kernel without a copy.
     """
-    if z_all.device.type == "cpu":
-        return ref.community_spmm_ell_einsum(ell_blocks, ell_indices,
-                                             ell_mask, z_all, row_counts,
-                                             nbr_counts)
     k, max_deg, n_pad, _ = ell_blocks.shape
+    if z_all.device.type == "cpu":
+        m_total, _, c = z_all.shape
+        return _plain(
+            lambda: launchers.ell_spec(
+                k, max_deg, n_pad, c, m_total,
+                block_bytes=ell_blocks.element_size(),
+                z_align=_align(z_all, c), a_align=_align(ell_blocks, n_pad)),
+            ref.community_spmm_ell_einsum(ell_blocks, ell_indices, ell_mask,
+                                          z_all, row_counts, nbr_counts),
+            ell_blocks=ell_blocks, ell_indices=ell_indices,
+            ell_mask=ell_mask, row_counts=row_counts, nbr_counts=nbr_counts,
+            z_all=z_all)
     i32 = dict(dtype=torch.int32, device=z_all.device)
     if row_counts is None:
         row_counts = torch.full((k,), n_pad, **i32)
@@ -98,9 +129,19 @@ def community_spmm_ell_packed(ell_blocks: torch.Tensor,
     (k, n_pad, C) aggregate with rows past ``row_counts`` zero.
     """
     if z_plane.device.type == "cpu":
-        return ref.community_spmm_ell_packed_einsum(
-            ell_blocks, ell_offsets, ell_mask, z_plane, row_counts,
-            nbr_counts)
+        k, d, n_pad, _ = ell_blocks.shape
+        rows, c = z_plane.shape
+        return _plain(
+            lambda: launchers.ell_packed_spec(
+                k, d, n_pad, c, rows, block_bytes=ell_blocks.element_size(),
+                z_align=_align(z_plane, c),
+                a_align=_align(ell_blocks, n_pad)),
+            ref.community_spmm_ell_packed_einsum(
+                ell_blocks, ell_offsets, ell_mask, z_plane, row_counts,
+                nbr_counts),
+            ell_blocks=ell_blocks, ell_offsets=ell_offsets,
+            ell_mask=ell_mask, row_counts=row_counts, nbr_counts=nbr_counts,
+            z_plane=z_plane)
     return launchers.community_spmm_ell_packed(
         ell_blocks.detach().contiguous(), _i32(ell_offsets), _mask(ell_mask),
         z_plane.detach().contiguous(), _i32(row_counts), _i32(nbr_counts))
@@ -120,9 +161,18 @@ def community_spmm_ell_fused(ell_blocks: torch.Tensor,
     Returns (k, n_pad, C_out) with rows past ``row_counts`` zero.
     """
     if z_plane.device.type == "cpu":
-        return ref.community_spmm_ell_fused_einsum(
-            ell_blocks, ell_offsets, ell_mask, z_plane, w, row_counts,
-            nbr_counts)
+        k, d, n_pad, _ = ell_blocks.shape
+        rows, c_in = z_plane.shape
+        return _plain(
+            lambda: launchers.ell_fused_spec(
+                k, d, n_pad, c_in, w.shape[1], rows,
+                block_bytes=ell_blocks.element_size()),
+            ref.community_spmm_ell_fused_einsum(
+                ell_blocks, ell_offsets, ell_mask, z_plane, w, row_counts,
+                nbr_counts),
+            ell_blocks=ell_blocks, ell_offsets=ell_offsets,
+            ell_mask=ell_mask, row_counts=row_counts, nbr_counts=nbr_counts,
+            z_plane=z_plane, w=w)
     return launchers.community_spmm_ell_fused(
         ell_blocks.detach().contiguous(), _i32(ell_offsets), _mask(ell_mask),
         z_plane.detach().contiguous(), w.detach().float().contiguous(),

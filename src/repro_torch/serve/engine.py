@@ -32,9 +32,11 @@ layer GEMM and its activation) are plain tensor operations.  Cached blocks
 never alias a tensor that is later written: scratch planes are fresh per
 call, and ``update_features`` replaces the feature plane rather than
 writing into it.  ``serve`` reads one result to the host per community
-batch (the response) and nothing else.  The reference's lowered-program
-helpers (``hit_path_lowered``, ``halo_path_lowered``) feed its HLO
-analysis package, which has no counterpart here.
+batch (the response) and nothing else.  ``hit_path_trace`` and
+``halo_path_trace`` (the counterparts of the reference's
+``hit_path_lowered`` / ``halo_path_lowered``) run the hit and halo paths
+once on placeholder operands under the op-trace recorder, for
+``repro_torch.analysis``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.core import gcn, graph, messages
 from repro_torch.kernels import community_spmm
 from repro_torch.kernels import ops as kops
@@ -69,6 +72,11 @@ class ServeConfig:
     def __post_init__(self):
         if self.admission not in ("zipf", "lru"):
             raise ValueError(f"unknown admission {self.admission!r}")
+
+
+def _take_rows(block: Tensor, rows: Tensor) -> Tensor:
+    """The hit path: the requested rows of one community block."""
+    return block.index_select(0, rows)
 
 
 def _halo_row(ell_row: Tensor, off_row: Tensor, mask_row: Tensor,
@@ -276,7 +284,7 @@ class CommunityServer:
             self.request_total += b.count
             if hit:
                 self.request_hits += b.count
-            vals = block.index_select(0, self._rows(b.rows))
+            vals = _take_rows(block, self._rows(b.rows))
             out[b.positions] = vals.cpu().numpy()[:b.count]
         return out
 
@@ -319,6 +327,42 @@ class CommunityServer:
                     dropped_halo.append((int(m), layer))
         return {"dirty": [c.tolist() for c in closure],
                 "embed": dropped_embed, "halo": dropped_halo}
+
+    # --- analysis ---------------------------------------------------------
+
+    def hit_path_trace(self, bucket: int = 64) -> "trace.Trace":
+        """The steady-state hit path, recorded on placeholders: one
+        community block in, ``bucket`` requested rows out."""
+        rc = int(self.row_counts.max())
+        block = torch.zeros((rc, self.cfg.layer_dims[-1]),
+                            dtype=torch.float32, device=self.device)
+        rows = torch.zeros((int(bucket),), dtype=torch.int32,
+                           device=self.device)
+        with trace.record() as tape:
+            _take_rows(block, rows)
+        return tape
+
+    def halo_path_trace(self, layer: int = 1) -> "trace.Trace":
+        """The miss path's halo pass of community 0 at ``layer``, recorded
+        on placeholders: zero tables (every slot masked) and a zero plane
+        of the resident plane's rows (the plane is legitimately
+        Σ-bucket-rows tall here; the rule checked is no collective)."""
+        c = self.cfg.layer_dims[layer - 1]
+
+        def zeros(like, dtype):
+            return torch.zeros(like.shape, dtype=dtype, device=self.device)
+
+        ops = (zeros(self._ell_row[0], torch.float32),
+               zeros(self._off_row[0], torch.int32),
+               zeros(self._mask_row[0], torch.float32),
+               zeros(self._self_row[0], torch.float32),
+               torch.zeros((self.dl.plane_rows, c), dtype=torch.float32,
+                           device=self.device),
+               self._rc_arr[0].clone(),
+               zeros(self._nc_row[0], torch.int32))
+        with trace.record() as tape:
+            _halo_row(*ops, int(self.row_counts[0]))
+        return tape
 
     # --- introspection ----------------------------------------------------
 

@@ -526,6 +526,56 @@ def test_ell_layout_matches_the_launcher(cuda_device):
     assert query(1, 8, 8, 8, 16, 16, out) == 1
 
 
+@pytest.mark.parametrize("bb", [4, 2])
+@pytest.mark.parametrize("z_align,a_align", [(16, 16), (4, 4), (4, 2),
+                                             (8, 16)])
+def test_launch_specs_match_the_layout_queries(cuda_device, bb, z_align,
+                                               a_align):
+    """Every launch spec (strided, packed, dense, fused) answers what its
+    library's layout query answers: tile, threads per tile, stages, grid,
+    shared memory and copy widths; the fused spec its cluster and shared
+    memory."""
+    for k in (1, 3, 16, 132):
+        for n_pad in (8, 65, 129, 864, 4584):
+            for c in (1, 10, 33, 64, 767, 1000):
+                specs = [community_spmm.ell_spec(
+                             k, 3, n_pad, c, k, block_bytes=bb,
+                             z_align=z_align, a_align=a_align),
+                         community_spmm.ell_packed_spec(
+                             k, 3, n_pad, c, k * n_pad, block_bytes=bb,
+                             z_align=z_align, a_align=a_align),
+                         community_spmm.ell_fused_spec(
+                             k, 3, n_pad, c, 7, k * n_pad, block_bytes=bb)]
+                if bb == 4:
+                    specs.append(community_spmm.spmm_spec(
+                        k, 3, n_pad, c, z_align=z_align, a_align=a_align))
+                for spec in specs:
+                    assert community_spmm.query_layout(spec) == \
+                        spec.layout_words(), (spec.name, spec.query)
+
+
+def test_analysis_on_the_card(cuda_device):
+    """The linter's configs on the card: every kernel event on the CUDA
+    route, zero error findings, each spec within the card's shared memory
+    and equal to its layout query."""
+    from repro_torch import analysis
+    from repro_torch.analysis.registry import AnalysisContext
+    from repro_torch.analysis.rules.kernel import kernel_entries, smem_limit
+    from repro_torch.launch import analyze
+
+    for spec in analyze.FULL_CONFIGS:
+        tape, exp = analysis.record_step(
+            analyze.build_trainer(spec, cuda_device))
+        ctx = AnalysisContext(trace=tape, expectations=exp)
+        rep = analysis.run_rules(ctx, waivers=analyze.waivers())
+        assert not rep.errors(), rep.summary()
+        kernels = tape.of_kind("kernel")
+        assert kernels and {e.info["route"] for e in kernels} == {"cuda"}
+        for s, _ in kernel_entries(ctx):
+            assert s.smem_bytes <= smem_limit()
+            assert community_spmm.query_layout(s) == s.layout_words()
+
+
 # the ELL / packed kernel at its tile edges: n_pad and C on both sides of 64
 # and 128, C from 1 to 767, in each tile configuration (the fewest lanes
 # that select it)

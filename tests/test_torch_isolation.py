@@ -48,7 +48,18 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.core.messages", "repro_torch.sharding.partition",
                  "repro_torch.core.layerwise",
                  "repro_torch.checkpoint.checkpoint",
-                 "repro_torch.data.pipeline"):
+                 "repro_torch.data.pipeline", "repro_torch.analysis",
+                 "repro_torch.analysis.findings",
+                 "repro_torch.analysis.registry",
+                 "repro_torch.analysis.trace",
+                 "repro_torch.analysis.trainer",
+                 "repro_torch.analysis.rules",
+                 "repro_torch.analysis.rules.collective",
+                 "repro_torch.analysis.rules.kernel",
+                 "repro_torch.analysis.rules.memory",
+                 "repro_torch.analysis.rules.precision",
+                 "repro_torch.launch.roofline",
+                 "repro_torch.launch.analyze"):
         assert name in proc.stdout.split(), name
 
 
