@@ -57,6 +57,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      equal, <= 1e-4), fused vs unfused objectives (<= 1e-4), and the
      stacked packed and fused launches at the trainer's shapes against one
      launch per shard (bitwise) and their plain versions, then timed;
+     3p. the agents as separate processes: the same M = 3 over 3 rank
+     processes of a torch.distributed group on the card (gloo; each round's
+     rows staged through pinned host buffers), one community a rank,
+     packed, through the packed kernel for 3 epochs, then fused, overlap
+     and the bf16 wire one epoch each: set-up s and step ms per rank, each
+     rank's launches a step (packed 3; fused 2 + 4; overlap 3 per arrival
+     group), the bytes sent a step against the plan's wire (equal), the
+     transport's host ms with its staging copies apart, W equal on every
+     rank after every step (by hash), the Lagrangian and residual finite,
+     only rank 0 holding the full adjacency (for the metrics), rank 0's
+     profiled idle share, and one step from each 3m trainer's state
+     against the loopback's step (tau/theta equal, <= 1e-5 of max;
+     bitwise reported); a rank that fails, hangs or exits nonzero fails
+     the script;
   4. time the ELL and dense launches, their plain versions and the
      library composition (gather + einsum, masked einsum) at the trainer's
      shapes, beside the card's bound, with each launch's tile
@@ -164,6 +178,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -180,6 +195,12 @@ BF16_EPOCHS = 2
 SHARDS = 3                     # phase 3m: M = 3 over 3 loopback shards
 SHARD_MODE_EPOCHS = 1          # overlap, bf16 wire, batch 1/3
 SHARD_TOL = 1e-4               # 3 shards vs 1 (the psum reassociated)
+# phase 3p: M = 3 over 3 rank processes on the one card, (mode, trainer
+# flags, epochs); each mode's step from the loopback's state within TOL
+PROCESS_RUNS = (("unfused", {}, EPOCHS), ("fused", {"fused": True}, 1),
+                ("overlap", {"overlap": True}, 1),
+                ("bf16-wire", {"comm_bf16": True}, 1))
+PROCESS_MODES = tuple(name for name, _, _ in PROCESS_RUNS)
 PACKED_REPLACES = "src/repro/kernels/community_spmm.py:421"
 ELL_DESIGN = ("FFMA from a cp.async ring of 32-row stages, one FFMA chain "
               "per output in slot and row order; tile chosen by "
@@ -290,10 +311,13 @@ def device_busy_us(events) -> float:
     """Microseconds the card was busy: the union of the intervals of the
     device events (kernels, copies, fills) the profiler traced.  Host ops
     are left out: their device time is that of the kernels they launched,
-    which appear as events of their own."""
+    which appear as events of their own.  So are gloo's point-to-point
+    waits (``gloo:recv``, ``gloo:send``), which the profiler files with
+    the device events although no kernel runs in them."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("gloo:"))
     busy, end = 0.0, -math.inf
     for lo, hi in spans:
         if hi > end:
@@ -809,14 +833,33 @@ def launch_text(c: dict) -> str:
     return (f"ELL {c['ell']}, packed {c['packed']}, fused {c['fused']}")
 
 
+def state_arrays(st) -> list:
+    """A trainer state's leaves as host arrays, in ``ParallelState``
+    order."""
+    return [t.detach().cpu().numpy() for t in
+            st.weights + st.zs + (st.u,) + st.taus + st.thetas]
+
+
+def save_loopback(tr, saved: dict, name: str) -> None:
+    """Keep the loopback trainer's state and its next state from there (on
+    the host, in ``saved["dir"]``) for phase 3p's ranks to step from."""
+    import numpy as np
+    path = pathlib.Path(saved["dir"]) / f"loopback-{name}.npz"
+    np.savez(path, *state_arrays(tr.state))
+    saved[name] = {"path": str(path), "next": state_arrays(tr.next_state()),
+                   "layers": tr.cfg.num_layers}
+
+
 def multishard_phase(cfg, admm, g, card: str, dev, peak_flops: float,
-                     peak_bw: float) -> dict:
+                     peak_bw: float, saved: dict) -> dict:
     """Phase 3m: the paper's multi-agent Parallel ADMM, M = 3 communities
     over 3 loopback shards of the card on the packed wire: unfused and
     fused training, one epoch each of overlap, the bf16 wire and a 1/3
     batch; a step against the one-shard trainer; the stacked launches
     against per-shard launches and against their plain versions; and the
-    packed and fused kernels timed at the trainer's shapes."""
+    packed and fused kernels timed at the trainer's shapes.  Each trained
+    state of the unfused, fused, overlap and bf16-wire runs and the step
+    from it go to ``saved`` (phase 3p)."""
     import torch
 
     from repro_torch.core import graph
@@ -848,6 +891,7 @@ def multishard_phase(cfg, admm, g, card: str, dev, peak_flops: float,
           f"B), overlap model efficiency "
           f"{cs['overlap']['overlap_efficiency']:.4f}", flush=True)
     log, run, per = trained(tr, "3m", EPOCHS)
+    save_loopback(tr, saved, "unfused")
     if run["packed"] == 0:
         fail("the 3-shard packed training run never launched the packed "
              "kernel")
@@ -981,6 +1025,7 @@ def multishard_phase(cfg, admm, g, card: str, dev, peak_flops: float,
     # fused: the four Z-update sites through the fused kernel
     tf, setup = build(fused=True)
     log_f, run_f, per_f = trained(tf, "3m-fused", EPOCHS)
+    save_loopback(tf, saved, "fused")
     if run_f["fused"] == 0:
         fail("the fused 3-shard training run never launched the fused "
              "kernel")
@@ -1016,6 +1061,8 @@ def multishard_phase(cfg, admm, g, card: str, dev, peak_flops: float,
                      ("batch-1/3", {"batch_fraction": 1 / 3})):
         tm, setup = build(**kw)
         log_m, run_m, per_m = trained(tm, f"3m-{name}", SHARD_MODE_EPOCHS)
+        if name in PROCESS_MODES:
+            save_loopback(tm, saved, name)
         if run_m["packed"] == 0:
             fail(f"the {name} run never launched the packed kernel")
         cs = tm.comm_stats
@@ -1038,6 +1085,230 @@ def multishard_phase(cfg, admm, g, card: str, dev, peak_flops: float,
         del tm
         torch.cuda.empty_cache()
     print(f"[3m] summary {json.dumps(out)}", flush=True)
+    return out
+
+
+def process_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 3p, one rank: its trainer of each mode over the process
+    transport (gloo on the one card), trained, counted, profiled, and one
+    step from the loopback trainer's state; its record to
+    ``spec["dir"]/rank{rank}.json`` and its next state's part to
+    ``rank{rank}-{mode}.npz``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import gcn_paper
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import graph
+    from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
+    from repro_torch.launch import mesh as mesh_lib
+    t_start = time.perf_counter()
+    mesh = mesh_lib.init_process_mesh(rank, SHARDS, "gloo", store,
+                                      timeout=120)
+    dev = mesh.device
+    try:
+        cfg, admm = gcn_paper.config("amazon_computers")
+        g = graph.synthetic_sbm("amazon_computers", seed=0)
+        part = graph.partition_graph(g.num_nodes, g.edges, 3, seed=0,
+                                     method="bfs_kl")
+        out = {"device": str(dev), "ready_s": time.perf_counter() - t_start}
+
+        def w_hash(tr):
+            h = hashlib.sha256()
+            for w in tr.state.weights:
+                h.update(w.detach().cpu().numpy().tobytes())
+            return h.hexdigest()
+
+        for name, kw, epochs in PROCESS_RUNS:
+            t0 = time.perf_counter()
+            tr = ParallelADMMTrainer(
+                cfg, admm, g, num_parts=3, seed=0, part=part, mesh=mesh,
+                config=TrainerConfig.packed(use_kernel=True,
+                                            partitioner="bfs_kl", **kw))
+            torch.cuda.synchronize(dev)
+            rec = {"setup_s": time.perf_counter() - t0, "steps_ms": [],
+                   "w_hashes": [], "metrics": [], "per_step": [],
+                   "sent_bytes": [], "transport_ms": [], "staging_ms": []}
+            reset_counts()
+            for _ in range(epochs):
+                before = counts()
+                torch.cuda.synchronize(dev)
+                t1 = time.perf_counter()
+                tr.step()
+                torch.cuda.synchronize(dev)
+                rec["steps_ms"].append(1e3 * (time.perf_counter() - t1))
+                after = counts()
+                rec["per_step"].append({k: after[k] - before[k]
+                                        for k in after})
+                cs = tr.comm_stats
+                rec["sent_bytes"].append(cs["sent_bytes"])
+                rec["transport_ms"].append(1e3 * cs["transport_s"])
+                rec["staging_ms"].append(1e3 * cs["staging_s"])
+                rec["w_hashes"].append(w_hash(tr))
+                rec["metrics"].append(tr.epoch_metrics())
+            rec["launches"] = counts()
+            rec["wire_bytes"] = tr.comm_stats["wire_bytes"]
+            rec["groups"] = tr.comm_stats["overlap"]["num_groups"] \
+                if tr.comm_stats["overlap"]["enabled"] else 1
+            rec["resident_adjacency_bytes"] = int(tr.data.adjacency_nbytes)
+            rec["holds_full_adjacency"] = tr._full_data is not None
+            if name == "unfused":
+                if rank == 0:
+                    wall_us, busy_us, idle, events = profiled(tr.step)
+                    rec["profiled"] = {
+                        "wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+                        "idle": idle,
+                        "by_kind": device_ms_by_kind(events, top=6)}
+                else:
+                    tr.step()
+            # one step from the loopback trainer's state of this mode
+            src = spec["loopback"][name]
+            with np.load(src["path"]) as data:
+                leaves = [data[f"arr_{i}"] for i in range(len(data.files))]
+            n = src["layers"]
+            tr.state = state_from_numpy(
+                leaves[:n], leaves[n:2 * n], leaves[2 * n],
+                leaves[2 * n + 1:3 * n + 1], leaves[3 * n + 1:],
+                device=dev, lanes=tr._lanes)
+            np.savez(pathlib.Path(spec["dir"]) / f"rank{rank}-{name}.npz",
+                     *state_arrays(tr.next_state()))
+            out[name] = rec
+            del tr
+            torch.cuda.empty_cache()
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        (pathlib.Path(spec["dir"]) / f"rank{rank}.json").write_text(
+            json.dumps(out))
+    finally:
+        mesh_lib.destroy(mesh)
+
+
+def process_phase(card: str, saved: dict) -> dict:
+    """Phase 3p: the paper's agents as separate processes — 3 ranks on the
+    one card (gloo, rows staged through the host), each hosting one of the
+    M = 3 communities at full width, trained through the packed kernel (3
+    epochs; then fused, overlap and the bf16 wire one epoch each) and
+    stepped from the loopback trainer's state of phase 3m."""
+    import numpy as np
+
+    from repro_torch.launch import mesh as mesh_lib
+    spec = {"dir": saved["dir"], "loopback": {
+        name: {"path": saved[name]["path"], "layers": saved[name]["layers"]}
+        for name, _, _ in PROCESS_RUNS}}
+    t0 = time.perf_counter()
+    mesh_lib.run_ranks(process_rank, SHARDS, (spec,), timeout=900)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((pathlib.Path(saved["dir"]) / f"rank{r}.json")
+                        .read_text()) for r in range(SHARDS)]
+    print(f"[3p] {SHARDS} ranks (gloo, one card) in {wall:.1f} s: devices "
+          f"{[r['device'] for r in ranks]}, ready (group joined) "
+          f"{[round(r['ready_s'], 1) for r in ranks]} s, peak "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} GB [{card}]",
+          flush=True)
+    out: dict = {"wall_s": wall}
+    want_launches = {"unfused": {"packed": 3, "fused": 0},
+                     "fused": {"packed": 2, "fused": 4}}
+    for name, _, epochs in PROCESS_RUNS:
+        recs = [r[name] for r in ranks]
+        head = recs[0]
+        print(f"[3p] {name}: set-up {[round(r['setup_s'], 1) for r in recs]} "
+              f"s by rank; step ms by epoch, rank 0 "
+              f"{[round(t, 1) for t in head['steps_ms']]}, every rank "
+              f"{[[round(t, 1) for t in r['steps_ms']] for r in recs]}",
+              flush=True)
+        for e in range(epochs):
+            tr_acc, te_acc, lag, res = head["metrics"][e]
+            print(f"[3p] {name} epoch {e}: lagrangian {lag:.6f}, residual "
+                  f"{res:.6e}, train {tr_acc:.4f}, test {te_acc:.4f}; sent "
+                  f"{head['sent_bytes'][e]} B (plan {head['wire_bytes']} B); "
+                  f"transport ms by rank "
+                  f"{[round(r['transport_ms'][e], 1) for r in recs]}, of it "
+                  f"host staging "
+                  f"{[round(r['staging_ms'][e], 1) for r in recs]}",
+                  flush=True)
+            if not (math.isfinite(lag) and math.isfinite(res)):
+                fail(f"3p {name}: a non-finite Lagrangian or residual")
+            if any(r["sent_bytes"][e] != head["wire_bytes"] for r in recs):
+                fail(f"3p {name}: the ranks sent {head['sent_bytes'][e]} B, "
+                     f"the plan wires {head['wire_bytes']} B")
+            if any(r["w_hashes"][e] != head["w_hashes"][e] for r in recs):
+                fail(f"3p {name}: W differs between ranks after step {e}")
+            if any(r["metrics"][e] != head["metrics"][e] for r in recs):
+                fail(f"3p {name}: the ranks report different metrics")
+        per_step = [r["per_step"] for r in recs]
+        print(f"[3p] {name}: launches a step by rank (packed, fused) "
+              f"{[[(c['packed'], c['fused']) for c in p] for p in per_step]}"
+              f"; W equal on every rank after every step (sha256 "
+              f"{head['w_hashes'][-1][:16]}); resident adjacency by rank "
+              f"{[r['resident_adjacency_bytes'] for r in recs]} B, full "
+              f"adjacency held {[r['holds_full_adjacency'] for r in recs]}",
+              flush=True)
+        # overlap splits each aggregation by arrival group
+        want = want_launches.get(name, {"packed": 3 * head["groups"],
+                                        "fused": 0})
+        for p in per_step:
+            for c in p:
+                if c["packed"] != want["packed"] or \
+                        c["fused"] != want["fused"]:
+                    fail(f"3p {name}: a rank's step launched packed "
+                         f"{c['packed']}, fused {c['fused']} (want "
+                         f"{want['packed']}, {want['fused']})")
+        if any(r["holds_full_adjacency"] for r in recs[1:]):
+            fail("3p: a rank other than 0 holds the full adjacency")
+        # one step from the loopback's state: each rank's part against the
+        # loopback's next state
+        want_next = saved[name]["next"]
+        n = saved[name]["layers"]
+        parts = []
+        for r in range(SHARDS):
+            with np.load(pathlib.Path(saved["dir"])
+                         / f"rank{r}-{name}.npz") as data:
+                parts.append([data[f"arr_{i}"]
+                              for i in range(len(data.files))])
+        worst, bitwise, same = 0.0, {}, True
+        for i, want_i in enumerate(want_next):
+            shared = i < n or 2 * n + 1 <= i < 3 * n + 1     # W, τ
+            got_i = parts[0][i] if shared else \
+                np.concatenate([p[i] for p in parts])
+            kind = ("W" if i < n else "Z" if i < 2 * n else "U"
+                    if i == 2 * n else "tau" if i < 3 * n + 1 else "theta")
+            bitwise[f"{kind}{i}"] = bool(np.array_equal(got_i, want_i))
+            if kind in ("tau", "theta"):
+                same &= bitwise[f"{kind}{i}"]
+            else:
+                scale = float(np.abs(want_i).max()) or 1.0
+                worst = max(worst, float(np.abs(got_i - want_i).max())
+                            / scale)
+            if shared and any(not np.array_equal(p[i], got_i)
+                              for p in parts):
+                fail(f"3p {name}: the ranks' next {kind} differ")
+        print(f"[3p] {name}: one step from the loopback trainer's state, "
+              f"{SHARDS} processes vs the loopback: tau/theta equal {same}, "
+              f"W/Z/U max rel diff {worst:.3e} (limit {TOL}); bitwise "
+              f"{json.dumps(bitwise)}", flush=True)
+        if not (same and worst <= TOL):
+            fail(f"3p {name}: the process step disagrees with the loopback")
+        out[name] = {"steps_ms": head["steps_ms"],
+                     "steps_ms_by_rank": [r["steps_ms"] for r in recs],
+                     "setup_s": [r["setup_s"] for r in recs],
+                     "per_step": per_step, "sent_bytes": head["sent_bytes"],
+                     "wire_bytes": head["wire_bytes"],
+                     "transport_ms": [r["transport_ms"] for r in recs],
+                     "staging_ms": [r["staging_ms"] for r in recs],
+                     "vs_loopback_max_rel_err": worst,
+                     "vs_loopback_tau_theta_equal": same,
+                     "vs_loopback_bitwise": bitwise,
+                     "launches": [r["launches"] for r in recs]}
+        if "profiled" in head:
+            prof = head["profiled"]
+            print(f"[3p] {name}: rank 0 profiled step wall "
+                  f"{prof['wall_ms']:.1f} ms, device busy "
+                  f"{prof['busy_ms']:.1f} ms, device idle share "
+                  f"{prof['idle']}; device ms by kind "
+                  f"{json.dumps(prof['by_kind'])} [{card}]", flush=True)
+            out[name]["profiled"] = prof
+    print(f"[3p] summary {json.dumps(out)}", flush=True)
     return out
 
 
@@ -2781,7 +3052,14 @@ def main() -> int:
 
     # ---- 3m. M = 3 over 3 loopback shards: the packed and fused kernels ---
     peak_flops, peak_bf16, peak_bw = roofline.peaks(name)
-    multi = multishard_phase(cfg, admm, g, card, dev, peak_flops, peak_bw)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3p_") as tmp:
+        saved = {"dir": tmp}
+        multi = multishard_phase(cfg, admm, g, card, dev, peak_flops,
+                                 peak_bw, saved)
+
+        # ---- 3p. M = 3 over 3 rank processes on the card ---------------
+        procs = process_phase(card, saved)
+        del saved
 
     # ---- 4. times -----------------------------------------------------------
     per_c = {}
@@ -2933,6 +3211,8 @@ def main() -> int:
         "stacked_bitwise_per_shard": all(
             r["packed_bitwise_per_shard"] for r in stacked),
         "launches_fused_run": multi["fused"]["launches"]["packed"],
+        "launches_3p_per_rank_step": [
+            [c["packed"] for c in p] for p in procs["unfused"]["per_step"]],
         "launches_serving_cached_run": serve["launches"]["cached"]["packed"],
         "launches_serving_cold_run": serve["launches"]["cold"]["packed"],
         "trainer_per_c": {str(c): v["packed"]
@@ -2965,6 +3245,8 @@ def main() -> int:
             + [r["fused_rel_err_vs_packed_then_matmul"] for r in stacked]),
         "launches_serving_fused_cold_run":
             serve["launches"]["fused_cold"]["fused"],
+        "launches_3p_per_rank_step": [
+            [c["fused"] for c in p] for p in procs["fused"]["per_step"]],
         "trainer_per_shape": {
             f"{c}->{1000 if c == 767 else 10}": v["fused"]
             for c, v in multi["timed"].items()},

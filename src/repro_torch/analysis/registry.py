@@ -28,7 +28,9 @@ class AnalysisContext:
     check the trace against.  Keys used by the built-in rules:
 
       transport                "p2p" | "allgather"
-      n_shards                 logical shards stacked on the device
+      n_shards                 shards of the trainer
+      hosted_shards            shards this program holds (n_shards on the
+                               loopback, 1 on a rank; default n_shards)
       round_pairs              list of per-round tuples of (src, dst)
       num_gathers              transport calls per trainer step
       collective_budget_bytes  bound on the transport's wire bytes

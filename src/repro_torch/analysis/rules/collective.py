@@ -1,9 +1,11 @@
 """Collective rules: the transport contract, read off the op trace.
 
-The port's counterparts of ``repro.analysis.rules.collective``.  The
-loopback transport records one event per exchange (its rounds' source →
-destination pairs, rows and wire bytes) and per all-gather, and the W
-update one event per shard-ordered sum (the reference's psum).  The rules
+The port's counterparts of ``repro.analysis.rules.collective``.  Both
+transports record one event per exchange (its rounds' source →
+destination pairs, rows and wire bytes: on a rank of the process
+transport the rounds it takes part in and what it sends) and per
+all-gather, and the W update one event per shard-ordered sum (the
+reference's psum).  The rules
 hold those events to the host-side ``NeighborExchange`` plan.
 """
 from __future__ import annotations
@@ -141,7 +143,10 @@ def payload_budget(ctx: AnalysisContext) -> Iterable[Finding]:
     if ctx.trace is None or budget is None:
         return
     census = ctx.census()
-    shards = int(ctx.expectations.get("n_shards", 1))
+    # the loopback records one shard's copy of an all-gather for every
+    # shard it hosts; a rank records its own
+    shards = int(ctx.expectations.get("hosted_shards",
+                                      ctx.expectations.get("n_shards", 1)))
     per = {k: census.collectives[k]["bytes"] for k in TRANSPORTS}
     moved = per["exchange"] + per["exchange_packed"] + shards * per[
         "allgather"]

@@ -4,7 +4,9 @@ previous state freed by the step, no host reads but the line searches'.
 The port's counterparts of ``repro.analysis.rules.memory``, read off the op
 trace.  The loopback stacks every shard's lanes on one device, so where the
 reference bounds one shard's program, these rules bound ``n_shards`` shards'
-worth (the bound the reference checks, times the shards stacked).
+worth (the bound the reference checks, times the shards stacked); a rank
+of the process transport holds one shard, and its bounds are one shard's
+(``hosted_shards``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,10 @@ _SAME_STACK = frozenset({
 
 
 def _shards(ctx: AnalysisContext) -> int:
-    return int(ctx.expectations.get("n_shards", 1))
+    """The shards whose lanes this trace's program holds: every shard on
+    the loopback, one on a rank of the process transport."""
+    exp = ctx.expectations
+    return int(exp.get("hosted_shards", exp.get("n_shards", 1)))
 
 
 @rule("memory/no-dense-adjacency")
@@ -224,7 +229,9 @@ def donated_inputs(ctx: AnalysisContext) -> Iterable[Finding]:
 @rule("memory/host-transfer")
 def host_transfer(ctx: AnalysisContext) -> Iterable[Finding]:
     """Every device → host read of the step (``_local_scalar_dense``, a
-    copy to the host) is a line-search decision (``trace.decide``)."""
+    copy to the host) is made on purpose: a line-search decision
+    (``trace.decide``), or on the process transport a host staging copy
+    or the step's count of bytes sent (``trace.marked``)."""
     if ctx.trace is None:
         return
     for i, e in enumerate(ctx.trace.events):

@@ -280,15 +280,30 @@ class record:
             RECORDER = None
 
 
+class marked:
+    """``with marked(site):`` — the host reads inside are made on purpose
+    and carry ``site`` in the trace, so that ``memory/host-transfer`` can
+    tell them from any other read: a line-search decision (``decide``),
+    and on the process transport the host staging of a gloo round and the
+    per-step count of the bytes sent."""
+
+    def __init__(self, site: str):
+        self.site = site
+
+    def __enter__(self) -> None:
+        self._rec = rec = RECORDER
+        if rec is not None:
+            self._prev, rec.probe_site = rec.probe_site, self.site
+
+    def __exit__(self, *exc) -> None:
+        if self._rec is not None:
+            self._rec.probe_site = self._prev
+
+
 def decide(flag: torch.Tensor, site: str) -> bool:
-    """``bool(flag)``: a line-search decision, the one host read a step
-    makes on purpose.  Under a recorder the read is marked with ``site``,
-    so that ``memory/host-transfer`` can tell it from any other read."""
-    rec = RECORDER
-    if rec is None:
+    """``bool(flag)``: a line-search decision, the host read a step makes
+    on purpose.  Under a recorder the read is marked with ``site``."""
+    if RECORDER is None:
         return bool(flag)
-    rec.probe_site = site
-    try:
+    with marked(site):
         return bool(flag)
-    finally:
-        rec.probe_site = None

@@ -29,7 +29,8 @@ def _host(t) -> np.ndarray:
 
 
 def _kernel_entries(tr: Any, n_shards: int) -> list[dict]:
-    """One ELL-kernel spec per shard, with that shard's tables (localized
+    """One ELL-kernel spec per shard the trainer hosts (every shard on the
+    loopback, its own on a rank), with that shard's tables (localized
     slots under multi-shard p2p, global ids otherwise; on the packed wire
     the receive-plane row offsets, and the fused spec first under
     ``fused``)."""
@@ -38,20 +39,19 @@ def _kernel_entries(tr: Any, n_shards: int) -> list[dict]:
                                                     ell_packed_spec, ell_spec)
 
     data = tr.data
-    m, max_deg, n_pad, _ = data.ell_blocks.shape
+    csr = tr.layout.compress()
+    m, max_deg, n_pad = csr.num_parts, csr.max_deg, tr.layout.n_pad
     k = m // n_shards
     bb = data.ell_blocks.element_size()
-    idx = _host(data.ell_indices)
-    msk = _host(data.ell_mask)
+    idx = np.asarray(csr.ell_indices)
+    msk = np.asarray(csr.ell_mask)
     z_lanes = m
     plan = tr._plan
     packed_wire = bool(tr.packed and n_shards > 1 and plan is not None)
-    csr = tr.layout.compress()
     if tr.transport == "p2p" and n_shards > 1 and plan is not None:
         idx = plan.localize_indices(csr.ell_indices, csr.ell_mask)
         z_lanes = plan.r_pad
-    rows = _host(data.row_counts)
-    nbrs = _host(data.nbr_counts)
+    rows, nbrs = (np.asarray(x) for x in csr.ell_row_counts())
     c = max(tr.cfg.layer_dims)
     # rows of a fresh allocation start 256-byte aligned: the row stride
     # decides the copy widths
@@ -61,7 +61,7 @@ def _kernel_entries(tr: Any, n_shards: int) -> list[dict]:
         off = np.asarray(plan.localized_offsets(csr.ell_indices,
                                                 csr.ell_mask))
     entries = []
-    for s in range(n_shards):
+    for s in tr.comm.shards:
         sl = slice(s * k, (s + 1) * k)
         if packed_wire:
             # the packed trainer's aggregation reads the receive *plane*
@@ -93,7 +93,8 @@ def trainer_expectations(tr: Any) -> dict[str, Any]:
     from repro_torch.core.parallel import gathered_widths
 
     n_shards = tr.n_shards
-    m = tr.data.num_parts
+    hosted = tr.comm.shards
+    m = tr.layout.num_parts
     n_pad = tr.layout.n_pad
     cs = gathered_widths(tr.cfg)
     max_c = max(tr.cfg.layer_dims)
@@ -113,6 +114,9 @@ def trainer_expectations(tr: Any) -> dict[str, Any]:
         "dense_adjacency_allowed": not tr.compressed,
         "expect_donated": (".zs", ".u"),
     }
+    if len(hosted) < n_shards:
+        # a rank of the process transport: its bounds are one shard's
+        exp["hosted_shards"] = len(hosted)
     # the minibatch step runs a restricted round schedule
     # (messages.restrict_exchange): expectations come from the active
     # sub-plan, so permute-schedule proves the sampled step touches no
@@ -122,10 +126,19 @@ def trainer_expectations(tr: Any) -> dict[str, Any]:
         # one shard moves nothing across a wire: the transport contract is
         # only meaningful (and checkable) on more than one
         exp["transport"] = tr.transport
-        if tr.transport == "p2p":
+        item = 2 if tr.config.comm_bf16 else 4
+        if len(hosted) < n_shards:
+            # a rank: its own sends, and the rounds it takes part in
+            if plan is not None:
+                exp["collective_budget_bytes"] = int(sum(
+                    r.rows_pad * c * item for r in plan.rounds
+                    for src, _ in r.pairs if src in hosted for c in cs))
+            else:
+                exp["collective_budget_bytes"] = \
+                    int(tr.comm_stats["full_bytes"]) // n_shards
+        elif tr.transport == "p2p":
             if plan is not tr._plan:
-                wire = messages.exchange_bytes(
-                    plan, cs, itemsize=2 if tr.config.comm_bf16 else 4)
+                wire = messages.exchange_bytes(plan, cs, itemsize=item)
                 exp["collective_budget_bytes"] = int(wire["wire_bytes"])
             else:
                 exp["collective_budget_bytes"] = \
@@ -133,7 +146,9 @@ def trainer_expectations(tr: Any) -> dict[str, Any]:
         else:
             exp["collective_budget_bytes"] = int(tr.comm_stats["full_bytes"])
         if plan is not None:
-            exp["round_pairs"] = [tuple(r.pairs) for r in plan.rounds]
+            exp["round_pairs"] = [
+                tuple(r.pairs) for r in plan.rounds
+                if any(s in hosted or d in hosted for s, d in r.pairs)]
         # the only legitimate psums are the W update's: weight gradients
         # and line-search scalars
         w_bytes = sum(w.numel() * w.element_size()

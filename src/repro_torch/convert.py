@@ -49,12 +49,46 @@ def _leaves(weights, zs, u, taus, thetas, device):
 def state_from_numpy(weights: Sequence[np.ndarray],
                      zs: Sequence[np.ndarray], u: np.ndarray,
                      taus: Sequence, thetas: Sequence[np.ndarray],
-                     device: "str | torch.device | None" = None
-                     ) -> ParallelState:
+                     device: "str | torch.device | None" = None,
+                     lanes: "slice | None" = None) -> ParallelState:
     """A ``ParallelState`` of f32 tensors: weights, iterates and dual in
     the trainer's resident layout (strided or packed), τ as 0-dim tensors
-    and θ as (M,) tensors."""
+    and θ as (M,) tensors.
+
+    With ``lanes`` (one shard's k lanes, ``slice(s·k, (s+1)·k)``) the state
+    is that shard's part of the shared one, as a rank of the process
+    transport holds it: its lanes of strided (M, n_pad, C) iterates, its
+    rows of packed planes (shard s's ``plane_rows`` rows of the M / k
+    planes laid end to end), its lanes of θ; W and τ whole."""
+    if lanes is not None:
+        k = lanes.stop - lanes.start
+        shards, s = len(thetas[0]) // k, lanes.start // k
+        rows = lanes
+        if np.ndim(zs[0]) == 2:                       # packed planes
+            pr = len(zs[0]) // shards
+            rows = slice(s * pr, (s + 1) * pr)
+        zs = [np.asarray(z)[rows] for z in zs]
+        u = np.asarray(u)[rows]
+        thetas = [np.asarray(t)[lanes] for t in thetas]
     return ParallelState(*_leaves(weights, zs, u, taus, thetas, device))
+
+
+def gather_state(mesh, state: ParallelState) -> "ParallelState | None":
+    """Every rank's part of a process-transport trainer's state, joined
+    on rank 0 in rank order (the full state the loopback trainer holds:
+    lanes and planes end to end, W and τ rank 0's); None on the other
+    ranks.  Every rank of ``mesh`` must call it."""
+    from repro_torch.core.messages import gather_parts
+
+    def join(x):
+        parts = gather_parts(mesh, x, root=0)
+        return None if parts is None else torch.cat(parts)
+    zs = tuple(join(z) for z in state.zs)
+    u = join(state.u)
+    thetas = tuple(join(t) for t in state.thetas)
+    if mesh.rank != 0:
+        return None
+    return ParallelState(state.weights, zs, u, state.taus, thetas)
 
 
 def serial_state_from_numpy(weights: Sequence[np.ndarray],

@@ -14,13 +14,18 @@ the reference table for table (tests/test_torch_messages.py):
     and its pricing (``exchange_bytes``, ``overlap_stats``,
     ``verify_transport_bytes``).
 
-The transports run the plan on one device for ``n_shards`` logical shards
-(``exchange_neighbors``, ``exchange_neighbors_packed``, ``allgather``): the
-tensors carry every shard at once, and each round of the plan — one
-``lax.ppermute`` in the reference — is a row copy from the source shard's
-rows into the destination shard's receive buffer.  Under an op-trace
-recorder (``analysis.trace``) each call records its rounds' pairs, rows
-and wire bytes.
+Two transports run the plan.  The loopback (``Loopback``:
+``exchange_neighbors``, ``exchange_neighbors_packed``, ``allgather``) runs
+it on one device for ``n_shards`` logical shards: the tensors carry every
+shard at once, and each round of the plan — one ``lax.ppermute`` in the
+reference — is a row copy from the source shard's rows into the
+destination shard's receive buffer.  The process transport
+(``ProcessTransport``) runs one shard per process of a
+``torch.distributed`` group: its tables are the shard's own
+(``process_tables``), each round is one ``batch_isend_irecv``, and the
+reference's psum an all-gather summed in shard order (``fold``).  Under
+an op-trace recorder (``analysis.trace``) each call records its rounds'
+pairs, rows and wire bytes.
 
 The paper's Appendix A messages (eq. 4) are functions here too:
 ``row_aggregate``, ``first_order_messages`` (p), ``relay_aggregate`` (q),
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Sequence
 
 import numpy as np
@@ -758,6 +764,329 @@ def allgather(x: Tensor, comm_bf16: bool = False) -> Tensor:
         trace.RECORDER.transport("allgather", x, out,
                                  [((), x.shape[0], x.numel() * item)], item)
     return out
+
+
+def fold(parts: Sequence[Tensor]) -> Tensor:
+    """Σ of ``parts`` in their order, ((p0 + p1) + p2) + …: the one
+    summation order every psum of the port uses."""
+    return sum(parts[1:], parts[0])
+
+
+class Loopback:
+    """The loopback transport: every shard's lanes on this device, each
+    round of the plan a row copy (``exchange_neighbors``,
+    ``exchange_neighbors_packed``, ``allgather``) and the psum a sum of
+    the shards' parts in shard order."""
+
+    def __init__(self, n_shards: int):
+        self.n_shards = n_shards
+        self.shards = tuple(range(n_shards))
+
+    def tables(self, plan: NeighborExchange, device: torch.device) -> dict:
+        return loopback_tables(plan, device)
+
+    def exchange(self, plan, x, comm_bf16, tables):
+        return exchange_neighbors(plan, x, comm_bf16, tables=tables)
+
+    def exchange_packed(self, plan, x_plane, comm_bf16, staged, tables):
+        return exchange_neighbors_packed(plan, x_plane, comm_bf16,
+                                         staged=staged, tables=tables)
+
+    def allgather(self, x, comm_bf16):
+        return allgather(x, comm_bf16)
+
+    def flush(self) -> None:
+        pass
+
+
+# ---------------------------------------------------------------------------
+# the process transport: one shard per process, over torch.distributed
+# ---------------------------------------------------------------------------
+
+def process_tables(plan: NeighborExchange, rank: int,
+                   device: torch.device) -> dict:
+    """Shard ``rank``'s rows of the plan as index tensors on ``device``:
+    the per-shard form of ``loopback_tables`` (nothing shifted by s ·
+    rows).  Each scatter target has one scratch row past its end, where
+    the reference's dropped receive positions land.
+
+    ``rounds`` (and ``plane_rounds`` on a packed plan) hold one entry per
+    round of the plan this rank takes part in: ``(round index, pairs,
+    rows_pad, dst, send rows, src, receive rows)`` with ``dst`` / ``src``
+    None where the rank sends or receives nothing in that round.  A round
+    without the rank is left out: it does nothing there.
+    """
+    n, limit = plan.n_pad, plan.r_pad * plan.n_pad
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+
+    def rounds_of(send_tab, recv_tab):
+        out = []
+        for ri, rnd in enumerate(plan.rounds):
+            dst = next((d for s, d in rnd.pairs if s == rank), None)
+            src = next((s for s, d in rnd.pairs if d == rank), None)
+            if dst is None and src is None:
+                continue
+            out.append((ri, rnd.pairs, rnd.rows_pad, dst,
+                        None if dst is None else dev(send_tab(rnd)[rank]),
+                        src,
+                        None if src is None else dev(recv_tab(rnd)[rank])))
+        return out
+
+    own = plan.own_slots[rank].astype(np.int64)[:, None] * n + np.arange(n)
+    tables = {"own_dst": dev(own.reshape(-1)), "limit": limit,
+              "rounds": rounds_of(lambda r: r.send_idx,
+                                  lambda r: r.recv_slot)}
+    if plan.packed:
+        own_rows = plan.own_copy_rows[rank].astype(np.int64)
+        live = own_rows < plan.plane_rows
+        tables["own_plane_dst"] = dev(np.nonzero(live)[0])
+        tables["own_plane_src"] = dev(own_rows[live])
+        tables["plane_rounds"] = rounds_of(lambda r: r.send_rows_packed,
+                                           lambda r: r.recv_rows_packed)
+    return tables
+
+
+def gather_parts(mesh, x: Tensor, root: "int | None" = None):
+    """Every rank's ``x`` in rank order (``dist.all_gather``), or with
+    ``root`` only on that rank (``dist.gather``; None elsewhere), each part
+    on ``x``'s device.  Over gloo a CUDA tensor is staged through the host:
+    gloo's collectives take host tensors."""
+    import torch.distributed as dist
+    stage = mesh.backend == "gloo" and x.device.type == "cuda"
+    # a 0-dim value travels as one element
+    send = x.detach().reshape(-1)
+    with trace.marked("transport-staging"):
+        send = send.cpu() if stage else send.contiguous()
+    parts = [torch.empty_like(send) for _ in range(mesh.world_size)] \
+        if root is None or mesh.rank == root else None
+    if root is None:
+        dist.all_gather(parts, send, group=mesh.group)
+    else:
+        dist.gather(send, parts, dst=root, group=mesh.group)
+        if parts is None:
+            return None
+    return [p.to(x.device).reshape(x.shape) for p in parts]
+
+
+class _Stages:
+    """The staged receive plane of one exchange, stage g made when it is
+    first read: after the wait on round g − 1's requests, so that a
+    consumer aggregates the slots stage g − 1 delivered while later rounds
+    are still in flight.  ``[after the own copy, after round 0, …,
+    final]``, as ``exchange_neighbors_packed(staged=True)`` returns."""
+
+    def __init__(self, transport, first: Tensor, posted: list, rows: int):
+        self._t, self._posted, self._rows = transport, posted, rows
+        self._bufs = [first]
+        self._n = len(posted) + 1
+
+    def __len__(self) -> int:
+        return self._n
+
+    def _fill(self, upto: int) -> None:
+        while len(self._bufs) <= upto:
+            buf = self._t._land(self._bufs[-1],
+                                self._posted[len(self._bufs) - 1],
+                                in_place=False)
+            self._bufs.append(buf)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(self._n))]
+        j = i + self._n if i < 0 else i
+        if not 0 <= j < self._n:
+            raise IndexError(i)
+        self._fill(j)
+        return self._bufs[j][:self._rows]
+
+    def __iter__(self):
+        return (self[j] for j in range(self._n))
+
+    def done(self) -> None:
+        self._fill(self._n - 1)
+
+
+class ProcessTransport:
+    """The reference's per-shard exchange (``exchange_neighbors``,
+    ``exchange_neighbors_packed`` under ``shard_map``) and all-gather for
+    the one shard this process hosts, over ``torch.distributed``: each
+    round of the plan is one ``dist.batch_isend_irecv`` of at most one send
+    and one receive, where the reference runs one ``lax.ppermute``.
+
+    Over gloo on a card the rows are staged through pinned host buffers
+    (gloo's point-to-point takes host tensors); the staging copies' time
+    is kept apart (``staging_s``) from the transport's whole time
+    (``time_s``).  With ``comm_bf16`` the wire carries a bf16 tensor,
+    widened to f32 on receipt (the bits of ``bf16_wire``).  Every round of
+    an exchange is posted at once; with ``staged`` each stage waits only
+    on its own round.  ``sent_bytes`` counts the bytes this rank sends.
+    The psum (``psum``) is an all-gather of every rank's part and a sum in
+    rank order (``fold``), so every rank holds the same bits."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.rank, self.n_shards = mesh.rank, mesh.world_size
+        self.shards = (mesh.rank,)
+        self.group, self.device = mesh.group, mesh.device
+        self.stage = mesh.backend == "gloo" and mesh.device.type == "cuda"
+        self.sent_bytes = 0
+        self.time_s = 0.0
+        self.staging_s = 0.0
+        self._seq = 0
+        self._open: list = []
+
+    def tables(self, plan: NeighborExchange, device: torch.device) -> dict:
+        return process_tables(plan, self.rank, device)
+
+    # -- the rounds ----------------------------------------------------------
+
+    def _to_host(self, x: Tensor) -> Tensor:
+        t0 = time.perf_counter()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        with trace.marked("transport-staging"):
+            host.copy_(x)
+        self.staging_s += time.perf_counter() - t0
+        return host
+
+    def _post(self, rounds, x_flat: Tensor, comm_bf16: bool) -> list:
+        """Post every round's send and receive; one entry per round:
+        (requests, receive buffer, receive rows)."""
+        import torch.distributed as dist
+        feat = tuple(x_flat.shape[1:])
+        wire_dt = torch.bfloat16 if comm_bf16 and \
+            x_flat.dtype == torch.float32 else x_flat.dtype
+        seq, self._seq = self._seq, self._seq + 1
+        posted = []
+        for ri, _, rows_pad, dst, send, src, recv in rounds:
+            tag = (seq % 65536) * 4096 + ri
+            ops, rbuf = [], None
+            if dst is not None:
+                payload = x_flat[send].to(wire_dt)
+                if self.stage:
+                    payload = self._to_host(payload)
+                ops.append(dist.P2POp(dist.isend, payload, dst,
+                                      group=self.group, tag=tag))
+                self.sent_bytes += payload.numel() * payload.element_size()
+            if src is not None:
+                rbuf = torch.empty((rows_pad,) + feat, dtype=wire_dt,
+                                   pin_memory=self.stage,
+                                   device="cpu" if self.stage
+                                   else self.device)
+                ops.append(dist.P2POp(dist.irecv, rbuf, src,
+                                      group=self.group, tag=tag))
+            posted.append((dist.batch_isend_irecv(ops), rbuf, recv,
+                           x_flat.dtype))
+        return posted
+
+    def _land(self, buf: Tensor, posted, in_place: bool) -> Tensor:
+        """Wait on one round and scatter what it delivered into ``buf``
+        (in place, or into a copy for a staged exchange)."""
+        t0 = time.perf_counter()
+        reqs, rbuf, recv, dtype = posted
+        for q in reqs:
+            q.wait()
+        if rbuf is not None:
+            if self.stage:
+                t1 = time.perf_counter()
+                rbuf = rbuf.to(self.device)
+                self.staging_s += time.perf_counter() - t1
+            rbuf = rbuf.to(dtype)
+            if in_place:
+                buf[recv] = rbuf
+            else:
+                buf = buf.index_put((recv,), rbuf)
+        self.time_s += time.perf_counter() - t0
+        return buf
+
+    def _record(self, kind, rounds, x, out, feat, comm_bf16) -> None:
+        item = 2 if comm_bf16 else x.element_size()
+        row = math.prod(feat) * item
+        trace.RECORDER.transport(
+            kind, x, out,
+            [(pairs, 0 if send is None else send.numel(),
+              0 if send is None else send.numel() * row)
+             for _, pairs, _, _, send, _, _ in rounds], item)
+
+    def exchange(self, plan: NeighborExchange, x: Tensor, comm_bf16: bool,
+                 tables: dict) -> Tensor:
+        """This shard's local payload (k, n_pad, C) -> its receive buffer
+        (r_pad, n_pad, C): own lanes at ``own_slots[rank]``, neighbour rows
+        from the rounds; own rows stay f32 under ``comm_bf16``."""
+        t0 = time.perf_counter()
+        n, feat = plan.n_pad, tuple(x.shape[2:])
+        x_flat = x.reshape((-1,) + feat)
+        limit = tables["limit"]
+        buf = x.new_zeros((limit + 1,) + feat)
+        buf[tables["own_dst"]] = x_flat
+        posted = self._post(tables["rounds"], x_flat, comm_bf16)
+        self.time_s += time.perf_counter() - t0
+        for p in posted:
+            buf = self._land(buf, p, in_place=True)
+        out = buf[:limit].reshape((plan.r_pad, n) + feat)
+        if trace.RECORDER is not None:
+            self._record("exchange", tables["rounds"], x, out, feat,
+                         comm_bf16)
+        return out
+
+    def exchange_packed(self, plan: NeighborExchange, x_plane: Tensor,
+                        comm_bf16: bool, staged: bool, tables: dict):
+        """This shard's state plane (plane_rows, C) -> its receive plane
+        (recv_plane_rows, C), or with ``staged`` its stages (``_Stages``)."""
+        t0 = time.perf_counter()
+        rows, feat = plan.recv_plane_rows, tuple(x_plane.shape[1:])
+        buf = x_plane.new_zeros((rows + 1,) + feat)
+        buf[tables["own_plane_dst"]] = x_plane[tables["own_plane_src"]]
+        posted = self._post(tables["plane_rounds"], x_plane, comm_bf16)
+        self.time_s += time.perf_counter() - t0
+        if staged:
+            out = _Stages(self, buf, posted, rows)
+            self._open.append(out)
+        else:
+            for p in posted:
+                buf = self._land(buf, p, in_place=True)
+            out = buf[:rows]
+        if trace.RECORDER is not None:
+            self._record("exchange_packed", tables["plane_rounds"], x_plane,
+                         out if not staged else out[0], feat, comm_bf16)
+        return out
+
+    def allgather(self, x: Tensor, comm_bf16: bool) -> Tensor:
+        """Every shard's lanes, (M, n_pad, C) in community order: one
+        ``dist.all_gather`` of this shard's (k, n_pad, C); with
+        ``comm_bf16`` every row travels bf16, this shard's own too, as in
+        the reference."""
+        t0 = time.perf_counter()
+        wire = x.to(torch.bfloat16) if comm_bf16 and \
+            x.dtype == torch.float32 else x
+        out = torch.cat(gather_parts(self.mesh, wire)).to(x.dtype)
+        # this rank's lanes reach every rank (its own copy counted, as the
+        # reference's full_bytes counts every agent's copy)
+        self.sent_bytes += self.n_shards * wire.numel() * wire.element_size()
+        self.time_s += time.perf_counter() - t0
+        if trace.RECORDER is not None:
+            item = wire.element_size()
+            trace.RECORDER.transport("allgather", x, out,
+                                     [((), out.shape[0],
+                                       out.numel() * item)], item)
+        return out
+
+    def psum(self, part: Tensor) -> Tensor:
+        """Σ over the ranks of ``part``: all-gathered, summed in rank
+        order, the same bits on every rank."""
+        t0 = time.perf_counter()
+        out = fold(gather_parts(self.mesh, part))
+        self.time_s += time.perf_counter() - t0
+        if trace.RECORDER is not None:
+            trace.RECORDER.shard_sum([part], out)
+        return out
+
+    def flush(self) -> None:
+        """Wait on every round a staged exchange left in flight."""
+        for st in self._open:
+            st.done()
+        self._open.clear()
 
 
 def arrival_rounds(plan: NeighborExchange) -> np.ndarray:

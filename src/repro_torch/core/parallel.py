@@ -1,34 +1,41 @@
-"""Parallel (community-distributed) ADMM trainer — Algorithm 1 on one device.
+"""Parallel (community-distributed) ADMM trainer — Algorithm 1.
 
 The port's counterpart of ``repro.core.parallel``.  M community agents run
-over ``n_shards`` logical shards (k = M / n_shards lanes each), all on one
-device: the shards' lanes are stacked in community order, so every
-aggregation of a step is one call over all M lanes.  One ADMM iteration:
+over ``n_shards`` shards (k = M / n_shards lanes each), through one of two
+transports: the loopback, where every shard is a logical shard of one
+device and the shards' lanes are stacked in community order, so every
+aggregation of a step is one call over all M lanes; or the process
+transport (``mesh=ProcessMesh``), where each shard is a process of a
+``torch.distributed`` group that holds its own k lanes and exchanges rows
+with the others.  One body (``_Body``) runs both.  One ADMM iteration:
 
   * W update — layer-parallel (Jacobi): each shard's objective over its
-    lanes, summed across shards (the reference's psum), and one
-    backtracking test on that global objective
-    (``subproblems.backtracking_step``).
+    lanes, summed across shards in shard order (the reference's psum: a
+    Python sum on the loopback, an all-gather and the same sum across
+    processes), and one backtracking test on that global objective
+    (``subproblems.backtracking_step``, with ``psum`` on a rank).
   * Z update — community-parallel: each lane solves its ψ_{l,m} (eq. 5/6)
     from its neighbours' relayed aggregates with its own backtracking
     θ_{l,m} (``backtracking_step_lanes``); Z_L by per-lane FISTA (eq. 7,
-    ``fista_lanes``).
+    ``fista_lanes``).  Neither runs a collective.
   * U update — local dual ascent (eq. 3).
 
-Transports (``messages``; every round of the reference's ``ppermute``
-schedule is a row copy between the shards' buffers on the device):
+Transports (``messages``; each round of the reference's ``ppermute``
+schedule is a row copy between the shards' buffers on the loopback, one
+``batch_isend_irecv`` between ranks on the process transport):
 
-  * allgather — every shard receives every community's rows, one copy
-    for all shards; with ``comm_bf16`` every row is rounded to bf16;
+  * allgather — every shard receives every community's rows; with
+    ``comm_bf16`` every row is rounded to bf16;
   * p2p — the neighbour-exchange plan: each shard receives only the rows
     its lanes read, into an (r_pad, n_pad, C) buffer; ELL indices are
     remapped to its slots; with ``comm_bf16`` only wired rows are rounded;
   * the packed wire (``packed=True``) — the same rounds on Σ-bucket-rows
-    planes into the shards' receive planes, laid end to end, which the
-    packed ELL kernel reads through per-slot offsets (shard s's shifted by
-    s · recv_plane_rows).  ``fused=True`` sends the four Z-update
-    aggregation→GEMM sites through the fused kernel; ``overlap=True``
-    splits each aggregation by the round that delivered its rows.
+    planes into the shards' receive planes (on the loopback laid end to
+    end, shard s's offsets shifted by s · recv_plane_rows), which the
+    packed ELL kernel reads through per-slot offsets.  ``fused=True``
+    sends the four Z-update aggregation→GEMM sites through the fused
+    kernel; ``overlap=True`` splits each aggregation by the round that
+    delivered its rows.
 
 With one shard nothing crosses a wire: the reference drops the plan from
 its one-shard program (repro/core/parallel.py:1023-1028), so the step is
@@ -145,12 +152,48 @@ class CommunityData:
         return nbytes(self.a_blocks)
 
 
+# per-lane fields of CommunityData, and the fields stored as state planes
+_LANE_FIELDS = ("a_blocks", "neighbor_mask", "row_mask", "ell_blocks",
+                "ell_indices", "ell_mask", "row_counts", "nbr_counts")
+_PLANE_FIELDS = ("z0", "labels", "train_mask", "test_mask")
+
+
+def _lane_fields(fields: dict, lanes: slice,
+                 device_layout: "graph.PackedDeviceLayout | None") -> dict:
+    """One shard's part of the per-lane and plane fields (numpy arrays or
+    tensors): ``lanes`` of the lane axis, and of a packed plane the
+    shard's ``plane_rows`` rows."""
+    out = {}
+    for name in _LANE_FIELDS:
+        if fields.get(name) is not None:
+            out[name] = fields[name][lanes]
+    rows = lanes
+    if device_layout is not None:
+        s = lanes.start // (lanes.stop - lanes.start)
+        pr = device_layout.plane_rows
+        rows = slice(s * pr, (s + 1) * pr)
+    for name in _PLANE_FIELDS:
+        out[name] = fields[name][rows]
+    return out
+
+
+def lane_data(data: CommunityData, lanes: slice) -> CommunityData:
+    """The shard of ``data`` that hosts ``lanes``: its lanes' adjacency
+    rows, masks and counts, and its part of the planes, as views."""
+    fields = {name: getattr(data, name)
+              for name in _LANE_FIELDS + _PLANE_FIELDS}
+    return dataclasses.replace(
+        data, **_lane_fields(fields, lanes, data.packed_layout))
+
+
 def community_data(g: graph.Graph, layout: graph.CommunityLayout,
                    compressed: bool = False,
                    adjacency_bf16: bool = False,
                    device_layout: "graph.PackedDeviceLayout | None" = None,
-                   device: "str | torch.device | None" = None
-                   ) -> CommunityData:
+                   device: "str | torch.device | None" = None,
+                   lanes: "slice | None" = None) -> CommunityData:
+    """The device tensors of every lane, or with ``lanes`` of one shard's
+    lanes only (sliced on the host: nothing else reaches the device)."""
     if adjacency_bf16 and not compressed:
         raise ValueError("adjacency_bf16=True requires compressed=True — "
                          "only the ELL block store has a bf16 path")
@@ -159,9 +202,6 @@ def community_data(g: graph.Graph, layout: graph.CommunityLayout,
                          "the dense block tensor keeps the n_pad stride")
     device = resolve_device(device)
 
-    def tens(x, dtype=None):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
     if compressed:
         csr = layout.compress()
         rows, nbrs = csr.ell_row_counts()
@@ -169,35 +209,35 @@ def community_data(g: graph.Graph, layout: graph.CommunityLayout,
         community_spmm.check_indices(torch.as_tensor(csr.ell_indices),
                                      torch.as_tensor(csr.ell_mask),
                                      csr.num_parts)
-        block_dt = torch.bfloat16 if adjacency_bf16 else torch.float32
-        adj = {"a_blocks": None,
-               "ell_blocks": tens(csr.ell_blocks).to(block_dt),
-               "ell_indices": tens(csr.ell_indices),
-               "ell_mask": tens(csr.ell_mask),
-               "row_counts": tens(rows),
-               "nbr_counts": tens(nbrs)}
+        host = {"ell_blocks": csr.ell_blocks, "ell_indices": csr.ell_indices,
+                "ell_mask": csr.ell_mask, "row_counts": rows,
+                "nbr_counts": nbrs}
     else:
-        adj = {"a_blocks": tens(layout.a_blocks)}
+        host = {"a_blocks": layout.a_blocks}
     if device_layout is not None:
         # Σ-bucket-rows planes: pad rows outside the bucket counts are
         # zero by the layout contract, so pack is lossless
-        def dev(x):
-            return tens(device_layout.pack_state(layout.pack(x)))
+        def plane(x):
+            return device_layout.pack_state(layout.pack(x))
     else:
-        def dev(x):
-            return tens(layout.pack(x))
+        plane = layout.pack
+    host.update(z0=plane(g.features),
+                labels=plane(g.labels.astype(np.int32)),
+                train_mask=plane(g.train_mask.astype(np.float32)),
+                test_mask=plane(g.test_mask.astype(np.float32)),
+                neighbor_mask=layout.neighbor_mask,
+                row_mask=layout.node_mask.astype(np.float32))
+    if lanes is not None:
+        host = _lane_fields(host, lanes, device_layout)
+    fields = {name: torch.as_tensor(np.asarray(x), device=device)
+              for name, x in host.items()}
+    if compressed and adjacency_bf16:
+        fields["ell_blocks"] = fields["ell_blocks"].to(torch.bfloat16)
     return CommunityData(
-        z0=dev(g.features),
-        labels=dev(g.labels.astype(np.int32)),
-        train_mask=dev(g.train_mask.astype(np.float32)),
-        test_mask=dev(g.test_mask.astype(np.float32)),
-        neighbor_mask=tens(layout.neighbor_mask),
+        a_blocks=fields.pop("a_blocks", None),
         denom=torch.tensor(float(g.train_mask.sum()), dtype=torch.float32,
                            device=device),
-        row_mask=tens(layout.node_mask.astype(np.float32)),
-        packed_layout=device_layout,
-        **adj,
-    )
+        packed_layout=device_layout, **fields)
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +457,7 @@ def fista_lanes(admm: ADMMConfig, b: Tensor, u: Tensor, labels: Tensor,
 
 
 # ---------------------------------------------------------------------------
-# one ADMM iteration (every shard's lanes on one device)
+# one ADMM iteration (the hosted shards' lanes)
 # ---------------------------------------------------------------------------
 
 def _take_fill(x: Tensor, idx: Tensor) -> Tensor:
@@ -441,27 +481,37 @@ class _Batch(NamedTuple):
 
 
 class _Body:
-    """The per-step program of the reference's ``_iteration_body`` for all
-    ``n_shards`` logical shards at once, with its static operands bound.
+    """The per-step program of the reference's ``_iteration_body`` for the
+    shards this process hosts, with its static operands bound: every shard
+    under the loopback transport (``messages.Loopback``), one under the
+    process transport (``messages.ProcessTransport``, one rank a shard).
+    ``data`` holds the hosted lanes only.
 
-    The M = n_shards · k lanes are stacked in community order (shard s owns
-    lanes [s·k, (s+1)·k)), so every aggregation of the step is one call over
-    all lanes.  ``gather`` returns what the aggregation reads, and
-    ``blocked`` of it stacks every shard's received rows, (X, n_pad, C),
-    which ``nbr_idx`` reads lane by lane — X = M after the all-gather (one
-    copy serves every shard; ``nbr_idx`` the global ids), n_shards · r_pad
-    after the exchange (the localized slots shifted by s · r_pad).
-    On the packed wire ``gather`` returns the shards' receive planes laid
-    end to end (their stages, with overlap), read through ``offsets``: the
-    plan's localized offsets shifted by s · recv_plane_rows; their blocked
-    view is made only where a consumer indexes it.
+    The hosted m = hosted · k lanes are stacked in community order (shard s
+    owns lanes [s·k, (s+1)·k)), so every aggregation of the step is one
+    call over all of them.  ``gather`` returns what the aggregation reads,
+    and ``blocked`` of it stacks every hosted shard's received rows, (X,
+    n_pad, C), which ``nbr_idx`` reads lane by lane — X = M after the
+    all-gather (one copy serves every shard; ``nbr_idx`` the global ids),
+    hosted · r_pad after the exchange (the loopback's localized slots
+    shifted by s · r_pad).  On the packed wire ``gather`` returns the
+    hosted shards' receive planes laid end to end (their stages, with
+    overlap), read through ``offsets``: the plan's localized offsets,
+    shifted by s · recv_plane_rows on the loopback; their blocked view is
+    made only where a consumer indexes it.
+
+    The W update's objective is the hosted shards' sum (``shard_sum``).
+    On the loopback that is the global objective; a rank psums its local
+    one through the transport (``psum``: value, gradient and every probe,
+    the reference's ``backtracking_step_psum``).  The θ searches and FISTA
+    read a lane's own rows only and run no collective.
 
     With one shard there is no plan (the reference drops it there) and the
     step runs the all-gather body.
     """
 
     def __init__(self, cfg: gcn.GCNConfig, admm: ADMMConfig,
-                 data: CommunityData, n_shards: int,
+                 data: CommunityData, comm,
                  plan: "messages.NeighborExchange | None", wire: dict,
                  packed_aux: "dict | None", fused: bool, overlap: bool,
                  comm_bf16: bool):
@@ -469,9 +519,13 @@ class _Body:
         self.f = gcn.activation_fn(cfg.activation)
         self.dense = not data.compressed
         self.comm_bf16 = comm_bf16
+        self.comm = comm
         m = int(data.neighbor_mask.shape[0])
-        self.m, self.n_shards, self.k = m, n_shards, m // n_shards
-        nbrf = data.neighbor_mask.float()                         # (M, M)
+        self.n_shards, self.hosted = comm.n_shards, len(comm.shards)
+        self.m, self.k = m, m // self.hosted
+        # a rank's objectives are local: the W step psums them
+        self.psum = None if self.hosted == self.n_shards else comm.psum
+        nbrf = data.neighbor_mask.float()                         # (m, M)
         self.plan = plan
         self.packed_wire = packed_aux is not None and plan is not None
         self.fused = fused and self.packed_wire
@@ -518,34 +572,35 @@ class _Body:
         return _take_fill(flat, self.packed_aux["pack"])
 
     def shard_sum(self, parts_of) -> Tensor:
-        """Σ over shards of ``parts_of(s)``, each shard's value from its
-        own lanes only, summed in shard order: the reference's psum of a
-        per-shard objective."""
-        vals = [parts_of(s) for s in range(self.n_shards)]
-        out = sum(vals[1:], vals[0])
-        if trace.RECORDER is not None:
+        """Σ over the hosted shards of ``parts_of(s)``, each shard's value
+        from its own lanes only, summed in shard order
+        (``messages.fold``): with every shard hosted, the reference's psum
+        of a per-shard objective; on a rank its one local part, which the
+        W step psums."""
+        vals = [parts_of(s) for s in range(self.hosted)]
+        out = messages.fold(vals)
+        if trace.RECORDER is not None and self.psum is None:
             trace.RECORDER.shard_sum(vals, out)
         return out
 
     def lanes(self, x: Tensor, s: int) -> Tensor:
-        return x if self.n_shards == 1 else x[s * self.k:(s + 1) * self.k]
+        return x if self.hosted == 1 else x[s * self.k:(s + 1) * self.k]
 
     # -- transport -----------------------------------------------------------
 
     def gather(self, x: Tensor, batch: _Batch):
-        """Every shard's received rows of the stacked blocked payload x
-        (M, n_pad, C): the (X, n_pad, C) stack, or on the packed wire the
-        receive planes (a list of stages with overlap)."""
+        """Every hosted shard's received rows of the stacked blocked
+        payload x (m, n_pad, C): the (X, n_pad, C) stack, or on the packed
+        wire the receive planes (a sequence of stages with overlap)."""
         feat = tuple(x.shape[1:])
+        tr = self.comm
         if self.plan is None:
-            return messages.allgather(x, self.comm_bf16)
+            return tr.allgather(x, self.comm_bf16)
         if not self.packed_wire:
-            buf = messages.exchange_neighbors(batch.plan, x, self.comm_bf16,
-                                              tables=batch.tables)
+            buf = tr.exchange(batch.plan, x, self.comm_bf16, batch.tables)
             return buf.reshape((-1,) + feat)
-        return messages.exchange_neighbors_packed(
-            batch.plan, self.to_plane(x), self.comm_bf16,
-            staged=self.overlap, tables=batch.tables)
+        return tr.exchange_packed(batch.plan, self.to_plane(x),
+                                  self.comm_bf16, self.overlap, batch.tables)
 
     def blocked(self, agg) -> Tensor:
         """The (X, n_pad, C) stack of a ``gather`` result: on the packed
@@ -583,9 +638,11 @@ class _Body:
         read from stage g of the exchange."""
         if not self.overlap:
             return agg_fn(agg, self.ell_live)
+        # stage g is read only after group g - 1's call: on the process
+        # transport that call runs while round g is still in flight
         acc = agg_fn(agg[0], batch.group_masks[0])
-        for stage, msk in zip(agg[1:], batch.group_masks[1:]):
-            acc = acc + agg_fn(stage, msk)
+        for g in range(1, len(agg)):
+            acc = acc + agg_fn(agg[g], batch.group_masks[g])
         return acc
 
     def rowagg(self, agg, batch: _Batch, use_kernel: bool) -> Tensor:
@@ -635,8 +692,8 @@ class _Body:
     # -- objectives ----------------------------------------------------------
 
     def w_objectives(self, aggs, zs, u, batch: _Batch) -> list:
-        """The W-update objective of each layer (Line 3): the shards'
-        local objectives summed, unsampled lanes masked out."""
+        """The W-update objective of each layer (Line 3): the hosted
+        shards' local objectives summed, unsampled lanes masked out."""
         admm, f, n_l = self.admm, self.f, self.cfg.num_layers
         sm = None if batch.smask is None else batch.smask[:, None, None]
         lanes = self.lanes
@@ -752,7 +809,8 @@ class _Body:
         new_ws, new_taus = [], []
         for l, obj in enumerate(self.w_objectives(aggs, zs, u, batch)):
             w_new, tau = backtracking_step(obj, state.weights[l],
-                                           state.taus[l], admm)
+                                           state.taus[l], admm,
+                                           psum=self.psum)
             new_ws.append(w_new)
             new_taus.append(tau)
 
@@ -795,10 +853,23 @@ class _Body:
 
 class ParallelADMMTrainer:
     """The paper's 'Parallel ADMM': M community agents over ``n_shards``
-    logical shards of one device (``n_shards`` must divide M; shard s hosts
-    communities [s·k, (s+1)·k), k = M / n_shards).  ``device=None`` means
-    ``cuda`` (RuntimeError without one); tests pass ``device="cpu"``.  The
-    pre-``TrainerConfig`` flag kwargs are accepted with a
+    shards (``n_shards`` must divide M; shard s hosts communities [s·k,
+    (s+1)·k), k = M / n_shards).
+
+    Without ``mesh`` the shards are logical shards of one device, their
+    lanes stacked and every exchange round a row copy (the loopback
+    transport); ``device=None`` means ``cuda`` (RuntimeError without one),
+    tests pass ``device="cpu"``.  With ``mesh`` (a ``launch.mesh.
+    ProcessMesh``, the reference's ``mesh=``) this process is one rank of
+    ``mesh.world_size`` shards on ``mesh.device``: it holds only its k
+    lanes of Z, U, z0, labels and masks and of the adjacency, exchanges
+    rows with the other ranks through ``torch.distributed``
+    (``messages.ProcessTransport``) and psums the W objective; W, τ and the
+    metrics are replicated.  Every rank builds the same layout and plan
+    from the seed.  The metrics and Lagrangian gather the state to rank 0
+    once per epoch, and rank 0 alone holds the full adjacency for them.
+
+    The pre-``TrainerConfig`` flag kwargs are accepted with a
     ``DeprecationWarning``, as in the reference."""
 
     def __init__(self, cfg: gcn.GCNConfig, admm: ADMMConfig, g: graph.Graph,
@@ -806,7 +877,7 @@ class ParallelADMMTrainer:
                  config: TrainerConfig | None = None,
                  part: np.ndarray | None = None,
                  device: "str | torch.device | None" = None,
-                 n_shards: int = 1, **legacy_flags):
+                 n_shards: int = 1, mesh=None, **legacy_flags):
         if legacy_flags:
             unknown = sorted(set(legacy_flags) - set(_LEGACY_FLAGS))
             if unknown:
@@ -824,6 +895,12 @@ class ParallelADMMTrainer:
             config = TrainerConfig(**legacy_flags)
         elif config is None:
             config = TrainerConfig()
+        self.mesh = mesh
+        if mesh is not None:
+            if n_shards not in (1, mesh.world_size):
+                raise ValueError(f"n_shards={n_shards} disagrees with the "
+                                 f"mesh's {mesh.world_size} ranks")
+            n_shards, device = mesh.world_size, mesh.device
         self.device = device = resolve_device(device)
         self.config = config
         self.cfg, self.admm, self.graph = cfg, admm, g
@@ -852,12 +929,29 @@ class ParallelADMMTrainer:
                              f"communities")
         self.n_shards = n_shards
         k = m // n_shards
+        if mesh is None:
+            self.comm = messages.Loopback(n_shards)
+            self.rank, lanes = 0, slice(0, m)
+        else:
+            self.comm = messages.ProcessTransport(mesh)
+            self.rank, lanes = mesh.rank, slice(mesh.rank * k,
+                                                (mesh.rank + 1) * k)
+        self._lanes = lanes
+        hosted = self.comm.shards
 
         self.packed_layout = lay.device_layout(n_shards) if packed else None
-        self.data = community_data(g, lay, compressed=compressed,
-                                   adjacency_bf16=config.adjacency_bf16,
-                                   device_layout=self.packed_layout,
-                                   device=device)
+        # the full data serves the step on the loopback and the metrics on
+        # rank 0; any other rank holds its lanes' only
+        data_kw = dict(compressed=compressed,
+                       adjacency_bf16=config.adjacency_bf16,
+                       device_layout=self.packed_layout, device=device)
+        if self.rank == 0:
+            self._full_data = community_data(g, lay, **data_kw)
+            self.data = self._full_data if mesh is None \
+                else lane_data(self._full_data, lanes)
+        else:
+            self._full_data = None
+            self.data = community_data(g, lay, lanes=lanes, **data_kw)
 
         # init from the same forward pass as the serial trainer
         gen = torch.Generator().manual_seed(seed)
@@ -868,12 +962,14 @@ class ParallelADMMTrainer:
                               torch.as_tensor(g.features, device=device), ws)
         del a_full
         zs = tuple(self._to_state(z.cpu().numpy()) for z in zs_full)
+        del zs_full
         u = torch.zeros_like(zs[-1])
         taus = tuple(torch.tensor(admm.tau_init, dtype=torch.float32,
                                   device=device) for _ in ws)
         thetas = tuple(torch.full((m,), admm.tau_init, dtype=torch.float32,
                                   device=device) for _ in zs)
-        self.state = ParallelState(tuple(ws), zs, u, taus, thetas)
+        self.state = self.shard_state(ParallelState(tuple(ws), zs, u, taus,
+                                                    thetas))
 
         # the exchange plan: the p2p transport's accounting at any shard
         # count; the step runs it only across shards (with one shard the
@@ -890,40 +986,48 @@ class ParallelADMMTrainer:
         def dev(x, dtype=torch.long):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-        lane_shard = (np.arange(m) // k)[:, None]
+        # the hosted shards' lanes, in the shift of their blocked / plane
+        # rows: on the loopback shard s's at s · rows, on a rank at 0
+        lane_shard = (np.arange(m) // k - self.rank)[lanes, None]
         wire, self._slots = {}, None
         if compressed:
             csr = lay.compress()
             if body_plan is None:
                 # all-gather: global ids into the one gathered copy
-                wire["nbr_idx"] = dev(csr.ell_indices)
+                wire["nbr_idx"] = dev(csr.ell_indices[lanes])
             else:
                 self._slots = body_plan.localize_indices(csr.ell_indices,
                                                          csr.ell_mask)
-                wire["nbr_idx"] = dev(self._slots
+                wire["nbr_idx"] = dev(self._slots[lanes]
                                       + lane_shard * body_plan.r_pad)
         packed_aux = None
         if packed:
             dl = self.packed_layout
-            packed_aux = {"n": int(dl.n_pad),
-                          "unpack": dev(dl.global_unpack_rows()),
-                          "pack": dev(dl.global_pack_rows())}
+            if mesh is None:
+                unpack, pack = dl.global_unpack_rows(), dl.global_pack_rows()
+            else:
+                unpack, pack = dl.unpack_rows[self.rank], \
+                    dl.pack_rows[self.rank]
+            packed_aux = {"n": int(dl.n_pad), "unpack": dev(unpack),
+                          "pack": dev(pack)}
             if body_plan is not None:
-                # the shards' receive planes end to end: shard s's offsets
-                # shifted by s · recv_plane_rows, one launch for all lanes
+                # the hosted shards' receive planes end to end: shard s's
+                # offsets shifted by s · recv_plane_rows, one launch for
+                # all their lanes
                 rpr = body_plan.recv_plane_rows
                 off = body_plan.localized_offsets(
-                    csr.ell_indices, csr.ell_mask) + lane_shard * rpr
+                    csr.ell_indices, csr.ell_mask)[lanes] + lane_shard * rpr
                 _, nbrs = csr.ell_row_counts()
-                community_spmm.check_plane_offsets(off, csr.ell_mask, nbrs,
-                                                   n_shards * rpr)
+                community_spmm.check_plane_offsets(
+                    off, csr.ell_mask[lanes], nbrs[lanes], len(hosted) * rpr)
                 wire["offsets"] = dev(off, torch.int32).contiguous()
-                ru = np.asarray(body_plan.recv_unpack_rows, dtype=np.int64)
+                ru = np.asarray(body_plan.recv_unpack_rows,
+                                dtype=np.int64)[list(hosted)]
                 wire["recv_unpack"] = dev(np.where(
-                    ru < rpr, np.arange(n_shards)[:, None] * rpr + ru,
-                    n_shards * rpr).reshape(-1))
-        self._body = _Body(cfg, admm, self.data, n_shards, body_plan, wire,
-                           packed_aux, config.fused, overlap_on,
+                    ru < rpr, np.arange(len(hosted))[:, None] * rpr + ru,
+                    len(hosted) * rpr).reshape(-1))
+        self._body = _Body(cfg, admm, self.data, self.comm, body_plan,
+                           wire, packed_aux, config.fused, overlap_on,
                            config.comm_bf16)
         self._body_plan, self._overlap_on = body_plan, overlap_on
 
@@ -948,13 +1052,16 @@ class ParallelADMMTrainer:
             self._active_plan = plan0 if plan0 is not None else self._plan
         self.comm_stats = self._comm_stats()
 
-        # metrics/Lagrangian run on the blocked (M, n_pad, ...) view; in
-        # packed mode the state planes are rebuilt through the device
-        # layout's global row table (take-with-fill, lossless under the
+        # metrics/Lagrangian run on the blocked (M, n_pad, ...) view of
+        # the full state (gathered to rank 0 under a mesh); in packed mode
+        # the state planes are rebuilt through the device layout's global
+        # row table (take-with-fill, lossless under the
         # zero-outside-counts contract)
+        data = self._full_data
+        if data is None:
+            return
         if packed:
-            self._gup = packed_aux["unpack"]
-        data = self.data
+            self._gup = dev(self.packed_layout.global_unpack_rows())
         self._z0_blk = self._unfold(data.z0)
         self._labels_blk = self._unfold(data.labels)
         self._train_blk = self._unfold(data.train_mask)
@@ -962,6 +1069,11 @@ class ParallelADMMTrainer:
         self._row_mask = data.row_mask[..., None]
         if compressed:
             self._ell_idx32 = data.ell_indices.to(torch.int32).contiguous()
+            self._ell_live = self._body.ell_live if mesh is None else \
+                (data.ell_mask != 0).to(torch.int32)
+        else:
+            self._a_masked = self._body.a_masked if mesh is None else \
+                data.a_blocks * data.neighbor_mask.float()[:, :, None, None]
 
     # -- state layout ------------------------------------------------------
 
@@ -971,6 +1083,30 @@ class ParallelADMMTrainer:
         if self.packed:
             blk = self.packed_layout.pack_state(blk)
         return torch.as_tensor(blk, device=self.device)
+
+    def shard_state(self, state: ParallelState) -> ParallelState:
+        """This process's part of a full state: under a mesh its lanes of
+        Z, U and θ (of a packed plane its plane's rows), W and τ as they
+        are; the full state itself on the loopback."""
+        if self.mesh is None:
+            return state
+        lanes = self._lanes
+        rows = lanes
+        if self.packed:
+            pr = self.packed_layout.plane_rows
+            rows = slice(self.rank * pr, (self.rank + 1) * pr)
+        return ParallelState(
+            state.weights, tuple(z[rows].clone() for z in state.zs),
+            state.u[rows].clone(), state.taus,
+            tuple(t[lanes].clone() for t in state.thetas))
+
+    def full_state(self) -> "ParallelState | None":
+        """The full state: on the loopback the state; under a mesh every
+        rank's part gathered to rank 0 (None on the other ranks)."""
+        if self.mesh is None:
+            return self.state
+        from repro_torch.convert import gather_state
+        return gather_state(self.mesh, self.state)
 
     def _unfold(self, p: Tensor) -> Tensor:
         if not self.packed:
@@ -996,7 +1132,8 @@ class ParallelADMMTrainer:
                 plan = messages.restrict_exchange(plan, sampled)
             lanes = np.zeros((s_n, m // s_n), dtype=np.float32)
             lanes[sorted(sampled)] = 1.0
-            smask = torch.as_tensor(lanes.reshape(m), device=self.device)
+            smask = torch.as_tensor(lanes.reshape(m)[self._lanes],
+                                    device=self.device)
         groups = None
         if self._overlap_on:
             csr = self.layout.compress()
@@ -1005,11 +1142,11 @@ class ParallelADMMTrainer:
             shard = (np.arange(m) // (m // s_n))[:, None]
             grp = np.where(live, arr[shard, self._slots] + 1, 0)
             groups = tuple(
-                torch.as_tensor((live & (grp == gi)).astype(np.int32),
-                                device=self.device)
+                torch.as_tensor((live & (grp == gi)).astype(np.int32)
+                                [self._lanes], device=self.device)
                 for gi in range(plan.num_rounds + 1))
         if plan is not None:
-            tables = messages.loopback_tables(plan, self.device)
+            tables = self.comm.tables(plan, self.device)
         return _Batch(plan, tables, groups, smask)
 
     def _batch_for(self, shards: frozenset) -> _Batch:
@@ -1031,7 +1168,8 @@ class ParallelADMMTrainer:
         """This round's batch and √ of its staleness weights."""
         if self._sampler is None:
             return self._full, None
-        decay = torch.as_tensor(self._nbr_decay(), device=self.device)
+        decay = torch.as_tensor(self._nbr_decay()[self._lanes],
+                                device=self.device)
         return self._batch_for(self._current_shards()), torch.sqrt(decay)
 
     # -- accounting ----------------------------------------------------------
@@ -1078,7 +1216,10 @@ class ParallelADMMTrainer:
         cs["adjacency"] = messages.adjacency_bytes(
             lay.neighbor_mask, lay.n_pad,
             itemsize=2 if config.adjacency_bf16 else 4)
-        cs["adjacency"]["resident_bytes"] = int(self.data.adjacency_nbytes)
+        # every shard's lanes: a rank's share times the shards
+        cs["adjacency"]["resident_bytes"] = int(
+            self.data.adjacency_nbytes * self.n_shards
+            // len(self.comm.shards))
         z_cols = sum(dims[1:])
         state_cols = dims[0] + z_cols + dims[-1]
         rc_eff = np.asarray(lay.eff_row_counts(), dtype=np.int64)
@@ -1148,9 +1289,33 @@ class ParallelADMMTrainer:
         state = self.state if state is None else state
         use_kernel = self.use_kernel if use_kernel is None else use_kernel
         batch, sdr = self._current_batch()
-        return self._body(state, use_kernel, batch, sdr)
+        out = self._body(state, use_kernel, batch, sdr)
+        self.comm.flush()
+        return out
 
     def step(self) -> None:
+        """One ADMM iteration.  Under a mesh ``comm_stats`` then holds the
+        step's measured wire: ``sent_bytes`` (every rank's),
+        ``rank_sent_bytes`` (by rank), and this rank's ``transport_s`` and
+        ``staging_s`` (host seconds in the transport, and of them in its
+        host staging copies)."""
+        if self.mesh is None:
+            self._advance()
+            return
+        t = self.comm
+        sent, secs, staged = t.sent_bytes, t.time_s, t.staging_s
+        self._advance()
+        mine = torch.tensor([t.sent_bytes - sent], dtype=torch.int64,
+                            device=self.device)
+        with trace.marked("wire-accounting"):
+            per_rank = [int(x) for x in messages.gather_parts(self.mesh,
+                                                              mine)]
+        self.comm_stats.update(sent_bytes=sum(per_rank),
+                               rank_sent_bytes=per_rank,
+                               transport_s=t.time_s - secs,
+                               staging_s=t.staging_s - staged)
+
+    def _advance(self) -> None:
         if self._sampler is None:
             self.state = self.next_state()
             return
@@ -1190,9 +1355,13 @@ class ParallelADMMTrainer:
         with torch.no_grad():
             zs, u, zh_in, zh, aggs = body.inputs(st.zs, st.u, batch,
                                                  use_kernel)
+        self.comm.flush()
         out = {"w": [], "z": []}
         for l, obj in enumerate(body.w_objectives(aggs, zs, u, batch)):
-            out["w"].append(value_and_grad(obj, st.weights[l]))
+            val, grad = value_and_grad(obj, st.weights[l])
+            if body.psum is not None:
+                val, grad = body.psum(val), body.psum(grad)
+            out["w"].append((val, grad))
         for l in range(1, self.cfg.num_layers):
             with torch.no_grad():
                 obj = body.z_objective(l, aggs, zh_in, zh, zs, u,
@@ -1209,13 +1378,12 @@ class ParallelADMMTrainer:
         says, as in the reference (repro/core/parallel.py:1317-1334): the
         ELL kernel on the card in compressed mode, the masked einsum in
         dense mode."""
-        body = self._body
         if not self.compressed:
-            return torch.einsum("kmip,kmpc->kic", body.a_masked,
-                                z.expand(len(body.a_masked), *z.shape))
-        d = self.data
+            return torch.einsum("kmip,kmpc->kic", self._a_masked,
+                                z.expand(len(self._a_masked), *z.shape))
+        d = self._full_data
         return kops.community_spmm_ell(d.ell_blocks, self._ell_idx32,
-                                       body.ell_live, z, d.row_counts,
+                                       self._ell_live, z, d.row_counts,
                                        d.nbr_counts)
 
     def _forward_blocked(self, weights) -> Tensor:
@@ -1251,7 +1419,8 @@ class ParallelADMMTrainer:
         u = self._unfold(state.u)
         logp = torch.log_softmax(zs[-1], dim=-1)
         nll = -torch.gather(logp, -1, self._labels_blk.long()[..., None])
-        val = torch.sum(nll[..., 0] * self._train_blk) / self.data.denom
+        val = torch.sum(nll[..., 0] * self._train_blk) / \
+            self._full_data.denom
         z_prev = self._z0_blk
         for l in range(self.cfg.num_layers - 1):
             r = (zs[l] - f(self._agg_full(z_prev) @ ws[l])) * rm
@@ -1264,7 +1433,27 @@ class ParallelADMMTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def epoch_metrics(self) -> list[float]:
+        """[train accuracy, test accuracy, Lagrangian, residual] of the
+        current state; under a mesh rank 0's, from the state gathered
+        there, on every rank."""
+        full = self.full_state()
+        vals = None
+        if full is not None:
+            tr, te, res = self._metrics(full)
+            vals = [float(tr), float(te), float(self._lagrangian(full)),
+                    float(res)]
+        if self.mesh is not None:
+            import torch.distributed as dist
+            box = [vals]
+            dist.broadcast_object_list(box, src=0, group=self.mesh.group)
+            vals = box[0]
+        return vals
+
     def train(self, epochs: int, verbose: bool = False) -> TrainLog:
+        """``epochs`` steps, each timed on the host clock (step time) and
+        followed by the metrics; under a mesh every rank returns rank 0's
+        log, with its own step times."""
         log = TrainLog()
         for epoch in range(epochs):
             self._sync()
@@ -1272,13 +1461,12 @@ class ParallelADMMTrainer:
             self.step()
             self._sync()
             dt = time.perf_counter() - t0
-            tr, te, res = self._metrics(self.state)
-            lag = self._lagrangian(self.state)
+            tr, te, lag, res = self.epoch_metrics()
             log.epoch.append(epoch)
-            log.train_acc.append(float(tr))
-            log.test_acc.append(float(te))
-            log.lagrangian.append(float(lag))
-            log.residual.append(float(res))
+            log.train_acc.append(tr)
+            log.test_acc.append(te)
+            log.lagrangian.append(lag)
+            log.residual.append(res)
             log.epoch_time_s.append(dt)
             if verbose:
                 print(f"[parallel-admm] epoch {epoch:3d} train {tr:.3f} "

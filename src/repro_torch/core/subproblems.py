@@ -113,19 +113,28 @@ def phi_last(admm: ADMMConfig, a_tilde: Tensor, w: Tensor, z_prev: Tensor,
 # ---------------------------------------------------------------------------
 
 def backtracking_step(obj: Callable[[Tensor], Tensor], x: Tensor,
-                      tau0: Tensor, admm: ADMMConfig
+                      tau0: Tensor, admm: ADMMConfig,
+                      psum: "Callable[[Tensor], Tensor] | None" = None
                       ) -> tuple[Tensor, Tensor]:
     """One majorize-minimize step: x⁺ = x − ∇obj(x)/τ with τ doubled until
     P(x⁺; τ) = obj(x) − ‖∇obj‖²/(2τ) ≥ obj(x⁺).  Returns (x⁺, accepted τ).
-    The warm start shrinks τ once (optimistic), then grows to acceptance."""
+    The warm start shrinks τ once (optimistic), then grows to acceptance.
+
+    With ``psum`` (the reference's ``backtracking_step_psum``) ``obj`` is
+    a shard's local objective: its value and gradient are psum-ed, and so
+    is every probe's objective, so that every shard takes the same τ."""
+    if psum is None:
+        def psum(v):
+            return v
     val, grad = value_and_grad(obj, x)
+    val, grad = psum(val), psum(grad)
     g_sq = torch.sum(grad * grad)
     tau = torch.clamp(tau0 / admm.backtrack_growth, min=1e-8)
     with torch.no_grad():
         for _ in range(admm.max_backtracks):
             bound = val - 0.5 * g_sq / tau
             tol = admm.backtrack_rtol * (torch.abs(bound) + 1e-12)
-            if not trace.decide(bound + tol < obj(x - grad / tau),
+            if not trace.decide(bound + tol < psum(obj(x - grad / tau)),
                                 "backtracking"):
                 break
             tau = tau * admm.backtrack_growth

@@ -28,3 +28,18 @@ def resolve_device(device: "str | torch.device | None" = None
                                f"CPU")
         strict_f32()
     return device
+
+
+def rank_device(rank: int, device: "str | torch.device | None" = None
+                ) -> torch.device:
+    """The device of process ``rank``: for ``None`` or ``"cuda"`` the card
+    ``cuda:{rank % device_count}`` (several ranks share a card when there
+    are more ranks than cards), with TF32 off in this process — TF32 is
+    per-process state, so every rank turns it off for itself.  Without a
+    card it raises, as ``resolve_device`` does; ``"cpu"`` is the CPU."""
+    if device is None or str(device) == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank}: no CUDA device is available; "
+                               f"pass device='cpu' to run on the CPU")
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    return resolve_device(device)

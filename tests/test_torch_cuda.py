@@ -1057,3 +1057,109 @@ def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
     for a, b in zip(tree.leaves(back), tree.leaves(state)):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the process transport on the card: 2 gloo ranks sharing it
+# ---------------------------------------------------------------------------
+
+PROC_PARTS, PROC_SHARDS = 4, 2
+
+
+def _proc_trainer(mesh=None, device=None, **kw):
+    g, _ = graph.synthetic_powerlaw_communities(
+        PROC_PARTS, nodes_per_part=24, size_skew=1.0, feat_dim=16, seed=0)
+    return ParallelADMMTrainer(
+        gcn.GCNConfig((16, 32, g.num_classes)), ADMMConfig(nu=1e-3, rho=1e-3),
+        g, PROC_PARTS, seed=0, device=device, n_shards=PROC_SHARDS,
+        mesh=mesh, config=TrainerConfig.packed(use_kernel=True, **kw))
+
+
+def _proc_rank(rank, store, out_dir):
+    import json
+    import pathlib
+
+    from repro_torch.analysis import registry
+    from repro_torch.analysis import trainer as atrainer
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.init_process_mesh(rank, PROC_SHARDS, "gloo", store,
+                                      timeout=60)
+    try:
+        rec = {}
+        for name, kw in (("packed", {}), ("fused-overlap",
+                                          {"fused": True, "overlap": True})):
+            tt = _proc_trainer(mesh, **kw)
+            before = community_spmm.packed_launches, \
+                community_spmm.fused_launches
+            tt.step()
+            after = community_spmm.packed_launches, \
+                community_spmm.fused_launches
+            st = tt.state
+            np.savez(pathlib.Path(out_dir) / f"{name}-{rank}.npz",
+                     *[t.cpu().numpy() for t in st.weights + st.zs
+                       + (st.u,) + st.taus + st.thetas])
+            del st      # the recorded step must free the state it replaces
+            tape, exp = atrainer.record_step(tt)
+            report = registry.run_rules(registry.AnalysisContext(
+                trace=tape, expectations=exp))
+            rec[name] = {
+                "launches": [a - b for a, b in zip(after, before)],
+                "sent": tt.comm_stats["sent_bytes"],
+                "wire": tt.comm_stats["wire_bytes"],
+                "errors": [f.rule for f in report.errors()],
+                "cuda_kernels": sorted({e.info["route"] for e in
+                                        tape.of_kind("kernel")})}
+        (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(
+            json.dumps(rec))
+    finally:
+        mesh_lib.destroy(mesh)
+
+
+def test_two_gloo_ranks_on_the_card_match_the_loopback(cuda_device,
+                                                       tmp_path):
+    """Two rank processes share the card (gloo, rows staged through pinned
+    host buffers): one step from the seed equals the loopback trainer's
+    (τ/θ equal, every tensor within 1e-5 · max), each rank launches the
+    packed kernel 3 times a step (fused + overlap: its arrival groups'
+    packed and fused calls), sends the plan's wire bytes, and its recorded
+    step has no error finding with every launch on the CUDA route."""
+    import json
+
+    from repro_torch.launch import mesh as mesh_lib
+    build.load_all(["community_spmm_ell", "community_spmm_ell_fused"])
+    mesh_lib.run_ranks(_proc_rank, PROC_SHARDS, (str(tmp_path),),
+                       timeout=300)
+    for name, kw in (("packed", {}), ("fused-overlap",
+                                      {"fused": True, "overlap": True})):
+        lt = _proc_trainer(device="cuda", **kw)
+        before = community_spmm.packed_launches, community_spmm.fused_launches
+        lt.step()
+        loop = [community_spmm.packed_launches - before[0],
+                community_spmm.fused_launches - before[1]]
+        st = lt.state
+        want = [t.cpu().numpy() for t in st.weights + st.zs + (st.u,)
+                + st.taus + st.thetas]
+        parts = []
+        for r in range(PROC_SHARDS):
+            with np.load(tmp_path / f"{name}-{r}.npz") as data:
+                parts.append([data[f"arr_{i}"] for i in range(len(want))])
+            rec = json.loads((tmp_path / f"rank{r}.json").read_text())[name]
+            # the loopback launches once over both shards' lanes where
+            # each rank launches once over its own
+            assert rec["launches"] == loop, (name, rec, loop)
+            assert rec["sent"] == rec["wire"] > 0
+            assert rec["errors"] == [], rec
+            assert rec["cuda_kernels"] == ["cuda"]
+        n = 2
+        for i, w in enumerate(want):
+            shared = i < n or 2 * n + 1 <= i < 3 * n + 1
+            got = parts[0][i] if shared else \
+                np.concatenate([p[i] for p in parts])
+            if shared:
+                assert all(np.array_equal(p[i], got) for p in parts)
+            if i >= 2 * n + 1:
+                np.testing.assert_array_equal(got, w)
+            else:
+                scale = max(float(np.abs(w).max()), 1e-30)
+                assert float(np.abs(got - w).max()) <= 1e-5 * scale, \
+                    (name, i)
