@@ -163,7 +163,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      printed, zero error findings, every kernel launch on the CUDA route,
      each launch spec's shared memory within the card's per-block limit
      and equal to its CUDA layout query;
-  13. print the kernels line, the card's name and power limit, and a last
+  13. the language models over a data x model mesh of rank processes
+     sharing the card (gloo; NCCL refuses two ranks on one card), through
+     the reference's plain route (no kernel launches on any rank): 13a, 2
+     data ranks running Model.train_step_deferred (one bucketed reduction
+     over data after the microbatches, summed in rank order) — reduced f32
+     gemma-2b against one process's step on the whole batch (deltas within
+     1e-5 of max, loss within 1e-5, the same bits on both ranks), then
+     mamba2-1.3b at its published widths and depth (48 layers, d_model
+     2048, bf16, Adam, grad_accum 2, remat) on 4 x 4096 tokens a step, 2
+     sequences a rank, 1 warm-up and 3 timed steps (ms a step, tokens/s,
+     peak GB a rank, bytes reduced a step and the host ms of the reduction
+     and its staging, parameter hashes equal on both ranks after every
+     step, losses finite); 13b, 2 x 2 ranks running
+     LayerwiseADMMTrainer(mesh=...) (blocks over model, rows over data) —
+     reduced f32 gemma-2b, one iteration from the one-process state after
+     2 against one process (tau/theta equal, tensors within 1e-4 of max),
+     then gemma-2b at full width on 4 x 512 tokens: init (a forward
+     pipelined along model) and 2 iterations (ms an iteration, peak GB a
+     rank, bytes summed over data and sent along model, probes a search,
+     W hashes equal on the data ranks of each model rank, the composed CE
+     below its initial value, the residual finite);
+  14. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
@@ -2805,6 +2826,449 @@ def analysis_phase(cfg, admm, g, card: str, dev) -> dict:
     return {"seconds": secs, "runs": out, "specs": len(specs)}
 
 
+# ---------------------------------------------------------------------------
+# the language models over a data × model mesh of rank processes
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_ARCH = "mamba2-1.3b"
+MESH_TRAIN_BATCH = (4, 4096)   # global batch; 2 sequences a data rank
+MESH_TRAIN_STEPS = 4           # 1 warm-up + 3 timed
+MESH_DP = 2                    # [13a]: data 2
+MESH_LW = (2, 2)               # [13b]: data 2 × model 2
+MESH_LW_ITERS = 2
+
+
+def tree_hash(tree_) -> str:
+    """sha256 of every leaf's bits (on the host)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.util import tree
+    h = hashlib.sha256()
+    for leaf in tree.leaves(tree_):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_train_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 13a, one of 2 data ranks (gloo, the one card): the reduced f32
+    gemma-2b deferred step from the parent's weights on this rank's rows,
+    then mamba2-1.3b at full width, 1 + 3 steps of train_step_deferred on
+    its rows of each pipeline batch; its record to ``spec["dir"]``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.messages import MeshCollectives
+    from repro_torch.data import TokenPipeline, synthetic_token_batches
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.build import make_model
+    from repro_torch.util import tree
+    base = mesh_lib.init_process_mesh(rank, MESH_DP, "gloo", store,
+                                      timeout=120)
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, 1)
+        dev = mesh.device
+        out_dir = pathlib.Path(spec["dir"])
+        rec: dict = {"device": str(dev)}
+        # -- reduced f32 gemma-2b against one process (the parent's) --
+        cfg = dataclasses.replace(get_config("gemma-2b", reduced=True),
+                                  optimizer="sgd", learning_rate=1.0,
+                                  grad_accum=2)
+        model = make_model(cfg)
+        with np.load(out_dir / "reduced-init.npz") as data:
+            leaves = [torch.from_numpy(data[f"arr_{i}"]).to(dev)
+                      for i in range(len(data.files))]
+        params = tree.unflatten(model.init(0, "cpu"), leaves)
+        with np.load(out_dir / "reduced-batch.npz") as data:
+            batch = {k: data[k] for k in data.files}
+        rows = mesh_lib.batch_rows(mesh, len(batch["tokens"]))
+        new, _, met = model.train_step_deferred(
+            mesh, params, (), {k: v[rows] for k, v in batch.items()})
+        np.savez(out_dir / f"reduced-rank{rank}.npz",
+                 *[t.cpu().numpy() for t in tree.leaves(new)])
+        rec["reduced"] = {"loss": float(met["loss"]), "hash": tree_hash(new)}
+        del model, params, new
+        # -- mamba2-1.3b at full width --
+        cfg = get_config(MESH_TRAIN_ARCH)
+        model = make_model(cfg)
+        b, s = MESH_TRAIN_BATCH
+        pipeline = TokenPipeline(
+            synthetic_token_batches(cfg.vocab_size, b, s, seed=3),
+            mesh=mesh)
+        params = model.init(seed=0, device=dev)
+        opt_state = model.init_optimizer().init(params)
+        comm = MeshCollectives(mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps = []
+        for _ in range(MESH_TRAIN_STEPS):
+            batch = next(pipeline)
+            before = (comm.sum_bytes, comm.sum_s, comm.staging_s)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt_state, met = model.train_step_deferred(
+                mesh, params, opt_state, batch, comm=comm)
+            loss = float(met["loss"])
+            ms = 1e3 * (time.perf_counter() - t0)
+            steps.append({"ms": ms, "loss": loss,
+                          "rows": int(batch["tokens"].shape[0]),
+                          "sum_bytes": comm.sum_bytes - before[0],
+                          "sum_ms": 1e3 * (comm.sum_s - before[1]),
+                          "staging_ms": 1e3 * (comm.staging_s - before[2]),
+                          "hash": tree_hash(params)})
+        rec["full"] = {"steps": steps,
+                       "parameters": sum(t.numel()
+                                         for t in tree.leaves(params)),
+                       "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        rec["launches"] = counts()
+        (out_dir / f"train-rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        mesh_lib.destroy(base)
+
+
+def mesh_layerwise_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 13b, one of 2 × 2 ranks (data × model; gloo, the one card):
+    one layerwise iteration of the reduced f32 gemma-2b from the parent's
+    one-process state, then gemma-2b at full width — init (the pipelined
+    forward) and 2 iterations; its record to ``spec["dir"]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import layerwise
+    from repro_torch.core.subproblems import ADMMConfig
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.util import tree
+    base = mesh_lib.init_process_mesh(rank, math.prod(MESH_LW), "gloo",
+                                      store, timeout=120)
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, MESH_LW[1])
+        dev = mesh.device
+        out_dir = pathlib.Path(spec["dir"])
+        admm = ADMMConfig(nu=1e-2, rho=1e-2)
+        rec: dict = {"device": str(dev), "coords": mesh.coords}
+        # -- reduced f32 gemma-2b against one process (the parent's) --
+        cfg = get_config("gemma-2b", reduced=True)
+        with np.load(out_dir / "lw-batch.npz") as data:
+            batch = {k: data[k] for k in data.files}
+        one = layerwise.LayerwiseADMMTrainer(cfg, admm)
+        like, _ = one.init(0, batch, "cpu")
+        with np.load(out_dir / "lw-state.npz") as data:
+            arrays = [torch.from_numpy(data[f"arr_{i}"])
+                      for i in range(len(data.files))]
+        tr = layerwise.LayerwiseADMMTrainer(cfg, admm, mesh=mesh)
+        local, z0 = tr.shard_state(tree.unflatten(like, arrays[:-1]),
+                                   arrays[-1])
+        nxt = tr.iteration(local, z0, batch["targets"])
+        parts = {}
+        for seg, lo, hi, _ in tr.local:
+            for i, leaf in enumerate(tree.leaves(nxt.stack[seg.kind])):
+                parts[f"stack/{seg.kind}/{i}"] = leaf.cpu().numpy()
+            for f in ("zs", "taus", "thetas"):
+                parts[f"{f}/{seg.kind}"] = getattr(nxt, f)[seg.kind] \
+                    .cpu().numpy()
+        if tr._last:
+            for i, leaf in enumerate(tree.leaves(nxt.readout)):
+                parts[f"readout/{i}"] = leaf.cpu().numpy()
+            parts["u"] = nxt.u.cpu().numpy()
+            parts["tau_r"] = nxt.tau_r.cpu().numpy()
+        np.savez(out_dir / f"lw-rank{rank}.npz", **parts)
+        rec["reduced"] = {"local": [[s.kind, lo, hi]
+                                    for s, lo, hi, _ in tr.local],
+                          "rows": [tr._rows.start, tr._rows.stop],
+                          "last": tr._last}
+        del tr, local, nxt, one, like
+        # -- gemma-2b at full width --
+        cfg = get_config(TRAIN_ARCH)
+        b, s = ADMM_BATCH
+        admm_batch = next(synthetic_token_batches(cfg.vocab_size, b, s,
+                                                  seed=2))
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = layerwise.LayerwiseADMMTrainer(cfg, admm, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        st, z0 = tr.init(0, admm_batch)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        ce0, res0 = (float(v) for v in tr.metrics(st, z0,
+                                                  admm_batch["targets"]))
+        iters = []
+        for _ in range(MESH_LW_ITERS):
+            p0, s0 = layerwise.probes, layerwise.searches
+            c0 = (tr.comm.sum_bytes, tr.comm.sent_bytes, tr.comm.sum_s,
+                  tr.comm.shift_s, tr.comm.staging_s)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            st = tr.iteration(st, z0, admm_batch["targets"])
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            ce, res = (float(v) for v in tr.metrics(st, z0,
+                                                    admm_batch["targets"]))
+            iters.append({
+                "ms": ms, "ce": ce, "residual": res,
+                "probes": layerwise.probes - p0,
+                "searches": layerwise.searches - s0,
+                "sum_bytes": tr.comm.sum_bytes - c0[0],
+                "sent_bytes": tr.comm.sent_bytes - c0[1],
+                "sum_ms": 1e3 * (tr.comm.sum_s - c0[2]),
+                "shift_ms": 1e3 * (tr.comm.shift_s - c0[3]),
+                "staging_ms": 1e3 * (tr.comm.staging_s - c0[4]),
+                "w_hash": tree_hash(st.stack)})
+        rec["full"] = {"init_s": init_s, "ce0": ce0, "residual0": res0,
+                       "iterations": iters,
+                       "blocks": [[s.kind, lo, hi]
+                                  for s, lo, hi, _ in tr.local],
+                       "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        rec["launches"] = counts()
+        (out_dir / f"lw-rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        mesh_lib.destroy(base)
+
+
+def mesh_phase(card: str, dev) -> dict:
+    """Phase 13: the language models over a data × model mesh of rank
+    processes sharing the one card (gloo: NCCL refuses two ranks on one
+    card).  13a: 2 data ranks running Model.train_step_deferred — the
+    reduced f32 gemma-2b against one process's step on the whole batch
+    (GRAD_TOL), then mamba2-1.3b at its published widths and depth (Adam,
+    grad_accum 2, remat, bf16) on 4 x 4,096 tokens a step, 2 sequences a
+    rank: step ms, tokens/s, peak GB a rank, the bytes reduced a step and
+    the host ms of the reduction and its staging, parameter hashes equal
+    on both ranks after every step, the loss finite.  13b: 2 x 2 ranks
+    running LayerwiseADMMTrainer(mesh=...) (blocks over model, rows over
+    data) — the reduced f32 gemma-2b iteration from the one-process state
+    after 2 against one process (tau/theta equal, LW_TOL), then gemma-2b at
+    full width on 4 x 512 tokens, init and 2 iterations: ms an iteration,
+    peak GB a rank, bytes summed over data and sent along model, probes a
+    search, W hashes equal on the data ranks of each model rank, the
+    composed CE below its initial value, the residual finite.  No kernel
+    launches (training runs the plain route)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import layerwise
+    from repro_torch.core.subproblems import ADMMConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.build import make_model
+    from repro_torch.util import tree
+
+    t_phase = time.perf_counter()
+    before = counts()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="mesh13_") as tmp:
+        tmp = pathlib.Path(tmp)
+        # ---- 13a: data-parallel train_step_deferred over 2 ranks ----
+        cfg = dataclasses.replace(get_config("gemma-2b", reduced=True),
+                                  optimizer="sgd", learning_rate=1.0,
+                                  grad_accum=2)
+        model = make_model(cfg)
+        rng = np.random.default_rng(0)
+        b, s = REDUCED_BATCH
+        batch = {k: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+                 for k in ("tokens", "targets")}
+        p = model.init(seed=0, device=dev)
+        np.savez(tmp / "reduced-init.npz",
+                 *[t.cpu().numpy() for t in tree.leaves(p)])
+        np.savez(tmp / "reduced-batch.npz", **batch)
+        want, _, m_one = model.train_step_deferred(None, p, (), batch)
+        t0 = time.perf_counter()
+        mesh_lib.run_ranks(mesh_train_rank, MESH_DP, ({"dir": str(tmp)},),
+                           timeout=900)
+        wall = time.perf_counter() - t0
+        recs = [json.loads((tmp / f"train-rank{r}.json").read_text())
+                for r in range(MESH_DP)]
+        with np.load(tmp / "reduced-rank0.npz") as data:
+            got = tree.unflatten(p, [torch.from_numpy(data[f"arr_{i}"])
+                                     for i in range(len(data.files))])
+        gap = step_gap(p, got, want)
+        loss_rel = abs(recs[0]["reduced"]["loss"] - float(m_one["loss"])) / \
+            abs(float(m_one["loss"]))
+        same = len({r["reduced"]["hash"] for r in recs}) == 1
+        ok = gap <= GRAD_TOL and loss_rel <= GRAD_TOL and same
+        print(f"[13a] {MESH_DP} data ranks (gloo, one card) in {wall:.1f} s, "
+              f"devices {[r['device'] for r in recs]}; reduced f32 gemma-2b "
+              f"train_step_deferred (SGD lr 1, grad_accum 2, {b} x {s}) "
+              f"against one process: delta rel {gap:.3e}, loss rel "
+              f"{loss_rel:.3e} (limits {GRAD_TOL:g}), the same bits on both "
+              f"ranks {same} {'ok' if ok else 'FAIL'} [{card}]", flush=True)
+        if not ok:
+            fail("13a: the data-parallel step disagrees with one process")
+        del model, p, want
+        torch.cuda.empty_cache()
+        full = [r["full"] for r in recs]
+        steps = [[st["ms"] for st in f["steps"]] for f in full]
+        head = full[0]["steps"]
+        gb, gs = MESH_TRAIN_BATCH
+        timed = [max(st[i] for st in steps)
+                 for i in range(1, MESH_TRAIN_STEPS)]
+        step_ms = statistics.median(timed)
+        print(f"[13a] {MESH_TRAIN_ARCH} full width ({full[0]['parameters']:,} "
+              f"parameters, bf16, Adam, grad_accum 2, remat), global batch "
+              f"{gb} x {gs}, {head[0]['rows']} sequences a rank: step ms by "
+              f"rank {[[round(t, 1) for t in st] for st in steps]}; median of "
+              f"the {len(timed)} after warm-up (slowest rank) {step_ms:.1f} ms "
+              f"= {gb * gs / step_ms * 1e3:,.0f} tokens/s; losses "
+              f"{[round(st['loss'], 4) for st in head]}; peak "
+              f"{[round(f['peak_gb'], 2) for f in full]} GB a rank "
+              f"[{card}]", flush=True)
+        print(f"[13a] the deferred reduction a step: "
+              f"{[st['sum_bytes'] for st in head]} B summed over "
+              f"{MESH_DP} data ranks (rank 0), host ms in it by rank "
+              f"{[[round(st['sum_ms'], 1) for st in f['steps']] for f in full]}"
+              f", of it staging "
+              f"{[[round(st['staging_ms'], 1) for st in f['steps']] for f in full]}"
+              f"; parameter hashes equal after every step "
+              f"{[len({f['steps'][i]['hash'] for f in full}) == 1 for i in range(MESH_TRAIN_STEPS)]}"
+              f" [{card}]", flush=True)
+        for i in range(MESH_TRAIN_STEPS):
+            if len({f["steps"][i]["hash"] for f in full}) != 1:
+                fail(f"13a: the ranks' parameters differ after step {i}")
+            if not all(math.isfinite(f["steps"][i]["loss"]) for f in full):
+                fail("13a: a non-finite loss")
+        launched = [r["launches"] for r in recs]
+        out["train"] = {"wall_s": wall, "reduced_delta_rel": gap,
+                        "reduced_loss_rel": loss_rel,
+                        "step_ms": step_ms, "steps_ms": steps,
+                        "tokens_per_s": gb * gs / step_ms * 1e3,
+                        "losses": [st["loss"] for st in head],
+                        "peak_gb": [f["peak_gb"] for f in full],
+                        "sum_bytes": [st["sum_bytes"] for st in head],
+                        "sum_ms": [[st["sum_ms"] for st in f["steps"]]
+                                   for f in full],
+                        "staging_ms": [[st["staging_ms"]
+                                        for st in f["steps"]]
+                                       for f in full]}
+
+        # ---- 13b: layerwise ADMM over 2 x 2 ranks ----
+        admm = ADMMConfig(nu=1e-2, rho=1e-2)
+        tr = layerwise.LayerwiseADMMTrainer(get_config("gemma-2b",
+                                                       reduced=True), admm)
+        batch = {k: rng.integers(0, tr.cfg.vocab_size, (b, s))
+                 .astype(np.int32) for k in ("tokens", "targets")}
+        st, z0 = tr.init(0, batch, dev)
+        for _ in range(2):
+            st = tr.iteration(st, z0, batch["targets"])
+        np.savez(tmp / "lw-state.npz",
+                 *[t.cpu().numpy() for t in tree.leaves(st) + [z0]])
+        np.savez(tmp / "lw-batch.npz", **batch)
+        want = tr.iteration(st, z0, batch["targets"])
+        world = math.prod(MESH_LW)
+        t0 = time.perf_counter()
+        mesh_lib.run_ranks(mesh_layerwise_rank, world, ({"dir": str(tmp)},),
+                           timeout=900)
+        wall = time.perf_counter() - t0
+        recs = [json.loads((tmp / f"lw-rank{r}.json").read_text())
+                for r in range(world)]
+        worst, curv = 0.0, True
+        for r, rec in enumerate(recs):
+            with np.load(tmp / f"lw-rank{r}.npz") as data:
+                parts = {k: data[k] for k in data.files}
+            r0, r1 = rec["reduced"]["rows"]
+            for kind, lo, hi in rec["reduced"]["local"]:
+                for f in ("taus", "thetas"):
+                    curv &= bool(np.array_equal(
+                        parts[f"{f}/{kind}"],
+                        getattr(want, f)[kind][lo:hi].cpu().numpy()))
+                for i, w in enumerate(tree.leaves(want.stack[kind])):
+                    worst = max(worst, rel_err(
+                        torch.from_numpy(parts[f"stack/{kind}/{i}"]),
+                        w[lo:hi].cpu())[1])
+                worst = max(worst, rel_err(
+                    torch.from_numpy(parts[f"zs/{kind}"]),
+                    want.zs[kind][lo:hi, r0:r1].cpu())[1])
+            if rec["reduced"]["last"]:
+                curv &= float(parts["tau_r"]) == float(want.tau_r)
+                for i, w in enumerate(tree.leaves(want.readout)):
+                    worst = max(worst, rel_err(
+                        torch.from_numpy(parts[f"readout/{i}"]),
+                        w.cpu())[1])
+                worst = max(worst, rel_err(torch.from_numpy(parts["u"]),
+                                           want.u[r0:r1].cpu())[1])
+        ok = curv and worst <= LW_TOL
+        print(f"[13b] {MESH_LW[0]} x {MESH_LW[1]} ranks (data x model; gloo, "
+              f"one card) in {wall:.1f} s; reduced f32 gemma-2b, one "
+              f"iteration from the one-process state after 2 against one "
+              f"process: tau/theta equal {curv}, tensors rel {worst:.3e} "
+              f"(limit {LW_TOL:g}) {'ok' if ok else 'FAIL'} [{card}]",
+              flush=True)
+        if not ok:
+            fail("13b: the layerwise iteration over ranks disagrees with one "
+                 "process")
+        del tr, st, z0, want
+        torch.cuda.empty_cache()
+        full = [r["full"] for r in recs]
+        head = full[-1]                 # the last model rank holds the CE
+        print(f"[13b] {TRAIN_ARCH} full width, batch {ADMM_BATCH[0]} x "
+              f"{ADMM_BATCH[1]}: blocks by rank "
+              f"{[f['blocks'] for f in full]}, init (pipelined forward) "
+              f"{[round(f['init_s'], 1) for f in full]} s, ce "
+              f"{head['ce0']:.4f}, residual {head['residual0']:.3e}; peak "
+              f"{[round(f['peak_gb'], 2) for f in full]} GB a rank [{card}]",
+              flush=True)
+        ce_prev = head["ce0"]
+        for i in range(MESH_LW_ITERS):
+            its = [f["iterations"][i] for f in full]
+            h = its[-1]
+            print(f"[13b] iteration {i + 1}: ms by rank "
+                  f"{[round(it['ms'], 1) for it in its]}, ce {h['ce']:.4f}, "
+                  f"residual {h['residual']:.3e}; probes a search by rank "
+                  f"{[round(it['probes'] / it['searches'], 2) for it in its]}"
+                  f"; summed over data by rank "
+                  f"{[it['sum_bytes'] for it in its]} B "
+                  f"({[round(it['sum_ms'], 1) for it in its]} ms), sent along "
+                  f"model {[it['sent_bytes'] for it in its]} B "
+                  f"({[round(it['shift_ms'], 1) for it in its]} ms), staging "
+                  f"{[round(it['staging_ms'], 1) for it in its]} ms [{card}]",
+                  flush=True)
+            for m in range(MESH_LW[1]):
+                hashes = {f["iterations"][i]["w_hash"]
+                          for r, f in zip(recs, full)
+                          if r["coords"]["model"] == m}
+                if len(hashes) != 1:
+                    fail(f"13b: W differs between the data ranks of model "
+                         f"rank {m} after iteration {i + 1}")
+            if not (math.isfinite(h["ce"]) and math.isfinite(h["residual"])):
+                fail("13b: a non-finite CE or residual")
+            if any(f["iterations"][i]["ce"] != h["ce"] for f in full):
+                fail("13b: the ranks report different metrics")
+            ce_prev = h["ce"]
+        if not ce_prev < head["ce0"]:
+            fail(f"13b: the composed CE did not fall ({head['ce0']:.4f} -> "
+                 f"{ce_prev:.4f})")
+        print(f"[13b] W equal on the data ranks of each model rank after "
+              f"every iteration; composed CE {head['ce0']:.4f} -> "
+              f"{ce_prev:.4f} [{card}]", flush=True)
+        launched += [r["launches"] for r in recs]
+        out["layerwise"] = {"wall_s": wall, "reduced_rel": worst,
+                            "reduced_curvatures_equal": curv,
+                            "init_s": [f["init_s"] for f in full],
+                            "ce0": head["ce0"],
+                            "iterations": [f["iterations"] for f in full],
+                            "peak_gb": [f["peak_gb"] for f in full]}
+    after = counts()
+    launched.append({k: after[k] - before[k] for k in after})
+    print(f"[13] kernel launches by rank (13a, 13b) and in this process: "
+          f"{launched} (training runs the plain route) [{card}]", flush=True)
+    if any(any(c.values()) for c in launched):
+        fail("13: the mesh phase launched a kernel")
+    out["launches"] = launched
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[13] mesh phase {out['phase_s']:.1f} s; summary "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3173,7 +3637,10 @@ def main() -> int:
     # ---- 12. the invariant linter on the card ------------------------------
     analysis_phase(cfg, admm, g, card, dev)
 
-    # ---- 13. the kernels line, the card, the result ------------------------
+    # ---- 13. the language models over a data x model mesh of ranks ---------
+    mesh_phase(card, dev)
+
+    # ---- 14. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",

@@ -1089,6 +1089,215 @@ class ProcessTransport:
         self._open.clear()
 
 
+# ---------------------------------------------------------------------------
+# the language models' collectives over a data × model mesh of ranks
+# ---------------------------------------------------------------------------
+
+BUCKET_BYTES = 128 << 20
+
+
+def _pack(tensors: Sequence[Tensor]) -> Tensor:
+    """The tensors' bytes, one flat uint8 tensor (in order)."""
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def _unpack(flat: Tensor, like: Sequence[tuple]) -> list:
+    """``_pack``'s inverse for ``like`` = [(shape, dtype), …]."""
+    out, off = [], 0
+    for shape, dtype in like:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        out.append(flat[off:off + n].clone().view(dtype).reshape(shape))
+        off += n
+    return out
+
+
+@dataclasses.dataclass
+class MeshCollectives:
+    """The two collectives a language model's ranks need on a ``data`` ×
+    ``model`` mesh (``launch.mesh.ProcessMesh``): a sum over the data axes
+    (``sum_data``) and point-to-point messages to the neighbours along
+    ``model`` (``shift``).  Over gloo on a card both stage through pinned
+    host buffers (gloo takes host tensors).  It counts what it moved:
+    ``sum_bytes`` (this rank's parts summed over data), ``sent_bytes``
+    (sent along model), the host seconds in each (``sum_s``, ``shift_s``)
+    and, of them, in staging copies (``staging_s``)."""
+    mesh: object
+    sum_bytes: int = 0
+    sent_bytes: int = 0
+    sum_s: float = 0.0
+    shift_s: float = 0.0
+    staging_s: float = 0.0
+
+    def __post_init__(self):
+        from repro_torch.launch.mesh import data_axes
+        self.data = self.mesh.axis(*data_axes(self.mesh))
+        self.model = self.mesh.axis("model")
+        self._pinned: dict = {}
+
+    def _staged(self, device: torch.device) -> bool:
+        return self.mesh.backend == "gloo" and device.type == "cuda"
+
+    def _host(self, x: Tensor, slot: "str | None" = None) -> Tensor:
+        """``x`` copied to pinned host memory; with ``slot`` into a buffer
+        kept for that slot and shape (a bucket's, reused bucket after
+        bucket: pinning a buffer costs more than the copy)."""
+        t0 = time.perf_counter()
+        key = (slot, tuple(x.shape), x.dtype)
+        host = self._pinned.get(key) if slot is not None else None
+        if host is None:
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            if slot is not None:
+                self._pinned[key] = host
+        with trace.marked("transport-staging"):
+            host.copy_(x)
+        self.staging_s += time.perf_counter() - t0
+        return host
+
+    def _parts(self, send: Tensor) -> list:
+        """Receive buffers for the data ranks' parts of a bucket: pinned
+        and kept per shape when staged, else new."""
+        n = self.data.world_size
+        if send.device.type != "cpu" or not send.is_pinned():
+            return [torch.empty_like(send) for _ in range(n)]
+        key = ("parts", tuple(send.shape), send.dtype)
+        if key not in self._pinned:
+            self._pinned[key] = [torch.empty_like(send).pin_memory()
+                                 for _ in range(n)]
+        return self._pinned[key]
+
+    def _device(self, x: Tensor, device: torch.device) -> Tensor:
+        t0 = time.perf_counter()
+        out = x.to(device)
+        self.staging_s += time.perf_counter() - t0
+        return out
+
+    def sum_data(self, tensors: Sequence[Tensor],
+                 replicas: bool = False) -> Sequence[Tensor]:
+        """Σ over the data ranks of every tensor, in place (each keeps its
+        dtype; the sum runs in f32); returns ``tensors``.
+
+        The tensors' elements are cut into f32 buckets of at most
+        ``BUCKET_BYTES``; each bucket is one all-gather and a sum of the
+        parts in rank order (``fold``).  Every rank adds the same parts in
+        the same order, so every rank holds the same bits — a line search
+        that reads a sum on one rank must decide as on every other, and
+        neither backend's ``all_reduce`` promises equal bits on every rank
+        — while no rank holds more than one bucket's parts at a time.
+        With ``replicas`` (the model ranks hold copies: data-parallel
+        training) each bucket's sum is then broadcast from the first rank
+        of this rank's model line, so copies computed apart stay equal."""
+        import torch.distributed as dist
+        line = self.model if replicas else None
+        if self.data.world_size == 1 and (line is None
+                                          or line.world_size == 1):
+            return tensors
+        t0 = time.perf_counter()
+        for t in tensors:
+            if not t.is_contiguous():
+                raise ValueError("sum_data sums contiguous tensors in place")
+        dev = tensors[0].device
+        stage = self._staged(dev)
+        cap = BUCKET_BYTES // 4
+        buckets, cur, used = [], [], 0
+        for i, t in enumerate(tensors):
+            a = 0
+            while a < t.numel():
+                b = min(t.numel(), a + cap - used)
+                cur.append((i, a, b))
+                used += b - a
+                a = b
+                if used == cap:
+                    buckets.append(cur)
+                    cur, used = [], 0
+        if cur:
+            buckets.append(cur)
+        for bucket in buckets:
+            flat = torch.cat([tensors[i].detach().reshape(-1)[a:b].float()
+                              for i, a, b in bucket])
+            self.sum_bytes += flat.numel() * 4
+            if self.data.world_size > 1:
+                send = self._host(flat, "send") if stage else flat
+                parts = self._parts(send)
+                dist.all_gather(parts, send, group=self.data.group)
+                if stage:
+                    parts = [self._device(p, dev) for p in parts]
+                flat = fold(parts)
+            if line is not None and line.world_size > 1:
+                buf = self._host(flat, "send") if stage else flat
+                dist.broadcast(buf, src=line.ranks[0], group=line.group)
+                flat = self._device(buf, dev) if stage else buf
+            off = 0
+            for i, a, b in bucket:
+                tensors[i].reshape(-1)[a:b].copy_(flat[off:off + b - a])
+                off += b - a
+        self.sum_s += time.perf_counter() - t0
+        return tensors
+
+    def shift(self, tag: int, to_prev=None, to_next=None, from_prev=None,
+              from_next=None):
+        """One round of messages along ``model``: ``to_prev`` / ``to_next``
+        (lists of tensors, or None) go to the previous / next model rank,
+        and ``(from_prev, from_next)`` come back, each a list of tensors
+        of the given ``[(shape, dtype), …]`` on this rank's device (None
+        where none was asked for).  Both ends of a message name the same
+        ``tag`` (one per purpose; messages of one purpose between two
+        ranks arrive in the order sent): one ``batch_isend_irecv``."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        m, ranks = self.model.rank, self.model.ranks
+        dev = self.mesh.device
+        stage = self._staged(dev)
+        ops, recvs = [], []
+        for payload, peer, direction in ((to_prev, m - 1, 1),
+                                         (to_next, m + 1, 0)):
+            if payload is None:
+                continue
+            buf = _pack(payload)
+            if stage:
+                buf = self._host(buf)
+            self.sent_bytes += buf.numel()
+            ops.append(dist.P2POp(dist.isend, buf, ranks[peer],
+                                  tag=2 * tag + direction))
+        for like, peer, direction in ((from_prev, m - 1, 0),
+                                      (from_next, m + 1, 1)):
+            if like is None:
+                recvs.append(None)
+                continue
+            n = sum(math.prod(s) * torch.empty((), dtype=d).element_size()
+                    for s, d in like)
+            buf = torch.empty((n,), dtype=torch.uint8, pin_memory=stage,
+                              device="cpu" if stage else dev)
+            ops.append(dist.P2POp(dist.irecv, buf, ranks[peer],
+                                  tag=2 * tag + direction))
+            recvs.append((buf, like))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        out = []
+        for r in recvs:
+            if r is None:
+                out.append(None)
+                continue
+            buf, like = r
+            out.append(_unpack(self._device(buf, dev) if stage else buf,
+                               like))
+        self.shift_s += time.perf_counter() - t0
+        return tuple(out)
+
+    def from_last_model_rank(self, x: Tensor) -> Tensor:
+        """``x`` of the last rank of this rank's model line, on every rank
+        of it (``dist.broadcast``; ``x`` gives the shape and dtype)."""
+        import torch.distributed as dist
+        line = self.model
+        if line.world_size == 1:
+            return x
+        stage = self._staged(x.device)
+        buf = self._host(x) if stage else x.contiguous().clone()
+        dist.broadcast(buf, src=line.ranks[-1], group=line.group)
+        return self._device(buf, x.device) if stage else buf
+
+
 def arrival_rounds(plan: NeighborExchange) -> np.ndarray:
     """(n_shards, r_pad) int32: index of the round that delivers
     each receive slot's payload; -1 for resident own lanes (available

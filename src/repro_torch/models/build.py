@@ -13,7 +13,8 @@ a JAX tree across).  ``init`` draws them from a ``torch.Generator`` on the
 device (the reference's distributions, not its numbers).  ``device=None``
 means the card and raises without one (``util.device.resolve_device``).
 
-Training (``init_optimizer``, ``train_step``, ``train_step_deferred``)
+Training (``init_optimizer``, ``train_step``, ``train_step_deferred`` —
+the latter also over the data ranks of a ``launch.mesh.ProcessMesh``)
 takes the reference's plain route (``use_kernel=False``: no kernel of the
 port has a backward pass, as no Pallas kernel of the reference has a VJP).
 Gradients come from autograd; under ``cfg.remat`` each layer is
@@ -39,8 +40,6 @@ from repro_torch.util.device import resolve_device
 # vision prefix length comes from cfg.frontend.num_embeddings (stub ViT)
 AUDIO_MEMORY = 1536        # encoder frames held as decode memory
 DEC_FRACTION = 8           # enc-dec training: dec_len = seq_len // 8
-_DATA_PARALLEL = ("data-parallel training over {n} devices is ROADMAP "
-                  "queue A item 5 (the process transport)")
 
 
 @dataclasses.dataclass
@@ -206,14 +205,38 @@ class Model:
         return self._apply(params, opt_state, grads, loss_val, metrics)
 
     def train_step_deferred(self, mesh, params: Params, opt_state,
-                            batch: dict):
+                            batch: dict, comm=None):
         """Gradient accumulation with the data-parallel reduction deferred
         to one sum after the microbatches (the reference's shard_map form):
         each microbatch's gradients are summed in f32.  On one device
         (``mesh`` None, or ``launch.mesh``'s one-device mesh) that sum is
-        the whole reduction; more devices are the process transport's."""
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(_DATA_PARALLEL.format(n=mesh.size))
+        the whole reduction.
+
+        Over a ``launch.mesh.ProcessMesh`` this process is one rank and
+        ``batch`` holds its rows of the global batch (``TokenPipeline(
+        mesh=...)`` places them; ``launch.mesh.batch_rows`` cuts them).
+        After its microbatches ONE reduction over the data axes sums the
+        gradients, the loss sum and the metrics (``messages.
+        MeshCollectives.sum_data``, ``comm``, made here when not given:
+        f32 buckets, each all-gathered and summed in rank order, so every
+        rank adds the same parts in the same order and ends with the same
+        parameter bits, while no rank holds the data ranks' copies of more
+        than one bucket — a collective whose bits may differ by rank would
+        let Adam's updates drift apart).  Then, as in the reference, the
+        sums are divided by ``accum · n_dp``, the metrics are ``m.mean() /
+        n_dp``, and every rank applies the update.  The ``model`` axis
+        holds full replicas until the tensor-parallel placement is ported:
+        the model ranks of a data row compute the same shard, and each
+        bucket's sum is broadcast along the row so they stay equal."""
+        from repro_torch.launch.mesh import ProcessMesh
+        ranks = isinstance(mesh, ProcessMesh)
+        if not ranks and mesh is not None and mesh.size > 1:
+            raise ValueError(f"a one-process mesh drives one device, not "
+                             f"{mesh.size}: run data-parallel training over "
+                             f"the ranks of a launch.mesh.ProcessMesh")
+        if ranks and comm is None:
+            from repro_torch.core.messages import MeshCollectives
+            comm = MeshCollectives(mesh)
         batch = self._on_device(params, batch)
         accum = max(self.cfg.grad_accum, 1)
         live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
@@ -232,10 +255,22 @@ class Model:
             loss_sum = loss_sum + lv.detach()
             mets.append({k: v.detach() for k, v in m.items()})
         del live, live_tree
-        grads = [a.div_(accum) for a in acc]
-        loss_val = loss_sum / accum
-        metrics = {k: torch.stack([m[k] for m in mets]).mean()
-                   for k in mets[0]}
+        stacked = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+        if not ranks:
+            grads = [a.div_(accum) for a in acc]
+            loss_val = loss_sum / accum
+            metrics = {k: v.mean() for k, v in stacked.items()}
+            return self._apply(params, opt_state, grads, loss_val, metrics)
+        # THE deferred reduction: one sum over the data axes, in buckets
+        names = sorted(stacked)
+        small = torch.cat([loss_sum.reshape(1)]
+                          + [stacked[k].float() for k in names])
+        comm.sum_data(acc + [small], replicas=True)
+        n_dp = comm.data.world_size
+        grads = [a.div_(accum * n_dp) for a in acc]
+        loss_val = small[0] / (accum * n_dp)
+        metrics = {k: small[1 + i * accum:1 + (i + 1) * accum].mean() / n_dp
+                   for i, k in enumerate(names)}
         return self._apply(params, opt_state, grads, loss_val, metrics)
 
     # ------------------------------------------------------- prefill / decode

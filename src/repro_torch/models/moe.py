@@ -10,14 +10,24 @@ Matches DeepSeekMoE (arXiv:2401.06066) / DeepSeek-V3 (arXiv:2412.19437)
 structure: fine-grained experts + shared experts + aux load-balance loss.
 
 The reference's expert-parallel ``apply_moe_a2a`` runs only under an
-active device mesh with ``moe_a2a`` hints; with no mesh the reference takes
-the scatter path, so the port has that path alone.  Its
-``hints.hint_tokens`` and ``hints.hint_moe_buffers`` are identities without
-a mesh and are left out.
+active device mesh with ``moe_a2a`` hints (``sharding_hints``); it is not
+ported yet (ROADMAP A.5 item 1) and refuses, and the port takes the scatter
+path.  Its ``hints.hint_tokens`` and ``hints.hint_moe_buffers`` are
+identities without a mesh and are left out.
+
+Capacity couples a batch's rows: a token is dropped by its rank among
+every earlier (token, slot) sent to its expert.  A caller that holds some
+rows of a global batch on each of several ranks (the layerwise ADMM
+trainer over ``data``) dispatches them as the global batch would inside
+``global_rows``: capacity from the global token count, each rank's ranks
+offset by the counts of the ranks before it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -79,6 +89,33 @@ def route(cfg: ModelConfig, p: Params, xf: torch.Tensor):
     return gate_vals, expert_ids, probs, aux
 
 
+_GLOBAL_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "moe_global_rows", default=None)
+
+
+@contextlib.contextmanager
+def global_rows(n_shards: int, offsets: Callable[[torch.Tensor],
+                                                 torch.Tensor]):
+    """Within: ``apply_moe`` takes its tokens as one of ``n_shards`` equal,
+    consecutive row blocks of a global batch — capacity from the global
+    token count, and each (token, slot)'s rank within its expert offset by
+    ``offsets(counts)``: the (E,) counts of the blocks before this one,
+    given this block's."""
+    token = _GLOBAL_ROWS.set((n_shards, offsets))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS.reset(token)
+
+
+def apply_moe_a2a(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh):
+    """The reference's expert-parallel all-to-all dispatch (with its
+    ``sharding_hints`` gate) is not ported yet."""
+    raise NotImplementedError(
+        "apply_moe_a2a and the sharding_hints that gate it are ROADMAP A.5 "
+        "item 1; the scatter dispatch (apply_moe) computes the same values")
+
+
 def capacity(cfg: ModelConfig, tokens: int) -> int:
     """Slots per expert: the capacity factor's share, with a floor of
     min(T·k, 32) that keeps decode-sized batches drop-free."""
@@ -112,8 +149,12 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
     xf = x.reshape(t, d)
     gate_vals, expert_ids, _, aux = route(cfg, p, xf)
     flat_expert = expert_ids.reshape(t * k)
-    cap = capacity(cfg, t)
+    shards = _GLOBAL_ROWS.get()
+    cap = capacity(cfg, t if shards is None else t * shards[0])
     rank = ranks(flat_expert)
+    if shards is not None:
+        counts = torch.bincount(flat_expert, minlength=e)
+        rank = rank + shards[1](counts)[flat_expert]
     keep = rank < cap
 
     # scatter tokens into (E·C, D) buffers by a masked scatter-add: every

@@ -108,9 +108,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     # intra-chunk (dual / attention-like) term:
     #   scores[t, u] = C_t · B_u · exp(cum_t − cum_u) · dt_u,  u ≤ t
     li = torch.arange(chunk, device=x.device)
-    causal = li[:, None] >= li[None, :]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
-    decay = torch.where(causal[None, None, :, :, None], decay, 0.0)
+    causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
+    # the exponent is masked before exp, as well as the decay after it:
+    # above the diagonal cum_t − cum_u > 0 overflows exp once a chunk's
+    # Σ dt·|a| passes ~88, and the masked where's zero gradient times
+    # exp's inf is NaN (the reference masks only the decay).  Below it
+    # the values are the same bits.
+    seg = torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :],
+                      0.0)
+    decay = torch.where(causal, torch.exp(seg), 0.0)
+    del seg
     scores = _einsum("bclhn,bcuhn->bcluh", cc, bc) * decay  # (B,NC,L,U,H)
     del decay
     scores = scores * dtc[:, :, None, :, :]        # weight by dt_u

@@ -1,15 +1,39 @@
-"""Round colouring and community batch sampling of the multi-shard trainer.
+"""Round colouring and community batch sampling of the multi-shard
+trainer, and the sharding rules of the language models.
 
-The port's copy of ``ring_round_coloring`` and ``CommunityBatchSampler``
-from ``repro.sharding.partition``: the exchange plan colours its
-shard-to-shard messages into rounds with the first, and the minibatching
-trainer draws its shard batches with the second.  Both are numpy only and
-must give the reference's rounds and batches exactly
-(tests/test_torch_messages.py).
+The port's copy of ``repro.sharding.partition``:
+
+  * ``ring_round_coloring`` and ``CommunityBatchSampler``: the exchange
+    plan colours its shard-to-shard messages into rounds with the first,
+    and the minibatching trainer draws its shard batches with the second.
+    Both are numpy only and must give the reference's rounds and batches
+    exactly (tests/test_torch_messages.py).
+  * ``param_specs``, ``opt_state_specs``, ``batch_specs`` and
+    ``cache_specs``: parameter / optimizer-state / batch / cache trees to
+    trees of specs, the reference's standard 2-D "megatron + FSDP" layout
+    with expert-parallel MoE — batch dims over the data axes (``pod``,
+    ``data``), experts and the embedding's vocabulary over ``model``,
+    weight matrices' output features over ``model`` (the input features
+    of down / out projections), and above ``FSDP_THRESHOLD`` parameters
+    the other feature dim over ``data``; norms, biases and scalars
+    replicated, the stacked layer dim never sharded here (the layerwise
+    ADMM trainer places blocks over ``model`` itself).  An axis is
+    assigned only where it divides the dim.  A spec is a tuple with one
+    entry per dim: ``None``, an axis name, or a tuple of axis names (the
+    reference's ``PartitionSpec``, which writes a one-name tuple as the
+    name).  The rules read only a mesh's ``shape`` and ``axis_names`` and
+    the leaves' ``shape`` (meta or fake tensors do), so they need no
+    group (tests/test_torch_mesh_specs.py).
 """
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import numpy as np
+
+from repro_torch.util import tree as tree_lib
+
+FSDP_THRESHOLD = 8e9    # params; above this, shard input dims over 'data'
 
 
 def ring_round_coloring(pairs, n_shards: int) -> dict[int, list]:
@@ -159,3 +183,166 @@ class CommunityBatchSampler:
         """Sampled shard ids of round ``t`` (sorted, non-empty)."""
         c, i = divmod(int(t), self.num_batches)
         return self.cycle(c)[i]
+
+
+# ---------------------------------------------------------------------------
+# sharding rules of the language models
+# ---------------------------------------------------------------------------
+
+def P(*entries) -> tuple:
+    """A spec: one entry per dim, a one-name tuple written as the name."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.axis_names else 1
+
+
+def _path_str(path) -> str:
+    return "/".join(f"[{k}]" if isinstance(k, int) else str(k)
+                    for k in path)
+
+
+def _map_with_path(fn, tree, prefix: tuple = ()):
+    """``fn(path, leaf)`` over a tree's leaves, in its structure."""
+    if tree is None:
+        return None
+    kids = tree_lib._children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    return tree_lib._rebuild(tree, [_map_with_path(fn, child, prefix + (k,))
+                                    for k, child in kids])
+
+
+def _assign(shape, wants, mesh) -> tuple:
+    """wants: list of (dim_idx, axis_name) in priority order; returns a
+    spec assigning each axis at most once, only if it divides."""
+    spec: list[Optional[str]] = [None] * len(shape)
+    used: set[str] = set()
+    for dim, axis in wants:
+        if axis in used or axis not in mesh.axis_names:
+            continue
+        if dim < len(shape) and shape[dim] % _axis_size(mesh, axis) == 0 \
+                and spec[dim] is None and shape[dim] > 1:
+            spec[dim] = axis
+            used.add(axis)
+    return P(*spec)
+
+
+def param_specs(cfg, mesh, params_shapes: Any) -> Any:
+    """params_shapes: a tree of tensors (meta or fake tensors will do)."""
+    fsdp = cfg.param_count() > FSDP_THRESHOLD
+
+    def rule(path, leaf):
+        name = _path_str(path)
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        stacked = "stack/" in name or name.startswith("stack")
+        off = 1 if stacked else 0        # leading layer-stack dim
+
+        if nd - off <= 1:                # norms, biases, scalars, lam
+            return P(*([None] * nd))
+
+        # embedding: (V, D) table / (D, V) unembed
+        if "embedding" in name:
+            if "table" in name:
+                wants = [(0, "model")] + ([(1, "data")] if fsdp else [])
+            else:
+                wants = [(1, "model")] + ([(0, "data")] if fsdp else [])
+            return _assign(shape, wants, mesh)
+
+        # MoE experts: (L, E, d, f) -> E over model, d over data (fsdp)
+        if any(k in name for k in ("w_gate", "w_up", "w_down")) \
+                and nd - off == 3:
+            wants = [(off, "model")] + ([(off + 1, "data")] if fsdp else [])
+            return _assign(shape, wants, mesh)
+        if "router" in name:
+            return P(*([None] * nd))
+
+        # RG-LRU block-diagonal gates (L, NB, bs, bs): replicate (small)
+        if "gate_a" in name or "gate_x" in name:
+            return P(*([None] * nd))
+        # depthwise conv (L, k, W): shard channel dim over model
+        if "/conv/" in name or name.endswith("conv/w") or "conv/b" in name:
+            return _assign(shape, [(nd - 1, "model")], mesh)
+
+        # generic 2D weight (L, in, out): output dim over 'model', input
+        # dim over 'data' under FSDP; "down"/"out"/"o" projections have
+        # their *input* as the parallel dim, so the contraction stays
+        # local after the up-projection's sharding
+        is_reduce_in = any(name.endswith(s) or f"/{s}" in name.split("/")[-1]
+                           for s in ("down", "out", "o", "out_proj"))
+        if nd - off == 2:
+            if is_reduce_in:
+                wants = [(off, "model")] + ([(off + 1, "data")] if fsdp
+                                            else [])
+            else:
+                wants = [(off + 1, "model")] + ([(off, "data")] if fsdp
+                                                else [])
+            return _assign(shape, wants, mesh)
+
+        return P(*([None] * nd))
+
+    return _map_with_path(rule, params_shapes)
+
+
+def opt_state_specs(cfg, mesh, params_shapes: Any, opt_shapes: Any) -> Any:
+    """Adam moments mirror the parameters' specs; scalars replicated."""
+    pspecs = param_specs(cfg, mesh, params_shapes)
+    if isinstance(opt_shapes, dict) and "m" in opt_shapes:
+        return {"m": pspecs, "v": pspecs, "t": P()}
+    # other optimizers' state (``()`` for SGD): every leaf replicated
+    return tree_lib.tree_map(lambda _: P(), opt_shapes)
+
+
+def batch_specs(cfg, mesh, batch_shapes: Any) -> Any:
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+    def rule(path, leaf):
+        shape = tuple(leaf.shape)
+        b = shape[0]
+        total_dp = int(np.prod([_axis_size(mesh, a) for a in dp]))
+        spec: list = [None] * len(shape)
+        if b % total_dp == 0 and b >= total_dp:
+            spec[0] = dp
+        elif b % _axis_size(mesh, "data") == 0 \
+                and b >= _axis_size(mesh, "data"):
+            spec[0] = "data"
+        # embeddings inputs (B, S, D): D replicated
+        if len(shape) == 3 and shape[-1] == cfg.d_model:
+            spec[-1] = None
+        return P(*spec)
+
+    return _map_with_path(rule, batch_shapes)
+
+
+def cache_specs(cfg, mesh, cache_shapes: Any) -> Any:
+    """Decode caches: (L, B, S, H, hd) etc.  Batch over the data axes when
+    it divides; otherwise (B = 1 long-context) the sequence / window dim
+    over 'data'; heads / state dims over 'model' when divisible."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    total_dp = int(np.prod([_axis_size(mesh, a) for a in dp]))
+
+    def rule(path, leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd <= 1:
+            return P(*([None] * nd))
+        spec: list = [None] * nd
+        # dim 0 is the stacked layer dim; dim 1 the batch
+        if shape[1] % total_dp == 0 and shape[1] >= total_dp:
+            spec[1] = dp
+        elif nd >= 3 and shape[1] == 1:
+            # B = 1: sequence parallelism over 'data'
+            if shape[2] % _axis_size(mesh, "data") == 0 and shape[2] > 1:
+                spec[2] = "data"
+        # heads / channel dims over 'model' (k/v: dim 3; ssm h: dim 2)
+        for d in range(nd - 1, 1, -1):
+            if spec[d] is None and shape[d] % _axis_size(mesh, "model") == 0 \
+                    and shape[d] >= _axis_size(mesh, "model") and d != 2:
+                spec[d] = "model"
+                break
+        return P(*spec)
+
+    return _map_with_path(rule, cache_shapes)

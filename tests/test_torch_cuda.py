@@ -1163,3 +1163,138 @@ def test_two_gloo_ranks_on_the_card_match_the_loopback(cuda_device,
                 scale = max(float(np.abs(w).max()), 1e-30)
                 assert float(np.abs(got - w).max()) <= 1e-5 * scale, \
                     (name, i)
+
+
+# ---------------------------------------------------------------------------
+# the language models over a data × model mesh of gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+def _lm_cfg(arch, **kw):
+    import dataclasses
+    return dataclasses.replace(get_config(arch, reduced=True), **kw)
+
+
+def _lm_rank(rank, store, spec):
+    import hashlib
+    import pathlib
+
+    from repro_torch.core import layerwise
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.util import tree
+    base = mesh_lib.init_process_mesh(rank, spec["world"], "gloo", store,
+                                      timeout=60)
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, spec["model_axis"])
+        dev = mesh.device
+        with np.load(spec["inputs"]) as data:
+            arrays = [torch.from_numpy(data[f"arr_{i}"]).to(dev)
+                      for i in range(len(data.files))]
+        out = pathlib.Path(spec["out"])
+        if spec["kind"] == "deferred":
+            cfg = _lm_cfg("gemma-2b", optimizer="sgd", learning_rate=1.0,
+                          grad_accum=2)
+            model = make_model(cfg)
+            params = tree.unflatten(model.init(0, "cpu"), arrays)
+            batch = _reduced_train_batch(cfg)
+            rows = mesh_lib.batch_rows(mesh, len(batch["tokens"]))
+            new, _, met = model.train_step_deferred(
+                mesh, params, (), {k: v[rows] for k, v in batch.items()})
+            leaves = [t.cpu().numpy() for t in tree.leaves(new)]
+            h = hashlib.sha256(b"".join(a.tobytes() for a in leaves))
+            np.savez(out / f"rank{rank}.npz", *leaves,
+                     loss=float(met["loss"]), hash=h.hexdigest())
+        else:
+            tr = layerwise.LayerwiseADMMTrainer(
+                get_config("gemma-2b", reduced=True),
+                ADMMConfig(nu=1e-2, rho=1e-2), mesh=mesh)
+            batch = _reduced_train_batch(tr.cfg)
+            one = layerwise.LayerwiseADMMTrainer(
+                get_config("gemma-2b", reduced=True), ADMMConfig())
+            like, _ = one.init(0, batch, "cpu")
+            st = tree.unflatten(like, arrays[:-1])
+            local, z0 = tr.shard_state(st, arrays[-1])
+            nxt = tr.iteration(local, z0, batch["targets"])
+            seg, lo, hi, _ = tr.local[0]
+            parts = {"w": [t.cpu().numpy() for t in
+                           tree.leaves(nxt.stack[seg.kind])],
+                     "z": nxt.zs[seg.kind].cpu().numpy()}
+            np.savez(out / f"rank{rank}.npz", *parts["w"], z=parts["z"],
+                     taus=nxt.taus[seg.kind].cpu().numpy(),
+                     thetas=nxt.thetas[seg.kind].cpu().numpy(),
+                     lo=lo, hi=hi, rows=[tr._rows.start, tr._rows.stop])
+    finally:
+        mesh_lib.destroy(base)
+
+
+def test_two_gloo_ranks_run_the_deferred_step_on_the_card(cuda_device,
+                                                          tmp_path):
+    """Reduced f32 gemma-2b (SGD at lr 1, grad_accum 2), 2 data ranks
+    sharing the card against one process's train_step_deferred on the
+    whole batch: each leaf within 1e-5 · max |delta| beside one f32
+    spacing, the loss within 1e-5, the same bits on both ranks."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.util import tree
+    cfg = _lm_cfg("gemma-2b", optimizer="sgd", learning_rate=1.0,
+                  grad_accum=2)
+    model = make_model(cfg)
+    p = model.init(0, cuda_device)
+    np.savez(tmp_path / "inputs.npz",
+             *[t.cpu().numpy() for t in tree.leaves(p)])
+    want, _, met = model.train_step_deferred(None, p, (),
+                                             _reduced_train_batch(cfg))
+    mesh_lib.run_ranks(_lm_rank, 2, ({
+        "world": 2, "model_axis": 1, "kind": "deferred",
+        "inputs": str(tmp_path / "inputs.npz"), "out": str(tmp_path)},),
+        timeout=300)
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    assert str(ranks[0]["hash"]) == str(ranks[1]["hash"])
+    for i, (p0, w) in enumerate(zip(tree.leaves(p), tree.leaves(want))):
+        p0, w = p0.double().cpu().numpy(), w.double().cpu().numpy()
+        g = ranks[0][f"arr_{i}"].astype(np.float64)
+        slack = np.spacing(np.abs(w).astype(np.float32))
+        assert float((np.abs(g - w) - slack).max()) <= \
+            1e-5 * float(np.abs(w - p0).max())
+    assert abs(float(ranks[0]["loss"]) - float(met["loss"])) <= \
+        1e-5 * abs(float(met["loss"]))
+
+
+def test_two_by_two_gloo_ranks_run_a_layerwise_iteration_on_the_card(
+        cuda_device, tmp_path):
+    """Reduced f32 gemma-2b on a 2 × 2 mesh of gloo ranks sharing the card
+    (blocks over model, rows over data), one iteration from the one-process
+    state after 2 against one process on the card: τ/θ equal, W and Z
+    within 1e-4 · max, W the same bits on both data ranks of a block."""
+    from repro_torch.core import layerwise
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.util import tree
+    tr = layerwise.LayerwiseADMMTrainer(get_config("gemma-2b", reduced=True),
+                                        ADMMConfig(nu=1e-2, rho=1e-2))
+    batch = _reduced_train_batch(tr.cfg)
+    st, z0 = tr.init(0, batch, cuda_device)
+    for _ in range(2):
+        st = tr.iteration(st, z0, batch["targets"])
+    np.savez(tmp_path / "inputs.npz",
+             *[t.cpu().numpy() for t in tree.leaves(st) + [z0]])
+    want = tr.iteration(st, z0, batch["targets"])
+    mesh_lib.run_ranks(_lm_rank, 4, ({
+        "world": 4, "model_axis": 2, "kind": "layerwise",
+        "inputs": str(tmp_path / "inputs.npz"), "out": str(tmp_path)},),
+        timeout=300)
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(4)]
+    w_want = [t.cpu().numpy() for t in tree.leaves(want.stack["attn_mlp"])]
+    z_want = want.zs["attn_mlp"].cpu().numpy()
+    for r in ranks:
+        lo, hi = int(r["lo"]), int(r["hi"])
+        r0, r1 = (int(v) for v in r["rows"])
+        np.testing.assert_array_equal(
+            r["taus"], want.taus["attn_mlp"][lo:hi].cpu().numpy())
+        np.testing.assert_array_equal(
+            r["thetas"], want.thetas["attn_mlp"][lo:hi].cpu().numpy())
+        for i, w in enumerate(w_want):
+            _within(torch.from_numpy(r[f"arr_{i}"]),
+                    torch.from_numpy(w[lo:hi]), 1e-4)
+        _within(torch.from_numpy(r["z"]),
+                torch.from_numpy(z_want[lo:hi, r0:r1]), 1e-4)
+    for a, b in ((0, 2), (1, 3)):       # the data ranks of each model rank
+        for i in range(len(w_want)):
+            assert np.array_equal(ranks[a][f"arr_{i}"], ranks[b][f"arr_{i}"])

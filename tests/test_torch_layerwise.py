@@ -185,7 +185,40 @@ def test_layerwise_admm_decreases_ce(arch, iters, ratio):
         2 * len(tr.segments) + 1)
 
 
+def _mesh_rank(model_rank: int, n_model: int):
+    """Rank ``model_rank`` of a 1 × ``n_model`` mesh, as the trainer's
+    placement sees it (no group is joined: placing blocks communicates
+    nothing)."""
+    from repro_torch.launch.mesh import AxisGroup, ProcessMesh
+    cpu = torch.device("cpu")
+    return ProcessMesh(
+        model_rank, n_model, "gloo", cpu, None, ("data", "model"),
+        (1, n_model), {("data",): AxisGroup(0, 1, "gloo", cpu, None,
+                                            (model_rank,)),
+                       ("model",): AxisGroup(model_rank, n_model, "gloo",
+                                             cpu, None,
+                                             tuple(range(n_model)))})
+
+
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        layerwise.LayerwiseADMMTrainer(get_config("gemma-2b", reduced=True),
-                                       ADMMConfig(), mesh=object())
+    """A mesh places the network's blocks, segment after segment, in
+    near-equal contiguous ranges over ``model`` (gemma-2b's 18 go 9 / 9,
+    deepseek-moe-16b's 1 + 27 go 14 / 14 with the segment boundary inside
+    the first range); a mesh with more model ranks than blocks is refused.
+    (One iteration over 4 gloo ranks against the reference:
+    tests/test_torch_mesh_layerwise.py.)"""
+    def local(arch, rank, n_model, reduced=False):
+        tr = layerwise.LayerwiseADMMTrainer(
+            get_config(arch, reduced=reduced), ADMMConfig(),
+            mesh=_mesh_rank(rank, n_model))
+        return [(s.kind, lo, hi) for s, lo, hi, _ in tr.local]
+    assert local("gemma-2b", 0, 2) == [("attn_mlp", 0, 9)]
+    assert local("gemma-2b", 1, 2) == [("attn_mlp", 9, 18)]
+    assert local("deepseek-moe-16b", 0, 2) == [("attn_mlp", 0, 1),
+                                               ("attn_moe", 0, 13)]
+    assert local("deepseek-moe-16b", 1, 2) == [("attn_moe", 13, 27)]
+    assert [local("qwen2-7b", r, 3) for r in range(3)] == [
+        [("attn_mlp", 0, 10)], [("attn_mlp", 10, 19)],
+        [("attn_mlp", 19, 28)]]
+    with pytest.raises(ValueError, match="2 blocks cannot cover 4"):
+        local("gemma-2b", 0, 4, reduced=True)

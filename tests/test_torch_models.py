@@ -370,17 +370,30 @@ def test_cache_specs_match_reference():
 # ---------------------------------------------------------------------------
 
 def test_unported_entry_points_raise(pair):
-    """Data-parallel training over more than one device is ROADMAP queue A
-    item 5; an unknown segment kind is refused.  (Every segment kind and
-    the encoder run: tests/test_torch_families.py; training on one device:
+    """What the port does not run yet refuses, citing ROADMAP: the
+    expert-parallel all-to-all dispatch and the sharding hints that gate
+    it (A.5 item 1), the meta-device dry run (A.5 item 3); a one-process
+    mesh of two devices is refused (data-parallel training runs over a
+    ``ProcessMesh`` of ranks: tests/test_torch_mesh_train.py); an unknown
+    segment kind is refused.  (Every segment kind and the encoder run:
+    tests/test_torch_families.py; training on one device:
     tests/test_torch_train_step.py, tests/test_torch_training.py.)"""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe
+    from repro_torch.sharding import hints
     _, _, model, params = pair
     x = torch.zeros((1, 4, model.cfg.d_model))
     with pytest.raises(ValueError):
         transformer.apply_layer(model.cfg, "no-such-kind", {}, x)
     two = HostMesh((torch.device("cpu"), torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="ProcessMesh"):
         model.train_step_deferred(two, params, (), {})
+    with pytest.raises(NotImplementedError, match="A.5 item 1"):
+        moe.apply_moe_a2a(model.cfg, {}, x, None)
+    with pytest.raises(NotImplementedError, match="A.5 item 1"):
+        hints.sharding_hints(None, moe_a2a=True)
+    with pytest.raises(NotImplementedError, match="A.5 item 3"):
+        dryrun.main([])
 
 
 def test_init_without_device_raises_when_cuda_is_absent():

@@ -235,3 +235,38 @@ def test_launcher_refuses_cpu_tensors():
         ssd_launcher.ssd_scan(*_cpu(), chunk=32)
     assert (ssd_launcher.ssd_launches, ssd_launcher.ssd_tc_launches) \
         == before
+
+
+def test_chunked_scan_gradient_stays_finite_past_the_decay_overflow():
+    """Where a chunk's Σ dt·|a| passes ~88, exp(cum_t − cum_u) above the
+    diagonal overflows.  The reference masks only the decay after exp, so
+    its gradient is NaN there (inf times the mask's zero); the port masks
+    the exponent too: the same forward bits' worth of values (within 1e-6
+    of the reference's) and a finite gradient."""
+    import jax
+
+    from repro.models import ssm as jssm
+    from repro_torch.models.ssm import ssd_chunked
+    rng = np.random.default_rng(0)
+    b, s, h, p, g, n, chunk = 1, 64, 2, 4, 1, 8, 32
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    bm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    dt = np.full((b, s, h), 3.0, np.float32)        # 32 · 3 · 2 = 192 > 88
+    a = np.array([-2.0, -1.0], np.float32)
+
+    def jloss(dt_):
+        return jssm.ssd_chunked(jnp.asarray(x), dt_, jnp.asarray(a),
+                                jnp.asarray(bm), jnp.asarray(cm),
+                                chunk)[0].sum()
+    j_y = jssm.ssd_chunked(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+                           jnp.asarray(bm), jnp.asarray(cm), chunk)[0]
+    assert not np.isfinite(np.asarray(jax.grad(jloss)(jnp.asarray(dt)))).all()
+    t_dt = torch.tensor(dt, requires_grad=True)
+    t_y, _ = ssd_chunked(torch.tensor(x), t_dt, torch.tensor(a),
+                         torch.tensor(bm), torch.tensor(cm), chunk)
+    t_y.sum().backward()
+    assert bool(torch.isfinite(t_dt.grad).all())
+    want = np.asarray(j_y)
+    assert float(np.abs(t_y.detach().numpy() - want).max()) <= \
+        1e-6 * float(np.abs(want).max())

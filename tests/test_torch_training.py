@@ -260,12 +260,21 @@ def test_pipeline_gives_the_reference_batches():
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
-def test_host_mesh_is_one_device():
+def test_host_mesh_is_one_device(monkeypatch):
+    """The one-device mesh; the production mesh refuses any world but its
+    256 (multi-pod 512) ranks, naming the size, before joining a group."""
     mesh = mesh_lib.make_host_mesh("cpu")
     assert mesh.shape == {"data": 1, "model": 1} and mesh.size == 1
     assert mesh_lib.data_axes(mesh) == ("data",)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="256 ranks; this world has 1"):
         mesh_lib.make_production_mesh()
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(ValueError, match="256 ranks; this world has 4"):
+        mesh_lib.make_production_mesh()
+    monkeypatch.setenv("WORLD_SIZE", "256")
+    with pytest.raises(ValueError, match="2 x 16 x 16 needs a world of 512"):
+        mesh_lib.make_production_mesh(multi_pod=True)
 
 
 def test_launcher_trains_and_checkpoints(tmp_path, capsys):
@@ -295,8 +304,9 @@ def test_launcher_trains_and_checkpoints(tmp_path, capsys):
         want
 
 
-def test_launcher_refuses_what_the_port_does_not_run():
-    with pytest.raises(NotImplementedError, match="item 5"):
+def test_launcher_refuses_what_the_port_does_not_run(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="256 ranks; this world has 1"):
         train_launcher.main(["--arch", "gemma-2b", "--reduced",
                              "--production-mesh", "--steps", "1"])
     with pytest.raises(SystemExit, match="multimodal"):
