@@ -97,8 +97,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      the flash attention kernels (bf16: the tensor-core kernel, limit
      2^-7; f32: the FFMA kernel, limit 1e-5) at qwen2-7b's, gemma-2b's and
      recurrentgemma-9b's attention shapes (causal; window 2048), one
-     non-causal case, a ragged S = 3000, head_dim 80, one f32 case and one
-     non-causal case with a window;
+     non-causal case, a ragged S = 3000, head_dim 80, one f32 case, one
+     non-causal case with a window, and a deepseek-moe-16b rank's 8 heads
+     over 1 x 2 model ranks (2 x 2048, Hq = Hkv = 8, head_dim 128: the
+     shape phase 14b launches it at);
   8. Mamba-2 1.3B at its published widths and depth (48 layers, d_model
      2048, bf16, random weights from a generator on the card): prefill
      4 x 4096 tokens through the kernel and through the plain path
@@ -172,7 +174,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      1e-5 of max, loss within 1e-5, the same bits on both ranks), then
      mamba2-1.3b at its published widths and depth (48 layers, d_model
      2048, bf16, Adam, grad_accum 2, remat) on 4 x 4096 tokens a step, 2
-     sequences a rank, 1 warm-up and 3 timed steps (ms a step, tokens/s,
+     sequences a rank, 1 warm-up and 2 timed steps (ms a step, tokens/s,
      peak GB a rank, bytes reduced a step and the host ms of the reduction
      and its staging, parameter hashes equal on both ranks after every
      step, losses finite); 13b, 2 x 2 ranks running
@@ -184,8 +186,33 @@ Phases (each prints its own lines; any failure exits non-zero):
      rank, bytes summed over data and sent along model, probes a search,
      W hashes equal on the data ranks of each model rank, the composed CE
      below its initial value, the residual finite);
-  14. print the kernels line, the card's name and power limit, and a last
+  14. the models' forward paths tensor-parallel over a data x model mesh
+     of rank processes sharing the card (gloo), under
+     sharding_hints(mesh, moe_a2a=True): each rank holds its slices by
+     param_specs and its caches by cache_specs.  14a, 4 ranks as 2 x 2
+     and 1 x 4: the reduced f32 deepseek-moe-16b (all-to-all MoE),
+     qwen2-7b (heads branch on 2 x 2, context branch on 1 x 4) and
+     gemma-2b (one KV head: context branch, the flash kernel at a query
+     offset), the prefill forward through the flash kernel and 4 decode
+     steps on the card against the same ranks on the CPU (logits within
+     1e-4 of max), and decode against the mesh forward over the same
+     tokens (probabilities within rtol 2e-2, atol 2e-3); 14b,
+     deepseek-moe-16b at its published widths and depth (bf16, random
+     weights from seed 0) over 1 x 2 ranks: the parameter bytes a rank
+     (equal to its shards' bytes by param_specs, at most 55 % of one
+     process's), prefill 2 x 2,048 through the flash kernel on each rank's
+     8 heads (28 launches a rank a forward, counts set to 0 just before),
+     median ms of 3 forwards after one warm-up and tokens/s, peak GB a
+     rank, the bytes sent along model a forward (the all-to-all and the
+     rest) and their host ms, the last-token logits gap to phase 10's
+     one-process kernel forward (reported), then decode 2 x 8 (ms a token)
+     and decode against the mesh forward over the same tokens (reported);
+  15. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
+
+With ``--four-cards`` (four cards of one host) it builds the kernels and
+runs only phase 14c: 14b's full-width deepseek-moe-16b over NCCL ranks,
+one a card, at 1 x 4 and at 2 x 2 (the FSDP leg live).
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
 and exits non-zero without one, or without the port beside it.
@@ -510,7 +537,8 @@ def counts() -> dict:
             "ssd": ssd_scan.ssd_launches,
             "ssd_tc": ssd_scan.ssd_tc_launches,
             "flash": flash.flash_launches,
-            "flash_tc": flash.flash_tc_launches}
+            "flash_tc": flash.flash_tc_launches,
+            "flash_offset": flash.flash_offset_launches}
 
 
 def reset_counts(to: "dict | None" = None) -> None:
@@ -527,6 +555,7 @@ def reset_counts(to: "dict | None" = None) -> None:
     ssd_scan.ssd_tc_launches = to["ssd_tc"]
     flash.flash_launches = to["flash"]
     flash.flash_tc_launches = to["flash_tc"]
+    flash.flash_offset_launches = to["flash_offset"]
 
 
 def dense_work(mask, n: int, c: int) -> tuple[float, float]:
@@ -1649,6 +1678,21 @@ SSD_CHECKS = [      # (name, b, s, h, p, g, n, dtype)
     ("S=100 < chunk bf16", 2, 100, 64, 64, 1, 128, "bfloat16"),
     ("G=2 2x2048 bf16", 2, 2048, 64, 64, 2, 128, "bfloat16"),
 ]
+# a context-parallel rank's query rows against every key (phase 14's
+# context branch): (name, b, s, model ranks, hq, hkv, hd, causal, window,
+# dtype); each rank past the first at its query offset
+FLASH_OFFSET_CHECKS = [
+    ("gemma-2b context 1x2 S=4096 Hq8 Hkv1 hd256 causal bf16", 1, 4096, 2,
+     8, 1, 256, True, None, "bfloat16"),
+    ("qwen2-7b context 1x4 S=4096 Hq28 Hkv4 hd128 causal bf16", 1, 4096, 4,
+     28, 4, 128, True, None, "bfloat16"),
+    ("recurrentgemma-9b local context 1x4 S=8192 Hq16 Hkv1 hd256 window "
+     "2048 bf16", 1, 8192, 4, 16, 1, 256, True, 2048, "bfloat16"),
+    ("gemma-2b context 1x2 S=2048 Hq8 Hkv1 hd256 causal f32", 1, 2048, 2, 8,
+     1, 256, True, None, "float32"),
+    ("qwen2-7b context 1x4 S=2048 Hq28 Hkv4 hd128 causal f32", 1, 2048, 4,
+     28, 4, 128, True, None, "float32"),
+]
 FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
     ("qwen2-7b S=4096 Hq28 Hkv4 hd128 causal bf16", 1, 4096, 28, 4, 128,
      True, None, "bfloat16"),
@@ -1666,6 +1710,9 @@ FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
      "float32"),
     ("non-causal window 127 S=1000 Hq8 Hkv2 hd128 bf16", 1, 1000, 8, 2, 128,
      False, 127, "bfloat16"),
+    # a deepseek-moe-16b rank's heads over 1 x 2 model ranks (phase 14b)
+    ("deepseek-moe-16b rank heads 1x2 S=2048 Hq8 Hkv8 hd128 causal bf16", 2,
+     2048, 8, 8, 128, True, None, "bfloat16"),
 ]
 FLASH_TIMED = [FLASH_CHECKS[i] for i in (0, 1, 2, 6)]   # three bf16, the f32
 SSD_PROFILED = 10   # SSD calls in the profiled window of phase 9
@@ -1726,6 +1773,33 @@ def check_lm_kernels(gen, dev) -> tuple[list, list]:
                       FLASH_F32_TOL if dtype == torch.float32 else BF16_TOL,
                       flash_checks)
         del q, k, v, out, want
+    # the context-parallel ranks' query rows at a query offset (phase 14)
+    from repro_torch.kernels import flash_attention as flash
+    for name, b, s, nm, hq, hkv, hd, causal, window, dtype in \
+            FLASH_OFFSET_CHECKS:
+        dtype = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, s, hq, hd), (b, s, hkv, hd),
+                                 (b, s, hkv, hd)))
+        n = s // nm
+        for m in range(1, nm):
+            rows = q[:, m * n:(m + 1) * n].contiguous()
+            before = flash.flash_offset_launches
+            out = ops.flash_attention(rows, k, v, causal=causal,
+                                      window=window, q_offset=m * n)
+            torch.cuda.synchronize()
+            if flash.flash_offset_launches != before + 1:
+                fail(f"flash_attention {name}: the offset launch was not "
+                     f"counted")
+            want = ref.flash_attention_ref(rows, k, v, causal=causal,
+                                           window=window, q_offset=m * n)
+            check_lm_case("flash_attention",
+                          f"{name}, rank {m}'s rows at offset {m * n}", out,
+                          want, FLASH_F32_TOL if dtype == torch.float32
+                          else BF16_TOL, flash_checks)
+            flash_checks[-1]["q_offset"] = m * n
+            del rows, out, want
+        del q, k, v
     torch.cuda.empty_cache()
     return ssd_checks, flash_checks
 
@@ -2068,10 +2142,11 @@ class FlashCalls:
         from repro_torch.kernels import flash_attention as flash
         self.module, self.launch, self.calls = flash, flash.flash_attention, []
 
-        def record(q, k, v, *, causal=True, window=None):
+        def record(q, k, v, *, causal=True, window=None, q_offset=0):
             self.calls.append((str(q.dtype).removeprefix("torch."),
                                q.shape[1], q.shape[-1], causal, window))
-            return self.launch(q, k, v, causal=causal, window=window)
+            return self.launch(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
         flash.flash_attention = record
         return self
 
@@ -2195,6 +2270,11 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
+# each phase-10 model's last-token logits through the kernel (phase 14b
+# reports the mesh forward's gap to deepseek-moe-16b's)
+PHASE10_LOGITS: dict = {}
+
+
 def family_phase(arch: str, prefill, decode, expect: int, card: str, dev,
                  gen) -> dict:
     """Phase 10, one model at its published widths and depth (bf16, random
@@ -2245,6 +2325,7 @@ def family_phase(arch: str, prefill, decode, expect: int, card: str, dev,
           f"the plain one; peak memory {res['peak_gb']:.2f} GB [{card}]",
           flush=True)
     check_routes(f"{arch} prefill", res, expect, True, limit)
+    PHASE10_LOGITS[arch] = res["kernel"]["logits"].float().cpu()
     out.update(argmax_agreement=agree)
     if cfg.moe is not None:
         out["f32_cut"] = routed_f32_check(cfg, params, batch, card)
@@ -2832,7 +2913,7 @@ def analysis_phase(cfg, admm, g, card: str, dev) -> dict:
 
 MESH_TRAIN_ARCH = "mamba2-1.3b"
 MESH_TRAIN_BATCH = (4, 4096)   # global batch; 2 sequences a data rank
-MESH_TRAIN_STEPS = 4           # 1 warm-up + 3 timed
+MESH_TRAIN_STEPS = 3           # 1 warm-up + 2 timed
 MESH_DP = 2                    # [13a]: data 2
 MESH_LW = (2, 2)               # [13b]: data 2 × model 2
 MESH_LW_ITERS = 2
@@ -2857,7 +2938,7 @@ def tree_hash(tree_) -> str:
 def mesh_train_rank(rank: int, store: str, spec: dict) -> None:
     """Phase 13a, one of 2 data ranks (gloo, the one card): the reduced f32
     gemma-2b deferred step from the parent's weights on this rank's rows,
-    then mamba2-1.3b at full width, 1 + 3 steps of train_step_deferred on
+    then mamba2-1.3b at full width, 1 + 2 steps of train_step_deferred on
     its rows of each pipeline batch; its record to ``spec["dir"]``."""
     import dataclasses
 
@@ -3269,6 +3350,409 @@ def mesh_phase(card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the forward paths tensor-parallel over a data x model mesh
+# ---------------------------------------------------------------------------
+
+MESH14_REDUCED = ("deepseek-moe-16b", "qwen2-7b", "gemma-2b")
+MESH14_MESHES = {"2x2": 2, "1x4": 4}    # [14a], 4 ranks: name -> model axis
+MESH14_SEQ = (2, 64)                    # [14a] prefill, batch x tokens
+MESH14_STEPS = 4                        # [14a] decode steps
+MESH14_TOL = 1e-4                       # card vs CPU, of max |logit|
+MESH14_ARCH = "deepseek-moe-16b"        # [14b] at full width over 1 x 2
+MESH14_RANKS = 2
+MESH14_PREFILL = (2, 2048)              # phase 10's shape for the model
+MESH14_DECODE = (2, 8)
+MESH14_SHARE = 0.55                     # parameter bytes a rank, of one's
+
+
+def mesh14_tokens(vocab: int, b: int, s: int, seed: int):
+    from repro_torch.data import synthetic_token_batches
+    return next(synthetic_token_batches(vocab, b, s, seed=seed))["tokens"]
+
+
+def mesh14_compare(got, want) -> dict:
+    """This rank's block on the card against the same block on the CPU."""
+    import torch
+    got = got.float().cpu()
+    return {"err": float((got - want.float()).abs().max()),
+            "scale": float(want.float().abs().max()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def mesh14_reduced_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 14a, one of 4 ranks (gloo, the one card) as 2 x 2 and 1 x 4:
+    each reduced f32 model's prefill forward through the flash kernel and
+    4 decode steps on the card and on the CPU, from the same slices, and
+    decode against the mesh forward over the same tokens; its record to
+    ``spec["dir"]``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.build import make_model
+    from repro_torch.sharding import hints
+    from repro_torch.util import tree
+    from repro_torch.util.device import strict_f32
+    strict_f32()
+    base = mesh_lib.init_process_mesh(rank, 4, "gloo", store, timeout=120)
+    try:
+        dev = base.device
+        rec: dict = {"device": str(dev), "cases": {}}
+        b, s = MESH14_SEQ
+        for name, model_axis in MESH14_MESHES.items():
+            mesh = mesh_lib.make_rank_mesh(base, model_axis)
+            for arch in MESH14_REDUCED:
+                cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                          dtype="float32")
+                model = make_model(cfg)
+                on_card = model.init(seed=0, device=dev, mesh=mesh)
+                on_cpu = tree.tree_map(lambda t: t.cpu(), on_card)
+                tokens = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, s,
+                                                       seed=1))
+                steps = tokens[:, :MESH14_STEPS]
+                res, outs = {}, {}
+                for where, params in (("card", on_card), ("cpu", on_cpu)):
+                    d = dev if where == "card" else torch.device("cpu")
+                    before = counts()
+                    with hints.sharding_hints(mesh, moe_a2a=True), \
+                            torch.inference_mode():
+                        logits, _, _ = model.forward(
+                            params, {"tokens": tokens}, use_kernel=True,
+                            last_only=True)
+                        caches = model.init_cache(b, MESH14_STEPS, device=d,
+                                                  mesh=mesh)
+                        dec = []
+                        for t in range(MESH14_STEPS):
+                            lg, caches = model.decode_step(
+                                params, caches, steps[:, t:t + 1])
+                            dec.append(lg[:, 0])
+                        whole, _, _ = model.forward(params,
+                                                    {"tokens": steps})
+                    after = counts()
+                    outs[where] = (logits, torch.stack(dec, 1), whole)
+                    res[f"{where}_flash"] = after["flash"] - before["flash"]
+                    res[f"{where}_offset"] = (after["flash_offset"]
+                                              - before["flash_offset"])
+                card, cpu = outs["card"], outs["cpu"]
+                res["prefill"] = mesh14_compare(card[0], cpu[0])
+                res["decode"] = mesh14_compare(card[1], cpu[1])
+                gap, ok = probs_gap(card[1], card[2])
+                res["decode_vs_forward"] = {"max_dp": gap, "ok": ok}
+                rec["cases"][f"{arch} {name}"] = res
+                del on_card, on_cpu, outs
+        rec["launches"] = counts()
+        (pathlib.Path(spec["dir"]) / f"r14a-rank{rank}.json").write_text(
+            json.dumps(rec))
+    finally:
+        mesh_lib.destroy(base)
+
+
+def mesh14_full_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 14b, one of the ranks of a data x model mesh (``spec``:
+    ``world``, ``model_axis``, ``backend``; 1 x 2 gloo ranks on the one
+    card, or four cards over NCCL): deepseek-moe-16b at its published
+    widths and depth, its slices drawn by Model.init(mesh=...); prefill
+    2 x 2,048 through the flash kernel (the counts set to 0 just before
+    the first forward and read just after), 3 timed forwards, decode 2 x 8
+    and the mesh forward over the same 8 tokens; its record to
+    ``spec["dir"]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.build import make_model
+    from repro_torch.sharding import hints, partition
+    from repro_torch.util import tree
+    from repro_torch.util.device import strict_f32
+    strict_f32()
+    base = mesh_lib.init_process_mesh(rank, spec["world"], spec["backend"],
+                                      store, timeout=120)
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, spec["model_axis"])
+        dev = mesh.device
+        out_dir = pathlib.Path(spec["dir"])
+        cfg = get_config(MESH14_ARCH)
+        model = make_model(cfg)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        rec: dict = {"device": str(dev), "coords": mesh.coords,
+                     "init_s": time.perf_counter() - t0}
+        specs = model.param_specs(mesh)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            shapes = model.init(0, "cpu")
+        local = whole = 0
+        for (path, leaf), (_, held) in zip(tree.leaves_with_paths(shapes),
+                                           tree.leaves_with_paths(params)):
+            sp = specs
+            for key in path:
+                sp = sp[key]
+            size = leaf.element_size()
+            local += math.prod(partition.local_shape(leaf.shape, sp,
+                                                     mesh)) * size
+            whole += leaf.numel() * size
+        rec.update(resident_bytes=tree_bytes(params), shard_bytes=local,
+                   one_process_bytes=whole)
+        b, s = MESH14_PREFILL
+        batch = {"tokens": torch.as_tensor(
+            mesh14_tokens(cfg.vocab_size, b, s, seed=0), device=dev)}
+        torch.cuda.reset_peak_memory_stats(dev)
+        with hints.sharding_hints(mesh, moe_a2a=True) as comm, \
+                torch.inference_mode():
+            def forward():
+                c0 = (comm.a2a_bytes, comm.model_bytes, comm.a2a_s,
+                      comm.model_s, comm.staging_s, comm.line_bytes,
+                      comm.line_s)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                logits, _, _ = model.forward(params, batch, use_kernel=True,
+                                             last_only=True)
+                torch.cuda.synchronize(dev)
+                ms = 1e3 * (time.perf_counter() - t0)
+                return logits, {
+                    "ms": ms, "a2a_bytes": comm.a2a_bytes - c0[0],
+                    "model_bytes": comm.model_bytes - c0[1],
+                    "a2a_ms": 1e3 * (comm.a2a_s - c0[2]),
+                    "model_ms": 1e3 * (comm.model_s - c0[3]),
+                    "staging_ms": 1e3 * (comm.staging_s - c0[4]),
+                    "line_bytes": comm.line_bytes - c0[5],
+                    "line_ms": 1e3 * (comm.line_s - c0[6])}
+            reset_counts()
+            logits, first = forward()             # the main path
+            rec["launches"] = counts()
+            timed = [forward()[1] for _ in range(3)]
+            rec.update(first=first, timed=timed,
+                       logits_finite=bool(torch.isfinite(logits).all()))
+            ref_path = out_dir / "phase10-logits.npy"
+            if ref_path.exists():
+                ref = torch.from_numpy(np.load(ref_path))
+                cols = partition.local_slice(
+                    ref, partition.logits_spec(cfg, mesh, b), mesh)
+                got = logits.float().cpu()
+                rec["phase10_gap"] = {
+                    "max_abs": float((got - cols).abs().max()),
+                    "scale": float(cols.abs().max()),
+                    "argmax_equal_local": bool(torch.equal(
+                        got.argmax(-1), cols.argmax(-1)))}
+            db, ds = MESH14_DECODE
+            steps = torch.as_tensor(mesh14_tokens(cfg.vocab_size, db, ds,
+                                                  seed=0), device=dev)
+            caches = model.init_cache(db, ds, device=dev, mesh=mesh)
+            c0 = (comm.a2a_bytes, comm.model_bytes, comm.line_bytes)
+            dec, step_ms = [], []
+            for t in range(ds):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                lg, caches = model.decode_step(params, caches,
+                                               steps[:, t:t + 1])
+                torch.cuda.synchronize(dev)
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                dec.append(lg[:, 0])
+            dec = torch.stack(dec, 1)
+            rec["decode"] = {"step_ms": step_ms,
+                             "a2a_bytes": comm.a2a_bytes - c0[0],
+                             "model_bytes": comm.model_bytes - c0[1],
+                             "line_bytes": comm.line_bytes - c0[2],
+                             "finite": bool(torch.isfinite(dec).all())}
+            whole_fwd, _, _ = model.forward(params, {"tokens": steps})
+            gap, ok = probs_gap(dec, whole_fwd)
+            rec["decode"].update(
+                vs_forward_max_dp=gap, vs_forward_allclose=ok,
+                argmax_agreement=float((dec.argmax(-1)
+                                        == whole_fwd.argmax(-1)).float()
+                                       .mean()))
+        rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        (out_dir / f"{spec['tag']}-rank{rank}.json").write_text(
+            json.dumps(rec))
+    finally:
+        mesh_lib.destroy(base)
+
+
+def tensor_parallel_phase(card: str, dev) -> dict:
+    """Phase 14: the forward paths tensor-parallel over a data x model mesh
+    of ranks sharing the card (module docstring, item 14)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="mesh14_") as tmp:
+        tmp = pathlib.Path(tmp)
+        # ---- 14a: reduced f32 models, card vs CPU, 2 x 2 and 1 x 4 ----
+        t0 = time.perf_counter()
+        mesh_lib.run_ranks(mesh14_reduced_rank, 4, ({"dir": str(tmp)},),
+                           timeout=600)
+        recs = [json.loads((tmp / f"r14a-rank{r}.json").read_text())
+                for r in range(4)]
+        wall = time.perf_counter() - t0
+        worst = 0.0
+        for case in recs[0]["cases"]:
+            rows = [r["cases"][case] for r in recs]
+            rel = {k: max(x[k]["err"] for x in rows)
+                   / max(max(x[k]["scale"] for x in rows), 1e-30)
+                   for k in ("prefill", "decode")}
+            finite = all(x[k]["finite"] for x in rows
+                         for k in ("prefill", "decode"))
+            consistent = all(x["decode_vs_forward"]["ok"] for x in rows)
+            dp = max(x["decode_vs_forward"]["max_dp"] for x in rows)
+            flash = [x["card_flash"] for x in rows]
+            offset = [x["card_offset"] for x in rows]
+            ok = (max(rel.values()) <= MESH14_TOL and finite and consistent
+                  and all(f > 0 for f in flash)
+                  and all(x["cpu_flash"] == 0 for x in rows))
+            worst = max(worst, *rel.values())
+            print(f"[14a] {case}: card vs CPU logits rel prefill "
+                  f"{rel['prefill']:.3e}, decode ({MESH14_STEPS} steps) "
+                  f"{rel['decode']:.3e} (limit {MESH14_TOL:g}); decode vs "
+                  f"the mesh forward max |dp| {dp:.3e} "
+                  f"({'ok' if consistent else 'FAIL'}); flash launches a "
+                  f"rank {flash}, of them at a query offset {offset} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+            if not ok:
+                fail(f"14a {case}: the mesh on the card disagrees with the "
+                     f"CPU, or decode with the forward, or the kernel did "
+                     f"not run")
+            out[case] = {"rel": rel, "max_dp": dp, "flash": flash,
+                         "offset": offset}
+        out["reduced_wall_s"] = wall
+        out["reduced_worst_rel"] = worst
+        out["offset_launches"] = sum(r["launches"]["flash_offset"]
+                                     for r in recs)
+        print(f"[14a] 4 ranks (devices {[r['device'] for r in recs]}) in "
+              f"{wall:.1f} s; flash launches at a query offset over the "
+              f"ranks {out['offset_launches']} [{card}]", flush=True)
+        if not out["offset_launches"]:
+            fail("14a: no flash launch at a query offset (context branch)")
+
+        # ---- 14b: deepseek-moe-16b at full width over 1 x 2 ----
+        if MESH14_ARCH in PHASE10_LOGITS:
+            np.save(tmp / "phase10-logits.npy",
+                    PHASE10_LOGITS[MESH14_ARCH].numpy())
+        torch.cuda.empty_cache()
+        out["full"] = full_width_mesh(card, tmp, "14b", MESH14_RANKS,
+                                      MESH14_RANKS, "gloo")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[14] tensor-parallel phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def full_width_mesh(card: str, tmp, tag: str, world: int, model_axis: int,
+                    backend: str) -> dict:
+    """deepseek-moe-16b at full width over ``world`` ranks, ``model_axis``
+    of them along model (``mesh14_full_rank``); prints and holds the
+    records (parameter bytes a rank equal to its shards' and at most
+    1.1 / world of one process's, 28 flash launches a rank a forward,
+    finite logits and decode, the all-to-all on)."""
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    spec = {"dir": str(tmp), "tag": tag, "world": world,
+            "model_axis": model_axis, "backend": backend}
+    mesh_lib.run_ranks(mesh14_full_rank, world, (spec,), timeout=900)
+    wall = time.perf_counter() - t0
+    recs = [json.loads((tmp / f"{tag}-rank{r}.json").read_text())
+            for r in range(world)]
+    shape = f"{world // model_axis} x {model_axis} {backend} ranks"
+    b, s = MESH14_PREFILL
+    head = recs[0]
+    share = [r["resident_bytes"] / r["one_process_bytes"] for r in recs]
+    exact = all(r["resident_bytes"] == r["shard_bytes"] for r in recs)
+    flash = [r["launches"]["flash"] for r in recs]
+    ms = [max(r["timed"][i]["ms"] for r in recs) for i in range(3)]
+    med = statistics.median(ms)
+    init_s = [round(r["init_s"], 1) for r in recs]
+    staging = [round(r["first"]["staging_ms"], 1) for r in recs]
+    limit = MESH14_SHARE * MESH14_RANKS / world
+    print(f"[{tag}] {MESH14_ARCH} full width over {shape} "
+          f"(devices {[r['device'] for r in recs]}, {wall:.1f} s, init "
+          f"{init_s} s): parameter bytes a rank "
+          f"{[r['resident_bytes'] for r in recs]} = its shards by "
+          f"param_specs {exact}, {[round(x, 4) for x in share]} of one "
+          f"process's {head['one_process_bytes'] / 1e9:.2f} GB (limit "
+          f"{limit:.3f}); peak {[round(r['peak_gb'], 2) for r in recs]} GB a "
+          f"rank [{card}]", flush=True)
+    print(f"[{tag}] prefill {b} x {s} through the flash kernel: first "
+          f"forward {[round(r['first']['ms'], 1) for r in recs]} ms, median "
+          f"of 3 after it (slowest rank) {med:.1f} ms of "
+          f"{[round(t, 1) for t in ms]} = {b * s / med * 1e3:,.1f} tokens/s; "
+          f"flash launches a rank a forward {flash} "
+          f"({[r['launches']['flash_tc'] for r in recs]} on the tensor "
+          f"cores); a forward sends along model "
+          f"{[r['first']['a2a_bytes'] for r in recs]} B in the all-to-all "
+          f"({[round(r['first']['a2a_ms'], 1) for r in recs]} host ms) and "
+          f"{[r['first']['model_bytes'] for r in recs]} B in the other "
+          f"collectives ({[round(r['first']['model_ms'], 1) for r in recs]} "
+          f"host ms), along data (the FSDP leg) "
+          f"{[r['first']['line_bytes'] for r in recs]} B "
+          f"({[round(r['first']['line_ms'], 1) for r in recs]} host ms), "
+          f"staging {staging} host ms; the last timed forward's host ms "
+          f"all-to-all / model / data "
+          f"{[round(r['timed'][-1]['a2a_ms'], 1) for r in recs]} / "
+          f"{[round(r['timed'][-1]['model_ms'], 1) for r in recs]} / "
+          f"{[round(r['timed'][-1]['line_ms'], 1) for r in recs]} "
+          f"[{card}]", flush=True)
+    gaps = [r.get("phase10_gap") for r in recs]
+    if all(gaps):
+        scale = max(g["scale"] for g in gaps)
+        gap = max(g["max_abs"] for g in gaps)
+        print(f"[{tag}] last-token logits against phase 10's one-process "
+              f"kernel forward (same seed, same tokens): max |diff| "
+              f"{gap:.4e}, rel {gap / scale:.4e}, argmax equal on each "
+              f"rank's columns {[g['argmax_equal_local'] for g in gaps]} "
+              f"(reported: bf16, top-k routing) [{card}]", flush=True)
+    dec = [r["decode"] for r in recs]
+    db, ds = MESH14_DECODE
+    dmed = statistics.median(max(d["step_ms"][i] for d in dec)
+                             for i in range(1, ds))
+    print(f"[{tag}] decode {db} x {ds} on cache_specs caches: ms a token "
+          f"(slowest rank, median after the first) {dmed:.1f} = "
+          f"{db * 1e3 / dmed:,.1f} tokens/s; bytes along model "
+          f"{[d['a2a_bytes'] for d in dec]} (all-to-all) + "
+          f"{[d['model_bytes'] for d in dec]}, along data "
+          f"{[d['line_bytes'] for d in dec]}; decode vs the mesh forward "
+          f"over the same tokens max |dp| "
+          f"{max(d['vs_forward_max_dp'] for d in dec):.3e}, allclose "
+          f"{[d['vs_forward_allclose'] for d in dec]}, argmax agreement "
+          f"{[round(d['argmax_agreement'], 3) for d in dec]} (reported: "
+          f"bf16) [{card}]", flush=True)
+    ok = (exact and max(share) <= limit
+          and all(f == head["launches"]["flash"] == 28 for f in flash)
+          and all(r["logits_finite"] and r["decode"]["finite"]
+                  for r in recs)
+          and all(r["first"]["a2a_bytes"] > 0 for r in recs))
+    if not ok:
+        fail(f"{tag}: parameter bytes, flash launches, finiteness or the "
+             f"all-to-all off")
+    return {"wall_s": wall, "share": share, "shard_bytes_exact": exact,
+            "flash_launches": flash, "forward_ms": ms,
+            "forward_median_ms": med, "tokens_per_s": b * s / med * 1e3,
+            "peak_gb": [r["peak_gb"] for r in recs],
+            "first": [r["first"] for r in recs], "gaps": gaps,
+            "decode_median_ms": dmed, "decode": dec}
+
+
+def four_card_mesh_phase(card: str) -> None:
+    """Phase 14c, where four cards are given (``--four-cards``; not part
+    of the run with no arguments): the full-width deepseek-moe-16b of 14b
+    over NCCL ranks, one a card, at 1 x 4 and at 2 x 2 (its FSDP leg live:
+    the input dims over data too)."""
+    import torch
+    if torch.cuda.device_count() < 4:
+        fail(f"14c needs four cards, found {torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory(prefix="mesh14c_") as tmp:
+        tmp = pathlib.Path(tmp)
+        for model_axis in (4, 2):
+            full_width_mesh(card, tmp, f"14c-{4 // model_axis}x{model_axis}",
+                            4, model_axis, "nccl")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3302,6 +3786,13 @@ def main() -> int:
     print(f"[1] built {KERNEL_SRC}, {FUSED_SRC}, {SSD_SRC}, {SSD_TC_SRC}, "
           f"{FLASH_SRC} and {FLASH_TC_SRC} in {time.perf_counter() - t0:.2f} "
           f"s", flush=True)
+    if sys.argv[1:] == ["--four-cards"]:
+        four_card_mesh_phase(card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. kernel vs plain version on the card ----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3640,7 +4131,10 @@ def main() -> int:
     # ---- 13. the language models over a data x model mesh of ranks ---------
     mesh_phase(card, dev)
 
-    # ---- 14. the kernels line, the card, the result ------------------------
+    # ---- 14. the forward paths tensor-parallel over the mesh ---------------
+    tp = tensor_parallel_phase(card, dev)
+
+    # ---- 15. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",
@@ -3777,6 +4271,11 @@ def main() -> int:
         "library_ms": head["library_ms"],
         "timed_at": FLASH_CHECKS[0][0], "checked": True,
         "on_main_path": True, "per_shape": flash_t,
+        "launches_per_rank_mesh_forward": tp["full"]["flash_launches"],
+        "mesh_forward": f"{MESH14_ARCH} 1 x {MESH14_RANKS} ranks, "
+                        f"{MESH14_PREFILL[0]} x {MESH14_PREFILL[1]}",
+        "offset_launches_reduced_mesh": tp["offset_launches"],
+        "offset_checks": [ch for ch in flash_checks if "q_offset" in ch],
         "checks": flash_checks})
     print(json.dumps({"kernels": rows_out}))
     print(card)

@@ -126,6 +126,21 @@ def model_params_from_numpy(tree, device: "str | torch.device | None" = None):
     return _tree_from_numpy(tree, resolve_device(device))
 
 
+def model_params_to_rank(tree, model, mesh,
+                         device: "str | torch.device | None" = None):
+    """This rank's slices of the reference's parameter tree
+    (``sharding.partition.place`` by the model's ``param_specs`` on
+    ``mesh``), cut on the host and then moved to ``device``: the whole tree
+    never reaches the device.  ``partition.gather`` over the ranks gives
+    the tree back bit for bit."""
+    from repro_torch.sharding import partition
+    from repro_torch.util import tree as tree_lib
+    device = resolve_device(device)
+    local = partition.place(model_params_from_numpy(tree, "cpu"),
+                            model.param_specs(mesh), mesh)
+    return tree_lib.tree_map(lambda t: t.to(device), local)
+
+
 # an optimizer state of the reference (``Model.init_optimizer().init``, each
 # leaf taken with ``np.asarray``: Adam's {"m", "v", "t"}, SGD's ()) converts
 # the same way, structure and dtypes kept

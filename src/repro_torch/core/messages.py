@@ -1114,19 +1114,37 @@ def _unpack(flat: Tensor, like: Sequence[tuple]) -> list:
 
 @dataclasses.dataclass
 class MeshCollectives:
-    """The two collectives a language model's ranks need on a ``data`` ×
+    """The collectives a language model's ranks need on a ``data`` ×
     ``model`` mesh (``launch.mesh.ProcessMesh``): a sum over the data axes
-    (``sum_data``) and point-to-point messages to the neighbours along
-    ``model`` (``shift``).  Over gloo on a card both stage through pinned
-    host buffers (gloo takes host tensors).  It counts what it moved:
+    (``sum_data``), point-to-point messages to the neighbours along
+    ``model`` (``shift``), and the tensor-parallel layers' collectives
+    along ``model``: an all-gather (``gather_model``), a sum that every
+    rank forms in rank order from the gathered parts (``sum_model``) and
+    its reduce-scatter form (``reduce_scatter_model``), and the
+    expert-parallel ``all_to_all_model``; ``gather_line`` gathers along
+    any axis (the placement's inverse) and ``mean_world`` averages a
+    scalar over every rank.  Over gloo on a card all of them stage through
+    pinned host buffers (gloo takes host tensors), and move bytes (a
+    ``uint8`` view) so every dtype travels.  It counts what it moved:
     ``sum_bytes`` (this rank's parts summed over data), ``sent_bytes``
-    (sent along model), the host seconds in each (``sum_s``, ``shift_s``)
-    and, of them, in staging copies (``staging_s``)."""
+    (sent along model by ``shift``), the bytes that leave this rank along
+    ``model`` in the all-to-alls (``a2a_bytes``) and in its other
+    collectives (``model_bytes``), those of all-gathers along any other
+    line (``line_bytes``: the FSDP leg's slices over data, an
+    all-to-all's token groups over the whole mesh), the host seconds in
+    each (``sum_s``, ``shift_s``, ``a2a_s``, ``model_s``, ``line_s``) and,
+    of them, in staging copies (``staging_s``)."""
     mesh: object
     sum_bytes: int = 0
     sent_bytes: int = 0
+    a2a_bytes: int = 0
+    model_bytes: int = 0
+    line_bytes: int = 0
     sum_s: float = 0.0
     shift_s: float = 0.0
+    a2a_s: float = 0.0
+    model_s: float = 0.0
+    line_s: float = 0.0
     staging_s: float = 0.0
 
     def __post_init__(self):
@@ -1284,6 +1302,123 @@ class MeshCollectives:
                                like))
         self.shift_s += time.perf_counter() - t0
         return tuple(out)
+
+    # -- collectives along an axis (the tensor-parallel layers) ----------
+
+    def _pinned_buf(self, key, like: Tensor) -> Tensor:
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self._pinned[key] = buf
+        return buf
+
+    def _line_parts(self, x: Tensor, line) -> list:
+        """Every rank of ``line``'s ``x`` (one shape and dtype on all), in
+        rank order, on ``x``'s device."""
+        import torch.distributed as dist
+        n = line.world_size
+        if n == 1:
+            return [x]
+        t0 = time.perf_counter()
+        dev = x.device
+        flat = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        if self._staged(dev):
+            send = self._host(flat, "line-send")
+            parts = [self._pinned_buf(("line-part", i, flat.numel()), flat)
+                     for i in range(n)]
+            dist.all_gather(parts, send, group=line.group)
+            parts = [self._device(p, dev) for p in parts]
+        else:
+            parts = [torch.empty_like(flat) for _ in range(n)]
+            dist.all_gather(parts, flat, group=line.group)
+        if line.ranks == self.model.ranks:
+            self.model_bytes += (n - 1) * flat.numel()
+            self.model_s += time.perf_counter() - t0
+        else:
+            self.line_bytes += (n - 1) * flat.numel()
+            self.line_s += time.perf_counter() - t0
+        return [p.view(x.dtype).reshape(x.shape) for p in parts]
+
+    def model_parts(self, x: Tensor) -> list:
+        """The model ranks' ``x``, in rank order."""
+        return self._line_parts(x, self.model)
+
+    def gather_line(self, x: Tensor, dim: int, line) -> Tensor:
+        """The parts of ``x`` of ``line``'s ranks, joined along ``dim`` in
+        rank order."""
+        parts = self._line_parts(x, line)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+    def gather_model(self, x: Tensor, dim: int) -> Tensor:
+        """All-gather along ``model``: the model ranks' ``x`` joined along
+        ``dim`` in rank order."""
+        return self.gather_line(x, dim, self.model)
+
+    def sum_model(self, x: Tensor) -> Tensor:
+        """Σ over the model ranks of ``x``, in f32 and rank order (``fold``
+        of the all-gathered parts), cast back: every rank forms the same
+        bits."""
+        parts = self._line_parts(x, self.model)
+        if len(parts) == 1:
+            return x
+        return fold([p.float() for p in parts]).to(x.dtype)
+
+    def _exchange(self, x: Tensor, counted: str) -> Tensor:
+        """``x`` (n, ...) over the model ranks: row i goes to rank i, and
+        row i of the result came from rank i (``all_to_all_single``)."""
+        import torch.distributed as dist
+        line = self.model
+        n = line.world_size
+        if n == 1:
+            return x
+        t0 = time.perf_counter()
+        dev = x.device
+        flat = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        if self._staged(dev):
+            send = self._host(flat, "a2a-send")
+            recv = self._pinned_buf(("a2a-recv", flat.numel()), flat)
+            dist.all_to_all_single(recv, send, group=line.group)
+            out = self._device(recv, dev)
+        else:
+            out = torch.empty_like(flat)
+            dist.all_to_all_single(out, flat, group=line.group)
+        sent = flat.numel() * (n - 1) // n
+        if counted == "a2a":
+            self.a2a_bytes += sent
+            self.a2a_s += time.perf_counter() - t0
+        else:
+            self.model_bytes += sent
+            self.model_s += time.perf_counter() - t0
+        return out.view(x.dtype).reshape(x.shape)
+
+    def all_to_all_model(self, x: Tensor) -> Tensor:
+        """The expert-parallel exchange: ``x`` (nm, ...), row j sent to
+        model rank j; row i of the result is rank i's row for this rank."""
+        return self._exchange(x, "a2a")
+
+    def reduce_scatter_model(self, x: Tensor, dim: int) -> Tensor:
+        """This rank's 1/nm of Σ over the model ranks of ``x`` along
+        ``dim``: each rank's chunk m goes to rank m (an all-to-all), and
+        the received parts are summed in f32 in rank order and cast back."""
+        n = self.model.world_size
+        if n == 1:
+            return x
+        chunks = torch.stack(torch.chunk(x, n, dim))
+        parts = self._exchange(chunks, "model")
+        return fold([p.float() for p in parts.unbind(0)]).to(x.dtype)
+
+    def mean_world(self, x: Tensor) -> Tensor:
+        """The mean of a scalar over every rank, summed in rank order."""
+        parts = self._line_parts(x.float().reshape(1), self.world)
+        return (fold(parts) / len(parts)).reshape(()).to(x.dtype)
+
+    @property
+    def world(self):
+        """Every rank of the mesh as one line, in rank (row-major) order."""
+        from repro_torch.launch.mesh import AxisGroup
+        m = self.mesh
+        return AxisGroup(m.rank, m.world_size, m.backend, m.device, m.group,
+                         tuple(range(m.world_size)))
 
     def from_last_model_rank(self, x: Tensor) -> Tensor:
         """``x`` of the last rank of this rank's model line, on every rank

@@ -12,7 +12,10 @@
 //   o_i  = sum_j exp(s_ij - m_i) v_j / max(sum_j exp(s_ij - m_i), 1e-20)
 //
 // with the running max m_i and denominator kept in f32 over kv tiles taken
-// in ascending order.  The mask value is -2^30, not -inf, as on the TPU: a
+// in ascending order.  Query row r sits at position i = q_offset + r of the
+// key sequence (a slice of the queries, as a rank of a context-parallel
+// attention holds them; 0 and seq_q = seq_k is the whole sequence).  The
+// mask value is -2^30, not -inf, as on the TPU: a
 // tile whose keys are all masked for a row adds exp(0) garbage while no real
 // key has been seen, and the first real key's rescale exp(-2^30 - m) resets
 // it exactly.  Keys past the sequence take no part.  kv tiles wholly past
@@ -127,9 +130,9 @@ struct Tile {
 template <int HD>
 __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, int seq,
-                   int hq, int hkv, int hd, int causal, int window,
-                   float scale_log2, int vec) {
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   int seq_q, int seq_k, int q_off, int hq, int hkv, int hd,
+                   int causal, int window, float scale_log2, int vec) {
   using T = Tile<HD>;
   constexpr int BQ = T::BQ, BK = T::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -144,30 +147,31 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int wg = tid / 128;
   const int lane = tid % 32;
   const int r0 = q0 + 64 * wg;                        // warpgroup's rows
+  const int p0 = q_off + r0;                  // their first key position
   const int row_in = 16 * ((tid % 128) / 32) + lane / 4;   // + 8 hh
 
   const size_t q_step = (size_t)hq * hd;
   const size_t k_step = (size_t)hkv * hd;
-  const bf16* qb = q + ((size_t)b * seq * hq + h) * hd;
-  const bf16* kb = k + ((size_t)b * seq * hkv + hk) * hd;
-  const bf16* vb = v + ((size_t)b * seq * hkv + hk) * hd;
+  const bf16* qb = q + ((size_t)b * seq_q * hq + h) * hd;
+  const bf16* kb = k + ((size_t)b * seq_k * hkv + hk) * hd;
+  const bf16* vb = v + ((size_t)b * seq_k * hkv + hk) * hd;
 
   // kv tiles with any live key for the block's rows
-  const int k_end = causal ? min(seq, q0 + BQ) : seq;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? min(seq_k, q_off + q0 + BQ) : seq_k;
+  const int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int t_begin = k_begin / BK;
   const int t_end = (k_end + BK - 1) / BK;
 
   auto stage_kv = [&](int t, int stage) {
     const uint32_t ks = kv_s + stage * 2 * T::KV_BYTES;
     const size_t off = (size_t)t * BK * k_step;
-    stage_tile<BK, HD, T::THREADS>(ks, kb + off, k_step, seq - t * BK, hd,
+    stage_tile<BK, HD, T::THREADS>(ks, kb + off, k_step, seq_k - t * BK, hd,
                                    vec);
     stage_tile<BK, HD, T::THREADS>(ks + T::KV_BYTES, vb + off, k_step,
-                                   seq - t * BK, hd, vec);
+                                   seq_k - t * BK, hd, vec);
   };
   stage_tile<BQ, HD, T::THREADS>(q_s, qb + (size_t)q0 * q_step, q_step,
-                                 seq - q0, hd, vec);
+                                 seq_q - q0, hd, vec);
 #pragma unroll
   for (int i = 0; i < T::STAGES - 1; ++i) {   // q rides in the first group
     if (t_begin + i < t_end) stage_kv(t_begin + i, i);
@@ -191,8 +195,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     const int k0 = t * BK;
-    const bool live = r0 < seq && !(causal && k0 > r0 + 63)
-                      && !(window > 0 && r0 - (k0 + BK - 1) >= window);
+    const bool live = r0 < seq_q && !(causal && k0 > p0 + 63)
+                      && !(window > 0 && p0 - (k0 + BK - 1) >= window);
     if (live) {                          // uniform over the warpgroup
       const uint32_t k_tile = kv_s + stage * 2 * T::KV_BYTES;
       const uint32_t v_tile = k_tile + T::KV_BYTES;
@@ -217,13 +221,13 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // 2. online softmax on the fragments, rows row_in + 8 hh: scores are
       //    raw q.k here and scaled inside the exponent's FFMA
-      if ((causal && k0 + BK - 1 > r0)
-          || (window > 0 && r0 + 63 - k0 >= window) || k0 + BK > seq) {
+      if ((causal && k0 + BK - 1 > p0)
+          || (window > 0 && p0 + 63 - k0 >= window) || k0 + BK > seq_k) {
 #pragma unroll
         for (int i = 0; i < BK / 2; ++i) {     // diagonal, window edge, end
-          const int row = r0 + row_in + 8 * ((i / 2) % 2);
+          const int row = p0 + row_in + 8 * ((i / 2) % 2);
           const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-          if (key >= seq)
+          if (key >= seq_k)
             s[i] = -INFINITY;                  // past the sequence: no part
           else if ((causal && key > row)
                    || (window > 0 && row - key >= window))
@@ -291,15 +295,15 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();            // every warpgroup is done with this stage
   }
 
-  if (r0 >= seq) return;        // uniform over the warpgroup
-  bf16* ob = o + ((size_t)b * seq * hq + h) * hd;
+  if (r0 >= seq_q) return;      // uniform over the warpgroup
+  bf16* ob = o + ((size_t)b * seq_q * hq + h) * hd;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float sum = l[hh] + __shfl_xor_sync(0xffffffffu, l[hh], 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float denom = fmaxf(sum, 1e-20f);
     const int row = r0 + row_in + 8 * hh;
-    if (row >= seq) continue;
+    if (row >= seq_q) continue;
     bf16* orow = ob + (size_t)row * q_step;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
@@ -314,8 +318,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
-              int batch, int seq, int hq, int hkv, int hd, int causal,
-              int window, float scale, cudaStream_t stream) {
+              int batch, int seq_q, int seq_k, int q_off, int hq, int hkv,
+              int hd, int causal, int window, float scale,
+              cudaStream_t stream) {
   using T = Tile<HD>;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -323,10 +328,10 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const bool vec = hd % 8 == 0
                    && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) == 0;
-  const dim3 grid((seq + T::BQ - 1) / T::BQ, hq, batch);
+  const dim3 grid((seq_q + T::BQ - 1) / T::BQ, hq, batch);
   flash_wgmma_kernel<HD><<<grid, T::THREADS, T::SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, seq, hq, hkv,
-      hd, causal, window, scale * LOG2E, (int)vec);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, seq_q, seq_k,
+      q_off, hq, hkv, hd, causal, window, scale * LOG2E, (int)vec);
   return (int)cudaGetLastError();
 }
 
@@ -343,29 +348,41 @@ void layout_hd(int* out) {
 }  // namespace
 
 // Plain C interface for ctypes.  Every pointer is a device pointer of a
-// contiguous bf16 tensor: q and o (batch, seq, hq, hd), k and v (batch, seq,
-// hkv, hd).  hq is a multiple of hkv, 1 <= hd <= 256; causal is 0 or 1;
-// window <= 0 means no window; scale multiplies q . k.  Returns the
-// cudaError_t of the launch.
+// contiguous bf16 tensor: q and o (batch, seq_q, hq, hd), k and v (batch,
+// seq_k, hkv, hd); query row r sits at key position q_offset + r.  hq is a
+// multiple of hkv, 1 <= hd <= 256; causal is 0 or 1; window <= 0 means no
+// window; scale multiplies q . k.  Returns the cudaError_t of the launch.
+extern "C" int flash_attention_bf16_offset(const void* q, const void* k,
+                                           const void* v, void* o, int batch,
+                                           int seq_q, int seq_k, int q_offset,
+                                           int hq, int hkv, int hd,
+                                           int causal, int window,
+                                           float scale, void* stream) {
+  if (hd < 1 || hd > 256 || hkv < 1 || hq % hkv != 0 || seq_q < 1
+      || seq_k < 1 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (hd <= 64)
+    return launch_hd<64>(q, k, v, o, batch, seq_q, seq_k, q_offset, hq, hkv,
+                         hd, causal, window, scale, s);
+  if (hd <= 128)
+    return launch_hd<128>(q, k, v, o, batch, seq_q, seq_k, q_offset, hq,
+                          hkv, hd, causal, window, scale, s);
+  if (hd <= 192)
+    return launch_hd<192>(q, k, v, o, batch, seq_q, seq_k, q_offset, hq,
+                          hkv, hd, causal, window, scale, s);
+  return launch_hd<256>(q, k, v, o, batch, seq_q, seq_k, q_offset, hq, hkv,
+                        hd, causal, window, scale, s);
+}
+
+// The whole sequence: seq_q = seq_k = seq, q_offset 0.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int batch,
                                     int seq, int hq, int hkv, int hd,
                                     int causal, int window, float scale,
                                     void* stream) {
-  if (hd < 1 || hd > 256 || hkv < 1 || hq % hkv != 0 || seq < 1)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (hd <= 64)
-    return launch_hd<64>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
-                         window, scale, s);
-  if (hd <= 128)
-    return launch_hd<128>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
-                          window, scale, s);
-  if (hd <= 192)
-    return launch_hd<192>(q, k, v, o, batch, seq, hq, hkv, hd, causal,
-                          window, scale, s);
-  return launch_hd<256>(q, k, v, o, batch, seq, hq, hkv, hd, causal, window,
-                        scale, s);
+  return flash_attention_bf16_offset(q, k, v, o, batch, seq, seq, 0, hq, hkv,
+                                     hd, causal, window, scale, stream);
 }
 
 // The tiles flash_attention_bf16 takes at head_dim hd: out[0..4] = padded

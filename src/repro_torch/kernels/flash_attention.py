@@ -18,8 +18,15 @@ operands, allocates the output and launches on the current CUDA stream; the
 kernels pick their own tiles (the TPU wrapper's ``block_q`` and ``block_k``
 are tiling only); ``tc_layout`` mirrors the tensor-core kernel's choice.
 
+Both kernels take a query slice at an offset (``q_offset``): q holds S_q
+rows at key positions q_offset .. q_offset + S_q − 1 of k and v's S_k, the
+causal and window masks read those positions (a rank of a context-parallel
+attention, ``models.attention.gqa_forward_ranks``).  Offset 0 with S_q = S_k
+is the whole sequence, the same launch as before the offset existed.
+
 ``flash_launches`` counts every call that reaches a kernel,
-``flash_tc_launches`` those that reach the tensor-core kernel.
+``flash_tc_launches`` those that reach the tensor-core kernel and
+``flash_offset_launches`` those at a query offset other than 0.
 """
 from __future__ import annotations
 
@@ -32,12 +39,14 @@ LIB = "flash_attention"             # f32, FFMA
 TC_LIB = "flash_attention_wgmma"    # bf16, tensor cores
 flash_launches = 0
 flash_tc_launches = 0
+flash_offset_launches = 0
 
 MAX_HEAD_DIM = 256
 _ROUTES = {torch.float32: (LIB, "flash_attention_f32",
                            "flash_attention_error_string"),
            torch.bfloat16: (TC_LIB, "flash_attention_bf16",
                             "flash_attention_wgmma_error_string")}
+OFFSET = "_offset"      # the entries that take S_q, S_k and the offset
 
 
 def tc_layout(hd: int) -> dict:
@@ -59,9 +68,10 @@ def tc_layout(hd: int) -> dict:
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   window: int | None,
-                   device: torch.device) -> tuple[int, int, int, int, int]:
-    """Raise on what the kernels do not take; return (B, S, Hq, Hkv, hd)."""
+                   window: int | None, device: torch.device,
+                   q_offset: int = 0) -> tuple[int, int, int, int, int]:
+    """Raise on what the kernels do not take; return (B, S_q, Hq, Hkv,
+    hd)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected q (B, S, Hq, hd) and k (B, S, Hkv, hd), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -69,10 +79,12 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"q has dtype {q.dtype}, expected one of "
                         f"{tuple(_ROUTES)}")
     b, s, hq, hd = q.shape
-    hkv = k.shape[2]
+    s_k, hkv = k.shape[1], k.shape[2]
     check_operand("q", q, (b, s, hq, hd), (q.dtype,), device)
-    check_operand("k", k, (b, s, hkv, hd), (q.dtype,), device)
-    check_operand("v", v, (b, s, hkv, hd), (q.dtype,), device)
+    check_operand("k", k, (b, s_k, hkv, hd), (q.dtype,), device)
+    check_operand("v", v, (b, s_k, hkv, hd), (q.dtype,), device)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"{hkv} kv heads do not divide {hq} query heads")
     if hd > MAX_HEAD_DIM:
@@ -83,27 +95,33 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Attention on the card.
 
-    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd), Hkv dividing Hq; one dtype,
-    bf16 (tensor cores) or f32 (FFMA); hd <= 256.  ``window``: keys with
+    q: (B, S_q, Hq, hd); k, v: (B, S_k, Hkv, hd), Hkv dividing Hq; one
+    dtype, bf16 (tensor cores) or f32 (FFMA); hd <= 256.  Query row r sits
+    at key position ``q_offset`` + r.  ``window``: keys with position
     q − k ≥ window are masked, with or without ``causal``.  Returns
-    (B, S, Hq, hd) in q's dtype.
+    (B, S_q, Hq, hd) in q's dtype.
     """
-    global flash_launches, flash_tc_launches
+    global flash_launches, flash_tc_launches, flash_offset_launches
     device = build.cuda_device("flash_attention", q)
-    b, s, hq, hkv, hd = check_operands(q, k, v, window, device)
+    b, s, hq, hkv, hd = check_operands(q, k, v, window, device, q_offset)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     lib, symbol, errors = _ROUTES[q.dtype]
+    extent = [s]
+    if q_offset or k.shape[1] != s:
+        symbol, extent = symbol + OFFSET, [s, k.shape[1], int(q_offset)]
     build.launch("flash_attention", lib, symbol, [q, k, v, out],
-                 [b, s, hq, hkv, hd, int(causal),
+                 [b, *extent, hq, hkv, hd, int(causal),
                   0 if window is None else int(window), 1.0 / hd ** 0.5],
                  device, errors)
     flash_launches += 1
     if lib == TC_LIB:
         flash_tc_launches += 1
+    if q_offset:
+        flash_offset_launches += 1
     return out

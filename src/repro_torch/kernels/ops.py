@@ -196,17 +196,20 @@ def community_halo_spmm(ell_blocks: torch.Tensor, ell_offsets: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention, causal / sliding window / GQA.
 
-    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) -> (B, S, Hq, hd) in q's dtype.
+    q: (B, S_q, Hq, hd); k, v: (B, S_k, Hkv, hd) -> (B, S_q, Hq, hd) in q's
+    dtype; query row r sits at key position ``q_offset`` + r (S_q = S_k and
+    offset 0: the whole sequence).
     """
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
     return flash_launcher.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        window=window)
+        window=window, q_offset=q_offset)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -139,22 +139,24 @@ def community_spmm_ell_ref(ell_blocks: torch.Tensor, ell_indices: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """Exact softmax attention with GQA and causal / window masks, in f32;
-    q (B, S, Hq, hd), k and v (B, S, Hkv, hd) -> (B, S, Hq, hd) in q's
-    dtype.  Masked scores take -2^30, as in the kernels."""
+    q (B, S_q, Hq, hd), k and v (B, S_k, Hkv, hd) -> (B, S_q, Hq, hd) in
+    q's dtype, query row r at key position ``q_offset`` + r.  Masked scores
+    take -2^30, as in the kernels."""
     b, s, hq, hd = q.shape
-    hkv = k.shape[2]
+    s_k, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.reshape(b, s, hkv, group, hd).float()
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
-    pos = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    pos = torch.arange(q_offset, q_offset + s, device=q.device)
+    kpos = torch.arange(s_k, device=q.device)
+    mask = torch.ones((s, s_k), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[:, None] >= pos[None, :]
+        mask &= pos[:, None] >= kpos[None, :]
     if window is not None:
-        mask &= pos[:, None] - pos[None, :] < window
+        mask &= pos[:, None] - kpos[None, :] < window
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())

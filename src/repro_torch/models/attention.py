@@ -17,9 +17,17 @@ The port of src/repro/models/attention.py.  Full-sequence self-attention
   same inputs: above CHUNK, S must be a multiple of it.
 
 Cross-attention and every decode step stay plain torch (``_sdpa``, one
-query row), as in the reference.  The reference's ``hints.hint_qkv`` is
-left out: it only places q/k/v on a device mesh and does nothing without
-one.
+query row), as in the reference.
+
+Over the ranks of a ``ProcessMesh`` under ``sharding_hints`` (the
+reference's ``hints.hint_qkv``, ``sharding.hints.qkv_layout``),
+``gqa_forward_ranks`` runs one rank's share: the ``heads`` branch takes
+the rank's Hq/nm and Hkv/nm heads from the column-split q/k/v, attends,
+and sums the row-split ``o`` projection over ``model``; the ``context``
+branch takes the rank's query rows, which attend to every key at a query
+offset (both routes take ``q_offset``).  ``gqa_decode_step_ranks`` runs a
+decode step on caches placed by ``cache_specs`` (head_dim, else heads,
+over ``model``).
 
 Caches (a decode step writes its token into the cache it is given, in
 place, and returns the same tensors; a caller that keeps the pre-step
@@ -44,6 +52,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, apply_rope, dense_init, dtype_of
+from repro_torch.sharding import hints, partition
 
 NEG_INF = -2.0 ** 30  # large-negative in f32 (avoids bf16 overflow on cast)
 CHUNK = 2048          # query/key chunk for block-causal attention
@@ -105,15 +114,27 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     may differ from qk_hd (MLA decompresses to different dims)."""
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
-    qg = q.reshape(b, sq, hkv, h // hkv, hd)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = _scores(q.reshape(b, sq, hkv, h // hkv, hd), k)
+    if mask is not None and mask.dim() == 4:
+        mask = mask[:, :, None]
+    return _mix(scores, mask, v, hd).reshape(b, sq, h, v.shape[-1])
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """f32 scores (B, Hkv, G, Sq, Sk) of grouped queries qg (B, Sq, Hkv,
+    G, d) against k (B, Sk, Hkv, d)."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+
+
+def _mix(scores: torch.Tensor, mask: Optional[torch.Tensor],
+         v: torch.Tensor, hd: int) -> torch.Tensor:
+    """The softmax of the scaled, masked scores, cast to v's dtype, over v
+    (B, Sk, Hkv, v_hd): (B, Sq, Hkv, G, v_hd)."""
     scores = scores * (1.0 / math.sqrt(hd))
     if mask is not None:
-        scores = torch.where(mask[:, :, None] if mask.dim() == 4 else mask,
-                             scores, NEG_INF)
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
-    return out.reshape(b, sq, h, v.shape[-1])
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
 
 
 def _check_length(s: int, chunk: int) -> None:
@@ -125,20 +146,25 @@ def _check_length(s: int, chunk: int) -> None:
 def block_causal_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: Optional[int] = None,
-                           chunk: int = CHUNK) -> torch.Tensor:
+                           chunk: int = CHUNK,
+                           q_offset: int = 0) -> torch.Tensor:
     """Chunked attention with static per-chunk key slices (causal FLOPs only).
 
-    q/k/v over the same sequence; q: (B,S,H,hd), k/v: (B,S,Hkv,hd).
+    k/v over the sequence, (B,S,Hkv,hd); q: (B,S_q,H,hd), the rows at
+    positions ``q_offset`` .. ``q_offset`` + S_q − 1 of it (all of it by
+    default): each row is masked and contracted against the keys of its
+    chunk of the whole call, so a slice gives the whole call's rows.
     """
-    s = q.shape[1]
+    s, sq = k.shape[1], q.shape[1]
     dev = q.device
     if s <= chunk:
         mask = None
         if causal:
-            qpos = torch.arange(s, device=dev)
-            mask = qpos[:, None] >= qpos[None, :]
+            qpos = torch.arange(q_offset, q_offset + sq, device=dev)
+            kpos = torch.arange(s, device=dev)
+            mask = qpos[:, None] >= kpos[None, :]
             if window is not None:
-                mask &= qpos[:, None] - qpos[None, :] < window
+                mask &= qpos[:, None] - kpos[None, :] < window
             mask = mask[None, None]
         return _sdpa(q, k, v, mask)
 
@@ -146,32 +172,38 @@ def block_causal_attention(q: torch.Tensor, k: torch.Tensor,
     outs = []
     for i in range(s // chunk):
         q_lo, q_hi = i * chunk, (i + 1) * chunk
+        lo, hi = max(q_lo, q_offset), min(q_hi, q_offset + sq)
+        if lo >= hi:
+            continue
         k_lo = 0 if window is None else max(0, q_lo - window)
         k_lo = (k_lo // chunk) * chunk           # align to chunk
         k_hi = q_hi if causal else s
-        qpos = torch.arange(q_lo, q_hi, device=dev)
+        qpos = torch.arange(lo, hi, device=dev)
         kpos = torch.arange(k_lo, k_hi, device=dev)
-        mask = torch.ones((chunk, k_hi - k_lo), dtype=torch.bool, device=dev)
+        mask = torch.ones((hi - lo, k_hi - k_lo), dtype=torch.bool,
+                          device=dev)
         if causal:
             mask &= qpos[:, None] >= kpos[None, :]
         if window is not None:
             mask &= qpos[:, None] - kpos[None, :] < window
-        outs.append(_sdpa(q[:, q_lo:q_hi], k[:, k_lo:k_hi], v[:, k_lo:k_hi],
-                          mask[None, None]))
+        outs.append(_sdpa(q[:, lo - q_offset:hi - q_offset], k[:, k_lo:k_hi],
+                          v[:, k_lo:k_hi], mask[None, None]))
     return torch.cat(outs, dim=1)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: Optional[int] = None,
-           use_kernel: bool = False, chunk: int = CHUNK) -> torch.Tensor:
+           use_kernel: bool = False, chunk: int = CHUNK,
+           q_offset: int = 0) -> torch.Tensor:
     """Full-sequence self-attention through the plain route or the flash
     kernel (module docstring); both return what the reference's
     ``block_causal_attention`` returns.  q, k: (B,S,*,qk_hd); v:
-    (B,S,Hkv,v_hd) with v_hd ≤ qk_hd."""
+    (B,S,Hkv,v_hd) with v_hd ≤ qk_hd.  q may hold the rows at positions
+    ``q_offset`` .. of the sequence only (a context-parallel rank's)."""
     if not use_kernel:
         return block_causal_attention(q, k, v, causal=causal, window=window,
-                                      chunk=chunk)
-    s, qk_hd, v_hd = q.shape[1], q.shape[-1], v.shape[-1]
+                                      chunk=chunk, q_offset=q_offset)
+    s, qk_hd, v_hd = k.shape[1], q.shape[-1], v.shape[-1]
     _check_length(s, chunk)
     if s <= chunk and not causal:
         window = None                # the reference's S ≤ CHUNK branch
@@ -179,7 +211,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"v head_dim {v_hd} > q/k head_dim {qk_hd}")
     if v_hd < qk_hd:
         v = F.pad(v, (0, qk_hd - v_hd))
-    out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    out = kops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
     return out[..., :v_hd]
 
 
@@ -262,20 +295,171 @@ def gqa_decode_step(cfg: ModelConfig, p: Params, cache: Params,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
+    valid = _write_token(cfg, cache, k, v, rolling)
+    out = _sdpa(q, cache["k"], cache["v"], valid[None, None, None, :])
+    cache["pos"].add_(1)
+    return out.reshape(b, 1, -1) @ p["o"], cache
+
+
+def _write_token(cfg: ModelConfig, cache: Params, k: torch.Tensor,
+                 v: torch.Tensor, rolling: bool) -> torch.Tensor:
+    """The token at ``cache["pos"]``: its k and v (B, 1, ...) written at
+    its slot, and the (S_max,) mask of the slots it attends to."""
+    pos = cache["pos"]
     size = cache["k"].shape[1]
     slot = (pos % size if rolling else pos.clamp(max=size - 1)).long()
     slot = slot.view(1)
     cache["k"].index_copy_(1, slot, k)
     cache["v"].index_copy_(1, slot, v)
     cache["slot_pos"].index_copy_(0, slot, pos.view(1))
-
     slot_pos = cache["slot_pos"]
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if cfg.sliding_window is not None:
         valid &= slot_pos > pos - cfg.sliding_window
-    out = _sdpa(q, cache["k"], cache["v"], valid[None, None, None, :])
+    return valid
+
+
+# ---------------------------------------------------------------------------
+# GQA over the ranks of a data × model mesh (hints.qkv_layout)
+# ---------------------------------------------------------------------------
+
+def _bias(p: Params, name: str, width: int, full: int, m: int):
+    b = p[name]
+    return b if width == full else b[m * width:(m + 1) * width]
+
+
+def gqa_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      use_kernel: bool = False) -> torch.Tensor:
+    """This rank's share of ``gqa_forward`` under the hints: ``x`` is its
+    piece of the (normed) residual (``lay``: hints.RankLayout), ``p`` its
+    shards by ``param_specs`` (the data axes gathered); returns its piece
+    of the output.
+
+    ``heads``: the residual whole along model (``lay.enter``), the rank's
+    Hq/nm and Hkv/nm heads from its column slices of q/k/v, attention on
+    them, its row slice of ``o``, and one sum over model laid out as the
+    residual (``lay.leave``).  ``context``: q/k/v/o whole (all-gathered),
+    the rank's query rows against every key at the query offset of its
+    positions, the output already in the residual's layout.  Neither: the
+    weights whole and the one-process layer on the whole residual."""
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    branch, _ = hints.qkv_layout((lay.batch, lay.seq, hq, hd),
+                                 (lay.batch, lay.seq, hkv, hd), lay.mesh)
+    b, s = x.shape[0], lay.seq
+    if branch == "heads":
+        nq, nk, m = hq // lay.nm, hkv // lay.nm, lay.m
+        xf = lay.enter(x)
+        q, k, v = xf @ p["q"], xf @ p["k"], xf @ p["v"]
+        if cfg.qkv_bias:
+            q = q + _bias(p, "q_b", nq * hd, hq * hd, m)
+            k = k + _bias(p, "k_b", nk * hd, hkv * hd, m)
+            v = v + _bias(p, "v_b", nk * hd, hkv * hd, m)
+        positions = _positions(s, x.device)
+        q = apply_rope(q.reshape(b, s, nq, hd), positions, cfg.rope_theta)
+        k = apply_rope(k.reshape(b, s, nk, hd), positions, cfg.rope_theta)
+        out = attend(q, k, v.reshape(b, s, nk, hd), causal=causal,
+                     window=window, use_kernel=use_kernel)
+        return lay.leave(out.reshape(b, s, nq * hd) @ p["o"])
+    w = dict(p, q=lay.whole(p["q"], 1, hq * hd),
+             k=lay.whole(p["k"], 1, hkv * hd),
+             v=lay.whole(p["v"], 1, hkv * hd),
+             o=lay.whole(p["o"], 0, hq * hd))
+    if branch is None:
+        return gqa_forward(cfg, w, x, causal=causal, window=window,
+                           use_kernel=use_kernel)
+    rows = lay.positions
+    sq = rows.stop - rows.start
+    q = x @ w["q"]
+    if cfg.qkv_bias:
+        q = q + w["q_b"]
+    q = apply_rope(q.reshape(b, sq, hq, hd),
+                   torch.arange(rows.start, rows.stop, device=x.device)[None],
+                   cfg.rope_theta)
+    xf = lay.enter(x)
+    k, v = xf @ w["k"], xf @ w["v"]
+    if cfg.qkv_bias:
+        k, v = k + w["k_b"], v + w["v_b"]
+    k = apply_rope(k.reshape(b, s, hkv, hd), _positions(s, x.device),
+                   cfg.rope_theta)
+    v = v.reshape(b, s, hkv, hd)
+    out = attend(q, k, v, causal=causal, window=window,
+                 use_kernel=use_kernel, q_offset=rows.start)
+    return out.reshape(b, sq, hq * hd) @ w["o"]
+
+
+def _model_dim(spec) -> Optional[int]:
+    """The dim of a per-layer k/v cache spec placed over ``model``."""
+    for d, entry in enumerate(spec):
+        if "model" in partition.entry_axes(entry):
+            return d
+    return None
+
+
+def gqa_decode_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
+                          specs: Params, x_t: torch.Tensor, lay,
+                          rolling: bool = False
+                          ) -> tuple[torch.Tensor, Params]:
+    """One token through one rank's share of ``gqa_decode_step``: ``x_t``
+    (B, 1, D) whole along ``model`` (this rank's rows), ``cache`` its
+    slices by ``cache_specs`` (``specs``, per layer; its sequence and
+    ``slot_pos`` whole), written in place.  q, k and v come whole from the
+    column slices (one all-gather); the cache holds the rank's slice of
+    head_dim (or of the heads) over ``model``, so a head_dim slice gives
+    partial scores summed over ``model`` in rank order (every rank then
+    holds the same softmax), the rank's slice of each head's output is
+    all-gathered, and its rows of the row-split ``o`` are summed over
+    ``model``."""
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    group = hq // hkv
+    b, m, nm = x_t.shape[0], lay.m, lay.nm
+    pos = cache["pos"]
+    fulls = (hq * hd, hkv * hd, hkv * hd)
+    cols = [x_t @ p[n] for n in ("q", "k", "v")]
+    if cfg.qkv_bias:
+        cols = [c + _bias(p, f"{n}_b", c.shape[-1], f, m)
+                for c, n, f in zip(cols, ("q", "k", "v"), fulls)]
+    if any(c.shape[-1] != f for c, f in zip(cols, fulls)):
+        widths = [c.shape[-1] for c in cols]
+        parts = [pt.split(widths, -1) for pt in
+                 lay.comm.model_parts(torch.cat(cols, -1))]
+        cols = [c if c.shape[-1] == f else torch.cat([pt[i] for pt in parts],
+                                                     -1)
+                for i, (c, f) in enumerate(zip(cols, fulls))]
+    positions = pos.expand(b, 1)
+    q = apply_rope(cols[0].reshape(b, 1, hq, hd), positions, cfg.rope_theta)
+    k = apply_rope(cols[1].reshape(b, 1, hkv, hd), positions, cfg.rope_theta)
+    v = cols[2].reshape(b, 1, hkv, hd)
+
+    split = _model_dim(specs["k"])           # 2: heads, 3: head_dim
+    kv_spec = (None, None) + tuple(specs["k"][2:])
+    valid = _write_token(cfg, cache,
+                         partition.local_slice(k, kv_spec, lay.mesh),
+                         partition.local_slice(v, kv_spec, lay.mesh),
+                         rolling)
+
+    if split == 2:
+        nq = hq // nm
+        q = q[:, :, m * nq:(m + 1) * nq]
+    qg = q.reshape(b, 1, -1, group, hd)
+    if split == 3:
+        w = hd // nm
+        qg = qg[..., m * w:(m + 1) * w]
+    scores = _scores(qg, cache["k"])
+    if split == 3:
+        scores = lay.comm.sum_model(scores)
+    out = _mix(scores, valid[None, None, None, None, :], cache["v"], hd)
+    if split is not None:
+        out = lay.comm.gather_model(out, 2 if split == 2 else 4)
+    out = out.reshape(b, 1, hq * hd)
     cache["pos"].add_(1)
-    return out.reshape(b, 1, -1) @ p["o"], cache
+    o = p["o"]
+    if o.shape[0] == hq * hd:
+        return out @ o, cache
+    n = o.shape[0]
+    return lay.comm.sum_model(out[..., m * n:(m + 1) * n] @ o), cache
 
 
 # ---------------------------------------------------------------------------

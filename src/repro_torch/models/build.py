@@ -13,6 +13,12 @@ a JAX tree across).  ``init`` draws them from a ``torch.Generator`` on the
 device (the reference's distributions, not its numbers).  ``device=None``
 means the card and raises without one (``util.device.resolve_device``).
 
+Under ``sharding.hints.sharding_hints`` over a ``ProcessMesh`` the
+forward paths (``forward``, ``prefill``, ``decode_step``) run this rank's
+share, on its slices by ``param_specs`` (``init(mesh=...)``) and
+``cache_specs`` (``init_cache(mesh=...)``): ``transformer.
+apply_stack_ranks`` / ``decode_stack_ranks``.
+
 Training (``init_optimizer``, ``train_step``, ``train_step_deferred`` —
 the latter also over the data ranks of a ``launch.mesh.ProcessMesh``)
 takes the reference's plain route (``use_kernel=False``: no kernel of the
@@ -25,6 +31,7 @@ passed in (``optim.optimizers``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -34,6 +41,7 @@ from repro_torch.configs.shapes import InputShape
 from repro_torch.models import layers, transformer
 from repro_torch.models.layers import Params
 from repro_torch.optim import optimizers
+from repro_torch.sharding import hints, partition
 from repro_torch.util import tree
 from repro_torch.util.device import resolve_device
 
@@ -49,26 +57,41 @@ class Model:
     # ------------------------------------------------------------------ init
 
     def init(self, seed: int = 0,
-             device: "str | torch.device | None" = None) -> Params:
+             device: "str | torch.device | None" = None,
+             mesh=None) -> Params:
+        """The parameters; with ``mesh`` (a ``launch.mesh.ProcessMesh``)
+        this rank's slices of them by ``param_specs``: every leaf is drawn
+        in the one-process order (a stacked leaf one layer at a time) and
+        only the rank's slice kept, so the slices are bit for bit those of
+        the one-process init and no rank holds the whole model."""
         cfg = self.cfg
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
+        keep = None if mesh is None else partition.slicer(cfg, mesh)
+
+        def kept(tree_, *prefix):
+            return tree_ if keep is None else keep(tree_, prefix)
         params: Params = {
-            "embedding": layers.init_embedding(cfg, gen),
-            "stack": transformer.init_stack(cfg, gen),
-            "final_norm": layers.init_norm(cfg, cfg.d_model, device),
+            "embedding": kept(layers.init_embedding(cfg, gen), "embedding"),
+            "stack": transformer.init_stack(cfg, gen, keep),
+            "final_norm": kept(layers.init_norm(cfg, cfg.d_model, device),
+                               "final_norm"),
         }
         if cfg.mtp_depth:
-            params["mtp"] = {
+            params["mtp"] = kept({
                 "proj": layers.dense_init(gen, (2 * cfg.d_model, cfg.d_model),
                                           layers.dtype_of(cfg)),
                 "layer": transformer.init_layer(cfg, "attn_mlp", gen),
                 "norm": layers.init_norm(cfg, cfg.d_model, device),
-            }
+            }, "mtp")
         if cfg.is_encoder_decoder:
-            params["enc_final_norm"] = layers.init_norm(cfg, cfg.d_model,
-                                                        device)
+            params["enc_final_norm"] = kept(
+                layers.init_norm(cfg, cfg.d_model, device), "enc_final_norm")
         return params
+
+    def param_specs(self, mesh):
+        """``partition.param_specs`` of this model's tree on ``mesh``."""
+        return partition.param_specs(self.cfg, mesh, _param_shapes(self.cfg))
 
     def init_optimizer(self):
         return optimizers.make(self.cfg.optimizer, self.cfg.learning_rate)
@@ -81,6 +104,21 @@ class Model:
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
         return x
 
+    def _layout(self, batch: int, seq: int):
+        """The active hints' ``RankLayout`` of a call (None without
+        ranks); the families that compute whole keep the residual whole
+        along ``model``."""
+        lay = hints.rank_layout(batch, seq)
+        if lay is not None and not transformer.split_arch(self.cfg):
+            lay = dataclasses.replace(lay, seq_split=False)
+        return lay
+
+    def _residual_extent(self, batch: dict) -> tuple[int, int]:
+        b, s = batch["tokens"].shape[:2]
+        if self.cfg.arch_type == "vlm":
+            s += self.cfg.frontend.num_embeddings
+        return b, s
+
     def forward(self, params: Params, batch: dict, *,
                 window: Optional[int] = None,
                 use_kernel: bool = False,
@@ -89,9 +127,20 @@ class Model:
         """Full forward. Returns (logits f32, aux_loss, hidden).
 
         ``last_only`` restricts the unembed to the final position (prefill:
-        avoids materializing the (B, S, V) logits buffer)."""
+        avoids materializing the (B, S, V) logits buffer).
+
+        Under ``sharding_hints`` over a ``ProcessMesh`` this rank runs its
+        share (``_forward_ranks``): ``params`` are its slices by
+        ``param_specs``, ``batch`` the global batch (every rank the same);
+        it returns its block of the logits (its rows, its vocabulary
+        columns: the reference's ``P(data, None, model)``), the aux loss
+        (the same on every rank) and its piece of the final hidden."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
+        lay = self._layout(*self._residual_extent(batch))
+        if lay is not None:
+            return self._forward_ranks(params, batch, lay, window,
+                                       use_kernel, last_only)
         memory = None
         if cfg.is_encoder_decoder:
             memory = self.encode(params, batch["frames"],
@@ -109,6 +158,38 @@ class Model:
                                 h[:, -1:] if last_only else h)
         return logits, aux, h
 
+    def _forward_ranks(self, params: Params, batch: dict, lay, window,
+                       use_kernel: bool, last_only: bool):
+        cfg = self.cfg
+        specs = self.param_specs(lay.mesh)
+        dev = tree.leaves(params)[0].device
+        local = {k: torch.as_tensor(v, device=dev)[lay.rows]
+                 for k, v in batch.items()}
+        emb = partition.gather(params["embedding"], specs["embedding"],
+                               lay.mesh, lay.comm, hints.DATA_AXES)
+        memory = None
+        if cfg.is_encoder_decoder:
+            x, _ = transformer.apply_stack_ranks(
+                cfg, params["stack"], specs["stack"], local["frames"], lay,
+                use_kernel=use_kernel, only_kinds=("enc",))
+            memory = layers.apply_norm(cfg, params["enc_final_norm"], x)
+        x = layers.embed_ranks(cfg, emb, local["tokens"], lay)
+        if cfg.arch_type == "vlm":
+            x = torch.cat([local["vision_embeds"].to(x.dtype), x], dim=1)
+        x, aux = transformer.apply_stack_ranks(
+            cfg, params["stack"], specs["stack"], x, lay, window=window,
+            memory=memory, use_kernel=use_kernel,
+            only_kinds=("dec",) if cfg.is_encoder_decoder else None)
+        h = layers.apply_norm(cfg, params["final_norm"], x)
+        if cfg.arch_type == "vlm":
+            h = h[:, cfg.frontend.num_embeddings:]
+        if last_only:
+            last = lay.comm.from_last_model_rank(h[:, -1:]) \
+                if lay.seq_split else h[:, -1:]
+        else:
+            last = lay.enter(h)
+        return layers.unembed(cfg, emb, last), aux, h
+
     def encode(self, params: Params, frames: torch.Tensor,
                use_kernel: bool = False) -> torch.Tensor:
         """Encoder over stubbed frame embeddings (enc-dec archs): the
@@ -125,6 +206,11 @@ class Model:
 
     def loss(self, params: Params, batch: dict
              ) -> tuple[torch.Tensor, dict]:
+        if hints.ranks_active():
+            raise NotImplementedError(
+                "the loss over a tensor-parallel placement (gradients "
+                "through the model-axis collectives) is ROADMAP A.5: "
+                "train_step_deferred holds full replicas along model")
         logits, aux, h = self.forward(params, batch)
         ce = _next_token_ce(logits, batch["targets"])
         total = ce + aux
@@ -224,10 +310,14 @@ class Model:
         than one bucket — a collective whose bits may differ by rank would
         let Adam's updates drift apart).  Then, as in the reference, the
         sums are divided by ``accum · n_dp``, the metrics are ``m.mean() /
-        n_dp``, and every rank applies the update.  The ``model`` axis
-        holds full replicas until the tensor-parallel placement is ported:
-        the model ranks of a data row compute the same shard, and each
-        bucket's sum is broadcast along the row so they stay equal."""
+        n_dp``, and every rank applies the update.  The step runs in a
+        manual region over the data axes (``sharding.hints.
+        manual_region``: the reference's ``shard_map``), where the
+        all-to-all MoE dispatch is gated off and nothing is split over
+        ``model``: the ``model`` axis holds full replicas (the
+        tensor-parallel step is ROADMAP A.5), the model ranks of a data
+        row compute the same shard, and each bucket's sum is broadcast
+        along the row so they stay equal."""
         from repro_torch.launch.mesh import ProcessMesh
         ranks = isinstance(mesh, ProcessMesh)
         if not ranks and mesh is not None and mesh.size > 1:
@@ -245,15 +335,18 @@ class Model:
                for p in live]
         loss_sum = torch.zeros((), dtype=torch.float32, device=live[0].device)
         mets = []
-        for mb in self._micro(batch, accum):
-            lv, m = self.loss(live_tree, mb)
-            g = torch.autograd.grad(lv, live, allow_unused=True,
-                                    materialize_grads=True)
-            for a, b in zip(acc, g):
-                a.add_(b)
-            del g
-            loss_sum = loss_sum + lv.detach()
-            mets.append({k: v.detach() for k, v in m.items()})
+        # the reference's shard_map, manual over the data axes: inside, the
+        # all-to-all dispatch is gated off and nothing is split
+        with hints.manual_region(hints.DATA_AXES):
+            for mb in self._micro(batch, accum):
+                lv, m = self.loss(live_tree, mb)
+                g = torch.autograd.grad(lv, live, allow_unused=True,
+                                        materialize_grads=True)
+                for a, b in zip(acc, g):
+                    a.add_(b)
+                del g
+                loss_sum = loss_sum + lv.detach()
+                mets.append({k: v.detach() for k, v in m.items()})
         del live, live_tree
         stacked = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
         if not ranks:
@@ -283,29 +376,103 @@ class Model:
         (logits and final hidden) is the prefill's work, and a server fills
         the caches by decode steps (an encoder-decoder's cross caches from
         ``encode``'s memory)."""
+        b = batch["tokens"].shape[0]
+        lay = self._layout(*self._residual_extent(batch))
+        if lay is not None:              # this rank's share (forward's)
+            logits, _, _ = self.forward(params, batch, last_only=True)
+            return logits, self.init_cache(b, max_len, rolling=rolling,
+                                           device=logits.device,
+                                           mesh=lay.mesh)
         logits, _, _ = self.forward(params, batch)
-        caches = self.init_cache(batch["tokens"].shape[0], max_len,
-                                 rolling=rolling, device=logits.device)
+        caches = self.init_cache(b, max_len, rolling=rolling,
+                                 device=logits.device)
         return logits[:, -1:], caches
 
     def init_cache(self, batch: int, max_len: int, *, rolling: bool = False,
-                   device: "str | torch.device | None" = None) -> Params:
+                   device: "str | torch.device | None" = None,
+                   mesh=None) -> Params:
+        """The decode caches; with ``mesh`` this rank's slices of them by
+        ``cache_specs`` (made at their local shapes)."""
         memory_len = AUDIO_MEMORY if self.cfg.is_encoder_decoder else 0
-        return transformer.init_stack_cache(self.cfg, batch, max_len,
+        if mesh is None:
+            return transformer.init_stack_cache(self.cfg, batch, max_len,
+                                                rolling, memory_len,
+                                                resolve_device(device))
+        full = transformer.init_stack_cache(self.cfg, batch, max_len,
                                             rolling, memory_len,
-                                            resolve_device(device))
+                                            torch.device("meta"))
+        specs = partition.cache_specs(self.cfg, mesh, full)
+        return partition.local_filled(full, specs, mesh,
+                                      resolve_device(device),
+                                      {"slot_pos": -1})
+
+    def _rank_cache_specs(self, caches: Params, batch: int, rolling: bool,
+                          mesh):
+        """``cache_specs`` of the global caches whose slices on this rank
+        are ``caches`` (``init_cache(batch, max_len, mesh=mesh)``).  Only
+        the sequence length is not known here: it is a local one as it is,
+        or times the ``data`` axis or the data axes (where ``cache_specs``
+        splits it over them) — the one whose slices have these shapes."""
+        memory_len = AUDIO_MEMORY if self.cfg.is_encoder_decoder else 0
+        have = [t.shape for t in tree.leaves(caches)]
+        lengths = {t.shape[-1] if path[-1] == "slot_pos" else t.shape[2]
+                   for path, t in tree.leaves_with_paths(caches)
+                   if path[-1] == "slot_pos" or t.dim() >= 4}
+        data = mesh.shape["data"] if "data" in mesh.axis_names else 1
+        found = {}
+        for n in {n * f for n in lengths or {1}
+                  for f in (1, data, hints.dp_size(mesh))}:
+            full = transformer.init_stack_cache(self.cfg, batch, n, rolling,
+                                                memory_len,
+                                                torch.device("meta"))
+            specs = partition.cache_specs(self.cfg, mesh, full)
+            local = partition.local_filled(full, specs, mesh, "meta", {})
+            if [t.shape for t in tree.leaves(local)] == have:
+                found[repr(specs)] = specs
+        if len(found) != 1:
+            raise ValueError(
+                f"decode over ranks takes this rank's slices of the caches "
+                f"of init_cache(batch, max_len, mesh=...) or prefill for a "
+                f"batch of {batch}: {len(found)} global cache lengths give "
+                f"slices of these shapes")
+        return found.popitem()[1]
 
     def decode_step(self, params: Params, caches: Params,
                     tokens: torch.Tensor, *, rolling: bool = False
                     ) -> tuple[torch.Tensor, Params]:
-        """ONE new token (B, 1) against the caches."""
+        """ONE new token (B, 1) against the caches.
+
+        Under ``sharding_hints`` over a ``ProcessMesh``: ``params`` and
+        ``caches`` are this rank's slices (``init_cache(…, mesh=…)``),
+        ``tokens`` the global (B, 1); returns this rank's block of the
+        logits, the caches written in place."""
         cfg = self.cfg
+        lay = self._layout(tokens.shape[0], 1)
+        if lay is not None:
+            return self._decode_ranks(params, caches, tokens, lay, rolling)
         x = layers.embed(params["embedding"], tokens)
         x, caches = transformer.decode_stack(cfg, params["stack"], caches, x,
                                              rolling=rolling)
         x = layers.apply_norm(cfg, params["final_norm"], x)
         logits = layers.unembed(cfg, params["embedding"], x)
         return logits, caches
+
+    def _decode_ranks(self, params: Params, caches: Params, tokens, lay,
+                      rolling: bool):
+        cfg = self.cfg
+        cache_specs = self._rank_cache_specs(caches, tokens.shape[0],
+                                             rolling, lay.mesh)
+        specs = self.param_specs(lay.mesh)
+        emb = partition.gather(params["embedding"], specs["embedding"],
+                               lay.mesh, lay.comm, hints.DATA_AXES)
+        dev = tree.leaves(params)[0].device
+        x = layers.embed_ranks(cfg, emb, torch.as_tensor(
+            tokens, device=dev)[lay.rows], lay)
+        x, caches = transformer.decode_stack_ranks(
+            cfg, params["stack"], specs["stack"], caches, cache_specs, x,
+            lay, rolling=rolling)
+        x = layers.apply_norm(cfg, params["final_norm"], x)
+        return layers.unembed(cfg, emb, x), caches
 
     # ------------------------------------------------------------ input specs
 
@@ -349,6 +516,17 @@ def _next_token_ce(logits: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     return nll.mean()
+
+
+@functools.lru_cache(maxsize=16)
+def _param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree of ``cfg`` as ``meta`` tensors (from an init
+    under ``FakeTensorMode``: nothing is drawn)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = Model(cfg).init(0, "cpu")
+    return tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                               device="meta"), fake)
 
 
 def make_model(cfg: ModelConfig) -> Model:

@@ -6,6 +6,14 @@ functional style: ``init_*`` builds a dict of tensors, ``apply_*`` consumes
 it.  Parameters live in the config dtype (bf16 for the published
 architectures); norm statistics and rotary math run in f32 and the
 unembedding gives f32 logits.
+
+Over the ranks of a data × model mesh (``sharding.hints.RankLayout``) a
+rank holds its slices by ``param_specs``: ``embed_ranks`` looks up the
+ids among its rows of the vocabulary-split table and sums over ``model``
+(exact: one term is non-zero); ``unembed`` on its slice of the table (or
+of ``unembed``) gives its vocabulary columns of the logits; and
+``apply_mlp_ranks`` runs up / gate column-split and down row-split, then
+one sum over ``model`` laid out as the residual.
 """
 from __future__ import annotations
 
@@ -105,6 +113,21 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["down"]
 
 
+def apply_mlp_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay,
+                    width: int, entered: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """``apply_mlp`` on this rank's piece ``x`` of the residual with its
+    slices of an MLP of hidden ``width``: where the hidden dim is split
+    over ``model``, the residual whole (``lay.enter``, or ``entered`` where
+    the caller has it already), the rank's hidden columns, and the partial
+    products summed over ``model`` (``lay.leave``); otherwise the whole MLP
+    on the piece."""
+    if p["up"].shape[-1] == width:
+        return apply_mlp(cfg, p, x)
+    return lay.leave(apply_mlp(cfg, p, lay.enter(x) if entered is None
+                               else entered))
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -143,6 +166,23 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens.long()]
+
+
+def embed_ranks(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
+                lay) -> torch.Tensor:
+    """This rank's piece of the embedded residual: the ids of its rows
+    (``tokens``, (B, S)) looked up among its rows of the table, zero
+    outside them, and summed over ``model`` into the residual's layout."""
+    table = p["table"]
+    if table.shape[0] == cfg.vocab_size:
+        return lay.piece(embed(p, tokens))
+    n = table.shape[0]
+    ids = tokens.long() - lay.m * n
+    inside = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)]
+    return lay.leave(torch.where(inside[..., None], rows,
+                                 torch.zeros((), dtype=rows.dtype,
+                                             device=rows.device)))
 
 
 # the f32 copy of the last unembedding matrix seen, keyed by a weak reference

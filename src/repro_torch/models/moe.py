@@ -9,11 +9,18 @@ run batched over the leading E axis.
 Matches DeepSeekMoE (arXiv:2401.06066) / DeepSeek-V3 (arXiv:2412.19437)
 structure: fine-grained experts + shared experts + aux load-balance loss.
 
-The reference's expert-parallel ``apply_moe_a2a`` runs only under an
-active device mesh with ``moe_a2a`` hints (``sharding_hints``); it is not
-ported yet (ROADMAP A.5 item 1) and refuses, and the port takes the scatter
-path.  Its ``hints.hint_tokens`` and ``hints.hint_moe_buffers`` are
-identities without a mesh and are left out.
+Over the ranks of a data × model mesh, under ``sharding_hints(mesh,
+moe_a2a=True)``, the reference's gate (``hints.a2a_gate``: E % nm == 0,
+E ≥ nm, outside a manual region) sends the layer through
+``apply_moe_a2a``, the expert-parallel all-to-all dispatch: each rank
+routes one group of the flat tokens (the reference's groups, over the data
+axes and ``model``) with the capacity of its own group, exchanges the
+(E, C, D) buffers with one all-to-all along ``model``, runs its E/nm
+experts and sends the outputs back.  Elsewhere under the hints the scatter
+path runs with the capacity of the whole batch, placed as the reference's
+``hint_tokens`` and ``hint_moe_buffers`` place it: each data rank routes
+its share of the tokens, and each model rank fills and runs its rows of
+the (E·C, D) buffer (``_apply_moe_scatter``).
 
 Capacity couples a batch's rows: a token is dropped by its rank among
 every earlier (token, slot) sent to its expert.  A caller that holds some
@@ -35,6 +42,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, dense_init, dtype_of
+from repro_torch.sharding import hints
+
+EXPERTS = ("w_gate", "w_up", "w_down")
+a2a_calls = 0       # apply_moe_a2a's dispatches (counted where it runs)
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -108,12 +119,167 @@ def global_rows(n_shards: int, offsets: Callable[[torch.Tensor],
         _GLOBAL_ROWS.reset(token)
 
 
-def apply_moe_a2a(cfg: ModelConfig, p: Params, x: torch.Tensor, mesh):
-    """The reference's expert-parallel all-to-all dispatch (with its
-    ``sharding_hints`` gate) is not ported yet."""
-    raise NotImplementedError(
-        "apply_moe_a2a and the sharding_hints that gate it are ROADMAP A.5 "
-        "item 1; the scatter dispatch (apply_moe) computes the same values")
+def _group_line(lay, axes):
+    """The ranks whose token groups make up this rank's rows of the batch,
+    as one line in group order (None: the group is all of them): along
+    ``model`` when the data axes hold distinct rows, else every rank (or
+    the data axes) when each rank holds every row."""
+    comm = lay.comm
+    if "model" in axes:
+        return comm.model if lay.rows != slice(0, lay.batch) else comm.world
+    if axes and lay.rows == slice(0, lay.batch):
+        return comm.data
+    return None
+
+
+def apply_moe_a2a(cfg: ModelConfig, p: Params, x: torch.Tensor, lay
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style MoE over the ranks (src/repro/models/moe.py:163-274).
+
+    ``x`` is this rank's piece of the (normed) residual and ``p`` its
+    slices: E/nm experts, the router whole, the shared experts split as an
+    MLP.  The flat tokens (B·S) are cut into the reference's groups over
+    the data axes and ``model`` (``hints.moe_token_axes``); the rank's
+    group is re-laid out from its residual piece (an all-gather along
+    ``model``: with the sequence split, rank m holds positions of every
+    row while group m is a run of consecutive tokens, and which tokens a
+    group drops depends on which tokens it holds).  The group routes,
+    ranks and drops with the capacity of its own token count; ONE
+    all-to-all along ``model`` turns the (E, C, D) buffer into the local
+    experts' (E/nm, nm·C, D); the reverse one brings the outputs back; the
+    gates weight them on the group's tokens, and the groups' outputs are
+    all-gathered back to the residual's layout.  The shared experts run as
+    a split MLP on the rank's rows.  ``aux`` is the mean over every rank
+    (every token shard), summed in rank order."""
+    global a2a_calls
+    moe = cfg.moe
+    e, k = moe.num_experts, moe.top_k
+    comm, nm = lay.comm, lay.nm
+    d = x.shape[-1]
+    total = lay.batch * lay.seq
+    axes = hints.moe_token_axes(total, lay.mesh)
+    groups = math.prod(lay.mesh.shape[a] for a in axes)
+    g = 0
+    if axes:
+        g = comm.data.rank
+        if "model" in axes:
+            g = g * nm + lay.m
+    t = total // groups
+    entered = lay.enter(x)                       # this rank's rows, whole
+    local = entered.reshape(-1, d)
+    lo = g * t - lay.rows.start * lay.seq
+    xg = local[lo:lo + t]                        # the rank's token group
+
+    gate_vals, expert_ids, _, aux = route(cfg, p, xg)
+    aux = comm.mean_world(aux)
+    flat_expert = expert_ids.reshape(t * k)
+    cap = capacity(cfg, t)
+    rank = ranks(flat_expert)
+    keep = rank < cap
+    slot = flat_expert * cap + rank.clamp(max=cap - 1)
+    src = xg.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
+    buf = x.new_zeros((e * cap, d)).index_add_(0, slot, src)
+
+    # THE dispatch: experts split over model, capacities concatenated
+    recv = comm.all_to_all_model(buf.reshape(nm, e // nm, cap, d))
+    expert_in = recv.transpose(0, 1).reshape(e // nm, nm * cap, d)
+    out = _expert_ffn(cfg, p, expert_in)                 # (E/nm, nm·C, D)
+    back = out.reshape(e // nm, nm, cap, d).transpose(0, 1)
+    flat_out = comm.all_to_all_model(back.contiguous()).reshape(e * cap, d)
+    a2a_calls += 1
+
+    gathered = flat_out[slot]                            # (t·k, D)
+    gates = (gate_vals.reshape(t * k) * keep).to(x.dtype)
+    combined = (gathered * gates[:, None]).reshape(t, k, d).sum(1)
+    line = _group_line(lay, axes)
+    if line is not None:                 # the groups of this rank's rows
+        combined = comm.gather_line(combined, 0, line)
+    out = lay.piece(combined.reshape(-1, lay.seq, d))
+    if moe.num_shared_experts:
+        out = out + layers.apply_mlp_ranks(
+            cfg, p["shared"], x, lay, moe.num_shared_experts * moe.d_ff_expert,
+            entered)
+    return out, aux
+
+
+def _apply_moe_scatter(cfg: ModelConfig, p: Params, x: torch.Tensor, lay
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scatter path over the ranks where the all-to-all is gated off,
+    laid out as the reference's hints place it.  Capacity couples every
+    token of the batch, so a (token, slot) is ranked within its expert
+    over the whole batch.
+
+    ``hints.tokens_layout`` (``hint_tokens``): with the flat tokens over
+    the data axes, each data rank routes its share; its ranks are offset
+    by the counts of the shares before it, and aux is formed from the
+    counts and probabilities summed over the shares.
+    ``hints.moe_buffers_layout`` (``hint_moe_buffers``): with the (E·C, D)
+    buffer over ``model``, each rank fills its rows of it from every data
+    rank's share (summed over the data axes: a slot holds one token at
+    most, so the sum is exact), runs the experts of those rows (its own
+    where E/nm is whole) and all-gathers the outputs along ``model``;
+    otherwise it fills and runs the whole buffer with every expert.  The
+    shared experts run as a split MLP on the rank's piece."""
+    moe = cfg.moe
+    e, k = moe.num_experts, moe.top_k
+    comm, d = lay.comm, x.shape[-1]
+    total = lay.batch * lay.seq
+    entered = lay.enter(x)                       # this rank's rows, whole
+    split = hints.tokens_layout((total, d), lay.mesh) is not None
+    n_dp, r = (comm.data.world_size, comm.data.rank) if split else (1, 0)
+    t = total // n_dp
+    lo = r * t - lay.rows.start * lay.seq
+    xt = entered.reshape(-1, d)[lo:lo + t]       # this data rank's share
+
+    gate_vals, expert_ids, probs, aux = route(cfg, p, xt)
+    flat_expert = expert_ids.reshape(t * k)
+    rank = ranks(flat_expert)
+    if n_dp > 1:
+        counts = torch.bincount(flat_expert, minlength=e).to(probs.dtype)
+        stats = comm.gather_line(torch.cat([counts, probs.sum(0)])[None],
+                                 0, comm.data)             # (n_dp, 2E)
+        rank = rank + stats[:r, :e].sum(0).long()[flat_expert]
+        every = stats.sum(0)
+        aux = moe.router_aux_weight * e * torch.dot(
+            every[:e] / (total * k), every[e:] / total)
+    cap = capacity(cfg, total)
+    keep = rank < cap
+    slot = flat_expert * cap + rank.clamp(max=cap - 1)
+
+    over_model = hints.moe_buffers_layout(e * cap, lay.mesh)
+    n = e * cap // lay.nm if over_model else e * cap
+    first = lay.m * n if over_model else 0
+    mine = keep & (slot >= first) & (slot < first + n)
+    src = xt.repeat_interleave(k, dim=0) * mine[:, None].to(x.dtype)
+    buf = x.new_zeros((n, d)).index_add_(0, (slot - first).clamp(0, n - 1),
+                                         src)
+    if n_dp > 1:
+        buf = comm.gather_line(buf[None], 0, comm.data).sum(0)
+    # the experts of rows [first, first + n): whole ones, padded with zero
+    # rows where the rows cut through an expert (E % nm != 0)
+    e0, e1 = first // cap, -(-(first + n) // cap)
+    w = dict(p)
+    for name in EXPERTS:
+        if p[name].shape[0] != e1 - e0:
+            w[name] = lay.whole(p[name], 0, e)[e0:e1]
+    head = first - e0 * cap
+    run = F.pad(buf, (0, 0, head, (e1 - e0) * cap - head - n))
+    out = _expert_ffn(cfg, w, run.reshape(e1 - e0, cap, d)).reshape(-1, d)
+    out = out[head:head + n]
+    if over_model:
+        out = comm.gather_model(out, 0)                       # (E·C, D)
+
+    gathered = out[slot]                                      # (t·k, D)
+    gates = (gate_vals.reshape(t * k) * keep).to(x.dtype)
+    combined = (gathered * gates[:, None]).reshape(t, k, d).sum(1)
+    if n_dp > 1 and lay.rows == slice(0, lay.batch):
+        combined = comm.gather_line(combined, 0, comm.data)  # whole rows
+    out = lay.piece(combined.reshape(-1, lay.seq, d))
+    if moe.num_shared_experts:
+        out = out + layers.apply_mlp_ranks(
+            cfg, p["shared"], x, lay, moe.num_shared_experts * moe.d_ff_expert,
+            entered)
+    return out, aux
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -140,9 +306,18 @@ def ranks(flat_expert: torch.Tensor) -> torch.Tensor:
     return rank
 
 
-def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, lay=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss)."""
+    """x: (B, S, D) -> (out, aux_loss).
+
+    With ``lay`` (a ``hints.RankLayout``: this rank's piece of x, its
+    slices of p) the reference's gate picks the all-to-all dispatch
+    (``apply_moe_a2a``) or the scatter path with the whole batch's
+    capacity (``_apply_moe_scatter``)."""
+    if lay is not None:
+        if hints.moe_a2a_enabled() and hints.a2a_gate(cfg, lay.mesh):
+            return apply_moe_a2a(cfg, p, x, lay)
+        return _apply_moe_scatter(cfg, p, x, lay)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.moe.num_experts, cfg.moe.top_k

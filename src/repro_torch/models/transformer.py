@@ -4,9 +4,23 @@ The port of src/repro/models/transformer.py.  A model is a list of
 segments (kind, count); each segment's per-layer parameters are stacked
 along a leading ``count`` axis, as in the reference, so parameters convert
 leaf for leaf.  The reference's ``lax.scan`` over that axis is a Python
-loop over index 0 of each stacked leaf here.  Its ``hints.hint_residual``
-is left out: it only places the residual stream on a device mesh, and with
-no mesh it does nothing.
+loop over index 0 of each stacked leaf here.
+
+Over the ranks of a data × model mesh under ``sharding_hints``
+(``apply_stack_ranks``, ``decode_stack_ranks``) each rank holds its slices
+of every layer by ``param_specs`` (and of every cache by ``cache_specs``);
+a layer's slices are all-gathered over the data axes (the FSDP leg) as it
+runs.  The GQA segments (``attn_mlp``, ``attn_moe``) run split: the
+residual lives between layers as the rank's (B/n_dp, S/nm, D) piece
+(``hints.residual_layout``, the reference's ``hint_residual``; whole along
+``model`` where nm does not divide S, as in a decode step), and each split
+sublayer all-gathers it along ``model`` at entry and reduce-scatters its
+partial sums at exit.  Every other family (MLA, ``ssm``, ``hybrid`` /
+``rglru_mlp``, ``enc`` / ``dec``, the vision prefix) is placed the same
+way but computes whole: each layer's slices are all-gathered along all
+their axes (the routed experts' along the data axes only: the
+all-to-all dispatch still runs on them) and its activations stay whole
+along ``model``; its split compute is later work.
 
 Segment kinds:
   attn_mlp    pre-norm attention (GQA/MQA/MLA per cfg) + dense FFN
@@ -33,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe as moe_lib, rglru, ssm
 from repro_torch.models.layers import Params
+from repro_torch.sharding import hints, partition
 
 
 # ---------------------------------------------------------------------------
@@ -84,13 +99,17 @@ def tree_map2(fn: Callable, a, b):
     return fn(a, b)
 
 
-def _stacked(make: Callable[[], Params], count: int) -> Params:
+def _stacked(make: Callable[[], Params], count: int,
+             keep: Optional[Callable] = None) -> Params:
     """``count`` trees from ``make()`` stacked leaf-wise along a new leading
     axis, filled one tree at a time: the peak is the stack and one tree,
-    not two stacks."""
+    not two stacks.  ``keep(tree)`` (a rank's slices) is applied to each
+    tree as it is made."""
     out = None
     for i in range(count):
         tree = make()
+        if keep is not None:
+            tree = keep(tree)
         if out is None:
             out = tree_map(lambda leaf: leaf.new_empty((count,) + leaf.shape),
                            tree)
@@ -175,9 +194,10 @@ def _attn_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor, *, causal=True,
 def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
                 window: Optional[int] = None,
                 memory: Optional[torch.Tensor] = None,
-                use_kernel: bool = False
+                use_kernel: bool = False, lay=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, aux_loss)."""
+    """Returns (x, aux_loss).  ``lay``: over ranks, the MoE layer's
+    (``moe.apply_moe``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def mlp(sub, x):
@@ -195,7 +215,8 @@ def apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, *,
                 memory)
         if kind == "attn_moe":
             h, aux = moe_lib.apply_moe(cfg, p["moe"],
-                                       layers.apply_norm(cfg, p["norm2"], x))
+                                       layers.apply_norm(cfg, p["norm2"], x),
+                                       lay)
             x = x + h
         else:
             x = x + mlp(p, x)
@@ -259,7 +280,7 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def apply_layer_step(cfg: ModelConfig, kind: str, p: Params, cache: Params,
-                     x_t: torch.Tensor, *, rolling: bool = False
+                     x_t: torch.Tensor, *, rolling: bool = False, lay=None
                      ) -> tuple[torch.Tensor, Params]:
     """One token through one layer.  Attention caches are written in place
     (the returned cache holds the same tensors); recurrent states come back
@@ -279,7 +300,8 @@ def apply_layer_step(cfg: ModelConfig, kind: str, p: Params, cache: Params,
         if kind == "attn_mlp":
             return x_t + mlp(p, x_t), cache
         h, _ = moe_lib.apply_moe(cfg, p["moe"],
-                                 layers.apply_norm(cfg, p["norm2"], x_t))
+                                 layers.apply_norm(cfg, p["norm2"], x_t),
+                                 lay)
         return x_t + h, cache
     if kind == "ssm":
         h_in = layers.apply_norm(cfg, p["norm"], x_t)
@@ -327,10 +349,17 @@ def apply_layer_step(cfg: ModelConfig, kind: str, p: Params, cache: Params,
 # stacked-segment init / forward / decode
 # ---------------------------------------------------------------------------
 
-def init_stack(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    return {seg.kind: _stacked(lambda kind=seg.kind:
-                               init_layer(cfg, kind, gen), seg.count)
-            for seg in arch_segments(cfg)}
+def init_stack(cfg: ModelConfig, gen: torch.Generator,
+               keep: Optional[Callable] = None) -> Params:
+    """Every segment's stacked layers; ``keep(tree, path, count)`` (a
+    rank's slices, ``partition.slicer``) is applied to each layer as it is
+    drawn."""
+    return {seg.kind: _stacked(
+        lambda kind=seg.kind: init_layer(cfg, kind, gen), seg.count,
+        None if keep is None else
+        lambda tree, kind=seg.kind, n=seg.count: keep(tree, ("stack", kind),
+                                                      n))
+        for seg in arch_segments(cfg)}
 
 
 def apply_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
@@ -398,4 +427,156 @@ def decode_stack(cfg: ModelConfig, params: Params, caches: Params,
                 cfg, seg.kind, _layer(params[seg.kind], i), old, x_t,
                 rolling=rolling)
             tree_map2(put, old, new)
+    return x_t, caches
+
+
+# ---------------------------------------------------------------------------
+# over the ranks of a data × model mesh (sharding.hints)
+# ---------------------------------------------------------------------------
+
+def split_arch(cfg: ModelConfig) -> bool:
+    """Whether the layers run split over ``model`` (GQA ``attn_mlp`` /
+    ``attn_moe`` stacks); the other families compute whole."""
+    return (cfg.mla is None and cfg.arch_type not in ("ssm", "vlm")
+            and cfg.hybrid is None and not cfg.is_encoder_decoder)
+
+
+def layer_specs(specs):
+    """A stacked segment's specs without the layer dim."""
+    return tree_map(lambda spec: spec[1:], specs)
+
+
+def gather_layer(p: Params, specs, lay, whole: bool) -> Params:
+    """A layer's slices all-gathered over the data axes (the FSDP leg);
+    with ``whole`` over every axis, except the routed experts, which keep
+    their slice of ``model`` (the all-to-all dispatch runs on it)."""
+    mesh, comm = lay.mesh, lay.comm
+    data = hints.DATA_AXES
+
+    def go(tree, spec, path=()):
+        if isinstance(tree, dict):
+            return {k: go(tree[k], spec[k], path + (k,)) for k in tree}
+        axes = data if (not whole or (len(path) >= 2 and path[-2] == "moe"
+                                       and path[-1] in moe_lib.EXPERTS)) \
+            else None
+        return partition.gather_leaf(tree, spec, mesh, comm, axes)
+    return go(p, specs)
+
+
+def apply_stack_ranks(cfg: ModelConfig, params: Params, specs, x, lay, *,
+                      window: Optional[int] = None,
+                      memory: Optional[torch.Tensor] = None,
+                      use_kernel: bool = False,
+                      only_kinds: Optional[tuple[str, ...]] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``apply_stack`` on one rank: ``params`` its slices (``specs`` their
+    ``param_specs``), ``x`` its piece of the residual (``lay``)."""
+    split = split_arch(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg in arch_segments(cfg):
+        if only_kinds is not None and seg.kind not in only_kinds:
+            continue
+        sp = layer_specs(specs[seg.kind])
+        for i in range(seg.count):
+            p = gather_layer(_layer(params[seg.kind], i), sp, lay,
+                             whole=not split)
+            if split:
+                x, aux = apply_layer_ranks(cfg, seg.kind, p, x, lay,
+                                           window=window,
+                                           use_kernel=use_kernel)
+            else:
+                x, aux = apply_layer(cfg, seg.kind, p, x, window=window,
+                                     memory=memory, use_kernel=use_kernel,
+                                     lay=lay)
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def apply_layer_ranks(cfg: ModelConfig, kind: str, p: Params,
+                      x: torch.Tensor, lay, *, window: Optional[int] = None,
+                      use_kernel: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A split ``attn_mlp`` / ``attn_moe`` layer on this rank's piece."""
+    x = x + attention.gqa_forward_ranks(
+        cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), lay,
+        window=window, use_kernel=use_kernel)
+    h_in = layers.apply_norm(cfg, p["norm2"], x)
+    if kind == "attn_moe":
+        h, aux = moe_lib.apply_moe(cfg, p["moe"], h_in, lay)
+        return x + h, aux
+    h = layers.apply_mlp_ranks(cfg, p["mlp"], h_in, lay,
+                               _dense_ff_width(cfg))
+    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _cache_spec(leaf: torch.Tensor, spec) -> tuple:
+    """A layer's cache spec with its batch dim (dim 0 of every leaf of two
+    or more dims: ``slot_pos`` has none) left out: the rank's rows stay
+    its own."""
+    return (None,) + tuple(spec[1:]) if leaf.dim() >= 2 else tuple(spec)
+
+
+def _whole_cache(cache: Params, specs, lay, axes=None) -> Params:
+    """A layer's cache slices all-gathered along ``axes`` (every axis by
+    default) on every dim but the batch."""
+    if isinstance(cache, dict):
+        return {k: _whole_cache(cache[k], specs[k], lay, axes)
+                for k in cache}
+    return partition.gather_leaf(cache, _cache_spec(cache, specs), lay.mesh,
+                                 lay.comm, axes)
+
+
+def _write_back(old: Params, new: Params, specs, lay, axes=None) -> None:
+    """This rank's slices (along ``axes``) of a layer's new cache over its
+    old ones."""
+    if isinstance(old, dict):
+        for k in old:
+            _write_back(old[k], new[k], specs[k], lay, axes)
+        return
+    if new is old:
+        return
+    spec = _cache_spec(old, specs)
+    if axes is not None:
+        spec = partition.drop_axes(spec, [a for e in spec for a in
+                                          partition.entry_axes(e)
+                                          if a not in axes])
+    old.copy_(partition.local_slice(new, spec, lay.mesh))
+
+
+def decode_stack_ranks(cfg: ModelConfig, params: Params, specs,
+                       caches: Params, cache_specs, x_t: torch.Tensor, lay,
+                       *, rolling: bool = False
+                       ) -> tuple[torch.Tensor, Params]:
+    """``decode_stack`` on one rank: its slices of the parameters and of
+    the caches (``cache_specs``), written in place; ``x_t`` its rows of
+    the token's residual, whole along ``model``."""
+    split = split_arch(cfg)
+    for seg in arch_segments(cfg):
+        if seg.kind == "enc":
+            continue
+        sp = layer_specs(specs[seg.kind])
+        cs = layer_specs(cache_specs[seg.kind])
+        for i in range(seg.count):
+            p = gather_layer(_layer(params[seg.kind], i), sp, lay,
+                             whole=not split)
+            old = _layer(caches[seg.kind], i)
+            if split:
+                cache = _whole_cache(old, cs, lay, hints.DATA_AXES)
+                h_in = layers.apply_norm(cfg, p["norm1"], x_t)
+                h, _ = attention.gqa_decode_step_ranks(
+                    cfg, p["attn"], cache, cs, h_in, lay, rolling=rolling)
+                x_t = x_t + h
+                h_in = layers.apply_norm(cfg, p["norm2"], x_t)
+                if seg.kind == "attn_moe":
+                    h, _ = moe_lib.apply_moe(cfg, p["moe"], h_in, lay)
+                else:
+                    h = layers.apply_mlp_ranks(cfg, p["mlp"], h_in, lay,
+                                               _dense_ff_width(cfg))
+                x_t = x_t + h
+                _write_back(old, cache, cs, lay, hints.DATA_AXES)
+                continue
+            x_t, new = apply_layer_step(cfg, seg.kind, p,
+                                        _whole_cache(old, cs, lay), x_t,
+                                        rolling=rolling, lay=lay)
+            _write_back(old, new, cs, lay)
     return x_t, caches

@@ -24,6 +24,12 @@ The port's copy of ``repro.sharding.partition``:
     name).  The rules read only a mesh's ``shape`` and ``axis_names`` and
     the leaves' ``shape`` (meta or fake tensors do), so they need no
     group (tests/test_torch_mesh_specs.py).
+  * ``local_shape``, ``local_slice``, ``place`` and ``gather``: a rank's
+    slices of tensors placed by those specs (a named sharding's chunks,
+    row-major over an entry's axes) and back over the ranks;
+    ``slicer`` keeps a rank's slices of a tree as it is drawn
+    (``Model.init(mesh=...)``); ``logits_spec`` is where a rank's logits
+    lie (tests/test_torch_hints.py).
 """
 from __future__ import annotations
 
@@ -232,11 +238,17 @@ def _assign(shape, wants, mesh) -> tuple:
 
 def param_specs(cfg, mesh, params_shapes: Any) -> Any:
     """params_shapes: a tree of tensors (meta or fake tensors will do)."""
+    rule = param_rule(cfg, mesh)
+    return _map_with_path(lambda path, leaf: rule(path, tuple(leaf.shape)),
+                          params_shapes)
+
+
+def param_rule(cfg, mesh):
+    """``param_specs``'s rule as a function of (key path, full shape)."""
     fsdp = cfg.param_count() > FSDP_THRESHOLD
 
-    def rule(path, leaf):
+    def rule(path, shape):
         name = _path_str(path)
-        shape = tuple(leaf.shape)
         nd = len(shape)
         stacked = "stack/" in name or name.startswith("stack")
         off = 1 if stacked else 0        # leading layer-stack dim
@@ -284,7 +296,7 @@ def param_specs(cfg, mesh, params_shapes: Any) -> Any:
 
         return P(*([None] * nd))
 
-    return _map_with_path(rule, params_shapes)
+    return rule
 
 
 def opt_state_specs(cfg, mesh, params_shapes: Any, opt_shapes: Any) -> Any:
@@ -346,3 +358,142 @@ def cache_specs(cfg, mesh, cache_shapes: Any) -> Any:
         return P(*spec)
 
     return _map_with_path(rule, cache_shapes)
+
+
+# ---------------------------------------------------------------------------
+# placement: a rank's slices of full tensors, and back
+# ---------------------------------------------------------------------------
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """The axes of one spec entry (None, a name or a tuple of names)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def local_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """The shape of one rank's slice of a tensor of ``shape`` placed by
+    ``spec`` (``NamedSharding(mesh, spec).shard_shape``): each dim divided
+    by the product of its entry's axes."""
+    shape = tuple(shape)
+    return tuple(d // int(np.prod([_axis_size(mesh, a)
+                                   for a in entry_axes(e)]))
+                 for d, e in zip(shape, spec)) + shape[len(spec):]
+
+
+def _chunk(entry, mesh) -> tuple[int, int]:
+    """(this rank's chunk, number of chunks) of a dim placed by ``entry``:
+    row-major over the entry's axes, as a named sharding orders them."""
+    coords = mesh.coords
+    index, count = 0, 1
+    for a in entry_axes(entry):
+        size = _axis_size(mesh, a)
+        index = index * size + (coords[a] if a in mesh.axis_names else 0)
+        count *= size
+    return index, count
+
+
+def local_slice(x, spec, mesh):
+    """This rank's slice of a full tensor ``x`` placed by ``spec`` (a
+    view)."""
+    for dim, entry in enumerate(spec):
+        i, n = _chunk(entry, mesh)
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, i * size, size)
+    return x
+
+
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of tensors and its tree of specs."""
+    kids = tree_lib._children(tree)
+    if kids is None:
+        return fn(tree, specs)
+
+    def child(key):
+        if isinstance(key, str) and key.startswith("."):
+            return getattr(specs, key[1:])
+        return specs[key]
+    return tree_lib._rebuild(tree, [_zip_map(fn, c, child(k))
+                                    for k, c in kids])
+
+
+def place(tree, specs, mesh):
+    """This rank's slice of every full tensor of ``tree``, each a
+    contiguous copy (the full tree can then be dropped)."""
+    import torch
+    return _zip_map(lambda x, spec: local_slice(torch.as_tensor(x), spec,
+                                                mesh).clone(
+        memory_format=torch.contiguous_format), tree, specs)
+
+
+def drop_axes(spec, axes) -> tuple:
+    """``spec`` with ``axes`` taken out of every entry."""
+    return P(*[tuple(a for a in entry_axes(e) if a not in axes) or None
+               for e in spec])
+
+
+def gather_leaf(x, spec, mesh, comm, axes=None):
+    """A rank's slice ``x`` (placed by ``spec``) all-gathered along
+    ``axes`` (every axis of the spec by default): along each dim, the
+    entry's axes from the minor one out, so the chunks join row-major."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(entry_axes(entry)):
+            if a in mesh.axis_names and (axes is None or a in axes) \
+                    and _axis_size(mesh, a) > 1:
+                x = comm.gather_line(x, dim, mesh.axis(a))
+    return x
+
+
+def gather(tree, specs, mesh, comm, axes=None):
+    """``place``'s inverse over the ranks: every leaf all-gathered along
+    ``axes`` (all of them by default) — every rank of ``mesh`` calls it
+    with the same tree structure."""
+    return _zip_map(lambda x, spec: gather_leaf(x, spec, mesh, comm, axes),
+                    tree, specs)
+
+
+def slicer(cfg, mesh):
+    """``keep(tree, prefix, count=None)``: this rank's slices (contiguous
+    copies) of a freshly drawn parameter tree at key path ``prefix`` — one
+    layer of a stack of ``count`` when given — by ``param_specs``'s rule,
+    so a rank never holds more than one drawn leaf whole."""
+    import torch
+    rule = param_rule(cfg, mesh)
+
+    def keep(tree, prefix: tuple, count: Optional[int] = None):
+        def one(path, leaf):
+            lead = (count,) if count is not None else ()
+            spec = rule(prefix + path, lead + tuple(leaf.shape))[len(lead):]
+            return local_slice(leaf, spec, mesh).clone(
+                memory_format=torch.contiguous_format)
+        return _map_with_path(one, tree)
+    return keep
+
+
+def local_filled(tree, specs, mesh, device, fills: dict):
+    """A tree of this rank's slices of constant tensors: each leaf of
+    ``tree`` (meta tensors will do) as its local shape by ``specs``, filled
+    with ``fills`` of its last key (0 by default)."""
+    import torch
+
+    def one(path, leaf):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        return torch.full(local_shape(leaf.shape, spec, mesh),
+                          fills.get(path[-1], 0), dtype=leaf.dtype,
+                          device=device)
+    return _map_with_path(one, tree)
+
+
+def logits_spec(cfg, mesh, batch: int) -> tuple:
+    """Where a rank's logits lie (src/repro/launch/dryrun.py:80-83): rows
+    over the data axes when they divide the batch, the vocabulary over
+    ``model`` when it divides (the embedding's placement)."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    total = int(np.prod([_axis_size(mesh, a) for a in dp]))
+    bsp = dp if dp and batch % total == 0 and batch >= total else None
+    vsp = "model" if cfg.vocab_size % _axis_size(mesh, "model") == 0 \
+        else None
+    return P(bsp, None, vsp)

@@ -266,3 +266,32 @@ def test_decode_step_writes_the_cache_in_place():
     assert {k: v.data_ptr() for k, v in out.items()} == ptrs
     assert cache["slot_pos"].tolist() == [0, -1, -1, -1]
     assert cache["k"][:, 0].abs().sum() > 0 and not cache["k"][:, 1:].any()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("s,chunk,window,causal", [
+    (16, 2048, None, True), (16, 2048, 5, True), (16, 2048, None, False),
+    (32, 8, None, True), (32, 8, 6, True), (32, 8, 6, False)])
+@pytest.mark.parametrize("nm", [2, 4])
+def test_query_offset_slice_equals_rows_of_the_whole_call(use_kernel, s,
+                                                          chunk, window,
+                                                          causal, nm):
+    """A context-parallel rank's query rows [m·S/nm, (m+1)·S/nm) at query
+    offset m·S/nm against every key give the same rows as the whole call,
+    on both routes (the plain ``block_causal_attention`` — at and above
+    its chunk — and the flash kernel's plain version), within 1e-5 ·
+    max; offset 0 over the whole sequence is the call without an
+    offset, bit for bit."""
+    rng = np.random.default_rng(s + nm)
+    q = torch.from_numpy(rng.normal(size=(2, s, 4, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(2, s, 2, 8)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(2, s, 2, 8)).astype(np.float32))
+    kw = dict(causal=causal, window=window, use_kernel=use_kernel,
+              chunk=chunk)
+    whole = attention.attend(q, k, v, **kw)
+    assert torch.equal(attention.attend(q, k, v, q_offset=0, **kw), whole)
+    n = s // nm
+    for m in range(nm):
+        rows = attention.attend(q[:, m * n:(m + 1) * n], k, v,
+                                q_offset=m * n, **kw)
+        _close(rows, whole[:, m * n:(m + 1) * n].numpy())

@@ -853,6 +853,42 @@ def test_flash_tensor_core_kernel_at_the_tile_edges(cuda_device, s, hd,
     _within(got, want, BF16_TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,nm,hq,hkv,hd,causal,window", [
+    (512, 2, 4, 1, 128, True, None),      # gemma's single KV head
+    (4096, 4, 4, 2, 128, True, None),     # qwen2-7b's heads, 1 x 4
+    (300, 3, 2, 1, 64, True, 70),         # ragged slices, a window
+    (384, 2, 2, 1, 256, True, 100),       # head_dim 256
+    (256, 4, 4, 4, 80, False, 33),        # window without causal
+])
+def test_flash_kernel_at_a_query_offset(cuda_device, s, nm, hq, hkv, hd,
+                                        causal, window, dtype):
+    """Each context-parallel rank's query rows [m·S/nm, …) at query offset
+    m·S/nm against every key: the kernel against its plain version at the
+    same offset (f32 within 1e-5 · max, bf16 within one bf16 ulp), each
+    call counted in ``flash_offset_launches`` from rank 1 on; offset 0
+    over the whole sequence is the launch without an offset, bit for
+    bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + nm)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((2, s, hq, hd), (2, s, hkv, hd),
+                                        (2, s, hkv, hd)))
+    whole = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(whole, ops.flash_attention(
+        q, k, v, causal=causal, window=window, q_offset=0))
+    bounds = [s * m // nm for m in range(nm + 1)]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        rows = q[:, lo:hi].contiguous()
+        before = flash_launcher.flash_offset_launches
+        got = ops.flash_attention(rows, k, v, causal=causal, window=window,
+                                  q_offset=lo)
+        torch.cuda.synchronize()
+        assert flash_launcher.flash_offset_launches == before + int(lo > 0)
+        want = ref.flash_attention_ref(rows, k, v, causal=causal,
+                                       window=window, q_offset=lo)
+        _within(got, want, 1e-5 if dtype == torch.float32 else BF16_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_route_counts(cuda_device, dtype):
     """A bf16 call counts one tensor-core launch, an f32 call one FFMA

@@ -914,8 +914,8 @@ def test_ssd_and_flash_launchers_refuse_cpu_tensors():
 def test_ssd_and_flash_ops_route_device_tensors_to_the_launchers(
         monkeypatch):
     """Tensors off the CPU reach the launchers contiguous, with dt and a in
-    f32 and the chunk and masks passed through (meta tensors, launchers
-    recorded in place of the kernels)."""
+    f32 and the chunk, masks and query offset passed through (meta
+    tensors, launchers recorded in place of the kernels)."""
     calls = {}
 
     def ssd(*args):
@@ -943,7 +943,7 @@ def test_ssd_and_flash_ops_route_device_tensors_to_the_launchers(
                         causal=False, window=5)
     args, kwargs = calls.pop("flash")
     assert all(t.is_contiguous() for t in args)
-    assert kwargs == {"causal": False, "window": 5}
+    assert kwargs == {"causal": False, "window": 5, "q_offset": 0}
 
 
 def test_flash_tensor_core_tiles_fit_every_head_dim():

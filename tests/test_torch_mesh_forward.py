@@ -1,0 +1,321 @@
+"""Prefill and decode over a ``data`` × ``model`` mesh of processes under
+``sharding_hints(mesh, moe_a2a=True)``, against the JAX package's under
+the same hints on the same mesh shape.
+
+One JAX subprocess on four forced host devices draws each architecture's
+reduced parameters (f32) and a batch (B = 2, S = 32), then, inside
+``with mesh, sharding_hints(mesh, moe_a2a=True)`` on the 2 × 2 and 1 × 4
+meshes of ``make_host_mesh``, runs the jitted forward (``last_only``: the
+prefill's logits) and, for deepseek-moe-16b, qwen2-7b and gemma-2b, four
+decode steps from ``init_cache`` (the caches a prefill returns).  Those
+three exercise the split layers: the MoE all-to-all, both ``hint_qkv``
+branches (qwen2-7b's 2 KV heads take the heads branch on 2 × 2 and the
+context branch on 1 × 4; gemma-2b's one KV head always the context
+branch), the sequence-split residual and the vocabulary-split embedding.
+Every other family runs one forward at 1 × 4 (gathered whole along
+``model``).  It writes the parameters, batches and outputs to an .npz.
+
+One spawn of four gloo ranks (no JAX in the ranks: they import this
+module, which imports none) places the reference's parameters on each
+rank by ``param_specs`` (``convert.model_params_to_rank``), runs
+``Model.prefill`` and ``decode_step`` under the hints, and all-gathers
+each rank's block of the logits (``partition.logits_spec``).  The FSDP
+leg (input dims over ``data``) runs with ``partition.FSDP_THRESHOLD``
+lowered in the ranks only: the reference's values do not depend on the
+placement.  deepseek-moe-16b also runs on 2 × 2 under the hints without
+``moe_a2a`` (the scatter dispatch with the whole batch's capacity).  The
+ranks also check that ``Model.init(mesh=...)`` gives the slices of the
+one-process init bit for bit, and that ``partition.gather`` of the placed
+tree is the tree.  Held: every logit within 1e-5 · max of the reference's.
+"""
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.convert import model_params_to_rank
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.build import make_model
+from repro_torch.sharding import hints, partition
+from repro_torch.util import tree
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORLD = 4
+MESHES = {"2x2": 2, "1x4": 4}          # name -> model axis
+SPLIT = ("deepseek-moe-16b", "qwen2-7b", "gemma-2b")
+OTHERS = ("mamba2-1.3b", "recurrentgemma-9b", "deepseek-v3-671b",
+          "internvl2-2b", "seamless-m4t-medium", "moonshot-v1-16b-a3b",
+          "nemotron-4-15b")
+B, S, S_ENC, MAX_LEN, STEPS = 2, 32, 16, 48, 4
+TOL = 1e-5
+GROUP_TIMEOUT_S = 60.0
+JOIN_TIMEOUT_S = 150.0
+# (arch, mesh, variant): "" the hints with moe_a2a; "fsdp" the same with
+# input dims over data; "portable" the hints without moe_a2a (the scatter
+# dispatch, the whole batch's capacity); "hd6" head_dim 6, which 4 model
+# ranks do not divide, so cache_specs puts deepseek's 4 KV heads over model
+# and leaves qwen2's 2 whole
+RUNS = ([(arch, mesh, "") for arch in SPLIT for mesh in MESHES]
+        + [(arch, "2x2", "fsdp") for arch in SPLIT]
+        + [("deepseek-moe-16b", "2x2", "portable")]
+        + [(arch, "1x4", "hd6") for arch in SPLIT[:2]]
+        + [(arch, "1x4", "") for arch in OTHERS])
+VARIANT_CFG = {"hd6": {"head_dim": 6}}
+CASES = ([(arch, mesh, step) for arch in SPLIT for mesh in MESHES
+          for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]])
+
+_WORKER = r"""
+import dataclasses, json, sys
+import jax
+import numpy as np
+from repro import configs
+from repro.launch.mesh import make_host_mesh
+from repro.models.build import make_model
+from repro.sharding.hints import sharding_hints
+
+out_path, spec = sys.argv[1], json.loads(sys.argv[2])
+assert len(jax.devices()) == 4, jax.devices()
+b, s = spec["b"], spec["s"]
+arrays = {}
+for key, run in spec["runs"].items():
+    cfg = dataclasses.replace(configs.get_config(run["arch"], reduced=True),
+                              **run["overrides"])
+    model = make_model(cfg)
+    params = model.init(jax.random.key(0))
+    for i, leaf in enumerate(jax.tree.leaves(params)):
+        arrays[f"{key}/init/{i}"] = np.asarray(leaf)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))
+             .astype(np.int32)}
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = rng.normal(
+            size=(b, cfg.frontend.num_embeddings, cfg.d_model)) \
+            .astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(size=(b, spec["s_enc"], cfg.d_model)) \
+            .astype(np.float32)
+    steps = rng.integers(0, cfg.vocab_size, (b, spec["steps"])) \
+        .astype(np.int32)
+    arrays.update({f"{key}/batch/{k}": v for k, v in batch.items()})
+    arrays[f"{key}/steps"] = steps
+    for case, model_axis, decode, a2a in run["cases"]:
+        mesh = make_host_mesh(model_axis)
+        with mesh, sharding_hints(mesh, moe_a2a=a2a):
+            logits, _, _ = jax.jit(lambda p, x: model.forward(
+                p, x, last_only=True))(params, batch)
+            arrays[f"{run['arch']}/{case}/prefill"] = np.asarray(logits)
+            if decode:
+                caches = model.init_cache(b, spec["max_len"])
+                step = jax.jit(model.decode_step)
+                for t in range(spec["steps"]):
+                    logits, caches = step(params, caches,
+                                          steps[:, t:t + 1])
+                    arrays[f"{run['arch']}/{case}/decode/{t}"] = \
+                        np.asarray(logits)
+np.savez(out_path, **arrays)
+print("WORKER_OK")
+"""
+
+
+def _group(arrays, prefix):
+    keys = sorted((k for k in arrays if k.startswith(prefix + "/")),
+                  key=lambda k: int(k.rsplit("/", 1)[1]))
+    return [arrays[k] for k in keys]
+
+
+def _model_key(arch, variant):
+    """The key of a run's parameters and batch: the arch, or the arch and
+    a variant that changes its configuration."""
+    return f"{arch}/{variant}" if variant in VARIANT_CFG else arch
+
+
+def _bits(tree_a, tree_b) -> bool:
+    return all(torch.equal(a, b) for a, b in
+               zip(tree.leaves(tree_a), tree.leaves(tree_b)))
+
+
+def _rank_main(rank, store, spec):
+    torch.set_num_threads(1)
+    base = mesh_lib.init_process_mesh(rank, WORLD, "gloo", store,
+                                      device="cpu", timeout=GROUP_TIMEOUT_S)
+    try:
+        meshes = {name: mesh_lib.make_rank_mesh(base, m)
+                  for name, m in MESHES.items()}
+        with np.load(spec["reference"]) as data:
+            arrays = {k: data[k] for k in data.files}
+        out, record = {}, {}
+        default = partition.FSDP_THRESHOLD
+        for arch, name, variant in RUNS:
+            partition.FSDP_THRESHOLD = 0 if variant == "fsdp" else default
+            mesh = meshes[name]
+            key = _model_key(arch, variant)
+            cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                                      **VARIANT_CFG.get(variant, {}))
+            model = make_model(cfg)
+            like = model.init(0, "cpu")
+            full = tree.unflatten(like, [np.asarray(a) for a in
+                                         _group(arrays, f"{key}/init")])
+            local = model_params_to_rank(full, model, mesh, "cpu")
+            batch = {k.rsplit("/", 1)[1]: torch.from_numpy(v)
+                     for k, v in arrays.items()
+                     if k.startswith(f"{key}/batch/")}
+            steps = torch.from_numpy(arrays[f"{key}/steps"])
+            case = "/".join(filter(None, (arch, name, variant)))
+            with hints.sharding_hints(mesh, moe_a2a=variant != "portable") \
+                    as comm:
+                spec_l = partition.logits_spec(cfg, mesh, B)
+                logits, caches = model.prefill(local, batch, MAX_LEN)
+                out[f"{case}/prefill"] = partition.gather_leaf(
+                    logits, spec_l, mesh, comm).numpy()
+                if arch in SPLIT:
+                    for t in range(STEPS):
+                        logits, caches = model.decode_step(
+                            local, caches, steps[:, t:t + 1])
+                        out[f"{case}/decode/{t}"] = partition.gather_leaf(
+                            logits, spec_l, mesh, comm).numpy()
+                # placement: init(mesh=) slices the one-process init, and
+                # gather inverts place, bit for bit
+                specs = model.param_specs(mesh)
+                drawn = model.init(3, "cpu")
+                record[case] = {
+                    "init_slices": _bits(model.init(3, "cpu", mesh=mesh),
+                                         partition.place(drawn, specs,
+                                                         mesh)),
+                    "gather_place": _bits(partition.gather(
+                        partition.place(drawn, specs, mesh), specs, mesh,
+                        comm), drawn),
+                    "a2a_bytes": comm.a2a_bytes,
+                    "model_bytes": comm.model_bytes}
+        partition.FSDP_THRESHOLD = default
+        if rank == 0:
+            np.savez(os.path.join(spec["out"], "ranks.npz"), **out)
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        mesh_lib.destroy(base)
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    path = tmp_path_factory.mktemp("mesh_forward") / "reference.npz"
+    runs: dict = {}
+    for arch, name, variant in RUNS:
+        run = runs.setdefault(_model_key(arch, variant), {
+            "arch": arch, "overrides": VARIANT_CFG.get(variant, {}),
+            "cases": []})
+        if variant != "fsdp":
+            run["cases"].append(("/".join(filter(None, (name, variant))),
+                                 MESHES[name], arch in SPLIT,
+                                 variant != "portable"))
+    spec = {"runs": runs, "b": B, "s": S, "s_enc": S_ENC,
+            "max_len": MAX_LEN, "steps": STEPS}
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _WORKER, str(path),
+                           json.dumps(spec)], capture_output=True, text=True,
+                          env=env, timeout=600)
+    assert proc.returncode == 0 and "WORKER_OK" in proc.stdout, \
+        proc.stderr[-3000:]
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    return path, arrays
+
+
+@pytest.fixture(scope="module")
+def ranks(reference, tmp_path_factory):
+    path, _ = reference
+    out = tmp_path_factory.mktemp("mesh_forward_ranks")
+    mesh_lib.run_ranks(_rank_main, WORLD,
+                       ({"reference": str(path), "out": str(out)},),
+                       timeout=JOIN_TIMEOUT_S)
+    with np.load(out / "ranks.npz") as data:
+        got = {k: data[k] for k in data.files}
+    records = [json.loads((out / f"rank{r}.json").read_text())
+               for r in range(WORLD)]
+    return got, records
+
+
+def _close(got, want, what):
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    assert np.isfinite(got).all() and err <= TOL * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("arch,mesh,step", CASES)
+def test_split_layers_match_reference(reference, ranks, arch, mesh, step):
+    """deepseek-moe-16b, qwen2-7b and gemma-2b: the prefill's last-token
+    logits and each of 4 decode steps' equal the reference's under the
+    same hints within 1e-5 · max."""
+    _, want = reference
+    got, _ = ranks
+    _close(got[f"{arch}/{mesh}/{step}"], want[f"{arch}/{mesh}/{step}"],
+           (arch, mesh, step))
+
+
+@pytest.mark.parametrize("arch", SPLIT)
+def test_fsdp_leg_matches_reference(reference, ranks, arch):
+    """Input dims over ``data`` too (``FSDP_THRESHOLD`` lowered in the
+    ranks): the same logits on 2 × 2, prefill and decode."""
+    _, want = reference
+    got, _ = ranks
+    for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]:
+        _close(got[f"{arch}/2x2/fsdp/{step}"], want[f"{arch}/2x2/{step}"],
+               (arch, step))
+
+
+def test_portable_dispatch_matches_reference(reference, ranks):
+    """``sharding_hints(mesh)`` without ``moe_a2a``: the all-to-all is
+    gated off and the scatter dispatch runs over the whole batch (its
+    capacity from the global token count), prefill and decode, as the
+    reference's under the same hints."""
+    _, want = reference
+    got, _ = ranks
+    for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]:
+        key = f"deepseek-moe-16b/2x2/portable/{step}"
+        _close(got[key], want[key], step)
+
+
+@pytest.mark.parametrize("arch", SPLIT[:2])
+def test_decode_on_head_split_and_whole_caches(reference, ranks, arch):
+    """head_dim 6 on 1 × 4: deepseek-moe-16b's caches hold one KV head a
+    rank (heads over ``model``), qwen2-7b's stay whole along ``model``;
+    prefill and 4 decode steps as the reference's."""
+    _, want = reference
+    got, _ = ranks
+    for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]:
+        key = f"{arch}/1x4/hd6/{step}"
+        _close(got[key], want[key], key)
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_gathered_families_match_reference(reference, ranks, arch):
+    """Every other family, placed by ``param_specs`` and computed whole
+    along ``model``: one forward at 1 × 4."""
+    _, want = reference
+    got, _ = ranks
+    _close(got[f"{arch}/1x4/prefill"], want[f"{arch}/1x4/prefill"], arch)
+
+
+@pytest.mark.parametrize("arch,mesh,variant", RUNS)
+def test_placement_is_the_one_process_init(ranks, arch, mesh, variant):
+    """On every rank, ``Model.init(mesh=...)`` holds the slices of the
+    one-process init bit for bit, ``gather`` of ``place`` is the identity,
+    and the split archs moved bytes along ``model`` (the MoE ones in the
+    all-to-all, unless it is gated off)."""
+    _, records = ranks
+    case = "/".join(filter(None, (arch, mesh, variant)))
+    a2a = configs.get_config(arch, reduced=True).moe is not None \
+        and variant != "portable"
+    for rec in records:
+        assert rec[case]["init_slices"] and rec[case]["gather_place"], case
+        assert rec[case]["model_bytes"] > 0
+        assert (rec[case]["a2a_bytes"] > 0) == a2a, case

@@ -369,16 +369,20 @@ def test_cache_specs_match_reference():
 # what is not ported
 # ---------------------------------------------------------------------------
 
-def test_unported_entry_points_raise(pair):
+def test_unported_entry_points_raise(pair, tmp_path):
     """What the port does not run yet refuses, citing ROADMAP: the
-    expert-parallel all-to-all dispatch and the sharding hints that gate
-    it (A.5 item 1), the meta-device dry run (A.5 item 3); a one-process
-    mesh of two devices is refused (data-parallel training runs over a
-    ``ProcessMesh`` of ranks: tests/test_torch_mesh_train.py); an unknown
-    segment kind is refused.  (Every segment kind and the encoder run:
-    tests/test_torch_families.py; training on one device:
-    tests/test_torch_train_step.py, tests/test_torch_training.py.)"""
+    meta-device dry run (A.5 item 3); a one-process mesh of two devices is
+    refused (data-parallel training runs over a ``ProcessMesh`` of ranks:
+    tests/test_torch_mesh_train.py); an unknown segment kind is refused.
+    The expert-parallel all-to-all dispatch and the sharding hints that
+    gate it now run: here over a group of one rank (1 × 1), where the
+    dispatch equals the scatter path (over four ranks:
+    tests/test_torch_moe_a2a.py, tests/test_torch_mesh_forward.py).
+    (Every segment kind and the encoder run: tests/test_torch_families.py;
+    training on one device: tests/test_torch_train_step.py,
+    tests/test_torch_training.py.)"""
     from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import moe
     from repro_torch.sharding import hints
     _, _, model, params = pair
@@ -388,12 +392,27 @@ def test_unported_entry_points_raise(pair):
     two = HostMesh((torch.device("cpu"), torch.device("cpu")))
     with pytest.raises(ValueError, match="ProcessMesh"):
         model.train_step_deferred(two, params, (), {})
-    with pytest.raises(NotImplementedError, match="A.5 item 1"):
-        moe.apply_moe_a2a(model.cfg, {}, x, None)
-    with pytest.raises(NotImplementedError, match="A.5 item 1"):
-        hints.sharding_hints(None, moe_a2a=True)
     with pytest.raises(NotImplementedError, match="A.5 item 3"):
         dryrun.main([])
+    cfg = configs.get_config("deepseek-moe-16b", reduced=True)
+    p = moe.init_moe(cfg, torch.Generator().manual_seed(0))
+    xm = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()
+                     .manual_seed(1))
+    want, want_aux = moe.apply_moe(cfg, p, xm)
+    base = mesh_lib.init_process_mesh(0, 1, "gloo", str(tmp_path / "store"),
+                                      device="cpu")
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, 1)
+        calls = moe.a2a_calls
+        with hints.sharding_hints(mesh, moe_a2a=True) as comm:
+            assert hints.active_mesh() is mesh and hints.moe_a2a_enabled()
+            lay = hints.rank_layout(2, 8)
+            got, aux = moe.apply_moe_a2a(cfg, p, xm, lay)
+        assert moe.a2a_calls == calls + 1 and comm.a2a_bytes == 0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(aux, want_aux)
+    finally:
+        mesh_lib.destroy(base)
 
 
 def test_init_without_device_raises_when_cuda_is_absent():
