@@ -207,12 +207,42 @@ Phases (each prints its own lines; any failure exits non-zero):
      rest) and their host ms, the last-token logits gap to phase 10's
      one-process kernel forward (reported), then decode 2 x 8 (ms a token)
      and decode against the mesh forward over the same tokens (reported);
-  15. print the kernels line, the card's name and power limit, and a last
+  15. the tensor-parallel training step (Model.train_step_deferred split
+     over model: each rank holds its slices of the parameters by
+     param_specs and of the Adam state, computes its share of the loss —
+     the cross-entropy vocabulary-parallel on its block of the logits —
+     and of its backward pass through the model-axis collectives, and
+     updates its slices; one reduction over data after the microbatches)
+     over rank processes sharing the card (gloo), through the plain route
+     (no kernel may launch).  15a, 4 ranks as 2 x 2 and 1 x 4: the
+     reduced f32 gemma-2b, qwen2-7b, deepseek-moe-16b and mamba2-1.3b,
+     SGD at lr 1, grad_accum 1 and 2, on the card against the same ranks
+     on the CPU from the same slices (new weights within 1e-4 of max
+     |delta| beside one f32 spacing, the loss within 1e-5); 15b, gemma-2b
+     at its published widths and depth (bf16, Adam, grad_accum 2, remat)
+     over 1 x 2 ranks on 2 x 2,048 tokens (cut from train_4k), 1 warm-up
+     and 2 timed steps on one fixed batch: step ms (slowest rank),
+     parameter and Adam bytes a rank (equal to its shards' by the specs),
+     peak GB a rank, the bytes sent along model a step and their host ms,
+     the first step's loss against one process's train_step_deferred on
+     the same weights and batch (run alone before the ranks start; within
+     2^-7), the loss before the third step below the first's, and the
+     leaves the same on every rank (norms) equal on both ranks by hash
+     after every step;
+  16. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 With ``--four-cards`` (four cards of one host) it builds the kernels and
-runs only phase 14c: 14b's full-width deepseek-moe-16b over NCCL ranks,
-one a card, at 1 x 4 and at 2 x 2 (the FSDP leg live).
+runs only phases 14c — 14b's full-width deepseek-moe-16b over NCCL ranks,
+one a card, at 1 x 4 and at 2 x 2 (the FSDP leg live) — and 15c:
+qwen2-7b at its published widths cut to 4 layers, 3 steps of one
+process on the first card, then of 1 x 4 NCCL ranks from the same
+weights and batch (each step's loss within 2^-7 of one process's: under
+the config's Adam on random weights this model's loss rises at the third
+step in one process too), and at its published depth over 1 x 4 (the
+config's Adam, grad_accum 4, remat, 4 x 4,096 tokens, 1 warm-up and 2
+timed steps; its training state, ~107 GB in one process, ~27 GB a
+rank).
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
 and exits non-zero without one, or without the port beside it.
@@ -3738,11 +3768,356 @@ def full_width_mesh(card: str, tmp, tag: str, world: int, model_axis: int,
             "decode_median_ms": dmed, "decode": dec}
 
 
+TP15_ARCHS = ("gemma-2b", "qwen2-7b", "deepseek-moe-16b", "mamba2-1.3b")
+TP15_MESHES = {"2x2": 2, "1x4": 4}      # [15a], 4 ranks: name -> model axis
+TP15_BATCH = (8, 16)                    # [15a] global batch x tokens
+TP15_TOL = 1e-4                         # card vs CPU, of max |delta|
+TP15_LOSS_TOL = 1e-5
+# [15b] / 15c: (arch, world, model axis, backend, batch x tokens, accum,
+# steps on one fixed batch: the first a warm-up)
+TP15_FULL = ("gemma-2b", 2, 2, "gloo", (2, 2048), 2, 3)
+TP15_FOUR = ("qwen2-7b", 4, 4, "nccl", (4, 4096), 4, 3)
+# 15c's one-process check: the same widths cut to the depth one card's
+# training state holds, one process against the 4 ranks, 3 steps
+TP15_FOUR_CUT = TP15_FOUR + (4,)
+
+
+def tp15_gap(init, got, want) -> float:
+    """Max over leaves of |got − want| beyond one f32 spacing of ``want``,
+    over max |want − init| (the step's size)."""
+    import torch
+    worst = 0.0
+    for p0, g, w in zip(init, got, want):
+        g, w = g.double().cpu(), w.double().cpu()
+        scale = float((w - p0.double().cpu()).abs().max())
+        slack = torch.nextafter(w.abs().float(), torch.tensor(float("inf"))
+                                ).double() - w.abs()
+        over = float(((g - w).abs() - slack).max())
+        worst = max(worst, over / max(scale, 1e-30))
+    return worst
+
+
+def tp15_reduced_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 15a, one of 4 ranks (gloo, the one card) as 2 x 2 and 1 x 4:
+    each reduced f32 model's tensor-parallel step (SGD at lr 1,
+    grad_accum 1 and 2) on the card and on the CPU from the same slices,
+    the new weights gathered whole; rank 0 writes the gaps to
+    ``spec["dir"]``, every rank its launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.messages import MeshCollectives
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.build import make_model
+    from repro_torch.sharding import partition
+    from repro_torch.util import tree
+    from repro_torch.util.device import strict_f32
+    strict_f32()
+    base = mesh_lib.init_process_mesh(rank, 4, "gloo", store, timeout=120)
+    try:
+        dev = base.device
+        rec: dict = {"device": str(dev), "cases": {}}
+        b, s = TP15_BATCH
+        for name, model_axis in TP15_MESHES.items():
+            mesh = mesh_lib.make_rank_mesh(base, model_axis)
+            rows = mesh_lib.batch_rows(mesh, b)
+            for arch in TP15_ARCHS:
+                for accum in (1, 2):
+                    cfg = dataclasses.replace(
+                        get_config(arch, reduced=True), dtype="float32",
+                        optimizer="sgd", learning_rate=1.0, grad_accum=accum)
+                    model = make_model(cfg)
+                    specs = model.param_specs(mesh)
+                    on_cpu = model.init(seed=0, device="cpu", mesh=mesh)
+                    batch = next(synthetic_token_batches(cfg.vocab_size, b,
+                                                         s, seed=2))
+                    batch = {k: v[rows] for k, v in batch.items()}
+                    outs, losses, ms = {}, {}, {}
+                    for where in ("card", "cpu"):
+                        params = on_cpu if where == "cpu" else \
+                            tree.tree_map(lambda t: t.to(dev), on_cpu)
+                        comm = MeshCollectives(mesh)
+                        t0 = time.perf_counter()
+                        new, _, met = model.train_step_deferred(
+                            mesh, params, (), batch, comm=comm)
+                        losses[where] = float(met["loss"])
+                        ms[where] = 1e3 * (time.perf_counter() - t0)
+                        outs[where] = [t.cpu() for t in tree.leaves(
+                            partition.gather(new, specs, mesh, comm))]
+                    init = tree.leaves(partition.gather(
+                        on_cpu, specs, mesh, MeshCollectives(mesh)))
+                    rec["cases"][f"{arch} accum {accum} {name}"] = {
+                        "gap": tp15_gap(init, outs["card"], outs["cpu"]),
+                        "loss_rel": abs(losses["card"] - losses["cpu"])
+                        / abs(losses["cpu"]),
+                        "finite": all(bool(torch.isfinite(t).all())
+                                      for t in outs["card"]),
+                        "ms": ms}
+        rec["launches"] = counts()
+        (pathlib.Path(spec["dir"]) / f"r15a-rank{rank}.json").write_text(
+            json.dumps(rec))
+    finally:
+        mesh_lib.destroy(base)
+
+
+def tp15_full_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 15b / 15c, one rank of a data x model mesh (``spec``: arch,
+    world, model axis, backend, batch, accum, steps): the model at its
+    published widths and depth, its slices drawn by Model.init(mesh=...),
+    the config's Adam, ``steps`` tensor-parallel steps of
+    train_step_deferred on one fixed batch; its record to
+    ``spec["dir"]``."""
+    import torch
+
+    from repro_torch.core.messages import MeshCollectives
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.build import _param_shapes, make_model
+    from repro_torch.sharding import hints, partition
+    from repro_torch.util import tree
+    base = mesh_lib.init_process_mesh(rank, spec["world"], spec["backend"],
+                                      store, timeout=120)
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, spec["model_axis"])
+        dev = mesh.device
+        cfg = tp15_config(spec["setup"])
+        model = make_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev, mesh=mesh)
+        opt_state = model.init_optimizer().init(params)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        specs = model.param_specs(mesh)
+        whole = _param_shapes(cfg)
+        shard_bytes = sum(
+            math.prod(partition.local_shape(
+                t.shape, partition.spec_at(specs, path), mesh))
+            * t.element_size() for path, t in tree.leaves_with_paths(whole))
+        same = [path for path, _ in tree.leaves_with_paths(whole)
+                if "model" not in {a for e in partition.spec_at(specs, path)
+                                   for a in partition.entry_axes(e)}]
+        b, s = spec["batch"]
+        batch = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=5))
+        rows = mesh_lib.batch_rows(mesh, b)
+        batch = {k: v[rows] for k, v in batch.items()}
+        comm = MeshCollectives(mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        steps = []
+        with hints.sharding_hints(mesh, moe_a2a=True, comm=comm):
+            for _ in range(spec["steps"]):
+                c0 = (comm.model_bytes, comm.model_s, comm.staging_s,
+                      comm.sum_bytes, comm.sum_s)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                params, opt_state, met = model.train_step_deferred(
+                    mesh, params, opt_state, batch, comm=comm)
+                loss = float(met["loss"])
+                ms = 1e3 * (time.perf_counter() - t0)
+                local = dict(tree.leaves_with_paths(params))
+                steps.append({
+                    "ms": ms, "loss": loss,
+                    "model_bytes": comm.model_bytes - c0[0],
+                    "model_ms": 1e3 * (comm.model_s - c0[1]),
+                    "staging_ms": 1e3 * (comm.staging_s - c0[2]),
+                    "sum_bytes": comm.sum_bytes - c0[3],
+                    "sum_ms": 1e3 * (comm.sum_s - c0[4]),
+                    "same_hash": tree_hash([local[p] for p in same])})
+        rec = {"device": str(dev), "init_s": init_s, "steps": steps,
+               "resident_bytes": tree_bytes(params),
+               "shard_bytes": shard_bytes,
+               "one_process_bytes": tree_bytes(whole),
+               "adam_bytes": tree_bytes(opt_state),
+               "adam_one_process_bytes": 2 * sum(
+                   t.numel() for t in tree.leaves(whole)) * 4 + 4,
+               "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "launches": counts()}
+        (pathlib.Path(spec["dir"]) / f"{spec['tag']}-rank{rank}.json"
+         ).write_text(json.dumps(rec))
+    finally:
+        mesh_lib.destroy(base)
+
+
+def tp15_full(card: str, tmp, tag: str, setup, one=None,
+              falls: bool = False) -> dict:
+    """Runs ``tp15_full_rank`` over ``setup`` (a ``TP15_*``), prints and
+    holds the records: bytes a rank equal to its shards', replicated
+    leaves equal by hash after every step, losses finite, no kernel
+    launched; where ``one`` (one process's losses on the same weights
+    and batch, its first steps) is given, each of its steps' loss within
+    2^-7 of the ranks'; with ``falls`` the loss before the last step
+    below the first's."""
+    from repro_torch.launch import mesh as mesh_lib
+    arch, world, model_axis, backend, (b, s), accum, n_steps = setup[:7]
+    spec = {"dir": str(tmp), "tag": tag, "setup": setup, "world": world,
+            "model_axis": model_axis, "backend": backend, "batch": (b, s),
+            "steps": n_steps}
+    t0 = time.perf_counter()
+    mesh_lib.run_ranks(tp15_full_rank, world, (spec,), timeout=900)
+    wall = time.perf_counter() - t0
+    recs = [json.loads((tmp / f"{tag}-rank{r}.json").read_text())
+            for r in range(world)]
+    head = recs[0]
+    ms = [max(r["steps"][i]["ms"] for r in recs) for i in range(n_steps)]
+    timed = ms[1:]
+    med = statistics.median(timed)
+    losses = [st["loss"] for st in head["steps"]]
+    share = [r["resident_bytes"] / r["one_process_bytes"] for r in recs]
+    adam_share = [r["adam_bytes"] / r["adam_one_process_bytes"]
+                  for r in recs]
+    exact = all(r["resident_bytes"] == r["shard_bytes"] for r in recs)
+    same = all(len({r["steps"][i]["same_hash"] for r in recs}) == 1
+               for i in range(n_steps))
+    launched = {k: sum(r["launches"][k] for r in recs)
+                for k in head["launches"]}
+    shape = f"{world // model_axis} x {model_axis} {backend} ranks"
+    depth = "" if len(setup) < 8 else f", cut to {setup[7]} layers"
+    print(f"[{tag}] {arch} full width{depth} (Adam, grad_accum {accum}, "
+          f"remat) over "
+          f"{shape} (devices {[r['device'] for r in recs]}, {wall:.1f} s, "
+          f"init {[round(r['init_s'], 1) for r in recs]} s): parameter bytes "
+          f"a rank {[r['resident_bytes'] for r in recs]} = its shards by "
+          f"param_specs {exact}, {[round(x, 4) for x in share]} of one "
+          f"process's {head['one_process_bytes'] / 1e9:.2f} GB; Adam state "
+          f"{[r['adam_bytes'] for r in recs]} B a rank, "
+          f"{[round(x, 4) for x in adam_share]} of one process's "
+          f"{head['adam_one_process_bytes'] / 1e9:.2f} GB; peak "
+          f"{[round(r['peak_gb'], 2) for r in recs]} GB a rank [{card}]",
+          flush=True)
+    print(f"[{tag}] {b} x {s} tokens a step, {n_steps} steps on one fixed "
+          f"batch: ms a step (slowest rank) {[round(x, 1) for x in ms]}, "
+          f"median of the timed {med:.1f} = {b * s / med * 1e3:,.1f} "
+          f"tokens/s; losses {[round(x, 4) for x in losses]}; sent along "
+          f"model a step {[r['steps'][-1]['model_bytes'] for r in recs]} B "
+          f"in {[round(r['steps'][-1]['model_ms'], 1) for r in recs]} host "
+          f"ms (staging {[round(r['steps'][-1]['staging_ms'], 1) for r in recs]}"
+          f"), summed over data {[r['steps'][-1]['sum_bytes'] for r in recs]}"
+          f" B in {[round(r['steps'][-1]['sum_ms'], 1) for r in recs]} ms; "
+          f"replicated leaves equal by hash after every step {same}; kernel "
+          f"launches {launched} [{card}]", flush=True)
+    ok = (exact and same and all(math.isfinite(x) for x in losses)
+          and not any(launched.values()) and max(share) <= 1.1 / model_axis)
+    out = {"wall_s": wall, "ms": ms, "median_ms": med, "losses": losses,
+           "share": share, "adam_share": adam_share,
+           "peak_gb": [r["peak_gb"] for r in recs],
+           "model_bytes": [r["steps"][-1]["model_bytes"] for r in recs],
+           "model_ms": [r["steps"][-1]["model_ms"] for r in recs]}
+    if one is not None:
+        rels = [abs(a - w) / abs(w) for a, w in zip(losses, one)]
+        print(f"[{tag}] losses against one process's train_step_deferred "
+              f"{[round(x, 6) for x in one]}: rel {[f'{r:.3e}' for r in rels]}"
+              f" (limit {BF16_TOL:g}) [{card}]", flush=True)
+        ok = ok and max(rels) <= BF16_TOL
+        out["one_process_rel"] = rels
+    if falls:
+        print(f"[{tag}] the loss before the last step below the first's: "
+              f"{losses[-1] < losses[0]} [{card}]", flush=True)
+        ok = ok and losses[-1] < losses[0]
+    if not ok:
+        fail(f"{tag}: shard bytes, replicated leaves, losses or launches")
+    return out
+
+
+def tp15_config(setup):
+    """The config of a ``TP15_*`` setup: the arch's published one with
+    the setup's grad_accum (and its depth, where it has one)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    arch, accum, layers = setup[0], setup[5], setup[7] \
+        if len(setup) > 7 else None
+    cfg = dataclasses.replace(get_config(arch), grad_accum=accum)
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def tp15_one_process(card: str, tag: str, setup, dev, steps: int) -> list:
+    """One process's train_step_deferred of ``setup``'s model on its fixed
+    batch (the ranks' weights: the same seed), ``steps`` steps on
+    ``dev``; its losses, the model freed after."""
+    import torch
+
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models.build import make_model
+    cfg = tp15_config(setup)
+    b, s = setup[4]
+    model = make_model(cfg)
+    params = model.init(seed=0, device=dev)
+    opt_state = model.init_optimizer().init(params)
+    batch = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=5))
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt_state, met = model.train_step_deferred(
+            None, params, opt_state, batch)
+        losses.append(float(met["loss"]))
+    print(f"[{tag}] one process's train_step_deferred ({cfg.name}, "
+          f"{cfg.num_layers} layers, {b} x {s}, grad_accum "
+          f"{cfg.grad_accum}): losses {losses}, "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms (cold) [{card}]",
+          flush=True)
+    del model, params, opt_state, met
+    torch.cuda.empty_cache()
+    return losses
+
+
+def tp_train_phase(card: str, dev) -> dict:
+    """Phase 15: the tensor-parallel training step over rank processes
+    sharing the card (module docstring, item 15)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="tp15_") as tmp:
+        tmp = pathlib.Path(tmp)
+        # ---- 15a: reduced f32 models, card vs CPU, 2 x 2 and 1 x 4 ----
+        t0 = time.perf_counter()
+        mesh_lib.run_ranks(tp15_reduced_rank, 4, ({"dir": str(tmp)},),
+                           timeout=600)
+        recs = [json.loads((tmp / f"r15a-rank{r}.json").read_text())
+                for r in range(4)]
+        wall = time.perf_counter() - t0
+        worst = 0.0
+        for case, res in recs[0]["cases"].items():
+            ok = (res["gap"] <= TP15_TOL and res["finite"]
+                  and res["loss_rel"] <= TP15_LOSS_TOL)
+            worst = max(worst, res["gap"])
+            print(f"[15a] {case}: card vs CPU new weights "
+                  f"{res['gap']:.3e} of max |delta| (limit {TP15_TOL:g}), "
+                  f"loss rel {res['loss_rel']:.3e}; step ms card "
+                  f"{res['ms']['card']:.1f}, CPU {res['ms']['cpu']:.1f} "
+                  f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+            if not ok:
+                fail(f"15a {case}: the tensor-parallel step on the card "
+                     f"disagrees with the CPU")
+        launched = sum(v for r in recs for v in r["launches"].values())
+        print(f"[15a] 4 ranks (devices {[r['device'] for r in recs]}) in "
+              f"{wall:.1f} s; kernel launches {launched} [{card}]",
+              flush=True)
+        if launched:
+            fail("15a: a kernel launched in training")
+        out["reduced_worst"] = worst
+        # ---- 15b: gemma-2b at full width over 1 x 2 ----
+        one = tp15_one_process(card, "15b", TP15_FULL, dev, steps=1)
+        out["full"] = tp15_full(card, tmp, "15b", TP15_FULL, one,
+                                falls=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[15] tensor-parallel training phase {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def four_card_mesh_phase(card: str) -> None:
-    """Phase 14c, where four cards are given (``--four-cards``; not part
-    of the run with no arguments): the full-width deepseek-moe-16b of 14b
-    over NCCL ranks, one a card, at 1 x 4 and at 2 x 2 (its FSDP leg live:
-    the input dims over data too)."""
+    """Phases 14c and 15c, where four cards are given (``--four-cards``;
+    not part of the run with no arguments): the full-width
+    deepseek-moe-16b of 14b over NCCL ranks, one a card, at 1 x 4 and at
+    2 x 2 (its FSDP leg live: the input dims over data too), then
+    qwen2-7b's tensor-parallel training step at full width over 1 x 4."""
     import torch
     if torch.cuda.device_count() < 4:
         fail(f"14c needs four cards, found {torch.cuda.device_count()}")
@@ -3751,6 +4126,10 @@ def four_card_mesh_phase(card: str) -> None:
         for model_axis in (4, 2):
             full_width_mesh(card, tmp, f"14c-{4 // model_axis}x{model_axis}",
                             4, model_axis, "nccl")
+        one = tp15_one_process(card, "15c", TP15_FOUR_CUT,
+                               torch.device("cuda", 0), TP15_FOUR_CUT[6])
+        tp15_full(card, tmp, "15c-cut", TP15_FOUR_CUT, one)
+        tp15_full(card, tmp, "15c", TP15_FOUR)
 
 
 def main() -> int:
@@ -4134,7 +4513,10 @@ def main() -> int:
     # ---- 14. the forward paths tensor-parallel over the mesh ---------------
     tp = tensor_parallel_phase(card, dev)
 
-    # ---- 15. the kernels line, the card, the result ------------------------
+    # ---- 15. the tensor-parallel training step over the mesh ---------------
+    tp_train_phase(card, dev)
+
+    # ---- 16. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",

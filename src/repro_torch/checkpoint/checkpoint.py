@@ -9,6 +9,11 @@ no sharding).  A bf16 tensor is written as its raw 2-byte words (an npy
 header of ``<V2``) with ``"dtype": "bfloat16"``, byte for byte what the
 reference writes; ``restore`` reinterprets such bits from the JSON's dtype, so no
 bf16 numpy type is needed.  Checkpoints cross between the two packages.
+
+Over a mesh of ranks a checkpoint is still written whole (the ranks'
+slices gathered by ``sharding.partition.gather``, rank 0 writing), and
+``restore(..., specs=, mesh=)`` places it again: each rank keeps its
+slice of every leaf by the leaf's spec.
 """
 from __future__ import annotations
 
@@ -84,9 +89,14 @@ def latest_step(directory: str | Path) -> Optional[int]:
 
 
 def restore(directory: str | Path, tree_like: Any,
-            step: Optional[int] = None) -> Any:
+            step: Optional[int] = None, specs: Any = None,
+            mesh=None) -> Any:
     """Restore into the structure of ``tree_like`` (shapes must match):
-    each leaf in its ``tree_like`` leaf's dtype, on that leaf's device."""
+    each leaf in its ``tree_like`` leaf's dtype, on that leaf's device.
+    With ``specs`` (a tree of specs in ``tree_like``'s structure) and
+    ``mesh``: ``tree_like`` holds this rank's slices, and each whole leaf
+    read is cut to this rank's slice by its spec before it moves."""
+    from repro_torch.sharding import partition
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -99,9 +109,14 @@ def restore(directory: str | Path, tree_like: Any,
         for path, leaf in tree.leaves_with_paths(tree_like):
             m = by_path[tree.path_str(path)]
             arr = data[m["key"]]
-            if list(arr.shape) != list(leaf.shape):
+            spec = None if specs is None else partition.spec_at(specs, path)
+            shape = list(arr.shape) if spec is None else \
+                list(partition.local_shape(arr.shape, spec, mesh))
+            if shape != list(leaf.shape):
                 raise ValueError(f"shape mismatch at {m['path']}: "
-                                 f"{arr.shape} vs {tuple(leaf.shape)}")
-            new_leaves.append(_from_numpy(arr, m["dtype"]).to(
-                device=leaf.device, dtype=leaf.dtype))
+                                 f"{tuple(shape)} vs {tuple(leaf.shape)}")
+            t = _from_numpy(arr, m["dtype"])
+            if spec is not None:
+                t = partition.local_slice(t, spec, mesh).clone()
+            new_leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
     return tree.unflatten(tree_like, new_leaves)

@@ -31,6 +31,13 @@ The paper's Appendix A messages (eq. 4) are functions here too:
 ``row_aggregate``, ``first_order_messages`` (p), ``relay_aggregate`` (q),
 ``second_order_from_relay`` (s², rebuilt by the receiver) and
 ``neighbor_preactivations``.  The trainer computes q inline, per lane.
+
+``MeshCollectives`` holds the language models' collectives over a
+``data`` × ``model`` mesh of ranks; those along a line of ranks are
+``torch.autograd.Function``s whose backward pass is the dual collective
+(an all-gather's a reduce-scatter or this rank's slice, a reduce-scatter's
+an all-gather, a sum's the identity), so gradients flow through the
+tensor-parallel layers.
 """
 from __future__ import annotations
 
@@ -1133,7 +1140,24 @@ class MeshCollectives:
     line (``line_bytes``: the FSDP leg's slices over data, an
     all-to-all's token groups over the whole mesh), the host seconds in
     each (``sum_s``, ``shift_s``, ``a2a_s``, ``model_s``, ``line_s``) and,
-    of them, in staging copies (``staging_s``)."""
+    of them, in staging copies (``staging_s``).
+
+    Gradients (the tensor-parallel training step): ``gather_line`` /
+    ``gather_model`` take ``back``, the caller's word for what the ranks do
+    with the gathered tensor — ``"scatter"`` where each rank then does its
+    own part of the work (the gradients are partial: summed in rank order
+    and cut, a reduce-scatter) and ``"slice"`` where every rank does the
+    same work on it (the gradient is whole and equal on every rank: this
+    rank's slice, nothing summed).  ``reduce_scatter_model``'s backward
+    all-gathers, ``sum_model``'s passes the gradient on (its output is the
+    same on every rank and so is what every rank does with it),
+    ``fork_model`` is the identity whose backward sums over ``model`` (a
+    tensor equal on every rank that enters work split over the ranks), and
+    ``first_rank_grad`` keeps the gradient on the first model rank only (a
+    term equal on every rank whose gradient the others would count again).
+    The backward passes count into the same counters as the forward.  The
+    all-to-all and the broadcast from the last model rank are not on the
+    training path: they refuse a tensor that needs a gradient."""
     mesh: object
     sum_bytes: int = 0
     sent_bytes: int = 0
@@ -1343,31 +1367,63 @@ class MeshCollectives:
         """The model ranks' ``x``, in rank order."""
         return self._line_parts(x, self.model)
 
-    def gather_line(self, x: Tensor, dim: int, line) -> Tensor:
-        """The parts of ``x`` of ``line``'s ranks, joined along ``dim`` in
-        rank order."""
+    def _joined(self, x: Tensor, dim: int, line) -> Tensor:
         parts = self._line_parts(x, line)
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
-    def gather_model(self, x: Tensor, dim: int) -> Tensor:
+    def gather_line(self, x: Tensor, dim: int, line,
+                    back: str = "scatter") -> Tensor:
+        """The parts of ``x`` of ``line``'s ranks, joined along ``dim`` in
+        rank order; its gradient by ``back`` (the class's note)."""
+        if line.world_size == 1:
+            return x
+        if back not in ("scatter", "slice"):
+            raise ValueError(f"back is 'scatter' or 'slice', not {back!r}")
+        if not _needs_grad(x):
+            return self._joined(x, dim, line)
+        return _Gather.apply(x, self, dim, line, back)
+
+    def gather_model(self, x: Tensor, dim: int,
+                     back: str = "scatter") -> Tensor:
         """All-gather along ``model``: the model ranks' ``x`` joined along
         ``dim`` in rank order."""
-        return self.gather_line(x, dim, self.model)
+        return self.gather_line(x, dim, self.model, back)
 
-    def sum_model(self, x: Tensor) -> Tensor:
-        """Σ over the model ranks of ``x``, in f32 and rank order (``fold``
-        of the all-gathered parts), cast back: every rank forms the same
-        bits."""
+    def _sum(self, x: Tensor) -> Tensor:
         parts = self._line_parts(x, self.model)
         if len(parts) == 1:
             return x
         return fold([p.float() for p in parts]).to(x.dtype)
 
-    def _exchange(self, x: Tensor, counted: str) -> Tensor:
-        """``x`` (n, ...) over the model ranks: row i goes to rank i, and
-        row i of the result came from rank i (``all_to_all_single``)."""
+    def sum_model(self, x: Tensor) -> Tensor:
+        """Σ over the model ranks of ``x``, in f32 and rank order (``fold``
+        of the all-gathered parts), cast back: every rank forms the same
+        bits.  Its backward passes the gradient on."""
+        if self.model.world_size == 1:
+            return x
+        if not _needs_grad(x):
+            return self._sum(x)
+        return _Sum.apply(x, self)
+
+    def fork_model(self, x: Tensor) -> Tensor:
+        """``x`` itself; its backward sums the gradient over ``model``."""
+        if self.model.world_size == 1 or not _needs_grad(x):
+            return x
+        return _Fork.apply(x, self)
+
+    def first_rank_grad(self, x: Tensor) -> Tensor:
+        """``x`` itself; its backward keeps the gradient on the first rank
+        of the model line and gives the others zero."""
+        if self.model.world_size == 1 or not _needs_grad(x):
+            return x
+        return _FirstRank.apply(x, self.model.rank == 0)
+
+    def _exchange(self, x: Tensor, counted: str, line=None) -> Tensor:
+        """``x`` (n, ...) over the model ranks (or ``line``'s): row i goes
+        to rank i, and row i of the result came from rank i
+        (``all_to_all_single``)."""
         import torch.distributed as dist
-        line = self.model
+        line = self.model if line is None else line
         n = line.world_size
         if n == 1:
             return x
@@ -1386,6 +1442,9 @@ class MeshCollectives:
         if counted == "a2a":
             self.a2a_bytes += sent
             self.a2a_s += time.perf_counter() - t0
+        elif counted == "line":
+            self.line_bytes += sent
+            self.line_s += time.perf_counter() - t0
         else:
             self.model_bytes += sent
             self.model_s += time.perf_counter() - t0
@@ -1394,18 +1453,31 @@ class MeshCollectives:
     def all_to_all_model(self, x: Tensor) -> Tensor:
         """The expert-parallel exchange: ``x`` (nm, ...), row j sent to
         model rank j; row i of the result is rank i's row for this rank."""
+        _no_grad_path(x, "the all-to-all dispatch")
         return self._exchange(x, "a2a")
+
+    def _reduce_scatter(self, x: Tensor, dim: int, line=None) -> Tensor:
+        """This rank's chunk along ``dim`` of Σ over the ranks of ``line``
+        (``model`` by default), summed in f32 in rank order."""
+        line = self.model if line is None else line
+        n = line.world_size
+        if n == 1:
+            return x
+        chunks = torch.stack(torch.chunk(x, n, dim))
+        parts = self._exchange(chunks, "model" if line.ranks
+                               == self.model.ranks else "line", line)
+        return fold([p.float() for p in parts.unbind(0)]).to(x.dtype)
 
     def reduce_scatter_model(self, x: Tensor, dim: int) -> Tensor:
         """This rank's 1/nm of Σ over the model ranks of ``x`` along
         ``dim``: each rank's chunk m goes to rank m (an all-to-all), and
-        the received parts are summed in f32 in rank order and cast back."""
-        n = self.model.world_size
-        if n == 1:
+        the received parts are summed in f32 in rank order and cast back.
+        Its backward all-gathers the gradient pieces."""
+        if self.model.world_size == 1:
             return x
-        chunks = torch.stack(torch.chunk(x, n, dim))
-        parts = self._exchange(chunks, "model")
-        return fold([p.float() for p in parts.unbind(0)]).to(x.dtype)
+        if not _needs_grad(x):
+            return self._reduce_scatter(x, dim)
+        return _ReduceScatter.apply(x, self, dim)
 
     def mean_world(self, x: Tensor) -> Tensor:
         """The mean of a scalar over every rank, summed in rank order."""
@@ -1423,14 +1495,102 @@ class MeshCollectives:
     def from_last_model_rank(self, x: Tensor) -> Tensor:
         """``x`` of the last rank of this rank's model line, on every rank
         of it (``dist.broadcast``; ``x`` gives the shape and dtype)."""
+        _no_grad_path(x, "the broadcast from the last model rank")
+        return self.broadcast_model(x, self.model.world_size - 1)
+
+    def broadcast_model(self, x: Tensor, index: int = 0) -> Tensor:
+        """``x`` of the ``index``-th rank of this rank's model line, on
+        every rank of it (``dist.broadcast``); the sending rank counts
+        ``(nm − 1)`` copies in ``model_bytes``."""
         import torch.distributed as dist
         line = self.model
         if line.world_size == 1:
             return x
+        t0 = time.perf_counter()
         stage = self._staged(x.device)
-        buf = self._host(x) if stage else x.contiguous().clone()
-        dist.broadcast(buf, src=line.ranks[-1], group=line.group)
-        return self._device(buf, x.device) if stage else buf
+        buf = self._host(x) if stage else x.detach().contiguous().clone()
+        dist.broadcast(buf, src=line.ranks[index], group=line.group)
+        if line.rank == index:
+            self.model_bytes += (line.world_size - 1) * buf.numel() \
+                * buf.element_size()
+        out = self._device(buf, x.device) if stage else buf
+        self.model_s += time.perf_counter() - t0
+        return out
+
+
+def _needs_grad(x: Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _no_grad_path(x: Tensor, what: str) -> None:
+    if _needs_grad(x):
+        raise NotImplementedError(
+            f"{what} has no backward pass: the tensor-parallel training "
+            f"step runs in the data-manual region, where it is gated off")
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along a line; backward by ``back``: ``"scatter"`` sums
+    the ranks' gradients in rank order and keeps this rank's chunk,
+    ``"slice"`` keeps this rank's chunk of its own gradient."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim, line, back):
+        ctx.comm, ctx.dim, ctx.line, ctx.back = comm, dim, line, back
+        ctx.size = x.shape[dim]
+        return comm._joined(x, dim, line)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, line, dim = ctx.comm, ctx.line, ctx.dim
+        if ctx.back == "slice":
+            got = g.narrow(dim, line.rank * ctx.size, ctx.size)
+        else:
+            got = comm._reduce_scatter(g.contiguous(), dim, line)
+        return got.contiguous(), None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm._reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._joined(g, ctx.dim, ctx.comm.model), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm._sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Fork(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._sum(g.contiguous()), None
+
+
+class _FirstRank(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, first):
+        ctx.first = first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
 
 
 def arrival_rounds(plan: NeighborExchange) -> np.ndarray:

@@ -323,9 +323,14 @@ def _write_token(cfg: ModelConfig, cache: Params, k: torch.Tensor,
 # GQA over the ranks of a data × model mesh (hints.qkv_layout)
 # ---------------------------------------------------------------------------
 
-def _bias(p: Params, name: str, width: int, full: int, m: int):
+def _bias(p: Params, name: str, width: int, full: int, m: int, lay=None):
+    """Rank ``m``'s ``width`` columns of a bias (whole on every rank);
+    with ``lay``, its gradient by the layout's convention
+    (``RankLayout.fork``)."""
     b = p[name]
-    return b if width == full else b[m * width:(m + 1) * width]
+    if width == full:
+        return b
+    return (b if lay is None else lay.fork(b))[m * width:(m + 1) * width]
 
 
 def gqa_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay, *,
@@ -342,7 +347,10 @@ def gqa_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay, *,
     residual (``lay.leave``).  ``context``: q/k/v/o whole (all-gathered),
     the rank's query rows against every key at the query offset of its
     positions, the output already in the residual's layout.  Neither: the
-    weights whole and the one-process layer on the whole residual."""
+    weights whole and the one-process layer on the whole residual.  Each
+    branch carries gradients (the layout's conventions: the heads'
+    all-gather and reduce-scatter, the context branch's whole weights
+    reduce-scattered back)."""
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     branch, _ = hints.qkv_layout((lay.batch, lay.seq, hq, hd),
@@ -353,19 +361,22 @@ def gqa_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay, *,
         xf = lay.enter(x)
         q, k, v = xf @ p["q"], xf @ p["k"], xf @ p["v"]
         if cfg.qkv_bias:
-            q = q + _bias(p, "q_b", nq * hd, hq * hd, m)
-            k = k + _bias(p, "k_b", nk * hd, hkv * hd, m)
-            v = v + _bias(p, "v_b", nk * hd, hkv * hd, m)
+            q = q + _bias(p, "q_b", nq * hd, hq * hd, m, lay)
+            k = k + _bias(p, "k_b", nk * hd, hkv * hd, m, lay)
+            v = v + _bias(p, "v_b", nk * hd, hkv * hd, m, lay)
         positions = _positions(s, x.device)
         q = apply_rope(q.reshape(b, s, nq, hd), positions, cfg.rope_theta)
         k = apply_rope(k.reshape(b, s, nk, hd), positions, cfg.rope_theta)
         out = attend(q, k, v.reshape(b, s, nk, hd), causal=causal,
                      window=window, use_kernel=use_kernel)
         return lay.leave(out.reshape(b, s, nq * hd) @ p["o"])
-    w = dict(p, q=lay.whole(p["q"], 1, hq * hd),
-             k=lay.whole(p["k"], 1, hkv * hd),
-             v=lay.whole(p["v"], 1, hkv * hd),
-             o=lay.whole(p["o"], 0, hq * hd))
+    # context: every rank uses the weights on its own query rows; neither:
+    # every rank runs the whole layer alike
+    back = "scatter" if branch == "context" else "slice"
+    w = dict(p, q=lay.whole(p["q"], 1, hq * hd, back),
+             k=lay.whole(p["k"], 1, hkv * hd, back),
+             v=lay.whole(p["v"], 1, hkv * hd, back),
+             o=lay.whole(p["o"], 0, hq * hd, back))
     if branch is None:
         return gqa_forward(cfg, w, x, causal=causal, window=window,
                            use_kernel=use_kernel)

@@ -19,14 +19,20 @@ share, on its slices by ``param_specs`` (``init(mesh=...)``) and
 ``cache_specs`` (``init_cache(mesh=...)``): ``transformer.
 apply_stack_ranks`` / ``decode_stack_ranks``.
 
-Training (``init_optimizer``, ``train_step``, ``train_step_deferred`` —
-the latter also over the data ranks of a ``launch.mesh.ProcessMesh``)
+Training (``init_optimizer``, ``train_step``, ``train_step_deferred``)
 takes the reference's plain route (``use_kernel=False``: no kernel of the
 port has a backward pass, as no Pallas kernel of the reference has a VJP).
 Gradients come from autograd; under ``cfg.remat`` each layer is
 recomputed in the backward pass (``transformer.apply_stack``).  A step
 returns new parameters and writes the optimizer's moments over the state
-passed in (``optim.optimizers``).
+passed in (``optim.optimizers``).  Over the ranks of a
+``launch.mesh.ProcessMesh``, ``train_step_deferred`` with the parameters
+placed by ``param_specs`` (and the Adam state by ``opt_state_specs``) is
+split over ``model`` as the reference's XLA splits it: ``loss`` runs the
+rank's share (the cross-entropy vocabulary-parallel on its block of the
+logits) and its backward pass goes through the ``model``-axis
+collectives; with the parameters whole on every rank the ``model`` axis
+holds replicas (the data-parallel step).
 """
 from __future__ import annotations
 
@@ -158,10 +164,23 @@ class Model:
                                 h[:, -1:] if last_only else h)
         return logits, aux, h
 
-    def _forward_ranks(self, params: Params, batch: dict, lay, window,
-                       use_kernel: bool, last_only: bool):
+    def _rank_specs(self, mesh):
+        """``param_specs`` as this call sees the parameters: inside a
+        manual region (the deferred step's, over the data axes) without
+        the manual axes, whose slices the step gathered on entry."""
+        specs = self.param_specs(mesh)
+        manual = hints.manual_axes()
+        if not manual:
+            return specs
+        return partition.map_specs(
+            lambda spec: partition.drop_axes(spec, manual), specs)
+
+    def _hidden_ranks(self, params: Params, batch: dict, lay, window,
+                      use_kernel: bool):
+        """This rank's share of the stack: (its piece of the final hidden,
+        aux, its slice of the embedding, its rows of the batch)."""
         cfg = self.cfg
-        specs = self.param_specs(lay.mesh)
+        specs = self._rank_specs(lay.mesh)
         dev = tree.leaves(params)[0].device
         local = {k: torch.as_tensor(v, device=dev)[lay.rows]
                  for k, v in batch.items()}
@@ -183,12 +202,18 @@ class Model:
         h = layers.apply_norm(cfg, params["final_norm"], x)
         if cfg.arch_type == "vlm":
             h = h[:, cfg.frontend.num_embeddings:]
+        return h, aux, emb, local
+
+    def _forward_ranks(self, params: Params, batch: dict, lay, window,
+                       use_kernel: bool, last_only: bool):
+        h, aux, emb, _ = self._hidden_ranks(params, batch, lay, window,
+                                            use_kernel)
         if last_only:
             last = lay.comm.from_last_model_rank(h[:, -1:]) \
                 if lay.seq_split else h[:, -1:]
         else:
             last = lay.enter(h)
-        return layers.unembed(cfg, emb, last), aux, h
+        return layers.unembed(self.cfg, emb, last), aux, h
 
     def encode(self, params: Params, frames: torch.Tensor,
                use_kernel: bool = False) -> torch.Tensor:
@@ -206,17 +231,57 @@ class Model:
 
     def loss(self, params: Params, batch: dict
              ) -> tuple[torch.Tensor, dict]:
-        if hints.ranks_active():
-            raise NotImplementedError(
-                "the loss over a tensor-parallel placement (gradients "
-                "through the model-axis collectives) is ROADMAP A.5: "
-                "train_step_deferred holds full replicas along model")
+        """(ce + aux [+ 0.3 · MTP ce], metrics).  Under ``sharding_hints``
+        over a ``ProcessMesh`` this rank's share (``_loss_ranks``)."""
+        lay = self._layout(*self._residual_extent(batch))
+        if lay is not None:
+            return self._loss_ranks(params, batch, lay)
         logits, aux, h = self.forward(params, batch)
         ce = _next_token_ce(logits, batch["targets"])
         total = ce + aux
         metrics = {"ce": ce, "aux": aux}
         if self.cfg.mtp_depth:
             mtp_ce = self._mtp_loss(params, h, batch)
+            total = total + 0.3 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        return total, metrics
+
+    def _loss_ranks(self, params: Params, batch: dict, lay
+                    ) -> tuple[torch.Tensor, dict]:
+        """The loss of this rank's rows, split over ``model``: ``params``
+        its slices, the cross-entropy vocabulary-parallel on its block of
+        the logits (``layers.next_token_ce_ranks``), the same value on
+        every rank of a model line.  Gradients flow through the
+        ``model``-axis collectives (``sharding.hints``' conventions);
+        they are taken inside the deferred step's data-manual region,
+        where the batch is this data rank's rows."""
+        cfg = self.cfg
+        if torch.is_grad_enabled() and hints.data_ranks(lay.mesh) > 1:
+            raise ValueError(
+                "gradients of the loss over ranks are taken per data rank, "
+                "in train_step_deferred's region manual over the data axes "
+                "(hints.manual_region): here the data axes split the batch")
+        h, aux, emb, local = self._hidden_ranks(params, batch, lay,
+                                                cfg.sliding_window, False)
+        ce = layers.next_token_ce_ranks(cfg, emb, h, local["targets"], lay)
+        total = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth:
+            if lay.seq_split:
+                raise ValueError(
+                    f"{cfg.name}: multi-token prediction over ranks runs "
+                    f"with the residual whole along model (the families "
+                    f"that compute whole)")
+            specs = self._rank_specs(lay.mesh)
+            mtp = transformer.gather_layer(params["mtp"], specs["mtp"], lay,
+                                           whole=True)
+            e_t = layers.embed_ranks(cfg, emb, local["targets"], lay)
+            x = torch.cat([h, e_t.to(h.dtype)], dim=-1) @ mtp["proj"]
+            x, _ = transformer.apply_layer(cfg, "attn_mlp", mtp["layer"], x,
+                                           lay=lay)
+            x = layers.apply_norm(cfg, mtp["norm"], x)
+            mtp_ce = layers.next_token_ce_ranks(
+                cfg, emb, x[:, :-1], local["targets"][:, 1:], lay)
             total = total + 0.3 * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         return total, metrics
@@ -301,23 +366,26 @@ class Model:
         Over a ``launch.mesh.ProcessMesh`` this process is one rank and
         ``batch`` holds its rows of the global batch (``TokenPipeline(
         mesh=...)`` places them; ``launch.mesh.batch_rows`` cuts them).
-        After its microbatches ONE reduction over the data axes sums the
-        gradients, the loss sum and the metrics (``messages.
-        MeshCollectives.sum_data``, ``comm``, made here when not given:
-        f32 buckets, each all-gathered and summed in rank order, so every
-        rank adds the same parts in the same order and ends with the same
-        parameter bits, while no rank holds the data ranks' copies of more
-        than one bucket — a collective whose bits may differ by rank would
-        let Adam's updates drift apart).  Then, as in the reference, the
-        sums are divided by ``accum · n_dp``, the metrics are ``m.mean() /
-        n_dp``, and every rank applies the update.  The step runs in a
-        manual region over the data axes (``sharding.hints.
-        manual_region``: the reference's ``shard_map``), where the
-        all-to-all MoE dispatch is gated off and nothing is split over
-        ``model``: the ``model`` axis holds full replicas (the
-        tensor-parallel step is ROADMAP A.5), the model ranks of a data
-        row compute the same shard, and each bucket's sum is broadcast
-        along the row so they stay equal."""
+        The step runs, as the reference's, in a region manual over the
+        data axes (``sharding.hints.manual_region``: its ``shard_map``),
+        where the all-to-all MoE dispatch is gated off.  After its
+        microbatches ONE reduction over the data axes sums the gradients,
+        the loss sum and the metrics (``messages.MeshCollectives.
+        sum_data``, ``comm``, made here when not given: f32 buckets, each
+        all-gathered and summed in rank order, so every rank adds the same
+        parts in the same order and ends with the same bits); then, as in
+        the reference, the sums are divided by ``accum · n_dp``, the
+        metrics are ``m.mean() / n_dp``, and every rank applies the
+        update.
+
+        ``params`` placed by ``param_specs`` (``init(mesh=...)``; the Adam
+        state then by ``partition.opt_state_specs``, as ``init_optimizer()
+        .init`` of them makes it): the step is split over ``model`` as
+        the reference's XLA splits it (``_train_step_ranks``).  ``params``
+        whole on every rank: the ``model`` axis holds replicas (the
+        data-parallel step), the model ranks of a data row compute the
+        same shard, and each bucket's sum is broadcast along the row so
+        they stay equal."""
         from repro_torch.launch.mesh import ProcessMesh
         ranks = isinstance(mesh, ProcessMesh)
         if not ranks and mesh is not None and mesh.size > 1:
@@ -327,6 +395,9 @@ class Model:
         if ranks and comm is None:
             from repro_torch.core.messages import MeshCollectives
             comm = MeshCollectives(mesh)
+        if ranks and self._placed(params):
+            return self._train_step_ranks(mesh, params, opt_state, batch,
+                                          comm)
         batch = self._on_device(params, batch)
         accum = max(self.cfg.grad_accum, 1)
         live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
@@ -335,9 +406,9 @@ class Model:
                for p in live]
         loss_sum = torch.zeros((), dtype=torch.float32, device=live[0].device)
         mets = []
-        # the reference's shard_map, manual over the data axes: inside, the
-        # all-to-all dispatch is gated off and nothing is split
-        with hints.manual_region(hints.DATA_AXES):
+        # the reference's shard_map, manual over the data axes; the model
+        # axis holds replicas, so nothing is split over it either
+        with hints.manual_region(hints.DATA_AXES + ("model",)):
             for mb in self._micro(batch, accum):
                 lv, m = self.loss(live_tree, mb)
                 g = torch.autograd.grad(lv, live, allow_unused=True,
@@ -361,6 +432,96 @@ class Model:
         comm.sum_data(acc + [small], replicas=True)
         n_dp = comm.data.world_size
         grads = [a.div_(accum * n_dp) for a in acc]
+        loss_val = small[0] / (accum * n_dp)
+        metrics = {k: small[1 + i * accum:1 + (i + 1) * accum].mean() / n_dp
+                   for i, k in enumerate(names)}
+        return self._apply(params, opt_state, grads, loss_val, metrics)
+
+    def _placed(self, params: Params) -> bool:
+        """Whether ``params`` are a rank's slices (some leaf short of its
+        whole shape) rather than the whole tree."""
+        return any(tuple(p.shape) != tuple(f.shape) for p, f in
+                   zip(tree.leaves(params),
+                       tree.leaves(_param_shapes(self.cfg))))
+
+    def opt_state_specs(self, mesh, opt_state):
+        """``partition.opt_state_specs`` of this model's optimizer state
+        ``opt_state`` (any rank's, or whole) on ``mesh``."""
+        return partition.opt_state_specs(self.cfg, mesh,
+                                         _param_shapes(self.cfg), opt_state)
+
+    def _train_step_ranks(self, mesh, params: Params, opt_state,
+                          batch: dict, comm):
+        """``train_step_deferred`` split over ``model``: each rank holds
+        its slices of the parameters (and the Adam state), computes its
+        share of each microbatch's loss and of its backward pass
+        (``_loss_ranks``, gradients through the ``model``-axis
+        collectives) and updates its slices.
+
+        The reference's shard_map gathers the parameters over the data
+        axes on entry and reshards them on exit; so here the leaves
+        placed over ``data`` (the FSDP leg) are all-gathered over the
+        data axes once, their gradients accumulate at that size through
+        the microbatches, are summed over ``data`` once and then cut to
+        this rank's slice.  Every gradient is summed over the data axes
+        in the one ``sum_data`` (no broadcast along ``model``: each model
+        rank holds its own slices).  The leaves the same on every rank of
+        a model line (norms, routers, unsplit biases) are then made equal
+        there: with the residual split each rank's gradient is its
+        positions' part, summed over ``model`` in rank order; with the
+        residual whole each rank holds the whole gradient, and the first
+        model rank's is sent to the others."""
+        cfg = self.cfg
+        data = hints.DATA_AXES
+        specs = self.param_specs(mesh)
+        paths = [path for path, _ in tree.leaves_with_paths(params)]
+        leaf_specs = [partition.spec_at(specs, path) for path in paths]
+        with torch.no_grad():
+            work = [partition.gather_leaf(p, sp, mesh, comm, data)
+                    for p, sp in zip(tree.leaves(params), leaf_specs)]
+        batch = self._on_device(params, batch)
+        accum = max(cfg.grad_accum, 1)
+        live = [w.detach().requires_grad_(True) for w in work]
+        del work
+        live_tree = tree.unflatten(params, live)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in live]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=live[0].device)
+        mets = []
+        with hints.sharding_hints(mesh, hints.moe_a2a_enabled(), comm), \
+                hints.manual_region(data):
+            for mb in self._micro(batch, accum):
+                lv, m = self.loss(live_tree, mb)
+                g = torch.autograd.grad(lv, live, allow_unused=True,
+                                        materialize_grads=True)
+                for a, b in zip(acc, g):
+                    a.add_(b)
+                del g
+                loss_sum = loss_sum + lv.detach()
+                mets.append({k: v.detach() for k, v in m.items()})
+            split = self._layout(*self._residual_extent(mb)).seq_split
+        del live, live_tree
+        stacked = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+        names = sorted(stacked)
+        small = torch.cat([loss_sum.reshape(1)]
+                          + [stacked[k].float() for k in names])
+        comm.sum_data(acc + [small])
+        same = [i for i, sp in enumerate(leaf_specs)
+                if "model" not in {a for e in sp
+                                   for a in partition.entry_axes(e)}]
+        if same and comm.model.world_size > 1:
+            flat = torch.cat([acc[i].reshape(-1) for i in same])
+            flat = comm.sum_model(flat) if split else \
+                comm.broadcast_model(flat, 0)
+            off = 0
+            for i in same:
+                n = acc[i].numel()
+                acc[i].reshape(-1).copy_(flat[off:off + n])
+                off += n
+        n_dp = comm.data.world_size
+        grads = [partition.data_slice(a, sp, mesh).div(accum * n_dp)
+                 for a, sp in zip(acc, leaf_specs)]
+        del acc
         loss_val = small[0] / (accum * n_dp)
         metrics = {k: small[1 + i * accum:1 + (i + 1) * accum].mean() / n_dp
                    for i, k in enumerate(names)}
@@ -513,9 +674,7 @@ class Model:
 
 def _next_token_ce(logits: torch.Tensor,
                    targets: torch.Tensor) -> torch.Tensor:
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
-    return nll.mean()
+    return layers.next_token_nll(logits, targets).mean()
 
 
 @functools.lru_cache(maxsize=16)

@@ -13,7 +13,10 @@ ids among its rows of the vocabulary-split table and sums over ``model``
 (exact: one term is non-zero); ``unembed`` on its slice of the table (or
 of ``unembed``) gives its vocabulary columns of the logits; and
 ``apply_mlp_ranks`` runs up / gate column-split and down row-split, then
-one sum over ``model`` laid out as the residual.
+one sum over ``model`` laid out as the residual; ``next_token_ce_ranks``
+is the training loss on the rank's logits block (the vocabulary-parallel
+cross-entropy, ``vocab_parallel_nll``).  All of them carry gradients
+(``sharding.hints``' conventions).
 """
 from __future__ import annotations
 
@@ -125,7 +128,7 @@ def apply_mlp_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay,
     if p["up"].shape[-1] == width:
         return apply_mlp(cfg, p, x)
     return lay.leave(apply_mlp(cfg, p, lay.enter(x) if entered is None
-                               else entered))
+                               else lay.fork(entered)))
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +219,54 @@ def unembed(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.matmul(x.float(), _f32_weight(p["table"]).t())
     return torch.matmul(x.float(), _f32_weight(p["unembed"]))
+
+
+def next_token_nll(logits: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """−log softmax(logits)[target] per position, in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       lay) -> torch.Tensor:
+    """``next_token_nll`` of the whole vocabulary from this rank's block of
+    the logits (B, S, V/nm: columns ``lay.m · V/nm`` on, f32), without
+    gathering the (B, S, V) logits: the row maxima's max over ``model``
+    (no gradient: the shift cancels), Σ exp over the rank's columns and
+    the target's logit from the rank that owns its column (zero on the
+    others) summed over ``model`` in rank order, and log Σ − target.  The
+    backward is softmax − one-hot on the rank's own columns (the sum's
+    gradient passes on)."""
+    comm, n = lay.comm, logits.shape[-1]
+    with torch.no_grad():
+        top = torch.stack(comm.model_parts(logits.amax(-1))).amax(0)
+    z = logits - top[..., None]
+    t = targets.long() - lay.m * n
+    inside = (t >= 0) & (t < n)
+    zt = torch.gather(z, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    zt = torch.where(inside, zt, torch.zeros((), dtype=z.dtype,
+                                             device=z.device))
+    sums = comm.sum_model(torch.stack([z.exp().sum(-1), zt]))
+    return torch.log(sums[0]) - sums[1]
+
+
+def next_token_ce_ranks(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                        targets: torch.Tensor, lay) -> torch.Tensor:
+    """The mean next-token cross-entropy of this rank's rows over ranks:
+    ``h`` its piece of the final hidden (``lay``), ``targets`` (B, S) its
+    rows' whole, ``p`` its slice of the embedding.  With the vocabulary
+    split over ``model``, ``h`` whole along ``model`` and the
+    vocabulary-parallel CE on the rank's logits block; else the whole
+    vocabulary on the rank's positions, their sums added over ``model``."""
+    table = p["table"] if cfg.tie_embeddings else p["unembed"]
+    if table.shape[0 if cfg.tie_embeddings else 1] != cfg.vocab_size:
+        return vocab_parallel_nll(unembed(cfg, p, lay.enter(h)), targets,
+                                  lay).mean()
+    nll = next_token_nll(unembed(cfg, p, h), lay.piece(targets))
+    if lay.seq_split:
+        return lay.comm.sum_model(nll.sum()) / targets.numel()
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,11 @@ experts and sends the outputs back.  Elsewhere under the hints the scatter
 path runs with the capacity of the whole batch, placed as the reference's
 ``hint_tokens`` and ``hint_moe_buffers`` place it: each data rank routes
 its share of the tokens, and each model rank fills and runs its rows of
-the (E·C, D) buffer (``_apply_moe_scatter``).
+the (E·C, D) buffer (``_apply_moe_scatter``).  That path also carries the
+tensor-parallel training step's gradients (``hints.RankLayout``'s
+conventions: the buffer's rows all-gathered back, the f32 router's and the
+aux loss's gradients); the all-to-all has no backward pass, as it is gated
+off where the step runs.
 
 Capacity couples a batch's rows: a token is dropped by its rank among
 every earlier (token, slot) sent to its expert.  A caller that holds some
@@ -224,7 +228,8 @@ def _apply_moe_scatter(cfg: ModelConfig, p: Params, x: torch.Tensor, lay
     e, k = moe.num_experts, moe.top_k
     comm, d = lay.comm, x.shape[-1]
     total = lay.batch * lay.seq
-    entered = lay.enter(x)                       # this rank's rows, whole
+    # this rank's rows, whole: every rank routes them alike
+    entered = lay.join(x, 1) if lay.seq_split else x
     split = hints.tokens_layout((total, d), lay.mesh) is not None
     n_dp, r = (comm.data.world_size, comm.data.rank) if split else (1, 0)
     t = total // n_dp
@@ -250,7 +255,7 @@ def _apply_moe_scatter(cfg: ModelConfig, p: Params, x: torch.Tensor, lay
     n = e * cap // lay.nm if over_model else e * cap
     first = lay.m * n if over_model else 0
     mine = keep & (slot >= first) & (slot < first + n)
-    src = xt.repeat_interleave(k, dim=0) * mine[:, None].to(x.dtype)
+    src = lay.fork(xt).repeat_interleave(k, dim=0) * mine[:, None].to(x.dtype)
     buf = x.new_zeros((n, d)).index_add_(0, (slot - first).clamp(0, n - 1),
                                          src)
     if n_dp > 1:
@@ -267,7 +272,7 @@ def _apply_moe_scatter(cfg: ModelConfig, p: Params, x: torch.Tensor, lay
     out = _expert_ffn(cfg, w, run.reshape(e1 - e0, cap, d)).reshape(-1, d)
     out = out[head:head + n]
     if over_model:
-        out = comm.gather_model(out, 0)                       # (E·C, D)
+        out = lay.join(out, 0)                                # (E·C, D)
 
     gathered = out[slot]                                      # (t·k, D)
     gates = (gate_vals.reshape(t * k) * keep).to(x.dtype)
@@ -279,7 +284,7 @@ def _apply_moe_scatter(cfg: ModelConfig, p: Params, x: torch.Tensor, lay
         out = out + layers.apply_mlp_ranks(
             cfg, p["shared"], x, lay, moe.num_shared_experts * moe.d_ff_expert,
             entered)
-    return out, aux
+    return out, lay.once(aux)
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:

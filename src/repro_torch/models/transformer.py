@@ -20,7 +20,9 @@ partial sums at exit.  Every other family (MLA, ``ssm``, ``hybrid`` /
 way but computes whole: each layer's slices are all-gathered along all
 their axes (the routed experts' along the data axes only: the
 all-to-all dispatch still runs on them) and its activations stay whole
-along ``model``; its split compute is later work.
+along ``model``; its split compute is later work.  Both carry gradients
+(the tensor-parallel training step; ``hints``' two conventions), with
+remat per layer, collectives included.
 
 Segment kinds:
   attn_mlp    pre-norm attention (GQA/MQA/MLA per cfg) + dense FFN
@@ -38,6 +40,7 @@ steps are plain torch, as in the reference.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Callable, Optional
 
@@ -449,17 +452,24 @@ def layer_specs(specs):
 def gather_layer(p: Params, specs, lay, whole: bool) -> Params:
     """A layer's slices all-gathered over the data axes (the FSDP leg);
     with ``whole`` over every axis, except the routed experts, which keep
-    their slice of ``model`` (the all-to-all dispatch runs on it)."""
+    their slice of ``model`` (the all-to-all dispatch runs on it).  Every
+    rank then runs the whole layer alike, so under gradients the
+    ``model`` all-gather takes this rank's slice of the (whole, equal)
+    gradient back and sums nothing; the data axes' all-gathers sum the
+    data ranks' gradients (each ran its own rows)."""
     mesh, comm = lay.mesh, lay.comm
     data = hints.DATA_AXES
 
     def go(tree, spec, path=()):
         if isinstance(tree, dict):
             return {k: go(tree[k], spec[k], path + (k,)) for k in tree}
-        axes = data if (not whole or (len(path) >= 2 and path[-2] == "moe"
-                                       and path[-1] in moe_lib.EXPERTS)) \
-            else None
-        return partition.gather_leaf(tree, spec, mesh, comm, axes)
+        experts = len(path) >= 2 and path[-2] == "moe" \
+            and path[-1] in moe_lib.EXPERTS
+        x = partition.gather_leaf(tree, spec, mesh, comm, data)
+        if not whole or experts:
+            return x
+        return partition.gather_leaf(x, spec, mesh, comm, ("model",),
+                                     "slice")
     return go(p, specs)
 
 
@@ -470,24 +480,39 @@ def apply_stack_ranks(cfg: ModelConfig, params: Params, specs, x, lay, *,
                       only_kinds: Optional[tuple[str, ...]] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """``apply_stack`` on one rank: ``params`` its slices (``specs`` their
-    ``param_specs``), ``x`` its piece of the residual (``lay``)."""
+    ``param_specs``), ``x`` its piece of the residual (``lay``).
+
+    With ``cfg.remat`` and gradients enabled each layer — its gathers and
+    every collective in it included — runs under ``torch.utils.
+    checkpoint`` (non-reentrant): the backward pass runs it again, in a
+    copy of the context the layer ran in (the hints are context
+    variables, and a card's backward pass runs on another thread), and
+    every rank issues the recompute's collectives in the same order."""
     split = split_arch(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(kind, sp, p, x):
+        p = gather_layer(p, sp, lay, whole=not split)
+        if split:
+            return apply_layer_ranks(cfg, kind, p, x, lay, window=window,
+                                     use_kernel=use_kernel)
+        return apply_layer(cfg, kind, p, x, window=window, memory=memory,
+                           use_kernel=use_kernel, lay=lay)
+
     for seg in arch_segments(cfg):
         if only_kinds is not None and seg.kind not in only_kinds:
             continue
         sp = layer_specs(specs[seg.kind])
-        for i in range(seg.count):
-            p = gather_layer(_layer(params[seg.kind], i), sp, lay,
-                             whole=not split)
-            if split:
-                x, aux = apply_layer_ranks(cfg, seg.kind, p, x, lay,
-                                           window=window,
-                                           use_kernel=use_kernel)
+        for p in _layers(params[seg.kind], seg.count):
+            if remat:
+                # the recompute runs in the backward pass, on the card's
+                # autograd thread: it reads the hints as this call saw them
+                x, aux = checkpoint(contextvars.copy_context().run, run,
+                                    seg.kind, sp, p, x, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x, aux = apply_layer(cfg, seg.kind, p, x, window=window,
-                                     memory=memory, use_kernel=use_kernel,
-                                     lay=lay)
+                x, aux = run(seg.kind, sp, p, x)
             aux_total = aux_total + aux
     return x, aux_total
 

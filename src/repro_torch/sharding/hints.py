@@ -34,10 +34,27 @@ collectives that enter and leave a split sublayer
 ``a2a_gate`` its gate (moe.py:71-77).  The reference's manual region
 (``_manual_axes``: inside a ``shard_map``) is ``manual_region``:
 ``Model.train_step_deferred`` over ranks runs inside it, manual over the
-data axes, and there the all-to-all is gated off; the port's deferred step
-holds full replicas along ``model`` (its tensor-parallel form is later
-work), so nothing is split inside it.  Without a mesh, or with a
-one-process mesh, every hint is an identity, as the reference's are.
+data axes, as the reference's does.  There the all-to-all is gated off,
+the data axes leave every decision (``hint_tokens`` is the identity), the
+batch is already this data rank's rows, and ``model`` is still split: the
+residual's sequence over ``model`` where nm divides S, the attention by
+``qkv_layout``, the MoE buffers over ``model``.  Without a mesh, or with
+a one-process mesh, every hint is an identity, as the reference's are.
+
+Gradients over ``model`` (the tensor-parallel training step) follow one
+of two conventions, by the layout.  With the residual split
+(``seq_split``) every tensor that is the same on every rank carries a
+*partial* gradient on each rank, the ranks' parts summing to the whole:
+the all-gathers that make such tensors reduce-scatter in the backward
+pass, a rank's piece of one is a plain slice, the parameters that are the
+same on every rank are summed over ``model`` once a step, and a term of
+the loss computed the same on every rank (the MoE's aux loss) keeps its
+gradient on the first model rank only (``RankLayout.once``).  With the
+residual whole (the families that compute whole, or nm not dividing S)
+such tensors carry their *whole* gradient on every rank, as the loss
+does: where one enters work split over the ranks its gradient is summed
+over ``model`` (``RankLayout.fork``), and an all-gather whose result
+every rank then uses alike takes its slice of the gradient.
 """
 from __future__ import annotations
 
@@ -58,15 +75,16 @@ DATA_AXES = ("pod", "data")
 
 
 @contextlib.contextmanager
-def sharding_hints(mesh, moe_a2a: bool = False):
+def sharding_hints(mesh, moe_a2a: bool = False, comm=None):
     """Within: ``active_mesh()`` is ``mesh`` and ``moe_a2a_enabled()`` is
     ``moe_a2a`` (the expert-parallel all-to-all dispatch,
     ``moe.apply_moe_a2a``).  Over a ``ProcessMesh`` the ranks' collectives
-    are a ``messages.MeshCollectives`` made here (yielded: its counters
-    cover the context)."""
+    are ``comm``, a ``messages.MeshCollectives`` made here when not given
+    (yielded: its counters cover the context)."""
     from repro_torch.launch.mesh import ProcessMesh
-    comm = None
-    if isinstance(mesh, ProcessMesh):
+    if not isinstance(mesh, ProcessMesh):
+        comm = None
+    elif comm is None:
         from repro_torch.core.messages import MeshCollectives
         comm = MeshCollectives(mesh)
     token = _HINTS.set((mesh, bool(moe_a2a), comm))
@@ -123,6 +141,11 @@ def _dp_axes(mesh) -> tuple[str, ...]:
     manual = manual_axes()
     return tuple(a for a in mesh.axis_names
                  if a in DATA_AXES and a not in manual)
+
+
+def data_ranks(mesh) -> int:
+    """The product of the data axes that are not manual here."""
+    return math.prod(mesh.shape[a] for a in _dp_axes(mesh))
 
 
 def dp_size(mesh) -> int:
@@ -215,9 +238,11 @@ def a2a_gate(cfg, mesh) -> bool:
 class RankLayout:
     """Where this rank's activations of a (``batch``, ``seq``) call lie:
     ``rows`` of the global batch (all of them when the data axes do not
-    divide it), and the residual between layers either whole along
+    divide it, or inside the data-manual region, where ``batch`` is this
+    data rank's), and the residual between layers either whole along
     ``model`` or (``seq_split``) positions ``positions`` of the sequence.
-    ``comm`` moves them along ``model``."""
+    ``comm`` moves them along ``model``; its gradients follow the module's
+    two conventions, by ``seq_split``."""
     mesh: object
     comm: object
     batch: int
@@ -244,15 +269,40 @@ class RankLayout:
         """This rank's positions of a data-local (B, S, ...) tensor."""
         return x[:, self.positions] if self.seq_split else x
 
-    def enter(self, x: torch.Tensor) -> torch.Tensor:
-        """The residual ``x`` whole along ``model`` (an all-gather of the
-        sequence pieces when it is split)."""
-        return self.comm.gather_model(x, 1) if self.seq_split else x
+    def join(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' pieces of ``x`` all-gathered along ``model`` into a
+        tensor the same on every rank: its gradient by the convention
+        (summed and cut where the residual is split, else this rank's
+        slice)."""
+        return self.comm.gather_model(
+            x, dim, "scatter" if self.seq_split else "slice")
 
-    def whole(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual ``x`` whole along ``model``, for work split over
+        the ranks (an all-gather of the sequence pieces when it is split;
+        else ``x``, its gradient summed over ``model``)."""
+        return self.join(x, 1) if self.seq_split else self.comm.fork_model(x)
+
+    def fork(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor the same on every rank, for work split over the ranks:
+        with the residual whole its gradient is summed over ``model``."""
+        return x if self.seq_split else self.comm.fork_model(x)
+
+    def once(self, x: torch.Tensor) -> torch.Tensor:
+        """A loss term computed the same on every rank: with the residual
+        split its gradient stays on the first model rank only."""
+        return self.comm.first_rank_grad(x) if self.seq_split else x
+
+    def whole(self, w: torch.Tensor, dim: int, full: int,
+              back: str = "scatter") -> torch.Tensor:
         """A weight all-gathered along ``model`` where it is split there
-        (its ``dim`` short of ``full``)."""
-        return w if w.shape[dim] == full else self.comm.gather_model(w, dim)
+        (its ``dim`` short of ``full``); ``back`` as ``gather_model``'s:
+        ``"scatter"`` where the ranks then use it on their own parts of
+        the work (a weight already whole is then ``fork``ed), ``"slice"``
+        where every rank uses it alike."""
+        if w.shape[dim] == full:
+            return self.fork(w) if back == "scatter" else w
+        return self.comm.gather_model(w, dim, back)
 
     def leave(self, partial: torch.Tensor) -> torch.Tensor:
         """Σ over ``model`` of a split sublayer's partial outputs (B, S, D),
@@ -264,17 +314,18 @@ class RankLayout:
 
 
 def ranks_active() -> bool:
-    """Whether the hints hold a ``ProcessMesh`` outside a manual region:
-    tensors are then this rank's slices."""
+    """Whether the hints hold a ``ProcessMesh`` whose ``model`` axis is
+    not manual: tensors are then this rank's slices."""
     from repro_torch.launch.mesh import ProcessMesh
     return isinstance(active_mesh(), ProcessMesh) and \
-        not inside_manual_region()
+        "model" not in manual_axes()
 
 
 def rank_layout(batch: int, seq: int) -> Optional[RankLayout]:
     """The active hints' layout of a (``batch``, ``seq``) call on this
     rank, or None where nothing is split: no hints, a one-process mesh, or
-    inside a manual region (the deferred train step)."""
+    ``model`` manual.  Inside the data-manual region ``batch`` is this
+    data rank's rows, all of them local."""
     if not ranks_active():
         return None
     mesh, comm = active_mesh(), collectives()

@@ -26,7 +26,11 @@ The port's copy of ``repro.sharding.partition``:
     group (tests/test_torch_mesh_specs.py).
   * ``local_shape``, ``local_slice``, ``place`` and ``gather``: a rank's
     slices of tensors placed by those specs (a named sharding's chunks,
-    row-major over an entry's axes) and back over the ranks;
+    row-major over an entry's axes) and back over the ranks — the
+    parameters by ``param_specs``, an optimizer state by
+    ``opt_state_specs`` (Adam's moments as the parameters), each gathered
+    whole for the tests and checkpoints; ``data_slice`` cuts a gradient
+    summed over the data ranks back to a rank's FSDP slice;
     ``slicer`` keeps a rank's slices of a tree as it is drawn
     (``Model.init(mesh=...)``); ``logits_spec`` is where a rank's logits
     lie (tests/test_torch_hints.py).
@@ -427,21 +431,47 @@ def place(tree, specs, mesh):
         memory_format=torch.contiguous_format), tree, specs)
 
 
+def map_specs(fn, specs):
+    """``fn(spec)`` over a tree of specs (a spec is a tuple: a leaf
+    here)."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
+
+
+def spec_at(specs, path):
+    """The spec at a leaf's key ``path`` of a tree of specs."""
+    for key in path:
+        specs = getattr(specs, key[1:]) if isinstance(key, str) \
+            and key.startswith(".") else specs[key]
+    return specs
+
+
+def data_slice(x, spec, mesh):
+    """This rank's slice of ``x`` along the data axes only: a leaf
+    all-gathered over them (the FSDP leg) whose gradient has been summed
+    over the data ranks, cut back to the rank's part (``spec`` minus
+    ``model``, whose slice ``x`` already is)."""
+    return local_slice(x, drop_axes(spec, ("model",)), mesh)
+
+
 def drop_axes(spec, axes) -> tuple:
     """``spec`` with ``axes`` taken out of every entry."""
     return P(*[tuple(a for a in entry_axes(e) if a not in axes) or None
                for e in spec])
 
 
-def gather_leaf(x, spec, mesh, comm, axes=None):
+def gather_leaf(x, spec, mesh, comm, axes=None, back: str = "scatter"):
     """A rank's slice ``x`` (placed by ``spec``) all-gathered along
     ``axes`` (every axis of the spec by default): along each dim, the
-    entry's axes from the minor one out, so the chunks join row-major."""
+    entry's axes from the minor one out, so the chunks join row-major.
+    ``back`` is each all-gather's backward (``MeshCollectives.
+    gather_line``)."""
     for dim, entry in enumerate(spec):
         for a in reversed(entry_axes(entry)):
             if a in mesh.axis_names and (axes is None or a in axes) \
                     and _axis_size(mesh, a) > 1:
-                x = comm.gather_line(x, dim, mesh.axis(a))
+                x = comm.gather_line(x, dim, mesh.axis(a), back)
     return x
 
 

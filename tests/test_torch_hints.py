@@ -50,6 +50,12 @@ TOKENS = [1, 2, 3, 4, 8, 12]
 BUFFERS = [(2, 2), (4, 4), (6, 6), (3, 3)]
 ARCHS = sorted(configs.list_archs())
 CACHE = (2, 16)          # decode cache batch, length
+# local (one data rank's) shapes inside the 2 × 2 mesh's data-manual region
+MANUAL_RESIDUAL = [(1, 4), (1, 1), (2, 6), (1, 3)]
+MANUAL_QKV = [(1, 4, 4, 4), (1, 4, 4, 1), (1, 4, 4, 2), (1, 3, 3, 3),
+              (1, 1, 4, 1)]
+MANUAL_TOKENS = [2, 4]
+MANUAL_BUFFERS = [4, 3]
 
 _WORKER = r"""
 import json, sys
@@ -83,6 +89,40 @@ def hinted(mesh, fn, *shapes):
     return [entries(o.sharding, o.ndim) for o in outs]
 
 
+# the specs a hint pins inside a shard_map manual over data on arrays of
+# the local shapes (each data rank's), read from its
+# with_sharding_constraint calls at trace time; with the manual axes and
+# the MoE gate's manual test seen there
+def manual_data(mesh, fn, *local):
+    from jax.sharding import PartitionSpec as P
+    from repro.models import moe as jmoe
+    from repro.util.compat import shard_map
+    seen, out = [], {}
+    wsc = jax.lax.with_sharding_constraint
+
+    def record(x, sharding):
+        seen.append(entries(sharding, x.ndim))
+        return x
+
+    def body(*a):
+        fn(*a)
+        out["manual"] = sorted(hints._manual_axes())
+        out["moe_manual"] = bool(jmoe._inside_manual_region())
+        return a
+    xs = [jnp.zeros((mesh.shape["data"] * s[0],) + tuple(s[1:]),
+                    jnp.float32) for s in local]
+    sm = shard_map(body, mesh=mesh, in_specs=tuple(P("data") for _ in xs),
+                   out_specs=tuple(P("data") for _ in xs), check_rep=False,
+                   axis_names={"data"})
+    jax.lax.with_sharding_constraint = record
+    try:
+        with mesh, hints.sharding_hints(mesh, moe_a2a=True):
+            jax.jit(sm).lower(*xs)
+    finally:
+        jax.lax.with_sharding_constraint = wsc
+    return dict(out, specs=seen)
+
+
 rec = {}
 for name, (names, dims) in spec["meshes"].items():
     mesh = make_mesh(tuple(dims), tuple(names), devices=jax.devices()[:4])
@@ -96,6 +136,17 @@ for name, (names, dims) in spec["meshes"].items():
                    for t in spec["tokens"]]
     r["buffers"] = [hinted(mesh, hints.hint_moe_buffers, (a, 8), (c, 8))
                     for a, c in spec["buffers"]]
+    if name == "2x2":
+        r["manual"] = {
+            "residual": [manual_data(mesh, hints.hint_residual, (b, s, 8))
+                         for b, s in spec["manual_residual"]],
+            "qkv": [manual_data(mesh, hints.hint_qkv, (b, s, hq, 8),
+                                (b, s, hkv, 8), (b, s, hkv, 8))
+                    for b, s, hq, hkv in spec["manual_qkv"]],
+            "tokens": [manual_data(mesh, hints.hint_tokens, (t, 8))
+                       for t in spec["manual_tokens"]],
+            "buffers": [manual_data(mesh, hints.hint_moe_buffers, (a, 8),
+                                    (a, 8)) for a in spec["manual_buffers"]]}
     shards = r["shards"] = {}
     for arch in spec["archs"]:
         cfg = configs.get_config(arch, reduced=True)
@@ -137,7 +188,9 @@ def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("hints") / "reference.json"
     spec = {"meshes": MESHES, "residual": RESIDUAL, "qkv": QKV,
             "tokens": TOKENS, "buffers": BUFFERS, "archs": ARCHS,
-            "cache": CACHE}
+            "cache": CACHE, "manual_residual": MANUAL_RESIDUAL,
+            "manual_qkv": MANUAL_QKV, "manual_tokens": MANUAL_TOKENS,
+            "manual_buffers": MANUAL_BUFFERS}
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=str(ROOT / "src"))
@@ -219,17 +272,53 @@ def test_token_and_buffer_layouts_are_the_hints(reference, mesh):
                          ref, m), (mesh, a, c, ref)
 
 
-def test_layout_decisions_in_a_manual_region_and_the_gate():
-    """Manual axes leave the hints: the data axes no longer split a batch,
-    a manual ``model`` turns every ``model`` decision off, and the
-    all-to-all gate is off in any manual region (moe.py:71-77); the gate
-    needs E % nm == 0; the token groups follow moe.py:262-265."""
+def test_layout_decisions_in_a_manual_region_and_the_gate(reference,
+                                                          tmp_path):
+    """Inside the region manual over the data axes (the deferred train
+    step's ``shard_map``) each decision is the reference's there, read
+    from its hints inside a ``shard_map`` manual over ``data`` on the 2 × 2
+    mesh: the data axes leave every decision (``hint_tokens`` pins
+    nothing), ``model`` still splits the residual's sequence, q/k/v and
+    the MoE buffers, and the reference's manual axes and the MoE gate's
+    test see the region.  A manual ``model`` turns every ``model``
+    decision off; the all-to-all gate is off in any manual region
+    (moe.py:71-77) and needs E % nm == 0; the token groups follow
+    moe.py:262-265.  Over ranks the region keeps ``model`` split
+    (``ranks_active``) with every local row, and a manual ``model`` leaves
+    nothing split."""
     m = PlainMesh(("data", "model"), (2, 2))
+    ref = reference["2x2"]["manual"]
     assert hints.residual_layout((2, 4, 8), m) == (("data",), "model")
     with hints.manual_region(("data",)):
-        assert hints.residual_layout((2, 4, 8), m) == (None, "model")
-        assert hints.residual_layout((2, 1, 8), m) is None
-        assert hints.tokens_layout((8, 8), m) is None
+        for (b, s), got in zip(MANUAL_RESIDUAL, ref["residual"]):
+            assert got["manual"] == ["data"] and got["moe_manual"]
+            lay = hints.residual_layout((b, s, 8), m)
+            port = None if lay is None else \
+                _entries((lay[0], lay[1], None), 3)
+            assert _same(port, got["specs"][0] if got["specs"] else None,
+                         m), (b, s, port, got)
+        for (b, s, hq, hkv), got in zip(MANUAL_QKV, ref["qkv"]):
+            branch, bq = hints.qkv_layout((b, s, hq, 8), (b, s, hkv, 8), m)
+            assert bq is None
+            if branch == "heads":
+                want = [_entries((None, None, "model", None), 4)] * 3
+            elif branch == "context":
+                want = [_entries((None, "model", None, None), 4)] + \
+                    [_entries((None, None, None, None), 4)] * 2
+            else:
+                want = []
+            assert len(got["specs"]) == len(want), (b, s, hq, hkv, got)
+            for port, r in zip(want, got["specs"]):
+                assert _same(port, r, m), (b, s, hq, hkv, branch, r)
+        for t, got in zip(MANUAL_TOKENS, ref["tokens"]):
+            assert hints.tokens_layout((t, 8), m) is None
+            assert got["specs"] == [], got
+        for a, got in zip(MANUAL_BUFFERS, ref["buffers"]):
+            pinned = hints.moe_buffers_layout(a, m)
+            assert pinned == bool(got["specs"]), (a, got)
+            for r in got["specs"]:
+                assert _same(_entries(("model", None), 2), r, m)
+        assert hints.data_ranks(m) == 1
     with hints.manual_region(("model",)):
         assert hints.qkv_layout((2, 4, 4, 8), (2, 4, 4, 8), m) == \
             (None, None)
@@ -251,6 +340,21 @@ def test_layout_decisions_in_a_manual_region_and_the_gate():
         assert comm is None and not hints.ranks_active()
         assert hints.rank_layout(2, 4) is None
     assert hints.active_mesh() is None and not hints.moe_a2a_enabled()
+    from repro_torch.launch import mesh as mesh_lib
+    base = mesh_lib.init_process_mesh(0, 1, "gloo", str(tmp_path / "store"),
+                                      device="cpu")
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, 1)
+        with hints.sharding_hints(mesh):
+            with hints.manual_region(hints.DATA_AXES):
+                assert hints.ranks_active()
+                lay = hints.rank_layout(3, 4)
+                assert lay.rows == slice(0, 3) and not lay.seq_split
+            with hints.manual_region(hints.DATA_AXES + ("model",)):
+                assert not hints.ranks_active()
+                assert hints.rank_layout(3, 4) is None
+    finally:
+        mesh_lib.destroy(base)
 
 
 def _port_shapes(arch, mesh):

@@ -371,7 +371,7 @@ def test_cache_specs_match_reference():
 
 def test_unported_entry_points_raise(pair, tmp_path):
     """What the port does not run yet refuses, citing ROADMAP: the
-    meta-device dry run (A.5 item 3); a one-process mesh of two devices is
+    meta-device dry run (A.5 item 2); a one-process mesh of two devices is
     refused (data-parallel training runs over a ``ProcessMesh`` of ranks:
     tests/test_torch_mesh_train.py); an unknown segment kind is refused.
     The expert-parallel all-to-all dispatch and the sharding hints that
@@ -392,7 +392,7 @@ def test_unported_entry_points_raise(pair, tmp_path):
     two = HostMesh((torch.device("cpu"), torch.device("cpu")))
     with pytest.raises(ValueError, match="ProcessMesh"):
         model.train_step_deferred(two, params, (), {})
-    with pytest.raises(NotImplementedError, match="A.5 item 3"):
+    with pytest.raises(NotImplementedError, match="A.5 item 2"):
         dryrun.main([])
     cfg = configs.get_config("deepseek-moe-16b", reduced=True)
     p = moe.init_moe(cfg, torch.Generator().manual_seed(0))

@@ -221,12 +221,14 @@ def _rank_main(rank, store, spec):
             keep, g = _group_keep(drop, p, x2, lay)
             rec["drop/keep"] = [g, keep.tolist()]
             # inside a manual region over data: the portable path on
-            # this rank's rows, no all-to-all
+            # this rank's rows (all of them local, positions still split
+            # over model), no all-to-all
             calls = moe_lib.a2a_calls
             with hints.manual_region(("data",)):
-                assert hints.rank_layout(*SHAPE) is None
                 rows = mesh_lib.batch_rows(mesh, SHAPE[0])
-                part, _ = moe_lib.apply_moe(cfg, p, x[rows])
+                n = rows.stop - rows.start
+                part, _, lay = _run_layer(cfg, mesh, p, x[rows], comm)
+                assert lay.rows == slice(0, n) and lay.batch == n
             rec["manual"] = [rows.start, part.tolist()]
             rec["manual_calls"] = moe_lib.a2a_calls - calls
         # the hints without moe_a2a: the scatter path over the ranks
@@ -375,8 +377,9 @@ def test_a2a_gated_off_without_hints(reference, ranks):
 
 def test_a2a_gated_off_inside_manual_region(reference, ranks):
     """Inside a manual region over ``data`` (the deferred train step) the
-    dispatch defers to the portable path on the rank's rows: the
-    reference's ``shard_map`` output, with no all-to-all."""
+    dispatch defers to the portable path on the rank's rows — its local
+    batch, its positions over ``model`` — : the reference's ``shard_map``
+    output, with no all-to-all."""
     _, want = reference
     got, recs = ranks
     rows = SHAPE[0] // 2
