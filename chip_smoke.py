@@ -229,7 +229,17 @@ Phases (each prints its own lines; any failure exits non-zero):
      2^-7), the loss before the third step below the first's, and the
      leaves the same on every rank (norms) equal on both ranks by hash
      after every step;
-  16. print the kernels line, the card's name and power limit, and a last
+  16. the meta-device dry run (launch/dryrun.py: one rank's step on meta
+     tensors over a stand-in mesh, nothing allocated) held against what
+     this run measured, each dry run in a process of its own, all started
+     together: 16a, gemma-2b as phase 11 (Adam, grad_accum 4, remat, 4 x
+     4,096, a 1 x 1 mesh): its arguments equal phase 11's parameter, Adam
+     and batch bytes, its peak within 10 % of the card's peak over one
+     fixed-batch train_step; 16b, phase 15b's setup on ranks 0 and 1 of
+     1 x 2: the parameter bytes a rank and the bytes along model a step
+     equal to each rank's, the peak within 10 % of each rank's; at most
+     60 s;
+  17. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 With ``--four-cards`` (four cards of one host) it builds the kernels and
@@ -242,7 +252,7 @@ the config's Adam on random weights this model's loss rises at the third
 step in one process too), and at its published depth over 1 x 4 (the
 config's Adam, grad_accum 4, remat, 4 x 4,096 tokens, 1 warm-up and 2
 timed steps; its training state, ~107 GB in one process, ~27 GB a
-rank).
+rank), then 16c: the dry run of 15c's four ranks held as in 16b.
 
 Imports torch and the port (src/repro_torch) only.  Needs one CUDA device
 and exits non-zero without one, or without the port beside it.
@@ -250,6 +260,7 @@ and exits non-zero without one, or without the port beside it.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import pathlib
@@ -2748,11 +2759,20 @@ def training_phase(card: str, dev, peak_bf16: float) -> dict:
 
     fixed = next(synthetic_token_batches(cfg.vocab_size, b, s, seed=1))
     fixed = {k: torch.as_tensor(v, device=dev) for k, v in fixed.items()}
+    held = {"params": tree_bytes(params), "opt_state": tree_bytes(opt_state),
+            "batch": tree_bytes(fixed)}
+    gc.collect()
     losses, evals, fixed_ms = [], [], []
     for i in range(FIXED_STEPS):
         torch.cuda.synchronize()
+        if i == 0:
+            # phase 16 holds the dry run's peak against this step's
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params, opt_state, m = model.train_step(params, opt_state, fixed)
+        if i == 0:
+            step_peak = torch.cuda.max_memory_allocated()
         losses.append(float(m["loss"]))
         fixed_ms.append(1e3 * (time.perf_counter() - t0))
         if i in (0, FIXED_STEPS - 1):
@@ -2765,6 +2785,11 @@ def training_phase(card: str, dev, peak_bf16: float) -> dict:
           f"[{card}]", flush=True)
     if not (falls and all(math.isfinite(v) for v in losses + evals)):
         fail("gemma-2b's loss does not fall on a fixed batch")
+    print(f"[11] the first fixed-batch train_step: {base:,} B allocated "
+          f"before it (parameters {held['params']:,} + Adam state "
+          f"{held['opt_state']:,} + batch {held['batch']:,} = "
+          f"{sum(held.values()):,} B), peak {step_peak:,} B [{card}]",
+          flush=True)
 
     def one_step():
         nonlocal params, opt_state
@@ -2777,7 +2802,9 @@ def training_phase(card: str, dev, peak_bf16: float) -> dict:
           f"{busy_us / 1e3:.1f} ms, idle share {idle}; device ms by kind "
           f"{json.dumps(kinds)}; the matrix products by kernel "
           f"{json.dumps(gemms)}; peak {peak:.2f} GB [{card}]", flush=True)
-    out["full"].update(fixed_losses=losses, fixed_ms=fixed_ms,
+    out["full"].update(held_bytes=held, step_base_bytes=base,
+                       step_peak_bytes=step_peak,
+                       fixed_losses=losses, fixed_ms=fixed_ms,
                        loss_after_first=evals[0], loss_after_last=evals[1],
                        wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
                        idle=idle, device_ms=kinds, gemm_ms=gemms,
@@ -3934,6 +3961,7 @@ def tp15_full_rank(rank: int, store: str, spec: dict) -> None:
                "adam_one_process_bytes": 2 * sum(
                    t.numel() for t in tree.leaves(whole)) * 4 + 4,
                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
                "launches": counts()}
         (pathlib.Path(spec["dir"]) / f"{spec['tag']}-rank{rank}.json"
          ).write_text(json.dumps(rec))
@@ -4003,6 +4031,8 @@ def tp15_full(card: str, tmp, tag: str, setup, one=None,
     out = {"wall_s": wall, "ms": ms, "median_ms": med, "losses": losses,
            "share": share, "adam_share": adam_share,
            "peak_gb": [r["peak_gb"] for r in recs],
+           "peak_bytes": [r["peak_bytes"] for r in recs],
+           "resident_bytes": [r["resident_bytes"] for r in recs],
            "model_bytes": [r["steps"][-1]["model_bytes"] for r in recs],
            "model_ms": [r["steps"][-1]["model_ms"] for r in recs]}
     if one is not None:
@@ -4112,6 +4142,127 @@ def tp_train_phase(card: str, dev) -> dict:
     return out
 
 
+DRY16_TOL = 0.10               # [16]: a dry-run peak within 10 % of the card's
+DRY16_BUDGET_S = 60.0          # [16]: the phase's seconds
+DRY16_TIMEOUT_S = 300
+_DRY16 = r"""
+import dataclasses, json, sys
+from repro_torch.configs import InputShape, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import stand_in_mesh
+job = json.loads(sys.argv[1])
+cfg = dataclasses.replace(get_config(job["arch"]), grad_accum=job["accum"])
+shape = InputShape("train", job["seq"], job["batch"], "train")
+with stand_in_mesh(tuple(job["dims"]), job["rank"]) as mesh:
+    res = dryrun.measure(cfg, shape, mesh)
+print("RESULT " + json.dumps(res))
+"""
+
+
+def dry_runs(jobs: list) -> list:
+    """Each job's dry run (``launch.dryrun.measure`` on ``meta``, one rank
+    of a stand-in mesh) in a process of its own, all started together, so
+    that no stand-in group is left in this one; their records, in order.
+    A run that fails or outlives ``DRY16_TIMEOUT_S`` fails the phase."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _DRY16, json.dumps(job)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=str(ROOT), env=env)
+             for job in jobs]
+    out = []
+    try:
+        for proc, job in zip(procs, jobs):
+            stdout, stderr = proc.communicate(timeout=DRY16_TIMEOUT_S)
+            found = [ln for ln in stdout.splitlines()
+                     if ln.startswith("RESULT ")]
+            if proc.returncode or not found:
+                fail(f"[16] the dry run {job} failed: {stderr[-3000:]}")
+            out.append(json.loads(found[-1][len("RESULT "):]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def dry_check(tag: str, what: str, predicted: int, measured: int,
+              exact: bool, card: str) -> bool:
+    """Prints the dry run's figure beside the card's; equal, or within
+    ``DRY16_TOL`` of it."""
+    gap = (predicted - measured) / measured
+    ok = predicted == measured if exact else abs(gap) <= DRY16_TOL
+    limit = "equal" if exact else f"within {DRY16_TOL:.0%}"
+    print(f"[{tag}] {what}: dry run {predicted:,} B, card {measured:,} B, "
+          f"gap {gap:+.4%} ({limit}) {'ok' if ok else 'FAIL'} [{card}]",
+          flush=True)
+    return ok
+
+
+def dry_jobs(tag: str, setup) -> list:
+    """The dry runs of a ``TP15_*`` setup, one a rank."""
+    arch, world, model_axis, _, (b, s), accum = setup[:6]
+    return [{"tag": tag, "arch": arch, "accum": accum, "batch": b, "seq": s,
+             "dims": [world // model_axis, model_axis], "rank": r}
+            for r in range(world)]
+
+
+def dry_rank_checks(tag: str, runs: list, ranks: dict, card: str) -> bool:
+    """Each rank's parameter bytes and bytes along ``model`` a step equal
+    to what the rank processes of phase 15 measured (``tp15_full``'s
+    record ``ranks``), its peak within ``DRY16_TOL`` of theirs."""
+    ok = True
+    for r, res in enumerate(runs):
+        ok &= dry_check(f"{tag} rank {r}", "parameter bytes",
+                        res["memory"]["arguments"]["params"],
+                        ranks["resident_bytes"][r], True, card)
+        ok &= dry_check(f"{tag} rank {r}", "bytes along model a step",
+                        res["collectives"]["model_bytes"],
+                        ranks["model_bytes"][r], True, card)
+        ok &= dry_check(f"{tag} rank {r}", "peak of a step",
+                        res["memory"]["peak_bytes"], ranks["peak_bytes"][r],
+                        False, card)
+    return ok
+
+
+def dryrun_phase(card: str, train: dict, tp: dict) -> dict:
+    """Phase 16: the meta-device dry run's predictions against what this
+    run measured on the card (module docstring, item 16)."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    b, s = TRAIN_BATCH
+    jobs = [{"tag": "16a", "arch": TRAIN_ARCH,
+             "accum": get_config(TRAIN_ARCH).grad_accum, "batch": b,
+             "seq": s, "dims": [1, 1], "rank": 0}] + dry_jobs("16b",
+                                                          TP15_FULL)
+    runs = dry_runs(jobs)
+    for job, res in zip(jobs, runs):
+        print(f"[{job['tag']}] dry run {job['arch']} {job['batch']} x "
+              f"{job['seq']}, grad_accum {job['accum']}, rank {job['rank']} "
+              f"of {' x '.join(map(str, job['dims']))}: stand-ins "
+              f"{res['lower_s']:.1f} s, step {res['compile_s']:.1f} s, "
+              f"{res['cost']['flops']:.4g} FLOPs, memory "
+              f"{json.dumps(res['memory'])}, collectives "
+              f"{json.dumps(res['collectives'])}", flush=True)
+    full = train["full"]
+    ok = dry_check("16a", "arguments (parameters + Adam state + batch)",
+                   runs[0]["memory"]["argument_bytes"],
+                   sum(full["held_bytes"].values()), True, card)
+    ok &= dry_check("16a", "peak of one fixed-batch train_step",
+                    runs[0]["memory"]["peak_bytes"], full["step_peak_bytes"],
+                    False, card)
+    ok &= dry_rank_checks("16b", runs[1:], tp["full"], card)
+    seconds = time.perf_counter() - t_phase
+    print(f"[16] dry-run phase {seconds:.1f} s (budget "
+          f"{DRY16_BUDGET_S:g} s) [{card}]", flush=True)
+    if not ok:
+        fail("16: a dry-run prediction disagrees with the card")
+    if seconds > DRY16_BUDGET_S:
+        fail(f"16: the dry-run phase took {seconds:.1f} s")
+    return {"runs": runs, "phase_s": seconds}
+
+
 def four_card_mesh_phase(card: str) -> None:
     """Phases 14c and 15c, where four cards are given (``--four-cards``;
     not part of the run with no arguments): the full-width
@@ -4129,7 +4280,13 @@ def four_card_mesh_phase(card: str) -> None:
         one = tp15_one_process(card, "15c", TP15_FOUR_CUT,
                                torch.device("cuda", 0), TP15_FOUR_CUT[6])
         tp15_full(card, tmp, "15c-cut", TP15_FOUR_CUT, one)
-        tp15_full(card, tmp, "15c", TP15_FOUR)
+        ranks = tp15_full(card, tmp, "15c", TP15_FOUR)
+    t0 = time.perf_counter()
+    if not dry_rank_checks("16c", dry_runs(dry_jobs("16c", TP15_FOUR)),
+                           ranks, card):
+        fail("16c: a dry-run prediction disagrees with the cards")
+    print(f"[16c] dry-run phase {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
 
 
 def main() -> int:
@@ -4502,7 +4659,7 @@ def main() -> int:
     families = families_phase(card, dev)
 
     # ---- 11. language-model training: no kernel launched -------------------
-    training_phase(card, dev, peak_bf16)
+    train = training_phase(card, dev, peak_bf16)
 
     # ---- 12. the invariant linter on the card ------------------------------
     analysis_phase(cfg, admm, g, card, dev)
@@ -4514,9 +4671,12 @@ def main() -> int:
     tp = tensor_parallel_phase(card, dev)
 
     # ---- 15. the tensor-parallel training step over the mesh ---------------
-    tp_train_phase(card, dev)
+    tp_train = tp_train_phase(card, dev)
 
-    # ---- 16. the kernels line, the card, the result ------------------------
+    # ---- 16. the meta-device dry run against phases 11 and 15b -------------
+    dryrun_phase(card, train, tp_train)
+
+    # ---- 17. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",

@@ -1,0 +1,86 @@
+"""Bytes live while a step runs, counted by storage.
+
+The counterpart of XLA's ``memory_analysis`` for an eager step: a
+``TorchDispatchMode`` that sees every aten op's outputs and counts each new
+storage's bytes from when an op makes it until the last tensor on it dies
+(a weak reference to the storage).  Views share their base's storage and
+an in-place op returns a storage already counted, so neither adds bytes.
+It reads shapes only, so it counts a step on ``meta`` tensors as it
+counts the same step on real ones: ``peak`` is what
+``torch.cuda.max_memory_allocated`` would read for a process that holds
+only this step, short of the allocator's rounding and a kernel's own
+scratch.
+
+    tracker = MemoryTracker()
+    argument_bytes = tracker.hold(params, opt_state, batch)
+    with tracker:
+        out = step()
+    tracker.peak, tracker.live
+"""
+from __future__ import annotations
+
+import functools
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.analysis.trace import tensors_in
+
+
+def storage_bytes(*trees) -> int:
+    """The bytes of the distinct storages under the tensors of ``trees``."""
+    seen: dict[int, int] = {}
+    for t in tensors_in(list(trees)):
+        st = t.untyped_storage()
+        seen[id(st)] = st.nbytes()
+    return sum(seen.values())
+
+
+class MemoryTracker(TorchDispatchMode):
+    """``live``: the bytes of the storages counted and not yet freed;
+    ``peak``: the most of them at once, each op's outputs counted while
+    its inputs are still held; ``at_peak``: what ``watch()`` (a count of
+    some bytes of interest, e.g. a cache's) read when ``peak`` was
+    reached."""
+
+    def __init__(self, watch=None):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self.at_peak = 0
+        self._watch = watch
+        self._sizes: dict[int, int] = {}
+        self._refs: dict[int, weakref.ref] = {}
+
+    def hold(self, *trees) -> int:
+        """Count the storages under the tensors of ``trees`` as live (a
+        step's arguments); returns their bytes, each storage once."""
+        before = self.live
+        for t in tensors_in(list(trees)):
+            self._track(t)
+        return self.live - before
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tensors_in(out):
+            self._track(t)
+        return out
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key, n = id(st), st.nbytes()
+        old = self._sizes.get(key)
+        if old is None:
+            self._refs[key] = weakref.ref(st, functools.partial(self._freed,
+                                                                key))
+        self._sizes[key] = n
+        self.live += n - (old or 0)
+        if self.live > self.peak:
+            self.peak = self.live
+            if self._watch is not None:
+                self.at_peak = self._watch()
+
+    def _freed(self, key: int, _ref) -> None:
+        self.live -= self._sizes.pop(key, 0)
+        self._refs.pop(key, None)

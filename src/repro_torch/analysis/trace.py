@@ -36,7 +36,6 @@ from typing import Any, Iterable, Iterator, Mapping, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 from torch.utils.weak import WeakIdKeyDictionary
 
 RECORDER: "Optional[Recorder]" = None
@@ -183,6 +182,19 @@ def _product_flops(e: Event) -> float:
     return 2.0 * out * k
 
 
+def tensors_in(x) -> Iterator[torch.Tensor]:
+    """The tensors in ``x``, a tensor or nested tuples, lists and dicts
+    of them (an op's arguments and outputs), in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from tensors_in(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from tensors_in(y)
+
+
 class Recorder:
     """Collects a ``Trace``.  Use ``record()``; the port's hooks call
     ``kernel``, ``transport`` and ``shard_sum`` while it is active."""
@@ -204,8 +216,7 @@ class Recorder:
                           t.device.type)
 
     def metas(self, xs: Iterable[Any]) -> tuple[TensorMeta, ...]:
-        return tuple(self.meta(x) for x in tree_leaves(list(xs))
-                     if isinstance(x, torch.Tensor))
+        return tuple(self.meta(x) for x in tensors_in(list(xs)))
 
     # -- events --------------------------------------------------------------
 

@@ -1101,6 +1101,8 @@ class ProcessTransport:
 # ---------------------------------------------------------------------------
 
 BUCKET_BYTES = 128 << 20
+# MeshCollectives' byte counters, ``<name>_bytes``
+COUNTERS = ("model", "a2a", "line", "sum", "sent")
 
 
 def _pack(tensors: Sequence[Tensor]) -> Tensor:
@@ -1140,7 +1142,8 @@ class MeshCollectives:
     line (``line_bytes``: the FSDP leg's slices over data, an
     all-to-all's token groups over the whole mesh), the host seconds in
     each (``sum_s``, ``shift_s``, ``a2a_s``, ``model_s``, ``line_s``) and,
-    of them, in staging copies (``staging_s``).
+    of them, in staging copies (``staging_s``), and the collectives that
+    moved the bytes of each counter (``calls``).
 
     Gradients (the tensor-parallel training step): ``gather_line`` /
     ``gather_model`` take ``back``, the caller's word for what the ranks do
@@ -1170,12 +1173,20 @@ class MeshCollectives:
     model_s: float = 0.0
     line_s: float = 0.0
     staging_s: float = 0.0
+    calls: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COUNTERS, 0))
 
     def __post_init__(self):
         from repro_torch.launch.mesh import data_axes
         self.data = self.mesh.axis(*data_axes(self.mesh))
         self.model = self.mesh.axis("model")
         self._pinned: dict = {}
+
+    def _count(self, counter: str, nbytes: int) -> None:
+        """``nbytes`` more in ``<counter>_bytes``, one more call."""
+        setattr(self, f"{counter}_bytes",
+                getattr(self, f"{counter}_bytes") + nbytes)
+        self.calls[counter] += 1
 
     def _staged(self, device: torch.device) -> bool:
         return self.mesh.backend == "gloo" and device.type == "cuda"
@@ -1257,7 +1268,7 @@ class MeshCollectives:
         for bucket in buckets:
             flat = torch.cat([tensors[i].detach().reshape(-1)[a:b].float()
                               for i, a, b in bucket])
-            self.sum_bytes += flat.numel() * 4
+            self._count("sum", flat.numel() * 4)
             if self.data.world_size > 1:
                 send = self._host(flat, "send") if stage else flat
                 parts = self._parts(send)
@@ -1298,7 +1309,7 @@ class MeshCollectives:
             buf = _pack(payload)
             if stage:
                 buf = self._host(buf)
-            self.sent_bytes += buf.numel()
+            self._count("sent", buf.numel())
             ops.append(dist.P2POp(dist.isend, buf, ranks[peer],
                                   tag=2 * tag + direction))
         for like, peer, direction in ((from_prev, m - 1, 0),
@@ -1356,10 +1367,10 @@ class MeshCollectives:
             parts = [torch.empty_like(flat) for _ in range(n)]
             dist.all_gather(parts, flat, group=line.group)
         if line.ranks == self.model.ranks:
-            self.model_bytes += (n - 1) * flat.numel()
+            self._count("model", (n - 1) * flat.numel())
             self.model_s += time.perf_counter() - t0
         else:
-            self.line_bytes += (n - 1) * flat.numel()
+            self._count("line", (n - 1) * flat.numel())
             self.line_s += time.perf_counter() - t0
         return [p.view(x.dtype).reshape(x.shape) for p in parts]
 
@@ -1440,13 +1451,13 @@ class MeshCollectives:
             dist.all_to_all_single(out, flat, group=line.group)
         sent = flat.numel() * (n - 1) // n
         if counted == "a2a":
-            self.a2a_bytes += sent
+            self._count("a2a", sent)
             self.a2a_s += time.perf_counter() - t0
         elif counted == "line":
-            self.line_bytes += sent
+            self._count("line", sent)
             self.line_s += time.perf_counter() - t0
         else:
-            self.model_bytes += sent
+            self._count("model", sent)
             self.model_s += time.perf_counter() - t0
         return out.view(x.dtype).reshape(x.shape)
 
@@ -1511,8 +1522,8 @@ class MeshCollectives:
         buf = self._host(x) if stage else x.detach().contiguous().clone()
         dist.broadcast(buf, src=line.ranks[index], group=line.group)
         if line.rank == index:
-            self.model_bytes += (line.world_size - 1) * buf.numel() \
-                * buf.element_size()
+            self._count("model", (line.world_size - 1) * buf.numel()
+                        * buf.element_size())
         out = self._device(buf, x.device) if stage else buf
         self.model_s += time.perf_counter() - t0
         return out

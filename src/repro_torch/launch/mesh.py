@@ -17,6 +17,7 @@ unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -271,6 +272,39 @@ def make_production_mesh(*, multi_pod: bool = False,
                                 seconds=DEFAULT_TIMEOUT_S))
     base = ProcessMesh(rank, world, backend, dev, dist.group.WORLD)
     return _grid_mesh(base, names, dims)
+
+
+@contextlib.contextmanager
+def stand_in_mesh(dims: tuple[int, ...], rank: int = 0,
+                  device: "str | torch.device" = "meta"):
+    """Rank ``rank`` of a ``data`` × ``model`` (``pod`` × ``data`` ×
+    ``model`` for three ``dims``) mesh whose other ranks do not exist:
+    torch's fake process group, whose collectives return at once and
+    leave their outputs as they are (on ``meta`` tensors, nothing to
+    leave).  The axes, sub-groups and coordinates are the real ones
+    (``_grid_mesh``), so ``MeshCollectives`` counts what a rank of a real
+    mesh would send.  Refused in a process that is already in a group;
+    the group is destroyed on the way out."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError("a stand-in mesh needs a process with no "
+                           "default process group; this one is in a group")
+    names = ("pod", "data", "model")[-len(dims):]
+    world = math.prod(dims)
+    if len(dims) not in (2, 3) or not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of a {' x '.join(map(str, dims))} "
+                         f"mesh: dims are (data, model) or (pod, data, "
+                         f"model), and 0 <= rank < {world}")
+    # registers the "fake" backend
+    from torch.testing._internal.distributed import fake_pg
+    dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        base = ProcessMesh(rank, world, "fake", torch.device(device),
+                           dist.group.WORLD)
+        yield _grid_mesh(base, names, tuple(dims))
+    finally:
+        dist.destroy_process_group()
 
 
 def make_rank_mesh(mesh: ProcessMesh, model_axis: int = 1) -> ProcessMesh:

@@ -49,7 +49,7 @@ from repro_torch.models.layers import Params
 from repro_torch.optim import optimizers
 from repro_torch.sharding import hints, partition
 from repro_torch.util import tree
-from repro_torch.util.device import resolve_device
+from repro_torch.util.device import resolve_device, shapes_only
 
 # vision prefix length comes from cfg.frontend.num_embeddings (stub ViT)
 AUDIO_MEMORY = 1536        # encoder frames held as decode memory
@@ -559,9 +559,10 @@ class Model:
             return transformer.init_stack_cache(self.cfg, batch, max_len,
                                                 rolling, memory_len,
                                                 resolve_device(device))
-        full = transformer.init_stack_cache(self.cfg, batch, max_len,
-                                            rolling, memory_len,
-                                            torch.device("meta"))
+        with shapes_only():
+            full = transformer.init_stack_cache(self.cfg, batch, max_len,
+                                                rolling, memory_len,
+                                                torch.device("meta"))
         specs = partition.cache_specs(self.cfg, mesh, full)
         return partition.local_filled(full, specs, mesh,
                                       resolve_device(device),
@@ -583,11 +584,12 @@ class Model:
         found = {}
         for n in {n * f for n in lengths or {1}
                   for f in (1, data, hints.dp_size(mesh))}:
-            full = transformer.init_stack_cache(self.cfg, batch, n, rolling,
-                                                memory_len,
-                                                torch.device("meta"))
-            specs = partition.cache_specs(self.cfg, mesh, full)
-            local = partition.local_filled(full, specs, mesh, "meta", {})
+            with shapes_only():
+                full = transformer.init_stack_cache(
+                    self.cfg, batch, n, rolling, memory_len,
+                    torch.device("meta"))
+                specs = partition.cache_specs(self.cfg, mesh, full)
+                local = partition.local_filled(full, specs, mesh, "meta", {})
             if [t.shape for t in tree.leaves(local)] == have:
                 found[repr(specs)] = specs
         if len(found) != 1:
@@ -682,10 +684,11 @@ def _param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree of ``cfg`` as ``meta`` tensors (from an init
     under ``FakeTensorMode``: nothing is drawn)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
-        fake = Model(cfg).init(0, "cpu")
-    return tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                               device="meta"), fake)
+    with shapes_only():
+        with FakeTensorMode():
+            fake = Model(cfg).init(0, "cpu")
+        return tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                   device="meta"), fake)
 
 
 def make_model(cfg: ModelConfig) -> Model:

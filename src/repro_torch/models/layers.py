@@ -212,6 +212,12 @@ def _f32_weight(w: torch.Tensor) -> torch.Tensor:
     return copy
 
 
+def f32_copy_bytes() -> int:
+    """The bytes of the f32 unembedding copy ``_f32_weight`` holds now."""
+    held = _f32_memo.get("w")
+    return 0 if held is None else held[2].numel() * 4
+
+
 def unembed(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """f32 logits, as the reference's ``preferred_element_type=f32``: the
     operands go up to f32 before the product (a bf16 ``matmul`` would round

@@ -240,7 +240,7 @@ def _apply_moe_scatter(cfg: ModelConfig, p: Params, x: torch.Tensor, lay
     flat_expert = expert_ids.reshape(t * k)
     rank = ranks(flat_expert)
     if n_dp > 1:
-        counts = torch.bincount(flat_expert, minlength=e).to(probs.dtype)
+        counts = expert_counts(flat_expert, e).to(probs.dtype)
         stats = comm.gather_line(torch.cat([counts, probs.sum(0)])[None],
                                  0, comm.data)             # (n_dp, 2E)
         rank = rank + stats[:r, :e].sum(0).long()[flat_expert]
@@ -311,6 +311,16 @@ def ranks(flat_expert: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+def expert_counts(flat_expert: torch.Tensor, e: int) -> torch.Tensor:
+    """The (token, slot) pairs routed to each of the ``e`` experts (int64):
+    ``bincount(flat_expert, minlength=e)`` as a scatter-add of ones,
+    whose output shape does not hang on the ids' values (so it also runs
+    on ``meta`` tensors)."""
+    return torch.zeros(e, dtype=torch.int64, device=flat_expert.device
+                       ).index_add_(0, flat_expert, torch.ones_like(
+                           flat_expert, dtype=torch.int64))
+
+
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, lay=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss).
@@ -333,7 +343,7 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, lay=None
     cap = capacity(cfg, t if shards is None else t * shards[0])
     rank = ranks(flat_expert)
     if shards is not None:
-        counts = torch.bincount(flat_expert, minlength=e)
+        counts = expert_counts(flat_expert, e)
         rank = rank + shards[1](counts)[flat_expert]
     keep = rank < cap
 

@@ -1,6 +1,8 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -43,3 +45,14 @@ def rank_device(rank: int, device: "str | torch.device | None" = None
                                f"pass device='cpu' to run on the CPU")
         device = f"cuda:{rank % torch.cuda.device_count()}"
     return resolve_device(device)
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Within: tensors made only for their shapes (whole ``meta`` trees
+    that a placement's specs are derived from) are made outside the active
+    dispatch modes, so that a memory tracker, the op trace or a FLOP
+    counter over a step does not count them as the step's work."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        yield

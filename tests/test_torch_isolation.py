@@ -59,7 +59,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                  "repro_torch.analysis.rules.memory",
                  "repro_torch.analysis.rules.precision",
                  "repro_torch.launch.roofline",
-                 "repro_torch.launch.analyze"):
+                 "repro_torch.launch.analyze",
+                 "repro_torch.analysis.memory",
+                 "repro_torch.launch.dryrun"):
         assert name in proc.stdout.split(), name
 
 

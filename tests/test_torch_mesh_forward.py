@@ -26,7 +26,10 @@ placement.  deepseek-moe-16b also runs on 2 × 2 under the hints without
 ``moe_a2a`` (the scatter dispatch with the whole batch's capacity).  The
 ranks also check that ``Model.init(mesh=...)`` gives the slices of the
 one-process init bit for bit, and that ``partition.gather`` of the placed
-tree is the tree.  Held: every logit within 1e-5 · max of the reference's.
+tree is the tree.  Held: every logit within 1e-5 · max of the reference's;
+and each rank's bytes of the prefill and of one decode step, counter by
+counter, equal to what the meta-device dry run of the same calls counts
+for that rank (``launch.dryrun``, in this process).
 """
 import dataclasses
 import json
@@ -40,7 +43,10 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.configs import InputShape
 from repro_torch.convert import model_params_to_rank
+from repro_torch.core.messages import COUNTERS
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.build import make_model
 from repro_torch.sharding import hints, partition
@@ -141,6 +147,15 @@ def _bits(tree_a, tree_b) -> bool:
                zip(tree.leaves(tree_a), tree.leaves(tree_b)))
 
 
+def _counters(comm) -> dict:
+    return {c: getattr(comm, f"{c}_bytes") for c in COUNTERS}
+
+
+def _since(comm, before: dict) -> dict:
+    """The bytes each counter of ``comm`` moved since ``before``."""
+    return {c: n - before[c] for c, n in _counters(comm).items()}
+
+
 def _rank_main(rank, store, spec):
     torch.set_num_threads(1)
     base = mesh_lib.init_process_mesh(rank, WORLD, "gloo", store,
@@ -171,13 +186,18 @@ def _rank_main(rank, store, spec):
             with hints.sharding_hints(mesh, moe_a2a=variant != "portable") \
                     as comm:
                 spec_l = partition.logits_spec(cfg, mesh, B)
+                before = _counters(comm)
                 logits, caches = model.prefill(local, batch, MAX_LEN)
+                counted = {"prefill": _since(comm, before)}
                 out[f"{case}/prefill"] = partition.gather_leaf(
                     logits, spec_l, mesh, comm).numpy()
                 if arch in SPLIT:
                     for t in range(STEPS):
+                        before = _counters(comm)
                         logits, caches = model.decode_step(
                             local, caches, steps[:, t:t + 1])
+                        if t == 0:
+                            counted["decode"] = _since(comm, before)
                         out[f"{case}/decode/{t}"] = partition.gather_leaf(
                             logits, spec_l, mesh, comm).numpy()
                 # placement: init(mesh=) slices the one-process init, and
@@ -192,7 +212,8 @@ def _rank_main(rank, store, spec):
                         partition.place(drawn, specs, mesh), specs, mesh,
                         comm), drawn),
                     "a2a_bytes": comm.a2a_bytes,
-                    "model_bytes": comm.model_bytes}
+                    "model_bytes": comm.model_bytes,
+                    "counted": counted}
         partition.FSDP_THRESHOLD = default
         if rank == 0:
             np.savez(os.path.join(spec["out"], "ranks.npz"), **out)
@@ -319,3 +340,32 @@ def test_placement_is_the_one_process_init(ranks, arch, mesh, variant):
         assert rec[case]["init_slices"] and rec[case]["gather_place"], case
         assert rec[case]["model_bytes"] > 0
         assert (rec[case]["a2a_bytes"] > 0) == a2a, case
+
+
+@pytest.mark.parametrize("arch,mesh,variant",
+                         [run for run in RUNS if run[0] in SPLIT])
+def test_dry_run_counts_the_ranks_bytes(ranks, arch, mesh, variant):
+    """The meta-device dry run (``launch.dryrun``: each rank of a stand-in
+    mesh of the same shape, nothing allocated) of the prefill's forward
+    and of one decode step from its caches counts, on every rank, the
+    bytes that rank's collectives counted in the spawn, counter by
+    counter (along ``model``, the all-to-all, the other lines)."""
+    _, records = ranks
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                              **VARIANT_CFG.get(variant, {}))
+    shapes = {"prefill": InputShape("prefill", S, B, "prefill"),
+              "decode": InputShape("decode", MAX_LEN, B, "decode")}
+    dims = (WORLD // MESHES[mesh], MESHES[mesh])
+    case = "/".join(filter(None, (arch, mesh, variant)))
+    default = partition.FSDP_THRESHOLD
+    partition.FSDP_THRESHOLD = 0 if variant == "fsdp" else default
+    try:
+        for rank, rec in enumerate(records):
+            for step, shape in shapes.items():
+                with mesh_lib.stand_in_mesh(dims, rank) as stand_in:
+                    got = dryrun.count_collectives(
+                        cfg, shape, stand_in, optimized=variant != "portable")
+                assert {c: got[f"{c}_bytes"] for c in COUNTERS} == \
+                    rec[case]["counted"][step], (rank, step, got)
+    finally:
+        partition.FSDP_THRESHOLD = default

@@ -370,9 +370,8 @@ def test_cache_specs_match_reference():
 # ---------------------------------------------------------------------------
 
 def test_unported_entry_points_raise(pair, tmp_path):
-    """What the port does not run yet refuses, citing ROADMAP: the
-    meta-device dry run (A.5 item 2); a one-process mesh of two devices is
-    refused (data-parallel training runs over a ``ProcessMesh`` of ranks:
+    """What the port does not run refuses: a one-process mesh of two
+    devices is refused (data-parallel training runs over a ``ProcessMesh`` of ranks:
     tests/test_torch_mesh_train.py); an unknown segment kind is refused.
     The expert-parallel all-to-all dispatch and the sharding hints that
     gate it now run: here over a group of one rank (1 × 1), where the
@@ -380,8 +379,8 @@ def test_unported_entry_points_raise(pair, tmp_path):
     tests/test_torch_moe_a2a.py, tests/test_torch_mesh_forward.py).
     (Every segment kind and the encoder run: tests/test_torch_families.py;
     training on one device: tests/test_torch_train_step.py,
-    tests/test_torch_training.py.)"""
-    from repro_torch.launch import dryrun
+    tests/test_torch_training.py; the meta-device dry run:
+    tests/test_torch_dryrun.py.)"""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import moe
     from repro_torch.sharding import hints
@@ -392,8 +391,6 @@ def test_unported_entry_points_raise(pair, tmp_path):
     two = HostMesh((torch.device("cpu"), torch.device("cpu")))
     with pytest.raises(ValueError, match="ProcessMesh"):
         model.train_step_deferred(two, params, (), {})
-    with pytest.raises(NotImplementedError, match="A.5 item 2"):
-        dryrun.main([])
     cfg = configs.get_config("deepseek-moe-16b", reduced=True)
     p = moe.init_moe(cfg, torch.Generator().manual_seed(0))
     xm = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()

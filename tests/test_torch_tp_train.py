@@ -34,7 +34,10 @@ gathers the new parameters whole.  Held:
     routers) bit for bit equal on every rank;
   * the bytes sent along ``model`` a step equal to the arithmetic from the
     shapes (forward, remat recompute, backward), and ``sum_data`` called
-    once a step whatever ``grad_accum`` is.
+    once a step whatever ``grad_accum`` is;
+  * the bytes each rank counted along ``model``, along the other lines and
+    summed over ``data`` equal to what the meta-device dry run of the same
+    step counts for that rank (``launch.dryrun``, in this process).
 
 The same spawn holds each differentiable collective against autograd of the
 same function written whole in one process (on the 2 × 2 mesh's model
@@ -53,8 +56,10 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.configs import InputShape
 from repro_torch.convert import model_params_to_rank
 from repro_torch.core.messages import MeshCollectives
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.build import make_model
 from repro_torch.sharding import partition
@@ -428,7 +433,8 @@ def _rank_main(rank, store, spec):
                                              inner(t, **kw))[1]
             new, opt, mets = model.train_step_deferred(mesh, local, opt,
                                                        batch, comm=comm)
-            sent = comm.model_bytes
+            sent = {c: getattr(comm, f"{c}_bytes")
+                    for c in ("model", "line", "sum")}
             specs = model.param_specs(mesh)
             whole = partition.gather(new, specs, mesh, comm)
             case = _case(arch, accum, name, variant)
@@ -453,7 +459,9 @@ def _rank_main(rank, store, spec):
                 "metrics": {k: float(v) for k, v in mets.items()},
                 "same_hash": _hash([leaves[p] for p in same]),
                 "n_same": len(same),
-                "model_bytes": sent,
+                "model_bytes": sent["model"],
+                "line_bytes": sent["line"],
+                "sum_bytes": sent["sum"],
                 "sum_data_calls": len(calls),
                 "param_bytes": sum(t.numel() * t.element_size()
                                    for t in tree.leaves(local)),
@@ -649,6 +657,30 @@ def test_bytes_along_model_are_the_arithmetic(ranks, arch, accum, mesh):
         assert r[_case(arch, accum, mesh, "")]["model_bytes"] == want, \
             (arch, accum, mesh, r[_case(arch, accum, mesh, "")]
              ["model_bytes"], want)
+
+
+@pytest.mark.parametrize("arch,accum,mesh,variant", CASES)
+def test_dry_run_counts_the_ranks_bytes(ranks, arch, accum, mesh, variant):
+    """The meta-device dry run of the same step (``launch.dryrun``: each
+    rank of a stand-in mesh of the same shape, nothing allocated) counts
+    the bytes each gloo rank counted along ``model``, along the other
+    lines and summed over ``data``."""
+    _, records = ranks
+    cfg = _model(arch, accum, variant).cfg
+    shape = InputShape("train", S, B, "train")
+    dims = (WORLD // MESHES[mesh], MESHES[mesh])
+    default = partition.FSDP_THRESHOLD
+    partition.FSDP_THRESHOLD = 0 if variant == "fsdp" else default
+    try:
+        for rank, rec in enumerate(records):
+            with mesh_lib.stand_in_mesh(dims, rank) as stand_in:
+                got = dryrun.count_collectives(cfg, shape, stand_in)
+            want = rec[_case(arch, accum, mesh, variant)]
+            assert [got[f"{c}_bytes"] for c in ("model", "line", "sum")] \
+                == [want[f"{c}_bytes"] for c in ("model", "line", "sum")], \
+                (rank, got, want)
+    finally:
+        partition.FSDP_THRESHOLD = default
 
 
 @pytest.mark.parametrize("pair", ["gather_scatter", "scatter_gather",
