@@ -239,7 +239,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      1 x 2: the parameter bytes a rank and the bytes along model a step
      equal to each rank's, the peak within 10 % of each rank's; at most
      60 s;
-  17. print the kernels line, the card's name and power limit, and a last
+  17. MLA (deepseek-v3-671b) and the Mamba-2 SSD mixer split over model
+     on the rank's heads, over gloo ranks sharing the card under
+     sharding_hints(mesh, moe_a2a=True).  17a, 4 ranks as 2 x 2 and
+     1 x 4: the reduced f32 deepseek-v3-671b (the flash kernel on the
+     rank's heads) and mamba2-1.3b (the SSD kernel on them), prefill and
+     4 decode steps on the card against the same ranks on the CPU, as
+     14a; 17b, mamba2-1.3b at its published widths and depth (bf16) over
+     1 x 2: a 2 x 4,096 prefill through the SSD kernel (48 launches a
+     rank, each on 32 of the 64 heads, counts set to 0 just before) and
+     one training step (the config's Adam, grad_accum 2); 17c,
+     deepseek-v3-671b at its published widths cut to its three dense
+     layers plus the multi-token-prediction layer (bf16, ~4.3 B
+     parameters) over 1 x 2: a 2 x 2,048 prefill through the flash
+     kernel (3 launches a rank, each on 64 of the 128 heads), 4 decode
+     steps on the rank's slices of the latent cache and one SGD training
+     step (grad_accum 2).  17b / 17c hold the parameter bytes a rank
+     (its shards' by param_specs, at most 55 % of one process's), the
+     logits within 5e-2 of max and the loss within 2^-7 of one process's
+     on the card from the same seed and tokens; 17c's parameter bytes and
+     bytes along model a training step equal to, and its peak within 10 %
+     of, the dry run of the same step on each rank;
+  18. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 With ``--four-cards`` (four cards of one host) it builds the kernels and
@@ -3438,11 +3459,11 @@ def mesh14_compare(got, want) -> dict:
 
 
 def mesh14_reduced_rank(rank: int, store: str, spec: dict) -> None:
-    """Phase 14a, one of 4 ranks (gloo, the one card) as 2 x 2 and 1 x 4:
-    each reduced f32 model's prefill forward through the flash kernel and
-    4 decode steps on the card and on the CPU, from the same slices, and
-    decode against the mesh forward over the same tokens; its record to
-    ``spec["dir"]``."""
+    """Phase 14a / 17a, one of 4 ranks (gloo, the one card) as 2 x 2 and
+    1 x 4: each reduced f32 model of ``spec["archs"]`` — its prefill
+    forward through its kernels (flash, SSD) and 4 decode steps on the
+    card and on the CPU, from the same slices, and decode against the
+    mesh forward over the same tokens; its record to ``spec["dir"]``."""
     import dataclasses
 
     import torch
@@ -3461,7 +3482,7 @@ def mesh14_reduced_rank(rank: int, store: str, spec: dict) -> None:
         b, s = MESH14_SEQ
         for name, model_axis in MESH14_MESHES.items():
             mesh = mesh_lib.make_rank_mesh(base, model_axis)
-            for arch in MESH14_REDUCED:
+            for arch in spec["archs"]:
                 cfg = dataclasses.replace(get_config(arch, reduced=True),
                                           dtype="float32")
                 model = make_model(cfg)
@@ -3490,7 +3511,8 @@ def mesh14_reduced_rank(rank: int, store: str, spec: dict) -> None:
                                                     {"tokens": steps})
                     after = counts()
                     outs[where] = (logits, torch.stack(dec, 1), whole)
-                    res[f"{where}_flash"] = after["flash"] - before["flash"]
+                    for key in ("flash", "ssd"):
+                        res[f"{where}_{key}"] = after[key] - before[key]
                     res[f"{where}_offset"] = (after["flash_offset"]
                                               - before["flash_offset"])
                 card, cpu = outs["card"], outs["cpu"]
@@ -3501,8 +3523,8 @@ def mesh14_reduced_rank(rank: int, store: str, spec: dict) -> None:
                 rec["cases"][f"{arch} {name}"] = res
                 del on_card, on_cpu, outs
         rec["launches"] = counts()
-        (pathlib.Path(spec["dir"]) / f"r14a-rank{rank}.json").write_text(
-            json.dumps(rec))
+        (pathlib.Path(spec["dir"]) / f"{spec['tag']}-rank{rank}.json"
+         ).write_text(json.dumps(rec))
     finally:
         mesh_lib.destroy(base)
 
@@ -3631,54 +3653,69 @@ def mesh14_full_rank(rank: int, store: str, spec: dict) -> None:
         mesh_lib.destroy(base)
 
 
+def reduced_mesh(card: str, tmp, tag: str, kernels: dict,
+                 out: dict) -> tuple:
+    """Runs ``mesh14_reduced_rank`` over 4 ranks for the archs of
+    ``kernels`` (arch -> the count of the kernel its forward launches),
+    prints and holds each case (card vs CPU logits within MESH14_TOL of
+    max, decode consistent with the mesh forward, the arch's kernel
+    launched on every rank on the card and never on the CPU) into
+    ``out``; returns (records, wall seconds, worst rel)."""
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    mesh_lib.run_ranks(mesh14_reduced_rank, 4, ({
+        "dir": str(tmp), "tag": f"r{tag}", "archs": list(kernels)},),
+        timeout=600)
+    recs = [json.loads((tmp / f"r{tag}-rank{r}.json").read_text())
+            for r in range(4)]
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    for case in recs[0]["cases"]:
+        kernel = kernels[case.split()[0]]
+        rows = [r["cases"][case] for r in recs]
+        rel = {k: max(x[k]["err"] for x in rows)
+               / max(max(x[k]["scale"] for x in rows), 1e-30)
+               for k in ("prefill", "decode")}
+        finite = all(x[k]["finite"] for x in rows
+                     for k in ("prefill", "decode"))
+        consistent = all(x["decode_vs_forward"]["ok"] for x in rows)
+        dp = max(x["decode_vs_forward"]["max_dp"] for x in rows)
+        launched = [x[f"card_{kernel}"] for x in rows]
+        offset = [x["card_offset"] for x in rows]
+        ok = (max(rel.values()) <= MESH14_TOL and finite and consistent
+              and all(f > 0 for f in launched)
+              and all(x[f"cpu_{kernel}"] == 0 for x in rows))
+        worst = max(worst, *rel.values())
+        print(f"[{tag}] {case}: card vs CPU logits rel prefill "
+              f"{rel['prefill']:.3e}, decode ({MESH14_STEPS} steps) "
+              f"{rel['decode']:.3e} (limit {MESH14_TOL:g}); decode vs "
+              f"the mesh forward max |dp| {dp:.3e} "
+              f"({'ok' if consistent else 'FAIL'}); {kernel} launches a "
+              f"rank {launched}, flash at a query offset {offset} "
+              f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+        if not ok:
+            fail(f"{tag} {case}: the mesh on the card disagrees with the "
+                 f"CPU, or decode with the forward, or the kernel did not "
+                 f"run")
+        out[case] = {"rel": rel, "max_dp": dp, kernel: launched,
+                     "offset": offset}
+    return recs, wall, worst
+
+
 def tensor_parallel_phase(card: str, dev) -> dict:
     """Phase 14: the forward paths tensor-parallel over a data x model mesh
     of ranks sharing the card (module docstring, item 14)."""
     import numpy as np
     import torch
-
-    from repro_torch.launch import mesh as mesh_lib
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     out: dict = {}
     with tempfile.TemporaryDirectory(prefix="mesh14_") as tmp:
         tmp = pathlib.Path(tmp)
         # ---- 14a: reduced f32 models, card vs CPU, 2 x 2 and 1 x 4 ----
-        t0 = time.perf_counter()
-        mesh_lib.run_ranks(mesh14_reduced_rank, 4, ({"dir": str(tmp)},),
-                           timeout=600)
-        recs = [json.loads((tmp / f"r14a-rank{r}.json").read_text())
-                for r in range(4)]
-        wall = time.perf_counter() - t0
-        worst = 0.0
-        for case in recs[0]["cases"]:
-            rows = [r["cases"][case] for r in recs]
-            rel = {k: max(x[k]["err"] for x in rows)
-                   / max(max(x[k]["scale"] for x in rows), 1e-30)
-                   for k in ("prefill", "decode")}
-            finite = all(x[k]["finite"] for x in rows
-                         for k in ("prefill", "decode"))
-            consistent = all(x["decode_vs_forward"]["ok"] for x in rows)
-            dp = max(x["decode_vs_forward"]["max_dp"] for x in rows)
-            flash = [x["card_flash"] for x in rows]
-            offset = [x["card_offset"] for x in rows]
-            ok = (max(rel.values()) <= MESH14_TOL and finite and consistent
-                  and all(f > 0 for f in flash)
-                  and all(x["cpu_flash"] == 0 for x in rows))
-            worst = max(worst, *rel.values())
-            print(f"[14a] {case}: card vs CPU logits rel prefill "
-                  f"{rel['prefill']:.3e}, decode ({MESH14_STEPS} steps) "
-                  f"{rel['decode']:.3e} (limit {MESH14_TOL:g}); decode vs "
-                  f"the mesh forward max |dp| {dp:.3e} "
-                  f"({'ok' if consistent else 'FAIL'}); flash launches a "
-                  f"rank {flash}, of them at a query offset {offset} "
-                  f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
-            if not ok:
-                fail(f"14a {case}: the mesh on the card disagrees with the "
-                     f"CPU, or decode with the forward, or the kernel did "
-                     f"not run")
-            out[case] = {"rel": rel, "max_dp": dp, "flash": flash,
-                         "offset": offset}
+        recs, wall, worst = reduced_mesh(
+            card, tmp, "14a", {arch: "flash" for arch in MESH14_REDUCED},
+            out)
         out["reduced_wall_s"] = wall
         out["reduced_worst_rel"] = worst
         out["offset_launches"] = sum(r["launches"]["flash_offset"]
@@ -4151,7 +4188,8 @@ from repro_torch.configs import InputShape, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import stand_in_mesh
 job = json.loads(sys.argv[1])
-cfg = dataclasses.replace(get_config(job["arch"]), grad_accum=job["accum"])
+cfg = dataclasses.replace(get_config(job["arch"]), grad_accum=job["accum"],
+                          **job.get("overrides", {}))
 shape = InputShape("train", job["seq"], job["batch"], "train")
 with stand_in_mesh(tuple(job["dims"]), job["rank"]) as mesh:
     res = dryrun.measure(cfg, shape, mesh)
@@ -4159,17 +4197,21 @@ print("RESULT " + json.dumps(res))
 """
 
 
-def dry_runs(jobs: list) -> list:
+def start_dry_runs(jobs: list) -> list:
     """Each job's dry run (``launch.dryrun.measure`` on ``meta``, one rank
-    of a stand-in mesh) in a process of its own, all started together, so
-    that no stand-in group is left in this one; their records, in order.
-    A run that fails or outlives ``DRY16_TIMEOUT_S`` fails the phase."""
+    of a stand-in mesh) started in a process of its own, all together, so
+    that no stand-in group is left in this one; the processes."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    procs = [subprocess.Popen([sys.executable, "-c", _DRY16, json.dumps(job)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True, cwd=str(ROOT), env=env)
-             for job in jobs]
+    return [subprocess.Popen([sys.executable, "-c", _DRY16, json.dumps(job)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=str(ROOT), env=env)
+            for job in jobs]
+
+
+def dry_results(procs: list, jobs: list) -> list:
+    """The records of ``start_dry_runs``' processes, in order.  A run that
+    fails or outlives ``DRY16_TIMEOUT_S`` fails the phase."""
     out = []
     try:
         for proc, job in zip(procs, jobs):
@@ -4177,7 +4219,8 @@ def dry_runs(jobs: list) -> list:
             found = [ln for ln in stdout.splitlines()
                      if ln.startswith("RESULT ")]
             if proc.returncode or not found:
-                fail(f"[16] the dry run {job} failed: {stderr[-3000:]}")
+                fail(f"[{job['tag']}] the dry run {job} failed: "
+                     f"{stderr[-3000:]}")
             out.append(json.loads(found[-1][len("RESULT "):]))
     finally:
         for proc in procs:
@@ -4185,6 +4228,11 @@ def dry_runs(jobs: list) -> list:
                 proc.kill()
                 proc.wait()
     return out
+
+
+def dry_runs(jobs: list) -> list:
+    """Each job's dry run, all at once; their records, in order."""
+    return dry_results(start_dry_runs(jobs), jobs)
 
 
 def dry_check(tag: str, what: str, predicted: int, measured: int,
@@ -4261,6 +4309,368 @@ def dryrun_phase(card: str, train: dict, tp: dict) -> dict:
     if seconds > DRY16_BUDGET_S:
         fail(f"16: the dry-run phase took {seconds:.1f} s")
     return {"runs": runs, "phase_s": seconds}
+
+
+# [17a]: the reduced archs and the kernel each one's forward launches
+SPLIT17_REDUCED = {"deepseek-v3-671b": "flash", "mamba2-1.3b": "ssd"}
+# [17b] / [17c] over 1 x 2 gloo ranks on the card: (tag, arch, layers kept
+# (None: the published depth), prefill batch x tokens, decode steps,
+# training batch x tokens, grad_accum, the kernel the forward launches,
+# its launches a rank a forward, the heads of each launch)
+SPLIT17_FULL = (
+    ("17b", "mamba2-1.3b", None, (2, 4096), 0, (2, 4096), 2, "ssd", 48, 32),
+    ("17c", "deepseek-v3-671b", 3, (2, 2048), 4, (2, 2048), 2, "flash", 3,
+     64))
+SPLIT17_SHARE = 0.55           # parameter bytes a rank, of one process's
+SPLIT17_BUDGET_S = 120.0       # [17]'s seconds, reported against
+
+
+def split17_overrides(setup) -> dict:
+    """The config changes of a ``SPLIT17_FULL`` setup: its grad_accum and,
+    where it keeps fewer layers, its depth.  deepseek-v3-671b keeps its
+    first three layers, the dense ones, so it has no MoE layer left."""
+    over = {"grad_accum": setup[6]}
+    if setup[2] is not None:
+        over.update(num_layers=setup[2], moe=None)
+    return over
+
+
+def split17_config(setup):
+    """The config of a ``SPLIT17_FULL`` setup: the arch's published one
+    with ``split17_overrides``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(setup[1])
+    if setup[2] is not None and setup[2] != cfg.moe.first_dense_layers:
+        raise ValueError(f"{setup[0]} keeps the dense layers only")
+    return dataclasses.replace(cfg, **split17_overrides(setup))
+
+
+class LaunchHeads:
+    """Records the heads of every flash and SSD launch while active (the
+    launchers' own counts are what the checks read)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as flash
+        from repro_torch.kernels import ssd_scan as ssd
+        self.heads: dict = {"flash": [], "ssd": []}
+        self.saved = [(flash, "flash_attention", flash.flash_attention),
+                      (ssd, "ssd_scan", ssd.ssd_scan)]
+        for (module, name, launch), key in zip(self.saved,
+                                               ("flash", "ssd")):
+            def record(x, *args, _launch=launch, _key=key, **kwargs):
+                self.heads[_key].append(int(x.shape[2]))
+                return _launch(x, *args, **kwargs)
+            setattr(module, name, record)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for module, name, launch in self.saved:
+            setattr(module, name, launch)
+
+
+def split17_rank(rank: int, store: str, spec: dict) -> None:
+    """Phase 17b / 17c, one of 1 x 2 gloo ranks on the card: ``spec``'s
+    model at its published widths (17c cut in depth), its slices drawn by
+    Model.init(mesh=...); the prefill forward through its kernel on the
+    rank's heads (the counts set to 0 just before it and read just after,
+    the heads of each launch recorded), the decode steps, then one
+    train_step_deferred on a fixed batch (its peak from the resident
+    state up, its bytes along model); rank 0 writes the logits gathered
+    whole, each rank its record, to ``spec["dir"]``."""
+    import torch
+
+    from repro_torch.core.messages import MeshCollectives
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers
+    from repro_torch.models.build import _param_shapes, make_model
+    from repro_torch.sharding import hints, partition
+    from repro_torch.util import tree
+    from repro_torch.util.device import strict_f32
+    strict_f32()
+    setup = tuple(spec["setup"])
+    tag, n_dec = setup[0], setup[4]
+    base = mesh_lib.init_process_mesh(rank, 2, "gloo", store, timeout=120)
+    try:
+        mesh = mesh_lib.make_rank_mesh(base, 2)
+        dev = mesh.device
+        cfg = split17_config(setup)
+        model = make_model(cfg)
+        params = model.init(seed=0, device=dev, mesh=mesh)
+        specs = model.param_specs(mesh)
+        whole = _param_shapes(cfg)
+        rec: dict = {"device": str(dev), "resident_bytes": tree_bytes(params),
+                     "one_process_bytes": tree_bytes(whole),
+                     "shard_bytes": sum(
+                         math.prod(partition.local_shape(
+                             t.shape, partition.spec_at(specs, path), mesh))
+                         * t.element_size()
+                         for path, t in tree.leaves_with_paths(whole))}
+        b, s = setup[3]
+        tokens = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, s, seed=0),
+                                 device=dev)
+        lspec = partition.logits_spec(cfg, mesh, b)
+        with hints.sharding_hints(mesh, moe_a2a=True) as comm, \
+                torch.inference_mode():
+            torch.cuda.synchronize(dev)
+            reset_counts()
+            with LaunchHeads() as heads:
+                t0 = time.perf_counter()
+                logits, _, _ = model.forward(params, {"tokens": tokens},
+                                             use_kernel=True, last_only=True)
+                torch.cuda.synchronize(dev)
+                ms = 1e3 * (time.perf_counter() - t0)
+            rec["launches"] = counts()
+            rec["heads"] = heads.heads
+            rec["prefill"] = {"ms": ms, "model_bytes": comm.model_bytes,
+                              "model_ms": 1e3 * comm.model_s,
+                              "staging_ms": 1e3 * comm.staging_s}
+            got = [partition.gather_leaf(logits, lspec, mesh, comm)]
+            del logits
+            rec["decode"] = {"ms": [], "model_bytes": 0}
+            if n_dec:
+                steps = torch.as_tensor(mesh14_tokens(
+                    cfg.vocab_size, b, n_dec, seed=1), device=dev)
+                caches = model.init_cache(b, n_dec, device=dev, mesh=mesh)
+                for t in range(n_dec):
+                    c0 = comm.model_bytes
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    lg, caches = model.decode_step(params, caches,
+                                                   steps[:, t:t + 1])
+                    torch.cuda.synchronize(dev)
+                    rec["decode"]["ms"].append(
+                        1e3 * (time.perf_counter() - t0))
+                    rec["decode"]["model_bytes"] += comm.model_bytes - c0
+                    got.append(partition.gather_leaf(lg, lspec, mesh, comm))
+                del caches
+        if rank == 0:
+            torch.save([t.float().cpu() for t in got],
+                       pathlib.Path(spec["dir"]) / f"{tag}-logits.pt")
+        del got
+        # the training step: its peak from the resident state up (the f32
+        # unembedding copy of the inference weights let go)
+        layers._f32_memo.clear()
+        tb, ts = setup[5]
+        batch = next(synthetic_token_batches(cfg.vocab_size, tb, ts, seed=5))
+        batch = {k: v[mesh_lib.batch_rows(mesh, tb)]
+                 for k, v in batch.items()}
+        opt_state = model.init_optimizer().init(params)
+        comm = MeshCollectives(mesh)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = counts()
+        t0 = time.perf_counter()
+        with hints.sharding_hints(mesh, moe_a2a=True, comm=comm):
+            new, opt_state, met = model.train_step_deferred(
+                mesh, params, opt_state, batch, comm=comm)
+        loss = float(met["loss"])
+        rec["train"] = {
+            "ms": 1e3 * (time.perf_counter() - t0), "loss": loss,
+            "model_bytes": comm.model_bytes, "model_ms": 1e3 * comm.model_s,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in tree.leaves(new)),
+            "launches": sum(counts()[k] - before[k] for k in before)}
+        (pathlib.Path(spec["dir"]) / f"{tag}-rank{rank}.json").write_text(
+            json.dumps(rec))
+    finally:
+        mesh_lib.destroy(base)
+
+
+def split17_one_process(card: str, setup, dev) -> dict:
+    """One process on the card: ``setup``'s model from the ranks' seed,
+    the prefill forward through its kernel, the decode steps and one
+    train_step_deferred on the ranks' tokens; the logits and the loss,
+    the model freed after."""
+    import torch
+
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models.build import make_model
+    from repro_torch.util.device import strict_f32
+    strict_f32()
+    tag, n_dec = setup[0], setup[4]
+    cfg = split17_config(setup)
+    model = make_model(cfg)
+    params = model.init(seed=0, device=dev)
+    b, s = setup[3]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tokens = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, s, seed=0),
+                                 device=dev)
+        logits, _, _ = model.forward(params, {"tokens": tokens},
+                                     use_kernel=True, last_only=True)
+        out = [logits.float().cpu()]
+        del logits
+        if n_dec:
+            steps = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, n_dec,
+                                                  seed=1), device=dev)
+            caches = model.init_cache(b, n_dec, device=dev)
+            for t in range(n_dec):
+                lg, caches = model.decode_step(params, caches,
+                                               steps[:, t:t + 1])
+                out.append(lg.float().cpu())
+            del caches
+    tb, ts = setup[5]
+    batch = next(synthetic_token_batches(cfg.vocab_size, tb, ts, seed=5))
+    _, _, met = model.train_step_deferred(
+        None, params, model.init_optimizer().init(params), batch)
+    loss = float(met["loss"])
+    print(f"[{tag}] one process ({cfg.name}, {cfg.num_layers} layers"
+          f"{' + MTP' if cfg.mtp_depth else ''}): prefill {b} x {s}, "
+          f"{n_dec} decode steps and one train_step_deferred ({tb} x {ts}, "
+          f"grad_accum {cfg.grad_accum}, {cfg.optimizer}) in "
+          f"{time.perf_counter() - t0:.1f} s (cold), loss {loss:.6f} "
+          f"[{card}]", flush=True)
+    del model, params, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logits": out, "loss": loss}
+
+
+def split17_full(card: str, tmp, setup, dev) -> dict:
+    """Runs ``split17_rank`` over 1 x 2 ranks for ``setup`` after one
+    process's run of the same; prints and holds: parameter bytes a rank
+    equal to its shards' and at most ``SPLIT17_SHARE`` of one process's,
+    the kernel launched the setup's count of times a rank in the forward,
+    each launch on the rank's heads (all on the tensor cores), the
+    prefill and decode logits within ``LOGIT_TOL`` of max of one
+    process's, the training loss within 2^-7 of one process's, no kernel
+    in training, everything finite."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    tag, arch, _, (b, s), n_dec, (tb, ts), accum, kernel, expect, \
+        n_heads = setup
+    one = split17_one_process(card, setup, dev)
+    t0 = time.perf_counter()
+    mesh_lib.run_ranks(split17_rank, 2, ({"dir": str(tmp),
+                                          "setup": list(setup)},),
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    recs = [json.loads((tmp / f"{tag}-rank{r}.json").read_text())
+            for r in range(2)]
+    got = torch.load(tmp / f"{tag}-logits.pt")
+    rels, agree = [], []
+    for g, w in zip(got, one["logits"]):
+        rels.append(float((g - w).abs().max() / w.abs().max()))
+        agree.append(float((g.argmax(-1) == w.argmax(-1)).float().mean()))
+    share = [r["resident_bytes"] / r["one_process_bytes"] for r in recs]
+    exact = all(r["resident_bytes"] == r["shard_bytes"] for r in recs)
+    launched = [r["launches"][kernel] for r in recs]
+    on_tc = [r["launches"][f"{kernel}_tc"] for r in recs]
+    heads = [sorted(set(r["heads"][kernel])) for r in recs]
+    losses = [r["train"]["loss"] for r in recs]
+    loss_rel = max(abs(x - one["loss"]) / abs(one["loss"]) for x in losses)
+    depth = split17_config(setup)
+    print(f"[{tag}] {arch} full width ({depth.num_layers} layers"
+          f"{' + MTP' if depth.mtp_depth else ''}) over 1 x 2 gloo ranks "
+          f"(devices {[r['device'] for r in recs]}, {wall:.1f} s): "
+          f"parameter bytes a rank {[r['resident_bytes'] for r in recs]} = "
+          f"its shards by param_specs {exact}, "
+          f"{[round(x, 4) for x in share]} of one process's "
+          f"{recs[0]['one_process_bytes'] / 1e9:.2f} GB [{card}]", flush=True)
+    print(f"[{tag}] prefill {b} x {s} through {kernel} on each rank's heads: "
+          f"{[round(r['prefill']['ms'], 1) for r in recs]} ms (first, cold), "
+          f"{launched} launches a rank ({on_tc} on the tensor cores; "
+          f"expected {expect}), heads a launch {heads} (expected "
+          f"{n_heads}), sent along model "
+          f"{[r['prefill']['model_bytes'] for r in recs]} B in "
+          f"{[round(r['prefill']['model_ms'], 1) for r in recs]} host ms; "
+          f"the logits against one process's: rel "
+          f"{[f'{x:.3e}' for x in rels[:1]]} (limit {LOGIT_TOL:g}), argmax "
+          f"agreement {agree[:1]} [{card}]", flush=True)
+    if n_dec:
+        print(f"[{tag}] {n_dec} decode steps on the rank's cache slices: ms "
+              f"{[[round(x, 1) for x in r['decode']['ms']] for r in recs]}, "
+              f"sent along model {[r['decode']['model_bytes'] for r in recs]}"
+              f" B; the logits against one process's: rel "
+              f"{[f'{x:.3e}' for x in rels[1:]]} (limit {LOGIT_TOL:g}), "
+              f"argmax agreement {agree[1:]} [{card}]", flush=True)
+    print(f"[{tag}] one train_step_deferred {tb} x {ts} (grad_accum "
+          f"{accum}): {[round(r['train']['ms'], 1) for r in recs]} ms, loss "
+          f"{losses} against one process's {one['loss']:.6f}: rel "
+          f"{loss_rel:.3e} (limit {BF16_TOL:g}); sent along model "
+          f"{[r['train']['model_bytes'] for r in recs]} B in "
+          f"{[round(r['train']['model_ms'], 1) for r in recs]} host ms; peak "
+          f"{[r['train']['peak_bytes'] for r in recs]} B a rank; kernel "
+          f"launches {[r['train']['launches'] for r in recs]} [{card}]",
+          flush=True)
+    ok = (exact and max(share) <= SPLIT17_SHARE
+          and all(n == expect for n in launched) and on_tc == launched
+          and all(h == [n_heads] for h in heads)
+          and max(rels) <= LOGIT_TOL and loss_rel <= BF16_TOL
+          and all(math.isfinite(x) for x in rels + losses)
+          and all(r["train"]["finite"] and not r["train"]["launches"]
+                  for r in recs))
+    if not ok:
+        fail(f"{tag}: shard bytes, launches on the rank's heads, logits, "
+             f"loss or finiteness")
+    return {"wall_s": wall, "launches": launched, "heads": heads,
+            "logits_rel": rels, "loss_rel": loss_rel,
+            "resident_bytes": [r["resident_bytes"] for r in recs],
+            "model_bytes": [r["train"]["model_bytes"] for r in recs],
+            "peak_bytes": [r["train"]["peak_bytes"] for r in recs],
+            "prefill_model_bytes": [r["prefill"]["model_bytes"]
+                                    for r in recs]}
+
+
+def split17_dry_jobs(setup) -> list:
+    """The dry runs of a ``SPLIT17_FULL`` setup's training step, one a
+    rank of 1 x 2."""
+    tb, ts = setup[5]
+    over = split17_overrides(setup)
+    accum = over.pop("grad_accum")
+    return [{"tag": setup[0], "arch": setup[1], "accum": accum,
+             "overrides": over, "batch": tb, "seq": ts, "dims": [1, 2],
+             "rank": r} for r in range(2)]
+
+
+def split_phase(card: str, dev) -> dict:
+    """Phase 17: MLA and the Mamba-2 SSD mixer split over model, on the
+    rank's heads (module docstring, item 17)."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="split17_") as tmp:
+        tmp = pathlib.Path(tmp)
+        # ---- 17a: reduced f32 models, card vs CPU, 2 x 2 and 1 x 4 ----
+        recs, wall, worst = reduced_mesh(card, tmp, "17a", SPLIT17_REDUCED,
+                                         out)
+        out["reduced"] = {k: sum(r["launches"][k] for r in recs)
+                          for k in ("flash", "ssd")}
+        print(f"[17a] 4 ranks (devices {[r['device'] for r in recs]}) in "
+              f"{wall:.1f} s, worst rel {worst:.3e}; launches over the "
+              f"ranks {out['reduced']} [{card}]", flush=True)
+        # ---- 17b / 17c: full width over 1 x 2; 17c's dry runs beside ----
+        mla = SPLIT17_FULL[1]
+        jobs = split17_dry_jobs(mla)
+        procs = start_dry_runs(jobs)
+        try:
+            for setup in SPLIT17_FULL:
+                out[setup[0]] = split17_full(card, tmp, setup, dev)
+        except BaseException:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+            raise
+        runs = dry_results(procs, jobs)
+    for job, res in zip(jobs, runs):
+        print(f"[17c] dry run rank {job['rank']} of 1 x 2: stand-ins "
+              f"{res['lower_s']:.1f} s, step {res['compile_s']:.1f} s, "
+              f"{res['cost']['flops']:.4g} FLOPs, memory "
+              f"{json.dumps(res['memory'])}, collectives "
+              f"{json.dumps(res['collectives'])}", flush=True)
+    if not dry_rank_checks("17c", runs, out["17c"], card):
+        fail("17c: a dry-run prediction disagrees with the card")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[17] split MLA / SSD phase {out['phase_s']:.1f} s (target "
+          f"{SPLIT17_BUDGET_S:g} s) [{card}]", flush=True)
+    return out
 
 
 def four_card_mesh_phase(card: str) -> None:
@@ -4676,7 +5086,10 @@ def main() -> int:
     # ---- 16. the meta-device dry run against phases 11 and 15b -------------
     dryrun_phase(card, train, tp_train)
 
-    # ---- 17. the kernels line, the card, the result ------------------------
+    # ---- 17. MLA and the SSD mixer split over model, on the rank's heads ---
+    split = split_phase(card, dev)
+
+    # ---- 18. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",
@@ -4785,6 +5198,11 @@ def main() -> int:
         "timed_at": {"B": PREFILL[0], "S": PREFILL[1], "H": 64, "P": 64,
                      "G": 1, "N": 128, "chunk": 256, "dtype": "bfloat16"},
         "checked": True, "launches_per_forward": mamba["launches"],
+        "launches_per_rank_split_forward": split["17b"]["launches"],
+        "heads_per_launch_split": split["17b"]["heads"],
+        "split_forward": f"{SPLIT17_FULL[0][1]} 1 x 2 ranks, "
+                         f"{SPLIT17_FULL[0][3][0]} x {SPLIT17_FULL[0][3][1]}",
+        "launches_reduced_split_mesh": split["reduced"]["ssd"],
         "per_shape": ssd_t, "checks": ssd_checks})
     # the flash row: launches of the qwen2-7b kernel forward (phase 10, this
     # kernel's model path), timed at qwen2-7b's attention shape; each
@@ -4817,6 +5235,13 @@ def main() -> int:
         "mesh_forward": f"{MESH14_ARCH} 1 x {MESH14_RANKS} ranks, "
                         f"{MESH14_PREFILL[0]} x {MESH14_PREFILL[1]}",
         "offset_launches_reduced_mesh": tp["offset_launches"],
+        "launches_per_rank_split_mla_forward": split["17c"]["launches"],
+        "heads_per_launch_split_mla": split["17c"]["heads"],
+        "split_mla_forward": f"{SPLIT17_FULL[1][1]} cut to "
+                             f"{SPLIT17_FULL[1][2]} layers, 1 x 2 ranks, "
+                             f"{SPLIT17_FULL[1][3][0]} x "
+                             f"{SPLIT17_FULL[1][3][1]}",
+        "launches_reduced_split_mesh": split["reduced"]["flash"],
         "offset_checks": [ch for ch in flash_checks if "q_offset" in ch],
         "checks": flash_checks})
     print(json.dumps({"kernels": rows_out}))

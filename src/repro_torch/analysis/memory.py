@@ -42,15 +42,19 @@ class MemoryTracker(TorchDispatchMode):
     ``peak``: the most of them at once, each op's outputs counted while
     its inputs are still held; ``at_peak``: what ``watch()`` (a count of
     some bytes of interest, e.g. a cache's) read when ``peak`` was
-    reached."""
+    reached; ``peak_by_dtype``: the bytes live at the peak by the dtype
+    of the tensor that first counted each storage."""
 
     def __init__(self, watch=None):
         super().__init__()
         self.live = 0
         self.peak = 0
         self.at_peak = 0
+        self.peak_by_dtype: dict[str, int] = {}
         self._watch = watch
         self._sizes: dict[int, int] = {}
+        self._dtypes: dict[int, str] = {}
+        self._by_dtype: dict[str, int] = {}
         self._refs: dict[int, weakref.ref] = {}
 
     def hold(self, *trees) -> int:
@@ -74,13 +78,21 @@ class MemoryTracker(TorchDispatchMode):
         if old is None:
             self._refs[key] = weakref.ref(st, functools.partial(self._freed,
                                                                 key))
+            self._dtypes[key] = str(t.dtype).removeprefix("torch.")
         self._sizes[key] = n
         self.live += n - (old or 0)
+        dtype = self._dtypes[key]
+        self._by_dtype[dtype] = self._by_dtype.get(dtype, 0) + n - (old or 0)
         if self.live > self.peak:
             self.peak = self.live
+            self.peak_by_dtype = dict(self._by_dtype)
             if self._watch is not None:
                 self.at_peak = self._watch()
 
     def _freed(self, key: int, _ref) -> None:
-        self.live -= self._sizes.pop(key, 0)
+        n = self._sizes.pop(key, 0)
+        self.live -= n
+        dtype = self._dtypes.pop(key, None)
+        if dtype is not None:
+            self._by_dtype[dtype] -= n
         self._refs.pop(key, None)

@@ -23,9 +23,10 @@ axes and sub-groups), on ``meta`` tensors of this rank's shapes:
 
 Per combination it records what one rank holds and does:
 ``analysis.memory.MemoryTracker`` (bytes by storage: the arguments, the
-outputs, the peak), ``torch.utils.flop_counter.FlopCounterMode``, the op
-trace's census (``analysis.trace``), the bytes ``MeshCollectives`` counts
-along each axis, and the reference's ``analytic_hbm_bytes`` and
+outputs, the peak and the peak by dtype),
+``torch.utils.flop_counter.FlopCounterMode``, the op trace's census
+(``analysis.trace``), the bytes ``MeshCollectives`` counts along each
+axis, and the reference's ``analytic_hbm_bytes`` and
 ``model_flops`` (``launch.roofline``), in
 ``results/dryrun_torch/<arch>__<shape>__<mesh>[__opt].json`` with the
 reference's keys (``benchmarks/dryrun_summary.py`` reads them).
@@ -216,6 +217,7 @@ def measure(cfg, shape: InputShape, mesh, optimized: bool = False,
                    "output_bytes": output,
                    "temp_bytes": tracker.peak - argument,
                    "peak_bytes": tracker.peak,
+                   "peak_by_dtype": tracker.peak_by_dtype,
                    "f32_unembed_bytes_at_peak": tracker.at_peak},
         "cost": {"flops": flops.get_total_flops()},
         "census": {"flops": census.flops, "hbm_bytes": census.hbm_bytes,

@@ -400,14 +400,6 @@ def gqa_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay, *,
     return out.reshape(b, sq, hq * hd) @ w["o"]
 
 
-def _model_dim(spec) -> Optional[int]:
-    """The dim of a per-layer k/v cache spec placed over ``model``."""
-    for d, entry in enumerate(spec):
-        if "model" in partition.entry_axes(entry):
-            return d
-    return None
-
-
 def gqa_decode_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
                           specs: Params, x_t: torch.Tensor, lay,
                           rolling: bool = False
@@ -444,7 +436,7 @@ def gqa_decode_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
     k = apply_rope(cols[1].reshape(b, 1, hkv, hd), positions, cfg.rope_theta)
     v = cols[2].reshape(b, 1, hkv, hd)
 
-    split = _model_dim(specs["k"])           # 2: heads, 3: head_dim
+    split = partition.model_dim(specs["k"])           # 2: heads, 3: head_dim
     kv_spec = (None, None) + tuple(specs["k"][2:])
     valid = _write_token(cfg, cache,
                          partition.local_slice(k, kv_spec, lay.mesh),
@@ -563,3 +555,171 @@ def mla_decode_step(cfg: ModelConfig, p: Params, cache: Params,
     out = torch.einsum("bqhr,rhd->bqhd", lat, w_full[:, :, nope:])
     cache["pos"].add_(1)
     return out.reshape(b, 1, h * m.v_head_dim) @ p["o"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA over the ranks of a data × model mesh (hints.qkv_layout)
+# ---------------------------------------------------------------------------
+
+def _mla_latents(cfg: ModelConfig, p: Params, x: torch.Tensor, lay,
+                 positions: torch.Tensor):
+    """The low-rank latents of ``x`` (this rank's piece of the normed
+    residual, at ``positions``): (c_q (B, S, q_lora), c_kv (B, S, r),
+    k_rope (B, S, 1, hd_r)) normed and rotated, whole along the sequence
+    and the same on every rank, for the ranks' split work on them.
+
+    ``param_specs`` splits q_down and kv_down on their input dim (D) over
+    ``model``.  With the residual split along the sequence they are
+    all-gathered and the rank forms the latents of its own positions,
+    which are then all-gathered along the sequence (r + q_lora + hd_r
+    columns a position, not the residual's D).  With the residual whole
+    (a decode step) the rank's slice of D times its rows of the weights
+    gives partial latents, summed over ``model`` in rank order: no weight
+    moves, only the token's latents."""
+    m = cfg.mla
+    d, qr, r = cfg.d_model, m.q_lora_rank, m.kv_lora_rank
+    wq, wkv = p["q_down"], p["kv_down"]
+    if lay.seq_split:
+        wq, wkv = lay.whole(wq, 0, d), lay.whole(wkv, 0, d)
+    if wq.shape[0] == d:
+        lat = torch.cat([x @ wq, x @ wkv], -1)
+    else:
+        n = wq.shape[0]
+        xs = lay.fork(x)[..., lay.m * n:(lay.m + 1) * n]
+        lat = lay.comm.sum_model(torch.cat([xs @ wq, xs @ wkv], -1))
+    c_q, c_kv, k_rope = torch.split(lat, [qr, r, m.qk_rope_head_dim], -1)
+    c_q = layers.apply_norm(cfg, p["q_norm"], c_q)
+    c_kv = layers.apply_norm(cfg, p["kv_norm"], c_kv)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    if lay.seq_split:
+        b, sp = x.shape[:2]
+        lat = lay.join(torch.cat([c_q, c_kv, k_rope.reshape(b, sp, -1)], -1),
+                       1)
+        c_q, c_kv, k_rope = torch.split(lat, [qr, r, m.qk_rope_head_dim], -1)
+        return c_q, c_kv, k_rope[:, :, None, :]
+    return lay.fork(c_q), lay.fork(c_kv), lay.fork(k_rope)
+
+
+def mla_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay, *,
+                      window: Optional[int] = None,
+                      use_kernel: bool = False) -> torch.Tensor:
+    """This rank's share of ``mla_forward`` under the hints: ``x`` its
+    piece of the (normed) residual, ``p`` its shards by ``param_specs``
+    (the data axes gathered); returns its piece of the output.
+
+    ``heads`` (``qkv_layout`` of q and k, both H heads): the latents
+    (``_mla_latents``: q_down / kv_down gathered, the latents of the
+    rank's positions all-gathered along the sequence), then the rank's
+    H/nm heads from its column slices of q_up and kv_up (whole heads:
+    H/nm · (nope + rope) and H/nm · (nope + v) columns), k_rope (one head
+    shared by all) on each, attention on them (``attend``: the flash
+    kernel on the card), its row slice of ``o``, and one sum over
+    ``model`` laid out as the residual (``lay.leave``).  Otherwise (H not
+    divisible by nm) every weight whole and the one-process layer on the
+    whole sequence, this rank keeping its piece: a layout choice, as the
+    GQA layers' ``context`` / none branches are."""
+    m = cfg.mla
+    h, nope, rope, vd = (cfg.num_heads, m.qk_nope_head_dim,
+                         m.qk_rope_head_dim, m.v_head_dim)
+    qk = nope + rope
+    branch, _ = hints.qkv_layout((lay.batch, lay.seq, h, qk),
+                                 (lay.batch, lay.seq, h, qk), lay.mesh)
+    b, s = x.shape[0], lay.seq
+    if branch != "heads":
+        back = "scatter" if lay.seq_split else "slice"
+        d = cfg.d_model
+        w = dict(p, q_down=lay.whole(p["q_down"], 0, d, back),
+                 q_up=lay.whole(p["q_up"], 1, h * qk, back),
+                 kv_down=lay.whole(p["kv_down"], 0, d, back),
+                 kv_up=lay.whole(p["kv_up"], 1, h * (nope + vd), back),
+                 o=lay.whole(p["o"], 0, h * vd, back))
+        xf = lay.enter(x) if lay.seq_split else x
+        return lay.piece(mla_forward(cfg, w, xf, window=window,
+                                     use_kernel=use_kernel))
+    nh = h // lay.nm
+    rows = lay.positions
+    c_q, c_kv, k_rope = _mla_latents(
+        cfg, p, x, lay,
+        torch.arange(rows.start, rows.stop, device=x.device)[None])
+    q = (c_q @ p["q_up"]).reshape(b, s, nh, qk)
+    q_nope, q_rope = torch.split(q, [nope, rope], dim=-1)
+    q_rope = apply_rope(q_rope, _positions(s, x.device), cfg.rope_theta)
+    kv = (c_kv @ p["kv_up"]).reshape(b, s, nh, nope + vd)
+    k_nope, v = torch.split(kv, [nope, vd], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, nh, rope)], dim=-1)
+    out = attend(q, k, v, causal=True, window=window, use_kernel=use_kernel)
+    return lay.leave(out.reshape(b, s, nh * vd) @ p["o"])
+
+
+def mla_decode_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
+                          specs: Params, x_t: torch.Tensor, lay
+                          ) -> tuple[torch.Tensor, Params]:
+    """One token through one rank's share of ``mla_decode_step``: ``x_t``
+    (B, 1, D) whole along ``model``, ``cache`` its slices by
+    ``cache_specs`` (``specs``, per layer: c_kv's r and k_rope's hd_r over
+    ``model``), written in place; H divisible by nm.
+
+    The token's latents come whole from partial products
+    (``_mla_latents``); the rank writes its slices of them.  It absorbs
+    W_uk into its H/nm heads' queries (its columns of kv_up), and the
+    heads' latent and rope queries are all-gathered: every rank then holds
+    every head's query on its slice of r and of hd_r, and its scores are
+    partial over them.  The scores are reduce-scattered over the heads
+    (summed in f32 in rank order), each rank takes the softmax of its
+    heads', and the probabilities are all-gathered; each rank mixes its
+    slice of the cache's latents for every head, the slices are
+    all-gathered along r, and the rank decompresses its heads through its
+    W_uv columns and its rows of ``o``, summed over ``model``.  No
+    collective carries the cache."""
+    m = cfg.mla
+    h, nope, rope, vd, r = (cfg.num_heads, m.qk_nope_head_dim,
+                            m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank)
+    b, mm, nm = x_t.shape[0], lay.m, lay.nm
+    nh = h // nm
+    heads = slice(mm * nh, (mm + 1) * nh)
+    pos = cache["pos"]
+    positions = pos.expand(b, 1)
+    c_q, c_kv_t, k_rope_t = _mla_latents(cfg, p, x_t, lay, positions)
+    q = (c_q @ p["q_up"]).reshape(b, 1, nh, nope + rope)
+    q_nope, q_rope = torch.split(q, [nope, rope], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    w = p["kv_up"].reshape(r, nh, nope + vd)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w[:, :, :nope])
+    qs = lay.comm.gather_model(torch.cat([q_lat, q_rope], -1), 2)
+
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    s_max = c_kv.shape[1]
+    at = pos.clamp(max=s_max - 1).long().view(1)
+    c_kv.index_copy_(1, at, partition.local_slice(
+        c_kv_t, (None, None) + tuple(specs["c_kv"][2:]), lay.mesh))
+    k_rope.index_copy_(1, at, partition.local_slice(
+        k_rope_t, (None, None) + tuple(specs["k_rope"][2:]), lay.mesh))
+
+    rn, en = c_kv.shape[-1], k_rope.shape[-1]
+    r_lo = mm * rn if rn != r else 0
+    e_lo = r + (mm * en if en != rope else 0)
+    lat_s = torch.einsum("bqhr,bkr->bhqk", qs[..., r_lo:r_lo + rn].float(),
+                         c_kv.float())
+    rope_s = torch.einsum("bqhd,bkzd->bhqk", qs[..., e_lo:e_lo + en].float(),
+                          k_rope.float())
+    if rn != r and en != rope:
+        scores = lay.comm.reduce_scatter_model(lat_s + rope_s, 1)
+    elif rn != r:
+        scores = lay.comm.reduce_scatter_model(lat_s, 1) + rope_s[:, heads]
+    elif en != rope:
+        scores = lat_s[:, heads] + lay.comm.reduce_scatter_model(rope_s, 1)
+    else:
+        scores = (lat_s + rope_s)[:, heads]
+    scores = scores * (1.0 / math.sqrt(nope + rope))
+    valid = torch.arange(s_max, device=x_t.device) <= pos
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = lay.comm.gather_model(torch.softmax(scores, dim=-1)
+                                  .to(c_kv.dtype), 1)
+
+    lat = torch.einsum("bhqk,bkr->bqhr", probs, c_kv)
+    if rn != r:
+        lat = lay.comm.gather_model(lat, 3)
+    out = torch.einsum("bqhr,rhd->bqhd", lat[:, :, heads], w[:, :, nope:])
+    cache["pos"].add_(1)
+    return lay.comm.sum_model(out.reshape(b, 1, nh * vd) @ p["o"]), cache

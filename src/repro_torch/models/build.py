@@ -267,24 +267,32 @@ class Model:
         total = ce + aux
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp_depth:
-            if lay.seq_split:
-                raise ValueError(
-                    f"{cfg.name}: multi-token prediction over ranks runs "
-                    f"with the residual whole along model (the families "
-                    f"that compute whole)")
-            specs = self._rank_specs(lay.mesh)
-            mtp = transformer.gather_layer(params["mtp"], specs["mtp"], lay,
-                                           whole=True)
-            e_t = layers.embed_ranks(cfg, emb, local["targets"], lay)
-            x = torch.cat([h, e_t.to(h.dtype)], dim=-1) @ mtp["proj"]
-            x, _ = transformer.apply_layer(cfg, "attn_mlp", mtp["layer"], x,
-                                           lay=lay)
-            x = layers.apply_norm(cfg, mtp["norm"], x)
-            mtp_ce = layers.next_token_ce_ranks(
-                cfg, emb, x[:, :-1], local["targets"][:, 1:], lay)
+            mtp_ce = self._mtp_loss_ranks(params, h, emb, local, lay)
             total = total + 0.3 * mtp_ce
             metrics["mtp_ce"] = mtp_ce
         return total, metrics
+
+    def _mtp_loss_ranks(self, params: Params, h: torch.Tensor, emb: Params,
+                        local: dict, lay) -> torch.Tensor:
+        """``_mtp_loss`` on this rank: ``h`` its piece of the final
+        hidden.  The projection is all-gathered along ``model`` (the rank
+        forms its positions' rows of [h ; emb] · proj), the block runs
+        split (``apply_layer_ranks``), and the cross-entropy of position
+        t against target t + 1 crosses the boundary between two ranks'
+        pieces (``next_token_ce_ranks``' ``shift``)."""
+        cfg = self.cfg
+        specs = self._rank_specs(lay.mesh)
+        mtp = transformer.gather_layer(params["mtp"], specs["mtp"], lay,
+                                       whole=False)
+        e_t = layers.embed_ranks(cfg, emb, local["targets"], lay)
+        x = torch.cat([h, e_t.to(h.dtype)], dim=-1) @ lay.whole(
+            mtp["proj"], 1, cfg.d_model,
+            "scatter" if lay.seq_split else "slice")
+        x, _ = transformer.apply_layer_ranks(cfg, "attn_mlp", mtp["layer"],
+                                             x, lay)
+        x = layers.apply_norm(cfg, mtp["norm"], x)
+        return layers.next_token_ce_ranks(cfg, emb, x, local["targets"], lay,
+                                          shift=1)
 
     def _mtp_loss(self, params: Params, h: torch.Tensor,
                   batch: dict) -> torch.Tensor:

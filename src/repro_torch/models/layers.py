@@ -258,21 +258,33 @@ def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def next_token_ce_ranks(cfg: ModelConfig, p: Params, h: torch.Tensor,
-                        targets: torch.Tensor, lay) -> torch.Tensor:
+                        targets: torch.Tensor, lay, shift: int = 0
+                        ) -> torch.Tensor:
     """The mean next-token cross-entropy of this rank's rows over ranks:
     ``h`` its piece of the final hidden (``lay``), ``targets`` (B, S) its
-    rows' whole, ``p`` its slice of the embedding.  With the vocabulary
-    split over ``model``, ``h`` whole along ``model`` and the
-    vocabulary-parallel CE on the rank's logits block; else the whole
-    vocabulary on the rank's positions, their sums added over ``model``."""
+    rows' whole, ``p`` its slice of the embedding; with ``shift``,
+    position t against target t + ``shift`` (the last ``shift`` positions
+    dropped: multi-token prediction).  With the vocabulary split over
+    ``model``, ``h`` whole along ``model`` and the vocabulary-parallel CE
+    on the rank's logits block; else the whole vocabulary on the rank's
+    positions (their shifted targets may lie in the next rank's piece),
+    their sums added over ``model``."""
     table = p["table"] if cfg.tie_embeddings else p["unembed"]
+    b, s = targets.shape
     if table.shape[0 if cfg.tie_embeddings else 1] != cfg.vocab_size:
-        return vocab_parallel_nll(unembed(cfg, p, lay.enter(h)), targets,
-                                  lay).mean()
-    nll = next_token_nll(unembed(cfg, p, h), lay.piece(targets))
-    if lay.seq_split:
-        return lay.comm.sum_model(nll.sum()) / targets.numel()
-    return nll.mean()
+        hw = lay.enter(h)
+        return vocab_parallel_nll(unembed(cfg, p, hw[:, :s - shift]),
+                                  targets[:, shift:], lay).mean()
+    if not lay.seq_split:
+        return next_token_nll(unembed(cfg, p, h[:, :s - shift]),
+                              targets[:, shift:]).mean()
+    ahead = torch.cat([targets[:, shift:], targets[:, :shift]], 1)
+    nll = next_token_nll(unembed(cfg, p, h), lay.piece(ahead))
+    rows = lay.positions
+    keep = torch.arange(rows.start, rows.stop, device=nll.device) < s - shift
+    nll = torch.where(keep, nll, torch.zeros((), dtype=nll.dtype,
+                                             device=nll.device))
+    return lay.comm.sum_model(nll.sum()) / (b * (s - shift))
 
 
 # ---------------------------------------------------------------------------

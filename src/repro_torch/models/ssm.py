@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, dense_init, dtype_of
+from repro_torch.sharding import partition
 
 
 def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -216,3 +217,197 @@ def ssm_decode_step(cfg: ModelConfig, p: Params, cache: Params,
     y = y.reshape(bsz, d_in) * F.silu(z)
     out = (y @ p["out_proj"])[:, None, :]
     return out, {"conv": conv_state, "h": h_new}
+
+
+# ---------------------------------------------------------------------------
+# over the ranks of a data × model mesh: the rank's heads
+# ---------------------------------------------------------------------------
+
+def _rank_groups(cfg: ModelConfig, m: int, nm: int):
+    """The groups of B / C that rank ``m``'s H/nm heads read, as
+    (first, end), or None where they do not line up with the heads (a
+    group shared by two ranks' heads unevenly)."""
+    _, h, g, _ = dims(cfg)
+    if h % nm:
+        return None
+    nh, rep = h // nm, h // g
+    if rep % nh and nh % rep:
+        return None
+    lo = m * nh // rep
+    return lo, max(lo + 1, (m + 1) * nh // rep)
+
+
+def heads_split(cfg: ModelConfig, nm: int) -> bool:
+    """Whether ``ssm_forward_ranks`` runs the rank's heads (H divisible
+    by nm, B / C groups aligned with them)."""
+    return _rank_groups(cfg, 0, nm) is not None
+
+
+def head_columns(cfg: ModelConfig, m: int, nm: int):
+    """Rank ``m``'s head-aligned columns as (first, end) ranges: of
+    in_proj's [z | x | B | C | dt] (its heads' z, x and dt, its groups' B
+    and C: all of them when n_groups = 1) and of the conv's [x | B | C]
+    channels.  ``param_specs`` cuts both into contiguous blocks that
+    straddle those boundaries; these are the columns the rank's heads
+    need."""
+    d_in, h, g, n = dims(cfg)
+    nh, p = h // nm, cfg.ssm.head_dim
+    g_lo, g_hi = _rank_groups(cfg, m, nm)
+    xs = (m * nh * p, (m + 1) * nh * p)
+    bs = (g_lo * n, g_hi * n)
+    proj = [xs, (d_in + xs[0], d_in + xs[1]),
+            (2 * d_in + bs[0], 2 * d_in + bs[1]),
+            (2 * d_in + g * n + bs[0], 2 * d_in + g * n + bs[1]),
+            (2 * d_in + 2 * g * n + m * nh, 2 * d_in + 2 * g * n
+             + (m + 1) * nh)]
+    conv = [xs, (d_in + bs[0], d_in + bs[1]),
+            (d_in + g * n + bs[0], d_in + g * n + bs[1])]
+    return proj, conv
+
+
+def cut(w: torch.Tensor, ranges, dim: int = -1) -> torch.Tensor:
+    """The ``ranges`` of ``w`` along ``dim``, joined in order."""
+    return torch.cat([w.narrow(dim, a, b - a) for a, b in ranges], dim)
+
+
+def ssm_heads(cfg: ModelConfig, p: Params, x: torch.Tensor, m: int, nm: int,
+              use_kernel: bool = False) -> torch.Tensor:
+    """Rank ``m``'s partial ``ssm_forward`` of the whole sequence ``x``
+    (B, S, D): ``p`` holds in_proj and the conv whole, ``out_proj`` the
+    rank's rows (its heads' d_in / nm), the per-head vectors whole.  The
+    product runs on the rank's head-aligned columns only (``head_columns``:
+    cut before it), then the conv on its x channels and its B / C
+    channels, the scan on its H/nm heads, the skip, the gate and its rows
+    of out_proj.  The ranks' outputs sum to ``ssm_forward``'s."""
+    s_cfg = cfg.ssm
+    d_in, h, g, n = dims(cfg)
+    nh, hp = h // nm, s_cfg.head_dim
+    g_lo, g_hi = _rank_groups(cfg, m, nm)
+    gl = g_hi - g_lo
+    bsz, s, _ = x.shape
+    proj_cols, conv_cols = head_columns(cfg, m, nm)
+    proj = x @ cut(p["in_proj"], proj_cols)
+    z, xbc, dt_raw = torch.split(proj, [nh * hp, nh * hp + 2 * gl * n, nh],
+                                 dim=-1)
+    xbc = F.silu(layers.apply_conv({"w": cut(p["conv"]["w"], conv_cols),
+                                    "b": cut(p["conv"]["b"], conv_cols)},
+                                   xbc))
+    xh, b_mat, c_mat = torch.split(xbc, [nh * hp, gl * n, gl * n], dim=-1)
+    xh = xh.reshape(bsz, s, nh, hp)
+    b_mat = b_mat.reshape(bsz, s, gl, n)
+    c_mat = c_mat.reshape(bsz, s, gl, n)
+    heads = slice(m * nh, (m + 1) * nh)
+    dt = layers.softplus(dt_raw.float() + p["dt_bias"][heads])
+    a = -torch.exp(p["a_log"][heads])
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        y, _ = kops.ssd_scan(xh, dt, a, b_mat, c_mat, chunk=s_cfg.chunk_size)
+    else:
+        y, _ = ssd_chunked(xh, dt, a, b_mat, c_mat, min(s_cfg.chunk_size, s))
+    y = y + xh * p["d_skip"][heads][None, None, :, None].to(xh.dtype)
+    y = y.reshape(bsz, s, nh * hp).to(x.dtype) * F.silu(z)
+    return (y @ p["out_proj"]).to(x.dtype)
+
+
+def ssm_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay,
+                      use_kernel: bool = False) -> torch.Tensor:
+    """This rank's share of ``ssm_forward`` under the hints: ``x`` its
+    piece of the (normed) residual, ``p`` its shards by ``param_specs``
+    (the data axes gathered); returns its piece of the output.
+
+    Where the heads divide over ``model`` (``heads_split``) the rank runs
+    its H/nm heads (``ssm_heads``): the residual whole along the sequence
+    (``lay.enter``), in_proj and the conv all-gathered along ``model``
+    (their contiguous slices straddle z | x | B | C | dt) and cut to the
+    rank's columns before the product, the per-head vectors sliced to its
+    heads, its rows of out_proj, and one sum over ``model`` laid out as
+    the residual (``lay.leave``).  Otherwise every weight whole and the
+    one-process mixer on the whole sequence, this rank keeping its
+    piece."""
+    d_in, h, g, n = dims(cfg)
+    proj, width = 2 * d_in + 2 * g * n + h, d_in + 2 * g * n
+    if not heads_split(cfg, lay.nm):
+        back = "scatter" if lay.seq_split else "slice"
+        w = dict(p, in_proj=lay.whole(p["in_proj"], 1, proj, back),
+                 conv=dict(p["conv"], w=lay.whole(p["conv"]["w"], 1, width,
+                                                  back)),
+                 out_proj=lay.whole(p["out_proj"], 0, d_in, back))
+        xf = lay.enter(x) if lay.seq_split else x
+        return lay.piece(ssm_forward(cfg, w, xf, use_kernel=use_kernel))
+    w = {"in_proj": lay.whole(p["in_proj"], 1, proj),
+         "conv": {"w": lay.whole(p["conv"]["w"], 1, width),
+                  "b": lay.fork(p["conv"]["b"])},
+         "out_proj": p["out_proj"]}
+    w.update({k: lay.fork(p[k]) for k in ("a_log", "dt_bias", "d_skip")})
+    return lay.leave(ssm_heads(cfg, w, lay.enter(x), lay.m, lay.nm,
+                               use_kernel))
+
+
+def ssm_decode_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
+                          specs: Params, x_t: torch.Tensor, lay
+                          ) -> tuple[torch.Tensor, Params]:
+    """One token through one rank's share of ``ssm_decode_step``: ``x_t``
+    (B, 1, D) whole along ``model``, ``cache`` its slices by
+    ``cache_specs`` (``specs``, per layer: h's d_state and the conv
+    state's channels over ``model``).
+
+    The rank's columns of in_proj give its block of the token's
+    projection, all-gathered (one token's columns); the conv state
+    advances on the rank's channels (the conv weight's slice is the
+    state's: one rule places both) and the conv outputs are all-gathered;
+    the state updates on the rank's slice of d_state (elementwise in it),
+    and y = Σ_N C·h is summed over ``model`` in rank order in f32; its
+    rows of out_proj are summed over ``model``.  Neither state is
+    gathered.  A state whole along ``model`` (nm dividing neither d_state
+    nor the channels) updates whole on every rank."""
+    s_cfg = cfg.ssm
+    d_in, h, g, n = dims(cfg)
+    bsz, m, comm = x_t.shape[0], lay.m, lay.comm
+    proj = x_t[:, 0, :] @ p["in_proj"]
+    if proj.shape[-1] != 2 * d_in + 2 * g * n + h:
+        proj = comm.gather_model(proj, 1)
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    conv, state = p["conv"], cache["conv"]
+    wn = state.shape[-1]
+    if wn != xbc.shape[-1]:
+        ch = slice(m * wn, (m + 1) * wn)
+        out, conv_state = layers.apply_conv_step(
+            {"w": conv["w"], "b": conv["b"][ch]}, state, xbc[:, ch])
+        xbc = comm.gather_model(out, 1)
+    else:
+        xbc, conv_state = layers.apply_conv_step(conv, state, xbc)
+    xbc = F.silu(xbc)
+    x, b_mat, c_mat = _split_xbc(cfg, xbc)
+
+    x = x.reshape(bsz, h, s_cfg.head_dim)
+    b_mat = b_mat.reshape(bsz, g, n)
+    c_mat = c_mat.reshape(bsz, g, n)
+    hs = cache["h"]
+    split = partition.model_dim(specs["h"]) is not None
+    if split:
+        if hs.shape[-1] == n:
+            raise ValueError("a decode step over ranks takes the SSM state "
+                             "split over d_state or whole")
+        nn = hs.shape[-1]
+        b_mat = b_mat[..., m * nn:(m + 1) * nn]
+        c_mat = c_mat[..., m * nn:(m + 1) * nn]
+    b_mat = b_mat.repeat_interleave(h // g, dim=1)
+    c_mat = c_mat.repeat_interleave(h // g, dim=1)
+    dt = layers.softplus(dt_raw.float() + p["dt_bias"])
+    decay = torch.exp(dt * -torch.exp(p["a_log"]))
+    h_new = hs * decay[:, :, None, None].to(x.dtype) + \
+        _einsum("bhp,bhn,bh->bhpn", x, b_mat, dt.to(x.dtype))
+    if split:
+        y = comm.sum_model(_einsum("bhn,bhpn->bhp", c_mat.float(),
+                                   h_new)).to(x.dtype)
+    else:
+        y = _einsum("bhn,bhpn->bhp", c_mat, h_new)
+    y = y + x * p["d_skip"][None, :, None].to(x.dtype)
+    y = y.reshape(bsz, d_in) * F.silu(z)
+    o = p["out_proj"]
+    if o.shape[0] == d_in:
+        out = y @ o
+    else:
+        out = comm.sum_model(y[:, m * o.shape[0]:(m + 1) * o.shape[0]] @ o)
+    return out[:, None, :], {"conv": conv_state, "h": h_new}
+

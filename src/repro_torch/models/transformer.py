@@ -10,17 +10,19 @@ Over the ranks of a data × model mesh under ``sharding_hints``
 (``apply_stack_ranks``, ``decode_stack_ranks``) each rank holds its slices
 of every layer by ``param_specs`` (and of every cache by ``cache_specs``);
 a layer's slices are all-gathered over the data axes (the FSDP leg) as it
-runs.  The GQA segments (``attn_mlp``, ``attn_moe``) run split: the
-residual lives between layers as the rank's (B/n_dp, S/nm, D) piece
-(``hints.residual_layout``, the reference's ``hint_residual``; whole along
-``model`` where nm does not divide S, as in a decode step), and each split
-sublayer all-gathers it along ``model`` at entry and reduce-scatters its
-partial sums at exit.  Every other family (MLA, ``ssm``, ``hybrid`` /
-``rglru_mlp``, ``enc`` / ``dec``, the vision prefix) is placed the same
-way but computes whole: each layer's slices are all-gathered along all
+runs.  The attention segments (``attn_mlp``, ``attn_moe``: GQA or MLA)
+and the Mamba-2 ``ssm`` segment run split: the residual lives between
+layers as the rank's (B/n_dp, S/nm, D) piece (``hints.residual_layout``,
+the reference's ``hint_residual``; whole along ``model`` where nm does not
+divide S, as in a decode step), each split sublayer all-gathers it along
+``model`` at entry, computes on the rank's heads (or its columns of the
+MLP) and reduce-scatters its partial sums at exit; a decode step runs on
+the rank's slices of the caches.  The other families (``hybrid`` /
+``rglru_mlp``, ``enc`` / ``dec``, the vision prefix) are placed the same
+way but compute whole: each layer's slices are all-gathered along all
 their axes (the routed experts' along the data axes only: the
-all-to-all dispatch still runs on them) and its activations stay whole
-along ``model``; its split compute is later work.  Both carry gradients
+all-to-all dispatch still runs on them) and their activations stay whole
+along ``model``; their split compute is later work.  Both carry gradients
 (the tensor-parallel training step; ``hints``' two conventions), with
 remat per layer, collectives included.
 
@@ -438,10 +440,21 @@ def decode_stack(cfg: ModelConfig, params: Params, caches: Params,
 # ---------------------------------------------------------------------------
 
 def split_arch(cfg: ModelConfig) -> bool:
-    """Whether the layers run split over ``model`` (GQA ``attn_mlp`` /
-    ``attn_moe`` stacks); the other families compute whole."""
-    return (cfg.mla is None and cfg.arch_type not in ("ssm", "vlm")
-            and cfg.hybrid is None and not cfg.is_encoder_decoder)
+    """Whether the layers run split over ``model``: the attention stacks
+    (``attn_mlp`` / ``attn_moe``, GQA or MLA) and the Mamba-2 ``ssm``
+    stack.  The hybrid RG-LRU stacks, the vision prefix and the
+    encoder-decoder compute whole."""
+    return (cfg.arch_type != "vlm" and cfg.hybrid is None
+            and not cfg.is_encoder_decoder)
+
+
+def decode_split(cfg: ModelConfig, kind: str, nm: int) -> bool:
+    """Whether a decode step runs a layer of a split arch on its slices
+    of the caches (else the layer and its caches are gathered whole): an
+    MLA layer needs its heads to divide over ``model``."""
+    if kind in ("attn_mlp", "attn_moe") and cfg.mla is not None:
+        return cfg.num_heads % nm == 0
+    return True
 
 
 def layer_specs(specs):
@@ -521,17 +534,54 @@ def apply_layer_ranks(cfg: ModelConfig, kind: str, p: Params,
                       x: torch.Tensor, lay, *, window: Optional[int] = None,
                       use_kernel: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A split ``attn_mlp`` / ``attn_moe`` layer on this rank's piece."""
-    x = x + attention.gqa_forward_ranks(
-        cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), lay,
-        window=window, use_kernel=use_kernel)
+    """A split ``attn_mlp`` / ``attn_moe`` (GQA or MLA) or ``ssm`` layer
+    on this rank's piece."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "ssm":
+        return x + ssm.ssm_forward_ranks(
+            cfg, p["mixer"], layers.apply_norm(cfg, p["norm"], x), lay,
+            use_kernel=use_kernel), zero
+    attn = attention.gqa_forward_ranks if cfg.mla is None \
+        else attention.mla_forward_ranks
+    x = x + attn(cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), lay,
+                 window=window, use_kernel=use_kernel)
     h_in = layers.apply_norm(cfg, p["norm2"], x)
     if kind == "attn_moe":
         h, aux = moe_lib.apply_moe(cfg, p["moe"], h_in, lay)
         return x + h, aux
     h = layers.apply_mlp_ranks(cfg, p["mlp"], h_in, lay,
                                _dense_ff_width(cfg))
-    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, zero
+
+
+def apply_layer_step_ranks(cfg: ModelConfig, kind: str, p: Params,
+                           cache: Params, specs, x_t: torch.Tensor, lay, *,
+                           rolling: bool = False) -> tuple[torch.Tensor,
+                                                           Params]:
+    """One token through a split layer on this rank's slices of its
+    parameters and of its cache (``specs``: the layer's ``cache_specs``):
+    ``x_t`` whole along ``model``.  Attention caches are written in place;
+    the SSM states come back as new tensors (the rank's slices)."""
+    if kind == "ssm":
+        h, cache = ssm.ssm_decode_step_ranks(
+            cfg, p["mixer"], cache, specs,
+            layers.apply_norm(cfg, p["norm"], x_t), lay)
+        return x_t + h, cache
+    h_in = layers.apply_norm(cfg, p["norm1"], x_t)
+    if cfg.mla is not None:
+        h, _ = attention.mla_decode_step_ranks(cfg, p["attn"], cache, specs,
+                                               h_in, lay)
+    else:
+        h, _ = attention.gqa_decode_step_ranks(cfg, p["attn"], cache, specs,
+                                               h_in, lay, rolling=rolling)
+    x_t = x_t + h
+    h_in = layers.apply_norm(cfg, p["norm2"], x_t)
+    if kind == "attn_moe":
+        h, _ = moe_lib.apply_moe(cfg, p["moe"], h_in, lay)
+    else:
+        h = layers.apply_mlp_ranks(cfg, p["mlp"], h_in, lay,
+                                   _dense_ff_width(cfg))
+    return x_t + h, cache
 
 
 def _cache_spec(leaf: torch.Tensor, spec) -> tuple:
@@ -581,24 +631,17 @@ def decode_stack_ranks(cfg: ModelConfig, params: Params, specs,
             continue
         sp = layer_specs(specs[seg.kind])
         cs = layer_specs(cache_specs[seg.kind])
+        here = split and decode_split(cfg, seg.kind, lay.nm)
         for i in range(seg.count):
             p = gather_layer(_layer(params[seg.kind], i), sp, lay,
-                             whole=not split)
+                             whole=not here)
             old = _layer(caches[seg.kind], i)
-            if split:
-                cache = _whole_cache(old, cs, lay, hints.DATA_AXES)
-                h_in = layers.apply_norm(cfg, p["norm1"], x_t)
-                h, _ = attention.gqa_decode_step_ranks(
-                    cfg, p["attn"], cache, cs, h_in, lay, rolling=rolling)
-                x_t = x_t + h
-                h_in = layers.apply_norm(cfg, p["norm2"], x_t)
-                if seg.kind == "attn_moe":
-                    h, _ = moe_lib.apply_moe(cfg, p["moe"], h_in, lay)
-                else:
-                    h = layers.apply_mlp_ranks(cfg, p["mlp"], h_in, lay,
-                                               _dense_ff_width(cfg))
-                x_t = x_t + h
-                _write_back(old, cache, cs, lay, hints.DATA_AXES)
+            if here:
+                x_t, new = apply_layer_step_ranks(
+                    cfg, seg.kind, p, _whole_cache(old, cs, lay,
+                                                   hints.DATA_AXES),
+                    cs, x_t, lay, rolling=rolling)
+                _write_back(old, new, cs, lay, hints.DATA_AXES)
                 continue
             x_t, new = apply_layer_step(cfg, seg.kind, p,
                                         _whole_cache(old, cs, lay), x_t,

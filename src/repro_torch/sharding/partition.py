@@ -375,6 +375,14 @@ def entry_axes(entry) -> tuple[str, ...]:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
+def model_dim(spec) -> Optional[int]:
+    """The dim a spec places over ``model``, or None."""
+    for d, entry in enumerate(spec):
+        if "model" in entry_axes(entry):
+            return d
+    return None
+
+
 def local_shape(shape, spec, mesh) -> tuple[int, ...]:
     """The shape of one rank's slice of a tensor of ``shape`` placed by
     ``spec`` (``NamedSharding(mesh, spec).shard_shape``): each dim divided

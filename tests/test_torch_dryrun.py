@@ -23,6 +23,10 @@ allocating anything.
   * ``long_500k`` decode (one sequence over 16 or 32 data ranks): the
     specs a decode step derives from a rank's cache shapes are the ones
     its caches were placed by, for every arch;
+  * split compute: on a 1 × 4 stand-in mesh a rank's FLOPs of the reduced
+    train, prefill and decode steps of mamba2-1.3b and deepseek-v3-671b
+    are at most half of one process's (the SSD mixer and MLA run on the
+    rank's heads, not whole on every rank);
   * refusals: a stand-in mesh in a process already in a group, and
     training batches that do not divide.
 
@@ -311,6 +315,21 @@ def test_expert_counts_are_bincount_and_run_on_meta():
     assert got.dtype == torch.int64
     assert torch.equal(got, torch.bincount(ids, minlength=11))
     assert moe.expert_counts(ids.to("meta"), 11).shape == (11,)
+
+
+@pytest.mark.parametrize("step", STEPS)
+@pytest.mark.parametrize("arch", ("mamba2-1.3b", "deepseek-v3-671b"))
+def test_split_archs_split_the_compute(arch, step):
+    """A rank of 1 × 4 does at most half the FLOPs of one process on the
+    same reduced step (B = 8, S = 16): the compute, not only the values,
+    is split over ``model``."""
+    cfg = configs.get_config(arch, reduced=True)
+    shape = InputShape(step, REF_S, REF_B, step)
+    flops = {}
+    for dims in ((1, 1), (1, 4)):
+        with mesh_lib.stand_in_mesh(dims, 0) as mesh:
+            flops[dims] = dryrun.measure(cfg, shape, mesh)["cost"]["flops"]
+    assert 0 < flops[(1, 4)] <= flops[(1, 1)] / 2, (arch, step, flops)
 
 
 def test_stand_in_mesh_refuses_a_process_in_a_group(tmp_path):

@@ -6,14 +6,17 @@ One JAX subprocess on four forced host devices draws each architecture's
 reduced parameters (f32) and a batch (B = 2, S = 32), then, inside
 ``with mesh, sharding_hints(mesh, moe_a2a=True)`` on the 2 × 2 and 1 × 4
 meshes of ``make_host_mesh``, runs the jitted forward (``last_only``: the
-prefill's logits) and, for deepseek-moe-16b, qwen2-7b and gemma-2b, four
-decode steps from ``init_cache`` (the caches a prefill returns).  Those
-three exercise the split layers: the MoE all-to-all, both ``hint_qkv``
-branches (qwen2-7b's 2 KV heads take the heads branch on 2 × 2 and the
-context branch on 1 × 4; gemma-2b's one KV head always the context
-branch), the sequence-split residual and the vocabulary-split embedding.
-Every other family runs one forward at 1 × 4 (gathered whole along
-``model``).  It writes the parameters, batches and outputs to an .npz.
+prefill's logits) and, for the split archs (deepseek-moe-16b, qwen2-7b,
+gemma-2b, mamba2-1.3b and deepseek-v3-671b), four decode steps from
+``init_cache`` (the caches a prefill returns).  Those exercise the split
+layers: the MoE all-to-all, both ``hint_qkv`` branches (qwen2-7b's 2 KV
+heads take the heads branch on 2 × 2 and the context branch on 1 × 4;
+gemma-2b's one KV head always the context branch), MLA on the rank's
+heads (its decode on the rank's slices of the latent cache), the SSD
+mixer on the rank's heads (its decode on the rank's slice of d_state and
+of the conv channels), the sequence-split residual and the
+vocabulary-split embedding.  Every other family runs one forward at
+1 × 4 and at 2 × 2 (gathered whole along ``model``).  It writes the parameters, batches and outputs to an .npz.
 
 One spawn of four gloo ranks (no JAX in the ranks: they import this
 module, which imports none) places the reference's parameters on each
@@ -55,10 +58,10 @@ from repro_torch.util import tree
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 4
 MESHES = {"2x2": 2, "1x4": 4}          # name -> model axis
-SPLIT = ("deepseek-moe-16b", "qwen2-7b", "gemma-2b")
-OTHERS = ("mamba2-1.3b", "recurrentgemma-9b", "deepseek-v3-671b",
-          "internvl2-2b", "seamless-m4t-medium", "moonshot-v1-16b-a3b",
-          "nemotron-4-15b")
+SPLIT = ("deepseek-moe-16b", "qwen2-7b", "gemma-2b", "mamba2-1.3b",
+         "deepseek-v3-671b")
+OTHERS = ("recurrentgemma-9b", "internvl2-2b", "seamless-m4t-medium",
+          "moonshot-v1-16b-a3b", "nemotron-4-15b")
 B, S, S_ENC, MAX_LEN, STEPS = 2, 32, 16, 48, 4
 TOL = 1e-5
 GROUP_TIMEOUT_S = 60.0
@@ -72,7 +75,7 @@ RUNS = ([(arch, mesh, "") for arch in SPLIT for mesh in MESHES]
         + [(arch, "2x2", "fsdp") for arch in SPLIT]
         + [("deepseek-moe-16b", "2x2", "portable")]
         + [(arch, "1x4", "hd6") for arch in SPLIT[:2]]
-        + [(arch, "1x4", "") for arch in OTHERS])
+        + [(arch, mesh, "") for arch in OTHERS for mesh in MESHES])
 VARIANT_CFG = {"hd6": {"head_dim": 6}}
 CASES = ([(arch, mesh, step) for arch in SPLIT for mesh in MESHES
           for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]])
@@ -273,9 +276,9 @@ def _close(got, want, what):
 
 @pytest.mark.parametrize("arch,mesh,step", CASES)
 def test_split_layers_match_reference(reference, ranks, arch, mesh, step):
-    """deepseek-moe-16b, qwen2-7b and gemma-2b: the prefill's last-token
-    logits and each of 4 decode steps' equal the reference's under the
-    same hints within 1e-5 · max."""
+    """The split archs: the prefill's last-token logits and each of 4
+    decode steps' equal the reference's under the same hints within
+    1e-5 · max."""
     _, want = reference
     got, _ = ranks
     _close(got[f"{arch}/{mesh}/{step}"], want[f"{arch}/{mesh}/{step}"],
@@ -317,13 +320,15 @@ def test_decode_on_head_split_and_whole_caches(reference, ranks, arch):
         _close(got[key], want[key], key)
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_gathered_families_match_reference(reference, ranks, arch):
+@pytest.mark.parametrize("arch,mesh", [(arch, mesh) for arch in OTHERS
+                                       for mesh in MESHES])
+def test_gathered_families_match_reference(reference, ranks, arch, mesh):
     """Every other family, placed by ``param_specs`` and computed whole
-    along ``model``: one forward at 1 × 4."""
+    along ``model``: one forward at 1 × 4 and at 2 × 2."""
     _, want = reference
     got, _ = ranks
-    _close(got[f"{arch}/1x4/prefill"], want[f"{arch}/1x4/prefill"], arch)
+    _close(got[f"{arch}/{mesh}/prefill"], want[f"{arch}/{mesh}/prefill"],
+           (arch, mesh))
 
 
 @pytest.mark.parametrize("arch,mesh,variant", RUNS)

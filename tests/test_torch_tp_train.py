@@ -2,9 +2,11 @@
 on a ``data`` × ``model`` mesh of processes, against the JAX package's
 placed step on the same mesh shape.
 
-Two JAX subprocesses (half the architectures each, four forced host
-devices apiece) draw gemma-2b, qwen2-7b, deepseek-moe-16b and mamba2-1.3b
-at their reduced configurations (f32) and a global batch (B = 8, S = 16),
+Two JAX subprocesses (about half the architectures each, four forced host
+devices apiece) draw gemma-2b, qwen2-7b, deepseek-moe-16b, mamba2-1.3b and
+deepseek-v3-671b (MLA, MoE and the multi-token-prediction loss over the
+split residual) at their reduced configurations (f32) and a global batch
+(B = 8, S = 16),
 and step under SGD at learning rate 1 (the new parameters carry the
 gradient), ``grad_accum`` 1 and 2:
 
@@ -68,8 +70,9 @@ from repro_torch.util import tree
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 4
 MESHES = {"2x2": 2, "1x4": 4}          # name -> model axis
-ARCHS = ("gemma-2b", "qwen2-7b", "deepseek-moe-16b", "mamba2-1.3b")
-HALVES = (ARCHS[:2], ARCHS[2:])        # one JAX subprocess each
+ARCHS = ("gemma-2b", "qwen2-7b", "deepseek-moe-16b", "mamba2-1.3b",
+         "deepseek-v3-671b")
+HALVES = (ARCHS[:2] + ARCHS[3:4], ARCHS[2:3] + ARCHS[4:])  # a JAX process each
 ACCUMS = (1, 2)
 B, S = 8, 16
 TOL = 1e-4
