@@ -90,8 +90,10 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. hold the SSD scan kernels against their plain version (f32 limit
      1e-4, bf16 one ulp, 2^-7 of max) at the Mamba-2 prefill shape (4 x
      4096, 64 heads of 64, d_state 128) in bf16 and f32, at 1 x 32768, at
-     a ragged S = 1000 (chunk 8), at S = 100 < chunk and with 2 groups
-     (bf16: the three-pass tensor-core kernel, each case also beside the
+     a ragged S = 1000 (chunk 8), at S = 100 < chunk, with 2 groups and
+     at a mamba2-1.3b rank's 32 heads over 1 x 2 model ranks, 2 x 4096,
+     the shape phase 17b launches it at (bf16: the three-pass tensor-core
+     kernel, each case also beside the
      plain three-pass form with the kernel's bf16 roundings, reported;
      f32: the FFMA kernel, a fixed route by dtype); and
      the flash attention kernels (bf16: the tensor-core kernel, limit
@@ -100,7 +102,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      non-causal case, a ragged S = 3000, head_dim 80, one f32 case, one
      non-causal case with a window, and a deepseek-moe-16b rank's 8 heads
      over 1 x 2 model ranks (2 x 2048, Hq = Hkv = 8, head_dim 128: the
-     shape phase 14b launches it at);
+     shape phase 14b launches it at) and a deepseek-v3-671b rank's 64 MLA
+     heads over 1 x 2 (2 x 2048, head_dim 192 with v's 128 padded with
+     zeros: phase 17c's launch);
   8. Mamba-2 1.3B at its published widths and depth (48 layers, d_model
      2048, bf16, random weights from a generator on the card): prefill
      4 x 4096 tokens through the kernel and through the plain path
@@ -252,8 +256,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      deepseek-v3-671b at its published widths cut to its three dense
      layers plus the multi-token-prediction layer (bf16, ~4.3 B
      parameters) over 1 x 2: a 2 x 2,048 prefill through the flash
-     kernel (3 launches a rank, each on 64 of the 128 heads), 4 decode
-     steps on the rank's slices of the latent cache and one SGD training
+     kernel (3 launches a rank, each on 64 of the 128 heads; the
+     launchers count their launches by heads), 4 decode steps on the
+     rank's slices of the latent cache and one SGD training
      step (grad_accum 2).  17b / 17c hold the parameter bytes a rank
      (its shards' by param_specs, at most 55 % of one process's), the
      logits within 5e-2 of max and the loss within 2^-7 of one process's
@@ -603,11 +608,23 @@ def counts() -> dict:
             "flash_offset": flash.flash_offset_launches}
 
 
+def launch_heads() -> dict:
+    """The flash and SSD launches by their number of heads, as the
+    launchers count them (since the last ``reset_counts()``)."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ssd_scan
+    return {"flash": dict(flash.flash_heads), "ssd": dict(ssd_scan.ssd_heads)}
+
+
 def reset_counts(to: "dict | None" = None) -> None:
-    """Set every launch count to 0, or back to ``to`` (a ``counts()``)."""
+    """Set every launch count to 0 (and the launches by heads), or back
+    to ``to`` (a ``counts()``)."""
     from repro_torch.kernels import community_spmm
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import ssd_scan
+    if to is None:
+        flash.flash_heads.clear()
+        ssd_scan.ssd_heads.clear()
     to = to or dict.fromkeys(counts(), 0)
     community_spmm.launches = to["ell"]
     community_spmm.packed_launches = to["packed"]
@@ -1739,6 +1756,9 @@ SSD_CHECKS = [      # (name, b, s, h, p, g, n, dtype)
     ("ragged S=1000 (chunk 8) bf16", 1, 1000, 64, 64, 1, 128, "bfloat16"),
     ("S=100 < chunk bf16", 2, 100, 64, 64, 1, 128, "bfloat16"),
     ("G=2 2x2048 bf16", 2, 2048, 64, 64, 2, 128, "bfloat16"),
+    # a mamba2-1.3b rank's heads over 1 x 2 model ranks (phase 17b)
+    ("mamba2-1.3b rank heads 1x2 2x4096 H32 bf16", 2, 4096, 32, 64, 1, 128,
+     "bfloat16"),
 ]
 # a context-parallel rank's query rows against every key (phase 14's
 # context branch): (name, b, s, model ranks, hq, hkv, hd, causal, window,
@@ -1755,7 +1775,9 @@ FLASH_OFFSET_CHECKS = [
     ("qwen2-7b context 1x4 S=2048 Hq28 Hkv4 hd128 causal f32", 1, 2048, 4,
      28, 4, 128, True, None, "float32"),
 ]
-FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
+# (name, b, s, hq, hkv, hd, causal, window, dtype[, v_hd]): a row with
+# v_hd draws v at that head_dim and pads it with zeros to hd (MLA's attend)
+FLASH_CHECKS = [
     ("qwen2-7b S=4096 Hq28 Hkv4 hd128 causal bf16", 1, 4096, 28, 4, 128,
      True, None, "bfloat16"),
     ("gemma-2b S=4096 Hq8 Hkv1 hd256 causal bf16", 1, 4096, 8, 1, 256, True,
@@ -1775,6 +1797,9 @@ FLASH_CHECKS = [    # (name, b, s, hq, hkv, hd, causal, window, dtype)
     # a deepseek-moe-16b rank's heads over 1 x 2 model ranks (phase 14b)
     ("deepseek-moe-16b rank heads 1x2 S=2048 Hq8 Hkv8 hd128 causal bf16", 2,
      2048, 8, 8, 128, True, None, "bfloat16"),
+    # a deepseek-v3-671b rank's MLA heads over 1 x 2 model ranks (phase 17c)
+    ("deepseek-v3-671b rank heads 1x2 S=2048 Hq64 Hkv64 qk192 v128 padded "
+     "causal bf16", 2, 2048, 64, 64, 192, True, None, "bfloat16", 128),
 ]
 FLASH_TIMED = [FLASH_CHECKS[i] for i in (0, 1, 2, 6)]   # three bf16, the f32
 SSD_PROFILED = 10   # SSD calls in the profiled window of phase 9
@@ -1823,11 +1848,14 @@ def check_lm_kernels(gen, dev) -> tuple[list, list]:
             del emulated
         del args, out, want
     flash_checks: list[dict] = []
-    for name, b, s, hq, hkv, hd, causal, window, dtype in FLASH_CHECKS:
+    for name, b, s, hq, hkv, hd, causal, window, dtype, *v_hd in \
+            FLASH_CHECKS:
         dtype = getattr(torch, dtype)
+        vd = v_hd[0] if v_hd else hd
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, s, hq, hd), (b, s, hkv, hd),
-                                 (b, s, hkv, hd)))
+                                 (b, s, hkv, vd)))
+        v = torch.nn.functional.pad(v, (0, hd - vd))
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -4347,35 +4375,12 @@ def split17_config(setup):
     return dataclasses.replace(cfg, **split17_overrides(setup))
 
 
-class LaunchHeads:
-    """Records the heads of every flash and SSD launch while active (the
-    launchers' own counts are what the checks read)."""
-
-    def __enter__(self):
-        from repro_torch.kernels import flash_attention as flash
-        from repro_torch.kernels import ssd_scan as ssd
-        self.heads: dict = {"flash": [], "ssd": []}
-        self.saved = [(flash, "flash_attention", flash.flash_attention),
-                      (ssd, "ssd_scan", ssd.ssd_scan)]
-        for (module, name, launch), key in zip(self.saved,
-                                               ("flash", "ssd")):
-            def record(x, *args, _launch=launch, _key=key, **kwargs):
-                self.heads[_key].append(int(x.shape[2]))
-                return _launch(x, *args, **kwargs)
-            setattr(module, name, record)
-        return self
-
-    def __exit__(self, *exc) -> None:
-        for module, name, launch in self.saved:
-            setattr(module, name, launch)
-
-
 def split17_rank(rank: int, store: str, spec: dict) -> None:
     """Phase 17b / 17c, one of 1 x 2 gloo ranks on the card: ``spec``'s
     model at its published widths (17c cut in depth), its slices drawn by
     Model.init(mesh=...); the prefill forward through its kernel on the
-    rank's heads (the counts set to 0 just before it and read just after,
-    the heads of each launch recorded), the decode steps, then one
+    rank's heads (the counts, and the launches by heads, set to 0 just
+    before it and read just after), the decode steps, then one
     train_step_deferred on a fixed batch (its peak from the resident
     state up, its bytes along model); rank 0 writes the logits gathered
     whole, each rank its record, to ``spec["dir"]``."""
@@ -4416,14 +4421,13 @@ def split17_rank(rank: int, store: str, spec: dict) -> None:
                 torch.inference_mode():
             torch.cuda.synchronize(dev)
             reset_counts()
-            with LaunchHeads() as heads:
-                t0 = time.perf_counter()
-                logits, _, _ = model.forward(params, {"tokens": tokens},
-                                             use_kernel=True, last_only=True)
-                torch.cuda.synchronize(dev)
-                ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            logits, _, _ = model.forward(params, {"tokens": tokens},
+                                         use_kernel=True, last_only=True)
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
             rec["launches"] = counts()
-            rec["heads"] = heads.heads
+            rec["heads"] = launch_heads()
             rec["prefill"] = {"ms": ms, "model_bytes": comm.model_bytes,
                               "model_ms": 1e3 * comm.model_s,
                               "staging_ms": 1e3 * comm.staging_s}
@@ -4562,7 +4566,7 @@ def split17_full(card: str, tmp, setup, dev) -> dict:
     exact = all(r["resident_bytes"] == r["shard_bytes"] for r in recs)
     launched = [r["launches"][kernel] for r in recs]
     on_tc = [r["launches"][f"{kernel}_tc"] for r in recs]
-    heads = [sorted(set(r["heads"][kernel])) for r in recs]
+    heads = [sorted(int(h) for h in r["heads"][kernel]) for r in recs]
     losses = [r["train"]["loss"] for r in recs]
     loss_rel = max(abs(x - one["loss"]) / abs(one["loss"]) for x in losses)
     depth = split17_config(setup)

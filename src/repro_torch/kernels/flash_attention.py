@@ -26,7 +26,8 @@ is the whole sequence, the same launch as before the offset existed.
 
 ``flash_launches`` counts every call that reaches a kernel,
 ``flash_tc_launches`` those that reach the tensor-core kernel and
-``flash_offset_launches`` those at a query offset other than 0.
+``flash_offset_launches`` those at a query offset other than 0;
+``flash_heads`` counts the launches by their number of query heads.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ TC_LIB = "flash_attention_wgmma"    # bf16, tensor cores
 flash_launches = 0
 flash_tc_launches = 0
 flash_offset_launches = 0
+flash_heads: dict[int, int] = {}
 
 MAX_HEAD_DIM = 256
 _ROUTES = {torch.float32: (LIB, "flash_attention_f32",
@@ -120,6 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   0 if window is None else int(window), 1.0 / hd ** 0.5],
                  device, errors)
     flash_launches += 1
+    flash_heads[hq] = flash_heads.get(hq, 0) + 1
     if lib == TC_LIB:
         flash_tc_launches += 1
     if q_offset:

@@ -20,8 +20,9 @@ first use.  The model path is inference only (the reference's kernel has
 no VJP), so there is no ``autograd.Function``.
 
 ``ssd_launches`` counts every call that reaches a kernel, ``ssd_tc_launches``
-those that reach the tensor-core kernel; a caller that wants the count of
-one phase resets them to 0 before the phase.  ``tc_layout`` mirrors the
+those that reach the tensor-core kernel, ``ssd_heads`` the launches by
+their number of heads; a caller that wants the count of one phase resets
+them to 0 before the phase.  ``tc_layout`` mirrors the
 tensor-core route's grids and shared memory (``ssd_scan_wgmma_layout``).
 """
 from __future__ import annotations
@@ -36,6 +37,7 @@ LIB = "ssd_scan"                # f32, FFMA
 TC_LIB = "ssd_scan_wgmma"       # bf16, tensor cores
 ssd_launches = 0
 ssd_tc_launches = 0
+ssd_heads: dict[int, int] = {}
 
 # both kernels hold a chunk's 64-row tiles and an (N, P) state in shared
 # memory: chunk <= 256, head_dim <= 64, d_state <= 128
@@ -132,6 +134,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     build.launch("ssd_scan", lib, symbol, tensors,
                  [bsz, s, h, p, g, n, length], device, errors)
     ssd_launches += 1
+    ssd_heads[h] = ssd_heads.get(h, 0) + 1
     if lib == TC_LIB:
         ssd_tc_launches += 1
     return y

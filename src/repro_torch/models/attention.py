@@ -607,35 +607,20 @@ def mla_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay, *,
     piece of the (normed) residual, ``p`` its shards by ``param_specs``
     (the data axes gathered); returns its piece of the output.
 
-    ``heads`` (``qkv_layout`` of q and k, both H heads): the latents
-    (``_mla_latents``: q_down / kv_down gathered, the latents of the
-    rank's positions all-gathered along the sequence), then the rank's
-    H/nm heads from its column slices of q_up and kv_up (whole heads:
-    H/nm · (nope + rope) and H/nm · (nope + v) columns), k_rope (one head
-    shared by all) on each, attention on them (``attend``: the flash
-    kernel on the card), its row slice of ``o``, and one sum over
-    ``model`` laid out as the residual (``lay.leave``).  Otherwise (H not
-    divisible by nm) every weight whole and the one-process layer on the
-    whole sequence, this rank keeping its piece: a layout choice, as the
-    GQA layers' ``context`` / none branches are."""
+    The rank's heads (H divisible by nm: ``transformer.split_arch``
+    gathers the layer whole otherwise): the latents (``_mla_latents``:
+    q_down / kv_down gathered, the latents of the rank's positions
+    all-gathered along the sequence), then the rank's H/nm heads from its
+    column slices of q_up and kv_up (whole heads: H/nm · (nope + rope) and
+    H/nm · (nope + v) columns), k_rope (one head shared by all) on each,
+    attention on them (``attend``: the flash kernel on the card), its row
+    slice of ``o``, and one sum over ``model`` laid out as the residual
+    (``lay.leave``)."""
     m = cfg.mla
     h, nope, rope, vd = (cfg.num_heads, m.qk_nope_head_dim,
                          m.qk_rope_head_dim, m.v_head_dim)
     qk = nope + rope
-    branch, _ = hints.qkv_layout((lay.batch, lay.seq, h, qk),
-                                 (lay.batch, lay.seq, h, qk), lay.mesh)
     b, s = x.shape[0], lay.seq
-    if branch != "heads":
-        back = "scatter" if lay.seq_split else "slice"
-        d = cfg.d_model
-        w = dict(p, q_down=lay.whole(p["q_down"], 0, d, back),
-                 q_up=lay.whole(p["q_up"], 1, h * qk, back),
-                 kv_down=lay.whole(p["kv_down"], 0, d, back),
-                 kv_up=lay.whole(p["kv_up"], 1, h * (nope + vd), back),
-                 o=lay.whole(p["o"], 0, h * vd, back))
-        xf = lay.enter(x) if lay.seq_split else x
-        return lay.piece(mla_forward(cfg, w, xf, window=window,
-                                     use_kernel=use_kernel))
     nh = h // lay.nm
     rows = lay.positions
     c_q, c_kv, k_rope = _mla_latents(

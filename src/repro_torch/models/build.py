@@ -112,10 +112,12 @@ class Model:
 
     def _layout(self, batch: int, seq: int):
         """The active hints' ``RankLayout`` of a call (None without
-        ranks); the families that compute whole keep the residual whole
-        along ``model``."""
+        ranks); the archs that compute whole on these ranks
+        (``transformer.split_arch``) keep the residual whole along
+        ``model``."""
         lay = hints.rank_layout(batch, seq)
-        if lay is not None and not transformer.split_arch(self.cfg):
+        if lay is not None \
+                and not transformer.split_arch(self.cfg, lay.nm):
             lay = dataclasses.replace(lay, seq_split=False)
         return lay
 
@@ -275,21 +277,28 @@ class Model:
     def _mtp_loss_ranks(self, params: Params, h: torch.Tensor, emb: Params,
                         local: dict, lay) -> torch.Tensor:
         """``_mtp_loss`` on this rank: ``h`` its piece of the final
-        hidden.  The projection is all-gathered along ``model`` (the rank
-        forms its positions' rows of [h ; emb] · proj), the block runs
-        split (``apply_layer_ranks``), and the cross-entropy of position
-        t against target t + 1 crosses the boundary between two ranks'
-        pieces (``next_token_ce_ranks``' ``shift``)."""
+        hidden.  Where the layers split (``transformer.split_arch``) the
+        projection is all-gathered along ``model`` (the rank forms its
+        positions' rows of [h ; emb] · proj) and the block runs split
+        (``apply_layer_ranks``); else both are gathered whole and run on
+        the whole residual.  The cross-entropy of position t against
+        target t + 1 crosses the boundary between two ranks' pieces
+        (``next_token_ce_ranks``' ``shift``)."""
         cfg = self.cfg
+        split = transformer.split_arch(cfg, lay.nm)
         specs = self._rank_specs(lay.mesh)
         mtp = transformer.gather_layer(params["mtp"], specs["mtp"], lay,
-                                       whole=False)
+                                       whole=not split)
         e_t = layers.embed_ranks(cfg, emb, local["targets"], lay)
-        x = torch.cat([h, e_t.to(h.dtype)], dim=-1) @ lay.whole(
-            mtp["proj"], 1, cfg.d_model,
-            "scatter" if lay.seq_split else "slice")
-        x, _ = transformer.apply_layer_ranks(cfg, "attn_mlp", mtp["layer"],
-                                             x, lay)
+        x = torch.cat([h, e_t.to(h.dtype)], dim=-1)
+        if split:
+            x = x @ lay.whole(mtp["proj"], 1, cfg.d_model,
+                              "scatter" if lay.seq_split else "slice")
+            x, _ = transformer.apply_layer_ranks(cfg, "attn_mlp",
+                                                 mtp["layer"], x, lay)
+        else:
+            x, _ = transformer.apply_layer(cfg, "attn_mlp", mtp["layer"],
+                                           x @ mtp["proj"], lay=lay)
         x = layers.apply_norm(cfg, mtp["norm"], x)
         return layers.next_token_ce_ranks(cfg, emb, x, local["targets"], lay,
                                           shift=1)

@@ -238,8 +238,8 @@ def _rank_groups(cfg: ModelConfig, m: int, nm: int):
 
 
 def heads_split(cfg: ModelConfig, nm: int) -> bool:
-    """Whether ``ssm_forward_ranks`` runs the rank's heads (H divisible
-    by nm, B / C groups aligned with them)."""
+    """Whether the mixer's heads split over nm model ranks (H divisible
+    by nm, B / C groups aligned with them): ``transformer.split_arch``."""
     return _rank_groups(cfg, 0, nm) is not None
 
 
@@ -315,25 +315,15 @@ def ssm_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor, lay,
     piece of the (normed) residual, ``p`` its shards by ``param_specs``
     (the data axes gathered); returns its piece of the output.
 
-    Where the heads divide over ``model`` (``heads_split``) the rank runs
-    its H/nm heads (``ssm_heads``): the residual whole along the sequence
-    (``lay.enter``), in_proj and the conv all-gathered along ``model``
-    (their contiguous slices straddle z | x | B | C | dt) and cut to the
-    rank's columns before the product, the per-head vectors sliced to its
-    heads, its rows of out_proj, and one sum over ``model`` laid out as
-    the residual (``lay.leave``).  Otherwise every weight whole and the
-    one-process mixer on the whole sequence, this rank keeping its
-    piece."""
+    The rank runs its H/nm heads (``ssm_heads``; ``heads_split``:
+    ``transformer.split_arch`` gathers the layer whole otherwise): the
+    residual whole along the sequence (``lay.enter``), in_proj and the
+    conv all-gathered along ``model`` (their contiguous slices straddle
+    z | x | B | C | dt) and cut to the rank's columns before the product,
+    the per-head vectors sliced to its heads, its rows of out_proj, and
+    one sum over ``model`` laid out as the residual (``lay.leave``)."""
     d_in, h, g, n = dims(cfg)
     proj, width = 2 * d_in + 2 * g * n + h, d_in + 2 * g * n
-    if not heads_split(cfg, lay.nm):
-        back = "scatter" if lay.seq_split else "slice"
-        w = dict(p, in_proj=lay.whole(p["in_proj"], 1, proj, back),
-                 conv=dict(p["conv"], w=lay.whole(p["conv"]["w"], 1, width,
-                                                  back)),
-                 out_proj=lay.whole(p["out_proj"], 0, d_in, back))
-        xf = lay.enter(x) if lay.seq_split else x
-        return lay.piece(ssm_forward(cfg, w, xf, use_kernel=use_kernel))
     w = {"in_proj": lay.whole(p["in_proj"], 1, proj),
          "conv": {"w": lay.whole(p["conv"]["w"], 1, width),
                   "b": lay.fork(p["conv"]["b"])},

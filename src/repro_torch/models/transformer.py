@@ -10,21 +10,23 @@ Over the ranks of a data × model mesh under ``sharding_hints``
 (``apply_stack_ranks``, ``decode_stack_ranks``) each rank holds its slices
 of every layer by ``param_specs`` (and of every cache by ``cache_specs``);
 a layer's slices are all-gathered over the data axes (the FSDP leg) as it
-runs.  The attention segments (``attn_mlp``, ``attn_moe``: GQA or MLA)
-and the Mamba-2 ``ssm`` segment run split: the residual lives between
-layers as the rank's (B/n_dp, S/nm, D) piece (``hints.residual_layout``,
-the reference's ``hint_residual``; whole along ``model`` where nm does not
+runs.  The attention segments (``attn_mlp``, ``attn_moe``: GQA, or MLA
+whose heads divide over ``model``) and the Mamba-2 ``ssm`` segment whose
+heads split run split (``split_arch``): the residual lives between layers
+as the rank's (B/n_dp, S/nm, D) piece (``hints.residual_layout``, the
+reference's ``hint_residual``; whole along ``model`` where nm does not
 divide S, as in a decode step), each split sublayer all-gathers it along
 ``model`` at entry, computes on the rank's heads (or its columns of the
 MLP) and reduce-scatters its partial sums at exit; a decode step runs on
 the rank's slices of the caches.  The other families (``hybrid`` /
-``rglru_mlp``, ``enc`` / ``dec``, the vision prefix) are placed the same
-way but compute whole: each layer's slices are all-gathered along all
-their axes (the routed experts' along the data axes only: the
-all-to-all dispatch still runs on them) and their activations stay whole
-along ``model``; their split compute is later work.  Both carry gradients
-(the tensor-parallel training step; ``hints``' two conventions), with
-remat per layer, collectives included.
+``rglru_mlp``, ``enc`` / ``dec``, the vision prefix), and MLA and ``ssm``
+where their heads do not split, are placed the same way but compute whole:
+each layer's slices are all-gathered along all their axes (the routed
+experts' along the data axes only: the all-to-all dispatch still runs on
+them) and their activations stay whole along ``model``; their split
+compute is later work.  Both carry gradients (the tensor-parallel training
+step; ``hints``' two conventions), with remat per layer, collectives
+included.
 
 Segment kinds:
   attn_mlp    pre-norm attention (GQA/MQA/MLA per cfg) + dense FFN
@@ -439,21 +441,22 @@ def decode_stack(cfg: ModelConfig, params: Params, caches: Params,
 # over the ranks of a data × model mesh (sharding.hints)
 # ---------------------------------------------------------------------------
 
-def split_arch(cfg: ModelConfig) -> bool:
-    """Whether the layers run split over ``model``: the attention stacks
-    (``attn_mlp`` / ``attn_moe``, GQA or MLA) and the Mamba-2 ``ssm``
-    stack.  The hybrid RG-LRU stacks, the vision prefix and the
-    encoder-decoder compute whole."""
-    return (cfg.arch_type != "vlm" and cfg.hybrid is None
-            and not cfg.is_encoder_decoder)
-
-
-def decode_split(cfg: ModelConfig, kind: str, nm: int) -> bool:
-    """Whether a decode step runs a layer of a split arch on its slices
-    of the caches (else the layer and its caches are gathered whole): an
-    MLA layer needs its heads to divide over ``model``."""
-    if kind in ("attn_mlp", "attn_moe") and cfg.mla is not None:
+def split_arch(cfg: ModelConfig, nm: int) -> bool:
+    """Whether the layers run split over ``nm`` model ranks, each on its
+    own heads: the GQA attention stacks (``attn_mlp`` / ``attn_moe``;
+    ``gqa_forward_ranks`` picks heads or context), MLA where nm divides
+    the heads, and the Mamba-2 ``ssm`` stack where its heads and B / C
+    groups split (``ssm.heads_split``).  Every other arch, and these where
+    the heads do not split, gathers each layer whole and runs it on every
+    rank (``gather_layer(whole=True)``), the residual whole along
+    ``model``: in the forward, in a decode step and in training alike."""
+    if cfg.arch_type == "vlm" or cfg.hybrid is not None \
+            or cfg.is_encoder_decoder:
+        return False
+    if cfg.mla is not None:
         return cfg.num_heads % nm == 0
+    if cfg.arch_type == "ssm":
+        return ssm.heads_split(cfg, nm)
     return True
 
 
@@ -501,7 +504,7 @@ def apply_stack_ranks(cfg: ModelConfig, params: Params, specs, x, lay, *,
     copy of the context the layer ran in (the hints are context
     variables, and a card's backward pass runs on another thread), and
     every rank issues the recompute's collectives in the same order."""
-    split = split_arch(cfg)
+    split = split_arch(cfg, lay.nm)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -625,18 +628,17 @@ def decode_stack_ranks(cfg: ModelConfig, params: Params, specs,
     """``decode_stack`` on one rank: its slices of the parameters and of
     the caches (``cache_specs``), written in place; ``x_t`` its rows of
     the token's residual, whole along ``model``."""
-    split = split_arch(cfg)
+    split = split_arch(cfg, lay.nm)
     for seg in arch_segments(cfg):
         if seg.kind == "enc":
             continue
         sp = layer_specs(specs[seg.kind])
         cs = layer_specs(cache_specs[seg.kind])
-        here = split and decode_split(cfg, seg.kind, lay.nm)
         for i in range(seg.count):
             p = gather_layer(_layer(params[seg.kind], i), sp, lay,
-                             whole=not here)
+                             whole=not split)
             old = _layer(caches[seg.kind], i)
-            if here:
+            if split:
                 x_t, new = apply_layer_step_ranks(
                     cfg, seg.kind, p, _whole_cache(old, cs, lay,
                                                    hints.DATA_AXES),

@@ -14,9 +14,11 @@ heads take the heads branch on 2 × 2 and the context branch on 1 × 4;
 gemma-2b's one KV head always the context branch), MLA on the rank's
 heads (its decode on the rank's slices of the latent cache), the SSD
 mixer on the rank's heads (its decode on the rank's slice of d_state and
-of the conv channels), the sequence-split residual and the
-vocabulary-split embedding.  Every other family runs one forward at
-1 × 4 and at 2 × 2 (gathered whole along ``model``).  It writes the parameters, batches and outputs to an .npz.
+of the conv channels), both gathered whole where 4 ranks do not divide
+their heads (6 MLA heads, 10 SSD heads), the sequence-split residual and
+the vocabulary-split embedding.  Every other family runs one forward at
+1 × 4 and at 2 × 2 (gathered whole along ``model``).  It writes the
+parameters, batches and outputs to an .npz.
 
 One spawn of four gloo ranks (no JAX in the ranks: they import this
 module, which imports none) places the reference's parameters on each
@@ -70,13 +72,20 @@ JOIN_TIMEOUT_S = 150.0
 # input dims over data; "portable" the hints without moe_a2a (the scatter
 # dispatch, the whole batch's capacity); "hd6" head_dim 6, which 4 model
 # ranks do not divide, so cache_specs puts deepseek's 4 KV heads over model
-# and leaves qwen2's 2 whole
+# and leaves qwen2's 2 whole; "h6" (MLA) and "h10" (d_model 160: the SSD
+# mixer's 10 heads) heads that 2 model ranks divide and 4 do not, so 1 x 4
+# gathers those layers whole
+ODD_HEADS = [("deepseek-v3-671b", mesh, "h6") for mesh in MESHES] \
+    + [("mamba2-1.3b", mesh, "h10") for mesh in MESHES]
 RUNS = ([(arch, mesh, "") for arch in SPLIT for mesh in MESHES]
         + [(arch, "2x2", "fsdp") for arch in SPLIT]
         + [("deepseek-moe-16b", "2x2", "portable")]
         + [(arch, "1x4", "hd6") for arch in SPLIT[:2]]
+        + ODD_HEADS
         + [(arch, mesh, "") for arch in OTHERS for mesh in MESHES])
-VARIANT_CFG = {"hd6": {"head_dim": 6}}
+VARIANT_CFG = {"hd6": {"head_dim": 6},
+               "h6": {"num_heads": 6, "num_kv_heads": 6},
+               "h10": {"d_model": 160}}
 CASES = ([(arch, mesh, step) for arch in SPLIT for mesh in MESHES
           for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]])
 
@@ -317,6 +326,19 @@ def test_decode_on_head_split_and_whole_caches(reference, ranks, arch):
     got, _ = ranks
     for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]:
         key = f"{arch}/1x4/hd6/{step}"
+        _close(got[key], want[key], key)
+
+
+@pytest.mark.parametrize("arch,mesh,variant", ODD_HEADS)
+def test_heads_that_do_not_divide_match_reference(reference, ranks, arch,
+                                                  mesh, variant):
+    """MLA with 6 heads and the SSD mixer with 10: split on the rank's
+    heads over 2 model ranks, gathered whole over 4 (``split_arch``);
+    prefill and 4 decode steps as the reference's."""
+    _, want = reference
+    got, _ = ranks
+    for step in ["prefill"] + [f"decode/{t}" for t in range(STEPS)]:
+        key = f"{arch}/{mesh}/{variant}/{step}"
         _close(got[key], want[key], key)
 
 

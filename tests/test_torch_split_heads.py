@@ -31,7 +31,7 @@ from repro import configs as jconfigs
 from repro.models import ssm as jssm
 from repro_torch import configs
 from repro_torch.convert import model_params_from_numpy
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, ssm, transformer
 
 RANKS = (2, 4)
 GROUPS = (1, 2, 4)
@@ -117,10 +117,23 @@ def test_rank_heads_sum_to_the_reference_mixer(nm, groups, use_kernel):
 
 
 def test_heads_that_do_not_divide_are_not_split():
-    """Two heads over four ranks: the mixer runs whole (a layout
-    choice)."""
+    """Two SSD heads, or six MLA heads, over four ranks: the layers are
+    gathered whole (a layout choice, ``transformer.split_arch``); over two
+    ranks they split.  The GQA stacks split at any count (their own heads
+    or context branch)."""
     cfg = configs.get_config("mamba2-1.3b", reduced=True)
     cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
         cfg.ssm, head_dim=cfg.ssm.expand * cfg.d_model // 2))
     assert ssm.dims(cfg)[1] == 2
     assert ssm.heads_split(cfg, 2) and not ssm.heads_split(cfg, 4)
+    assert transformer.split_arch(cfg, 2)
+    assert not transformer.split_arch(cfg, 4)
+    mla = dataclasses.replace(configs.get_config("deepseek-v3-671b",
+                                                 reduced=True),
+                              num_heads=6, num_kv_heads=6)
+    assert transformer.split_arch(mla, 2)
+    assert not transformer.split_arch(mla, 4)
+    gqa = configs.get_config("gemma-2b", reduced=True)
+    assert all(transformer.split_arch(gqa, nm) for nm in (1, 2, 4, 3))
+    assert not transformer.split_arch(
+        configs.get_config("recurrentgemma-9b", reduced=True), 2)

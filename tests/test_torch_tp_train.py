@@ -6,9 +6,8 @@ Two JAX subprocesses (about half the architectures each, four forced host
 devices apiece) draw gemma-2b, qwen2-7b, deepseek-moe-16b, mamba2-1.3b and
 deepseek-v3-671b (MLA, MoE and the multi-token-prediction loss over the
 split residual) at their reduced configurations (f32) and a global batch
-(B = 8, S = 16),
-and step under SGD at learning rate 1 (the new parameters carry the
-gradient), ``grad_accum`` 1 and 2:
+(B = 8, S = 16), and step under SGD at learning rate 1 (the new parameters
+carry the gradient), ``grad_accum`` 1 and 2:
 
   * 2 × 2: ``jit(train_step_deferred)`` with the parameters and the batch
     placed (``in_shardings`` from ``param_specs`` / ``batch_specs``) under
@@ -20,6 +19,9 @@ gradient), ``grad_accum`` 1 and 2:
   * the FSDP leg (``FSDP_THRESHOLD = 0``) for gemma-2b and deepseek-moe-16b
     at 2 × 2, grad_accum 2, and qwen2-7b at 2 × 2 with its config's Adam
     (the Adam state placed by ``opt_state_specs`` and compared);
+  * deepseek-v3-671b with 6 heads and mamba2-1.3b with 10 SSD heads at
+    2 × 2 (split, an odd count of heads a rank) and at 1 × 4 (the layers
+    gathered whole: ``transformer.split_arch``);
   * the one-device ``train_step`` at grad_accum 1: the reference's own gap
     between its placed step and one device, reported beside the port's.
 
@@ -82,12 +84,19 @@ JOIN_TIMEOUT_S = 150.0
 ODD_ARCHS = ("gemma-2b", "qwen2-7b", "deepseek-moe-16b")
 ODD_S = 9                              # no model axis divides it
 # (arch, accum, mesh, variant): "" SGD; "fsdp" SGD with input dims over
-# data; "adam" the config's optimizer
+# data; "adam" the config's optimizer; "h6" (MLA) and "h10" (d_model 160:
+# the SSD mixer's 10 heads) SGD with heads that 2 model ranks divide and 4
+# do not (1 x 4 gathers those layers whole)
+VARIANT_CFG = {"h6": {"num_heads": 6, "num_kv_heads": 6},
+               "h10": {"d_model": 160}}
 CASES = ([(arch, accum, mesh, "") for arch in ARCHS for accum in ACCUMS
           for mesh in MESHES]
          + [(arch, 2, "2x2", "fsdp") for arch in ("gemma-2b",
                                                    "deepseek-moe-16b")]
-         + [("qwen2-7b", 1, "2x2", "adam")])
+         + [("qwen2-7b", 1, "2x2", "adam")]
+         + [(arch, 1, mesh, variant) for arch, variant in
+            (("deepseek-v3-671b", "h6"), ("mamba2-1.3b", "h10"))
+            for mesh in MESHES])
 
 _WORKER = r"""
 import dataclasses, functools, json, sys
@@ -122,12 +131,14 @@ for arch in spec["archs"]:
             continue
         over = {} if variant == "adam" else {"optimizer": "sgd",
                                              "learning_rate": 1.0}
+        over.update(spec["variant_cfg"].get(variant, {}))
         cfg = dataclasses.replace(base, grad_accum=accum, **over)
         model = make_model(cfg)
         params = model.init(jax.random.key(0))
-        if f"{arch}/init/0" not in arrays:
+        key = f"{arch}/{variant}" if variant in spec["variant_cfg"] else arch
+        if f"{key}/init/0" not in arrays:
             for i, leaf in enumerate(jax.tree.leaves(params)):
-                arrays[f"{arch}/init/{i}"] = np.asarray(leaf)
+                arrays[f"{key}/init/{i}"] = np.asarray(leaf)
         opt_state = model.init_optimizer().init(params)
         partition.FSDP_THRESHOLD = 0 if variant == "fsdp" else default
         mesh = make_host_mesh(spec["meshes"][name])
@@ -189,7 +200,15 @@ def _model(arch, accum, variant):
     base = configs.get_config(arch, reduced=True)
     over = {} if variant == "adam" else {"optimizer": "sgd",
                                          "learning_rate": 1.0}
-    return make_model(dataclasses.replace(base, grad_accum=accum, **over))
+    return make_model(dataclasses.replace(base, grad_accum=accum, **over,
+                                          **VARIANT_CFG.get(variant, {})))
+
+
+def _init(arrays, arch, variant):
+    """The reference's initial parameters of a case: the arch's, or those
+    of a variant that changes its configuration."""
+    key = f"{arch}/{variant}" if variant in VARIANT_CFG else arch
+    return _group(arrays, f"{key}/init")
 
 
 def _whole(model, leaves):
@@ -423,7 +442,7 @@ def _rank_main(rank, store, spec):
             partition.FSDP_THRESHOLD = 0 if variant == "fsdp" else default
             mesh = meshes[name]
             model = _model(arch, accum, variant)
-            full = _whole(model, _group(arrays, f"{arch}/init"))
+            full = _whole(model, _init(arrays, arch, variant))
             local = model_params_to_rank(full, model, mesh, "cpu")
             opt = model.init_optimizer().init(local)
             rows = mesh_lib.batch_rows(mesh, B)
@@ -499,7 +518,7 @@ def reference(tmp_path_factory):
     for i, archs in enumerate(HALVES):
         path = tmp / f"reference{i}.npz"
         spec = {"archs": archs, "cases": CASES, "meshes": MESHES, "b": B,
-                "s": S}
+                "s": S, "variant_cfg": VARIANT_CFG}
         procs.append(subprocess.Popen(
             [sys.executable, "-c", _WORKER, str(path), json.dumps(spec)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -583,7 +602,7 @@ def test_tensor_parallel_step_matches_reference(reference, ranks, arch,
     _, arrays = reference
     got, records = ranks
     case = _case(arch, accum, mesh, variant)
-    init = _group(arrays, f"{arch}/init")
+    init = _init(arrays, arch, variant)
     new, want = _group(got, f"{case}/new"), _group(arrays, f"{case}/new")
     worst = _held(new, want, init, case, variant, arch)
     if f"{case}/gap" in arrays:
@@ -617,7 +636,7 @@ def test_tensor_parallel_step_matches_replicated_step(reference, ranks,
     got, _ = ranks
     case = _case(arch, accum, mesh, variant)
     _held(_group(got, f"{case}/new"), _group(got, f"{case}/replicated"),
-          _group(arrays, f"{arch}/init"), case, variant, arch)
+          _init(arrays, arch, variant), case, variant, arch)
 
 
 @pytest.mark.parametrize("arch,accum,mesh,variant", CASES)
@@ -634,7 +653,7 @@ def test_replicated_leaves_and_one_data_sum(ranks, arch, accum, mesh,
     assert len({r["same_hash"] for r in recs}) == 1, case
     assert all(r["sum_data_calls"] == 1 for r in recs), case
     assert all(r["metrics"] == recs[0]["metrics"] for r in recs)
-    whole = configs.get_config(arch, reduced=True).param_count() * 4
+    whole = _model(arch, accum, variant).cfg.param_count() * 4
     assert all(r["param_bytes"] < whole for r in recs), case
 
 
