@@ -104,7 +104,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      over 1 x 2 model ranks (2 x 2048, Hq = Hkv = 8, head_dim 128: the
      shape phase 14b launches it at) and a deepseek-v3-671b rank's 64 MLA
      heads over 1 x 2 (2 x 2048, head_dim 192 with v's 128 padded with
-     zeros: phase 17c's launch);
+     zeros: phase 17c's launch); and the context-parallel query rows of a
+     rank at its query offset (phase 14's branch), among them a
+     recurrentgemma-9b rank's over 1 x 2 (2 x 2,048 rows at offset 2,048
+     of 4,096 keys, 16 heads over 1 KV head of 256, window 2,048, bf16
+     and f32: the launch phase 18b makes);
   8. Mamba-2 1.3B at its published widths and depth (48 layers, d_model
      2048, bf16, random weights from a generator on the card): prefill
      4 x 4096 tokens through the kernel and through the plain path
@@ -176,8 +180,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      over data after the microbatches, summed in rank order) — reduced f32
      gemma-2b against one process's step on the whole batch (deltas within
      1e-5 of max, loss within 1e-5, the same bits on both ranks), then
-     mamba2-1.3b at its published widths and depth (48 layers, d_model
-     2048, bf16, Adam, grad_accum 2, remat) on 4 x 4096 tokens a step, 2
+     mamba2-1.3b at its published widths cut to 24 of its 48 layers
+     (d_model 2048, bf16, Adam, grad_accum 2, remat) on 4 x 4096 tokens a
+     step, 2
      sequences a rank, 1 warm-up and 2 timed steps (ms a step, tokens/s,
      peak GB a rank, bytes reduced a step and the host ms of the reduction
      and its staging, parameter hashes equal on both ranks after every
@@ -249,9 +254,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      1 x 4: the reduced f32 deepseek-v3-671b (the flash kernel on the
      rank's heads) and mamba2-1.3b (the SSD kernel on them), prefill and
      4 decode steps on the card against the same ranks on the CPU, as
-     14a; 17b, mamba2-1.3b at its published widths and depth (bf16) over
-     1 x 2: a 2 x 4,096 prefill through the SSD kernel (48 launches a
-     rank, each on 32 of the 64 heads, counts set to 0 just before) and
+     14a; 17b, mamba2-1.3b at its published widths cut to 8 of its 48
+     layers (bf16) over 1 x 2: a 2 x 4,096 prefill through the SSD kernel
+     (8 launches a rank, each on 32 of the 64 heads, counts set to 0
+     just before) and
      one training step (the config's Adam, grad_accum 2); 17c,
      deepseek-v3-671b at its published widths cut to its three dense
      layers plus the multi-token-prediction layer (bf16, ~4.3 B
@@ -265,7 +271,33 @@ Phases (each prints its own lines; any failure exits non-zero):
      on the card from the same seed and tokens; 17c's parameter bytes and
      bytes along model a training step equal to, and its peak within 10 %
      of, the dry run of the same step on each rank;
-  18. print the kernels line, the card's name and power limit, and a last
+  18. the RG-LRU hybrid (recurrentgemma-9b), the vision prefix
+     (internvl2-2b) and the encoder-decoder (seamless-m4t-medium) split
+     over model, over gloo ranks sharing the card under
+     sharding_hints(mesh, moe_a2a=True).  18a, 4 ranks as 2 x 2 and
+     1 x 4: the three reduced f32 models, prefill through the flash
+     kernel and 4 decode steps (the encoder-decoder's memory caches
+     random) on the card against the same ranks on the CPU within 1e-5
+     of max, the flash launches a rank and their heads printed; 18b,
+     recurrentgemma-9b at its published widths cut to one (rglru, rglru,
+     local attention) period and its two rglru_mlp tail blocks (bf16)
+     over 1 x 2: a 2 x 4,096 prefill (the RG-LRU on each rank's channels,
+     one flash launch a rank on all 16 heads of its 2,048 query rows,
+     window 2,048), 4 decode steps and one SGD step (2 x 4,096); 18c,
+     internvl2-2b at its published widths and depth over 1 x 2: a
+     2 x (256 + 3,840) prefill (24 flash launches a rank, 8 heads each)
+     and one SGD step on as many positions; 18d, seamless-m4t-medium at its published widths
+     and depth over 1 x 2: 4,096 frames and 512 decoder tokens a row,
+     prefill (12 encoder and 12 decoder flash launches a rank, 8 heads
+     each) and 4 decode steps on random memory caches.  Each holds the
+     parameter bytes a rank (its shards' by param_specs, at most 65 % of
+     one process's: internvl2-2b's odd vocabulary stays whole), the logits
+     within 5e-2 of max of one process's on the card from the same seed
+     and inputs (bf16 partial sums over model, as phase 17's) and the
+     loss within 1e-3; 18b / 18c's parameter bytes and bytes along model
+     a training step equal to, and its peak within 5 % of, the dry run
+     of the same step on each rank;
+  19. print the kernels line, the card's name and power limit, and a last
      line {"ok": true, "device": {...}}.
 
 With ``--four-cards`` (four cards of one host) it builds the kernels and
@@ -1770,6 +1802,11 @@ FLASH_OFFSET_CHECKS = [
      28, 4, 128, True, None, "bfloat16"),
     ("recurrentgemma-9b local context 1x4 S=8192 Hq16 Hkv1 hd256 window "
      "2048 bf16", 1, 8192, 4, 16, 1, 256, True, 2048, "bfloat16"),
+    # a recurrentgemma-9b rank's query rows over 1 x 2 (phase 18b's launch)
+    ("recurrentgemma-9b local context 1x2 2x4096 Hq16 Hkv1 hd256 window "
+     "2048 bf16", 2, 4096, 2, 16, 1, 256, True, 2048, "bfloat16"),
+    ("recurrentgemma-9b local context 1x2 2x4096 Hq16 Hkv1 hd256 window "
+     "2048 f32", 2, 4096, 2, 16, 1, 256, True, 2048, "float32"),
     ("gemma-2b context 1x2 S=2048 Hq8 Hkv1 hd256 causal f32", 1, 2048, 2, 8,
      1, 256, True, None, "float32"),
     ("qwen2-7b context 1x4 S=2048 Hq28 Hkv4 hd128 causal f32", 1, 2048, 4,
@@ -3020,6 +3057,7 @@ def analysis_phase(cfg, admm, g, card: str, dev) -> dict:
 MESH_TRAIN_ARCH = "mamba2-1.3b"
 MESH_TRAIN_BATCH = (4, 4096)   # global batch; 2 sequences a data rank
 MESH_TRAIN_STEPS = 3           # 1 warm-up + 2 timed
+MESH_TRAIN_LAYERS = 24         # of mamba2-1.3b's 48, for the script's time
 MESH_DP = 2                    # [13a]: data 2
 MESH_LW = (2, 2)               # [13b]: data 2 × model 2
 MESH_LW_ITERS = 2
@@ -3083,7 +3121,8 @@ def mesh_train_rank(rank: int, store: str, spec: dict) -> None:
         rec["reduced"] = {"loss": float(met["loss"]), "hash": tree_hash(new)}
         del model, params, new
         # -- mamba2-1.3b at full width --
-        cfg = get_config(MESH_TRAIN_ARCH)
+        cfg = dataclasses.replace(get_config(MESH_TRAIN_ARCH),
+                                  num_layers=MESH_TRAIN_LAYERS)
         model = make_model(cfg)
         b, s = MESH_TRAIN_BATCH
         pipeline = TokenPipeline(
@@ -3300,8 +3339,9 @@ def mesh_phase(card: str, dev) -> dict:
         timed = [max(st[i] for st in steps)
                  for i in range(1, MESH_TRAIN_STEPS)]
         step_ms = statistics.median(timed)
-        print(f"[13a] {MESH_TRAIN_ARCH} full width ({full[0]['parameters']:,} "
-              f"parameters, bf16, Adam, grad_accum 2, remat), global batch "
+        print(f"[13a] {MESH_TRAIN_ARCH} full width, {MESH_TRAIN_LAYERS} "
+              f"layers ({full[0]['parameters']:,} parameters, bf16, Adam, "
+              f"grad_accum 2, remat), global batch "
               f"{gb} x {gs}, {head[0]['rows']} sequences a rank: step ms by "
               f"rank {[[round(t, 1) for t in st] for st in steps]}; median of "
               f"the {len(timed)} after warm-up (slowest rank) {step_ms:.1f} ms "
@@ -3487,11 +3527,13 @@ def mesh14_compare(got, want) -> dict:
 
 
 def mesh14_reduced_rank(rank: int, store: str, spec: dict) -> None:
-    """Phase 14a / 17a, one of 4 ranks (gloo, the one card) as 2 x 2 and
-    1 x 4: each reduced f32 model of ``spec["archs"]`` — its prefill
-    forward through its kernels (flash, SSD) and 4 decode steps on the
-    card and on the CPU, from the same slices, and decode against the
-    mesh forward over the same tokens; its record to ``spec["dir"]``."""
+    """Phase 14a / 17a / 18a, one of 4 ranks (gloo, the one card) as 2 x 2
+    and 1 x 4: each reduced f32 model of ``spec["archs"]`` — its prefill
+    forward through its kernels (flash, SSD) and 4 decode steps (an
+    encoder-decoder's memory caches random) on the card and on the CPU,
+    from the same slices, the flash launches by heads on the card, and
+    (a model with tokens alone) decode against the mesh forward over the
+    same tokens; its record to ``spec["dir"]``."""
     import dataclasses
 
     import torch
@@ -3516,38 +3558,43 @@ def mesh14_reduced_rank(rank: int, store: str, spec: dict) -> None:
                 model = make_model(cfg)
                 on_card = model.init(seed=0, device=dev, mesh=mesh)
                 on_cpu = tree.tree_map(lambda t: t.cpu(), on_card)
-                tokens = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, s,
-                                                       seed=1))
-                steps = tokens[:, :MESH14_STEPS]
+                batch = split_batch(cfg, b, s, 1, "cpu")
+                steps = batch["tokens"][:, :MESH14_STEPS]
                 res, outs = {}, {}
                 for where, params in (("card", on_card), ("cpu", on_cpu)):
                     d = dev if where == "card" else torch.device("cpu")
                     before = counts()
+                    heads0 = launch_heads()["flash"]
                     with hints.sharding_hints(mesh, moe_a2a=True), \
                             torch.inference_mode():
                         logits, _, _ = model.forward(
-                            params, {"tokens": tokens}, use_kernel=True,
-                            last_only=True)
+                            params, batch, use_kernel=True, last_only=True)
                         caches = model.init_cache(b, MESH14_STEPS, device=d,
                                                   mesh=mesh)
+                        split_memory(model, caches, b, 3, mesh)
                         dec = []
                         for t in range(MESH14_STEPS):
                             lg, caches = model.decode_step(
                                 params, caches, steps[:, t:t + 1])
                             dec.append(lg[:, 0])
-                        whole, _, _ = model.forward(params,
-                                                    {"tokens": steps})
+                        whole = None if len(batch) > 1 else model.forward(
+                            params, {"tokens": steps})[0]
                     after = counts()
                     outs[where] = (logits, torch.stack(dec, 1), whole)
                     for key in ("flash", "ssd"):
                         res[f"{where}_{key}"] = after[key] - before[key]
                     res[f"{where}_offset"] = (after["flash_offset"]
                                               - before["flash_offset"])
+                    res[f"{where}_heads"] = {
+                        h: n - heads0.get(h, 0) for h, n in
+                        launch_heads()["flash"].items()
+                        if n != heads0.get(h, 0)}
                 card, cpu = outs["card"], outs["cpu"]
                 res["prefill"] = mesh14_compare(card[0], cpu[0])
                 res["decode"] = mesh14_compare(card[1], cpu[1])
-                gap, ok = probs_gap(card[1], card[2])
-                res["decode_vs_forward"] = {"max_dp": gap, "ok": ok}
+                if card[2] is not None:
+                    gap, ok = probs_gap(card[1], card[2])
+                    res["decode_vs_forward"] = {"max_dp": gap, "ok": ok}
                 rec["cases"][f"{arch} {name}"] = res
                 del on_card, on_cpu, outs
         rec["launches"] = counts()
@@ -3681,12 +3728,12 @@ def mesh14_full_rank(rank: int, store: str, spec: dict) -> None:
         mesh_lib.destroy(base)
 
 
-def reduced_mesh(card: str, tmp, tag: str, kernels: dict,
-                 out: dict) -> tuple:
+def reduced_mesh(card: str, tmp, tag: str, kernels: dict, out: dict,
+                 tol: float = MESH14_TOL) -> tuple:
     """Runs ``mesh14_reduced_rank`` over 4 ranks for the archs of
-    ``kernels`` (arch -> the count of the kernel its forward launches),
-    prints and holds each case (card vs CPU logits within MESH14_TOL of
-    max, decode consistent with the mesh forward, the arch's kernel
+    ``kernels`` (arch -> the kernel its forward launches), prints and
+    holds each case (card vs CPU logits within ``tol`` of max, decode
+    consistent with the mesh forward where it is run, the arch's kernel
     launched on every rank on the card and never on the CPU) into
     ``out``; returns (records, wall seconds, worst rel)."""
     from repro_torch.launch import mesh as mesh_lib
@@ -3706,21 +3753,25 @@ def reduced_mesh(card: str, tmp, tag: str, kernels: dict,
                for k in ("prefill", "decode")}
         finite = all(x[k]["finite"] for x in rows
                      for k in ("prefill", "decode"))
-        consistent = all(x["decode_vs_forward"]["ok"] for x in rows)
-        dp = max(x["decode_vs_forward"]["max_dp"] for x in rows)
+        checked = [x["decode_vs_forward"] for x in rows
+                   if "decode_vs_forward" in x]
+        consistent = all(c["ok"] for c in checked)
+        dp = max((c["max_dp"] for c in checked), default=0.0)
         launched = [x[f"card_{kernel}"] for x in rows]
         offset = [x["card_offset"] for x in rows]
-        ok = (max(rel.values()) <= MESH14_TOL and finite and consistent
+        ok = (max(rel.values()) <= tol and finite and consistent
               and all(f > 0 for f in launched)
               and all(x[f"cpu_{kernel}"] == 0 for x in rows))
         worst = max(worst, *rel.values())
+        vs_forward = (f"decode vs the mesh forward max |dp| {dp:.3e} "
+                      f"({'ok' if consistent else 'FAIL'})" if checked
+                      else "no token-only forward to hold decode against")
         print(f"[{tag}] {case}: card vs CPU logits rel prefill "
               f"{rel['prefill']:.3e}, decode ({MESH14_STEPS} steps) "
-              f"{rel['decode']:.3e} (limit {MESH14_TOL:g}); decode vs "
-              f"the mesh forward max |dp| {dp:.3e} "
-              f"({'ok' if consistent else 'FAIL'}); {kernel} launches a "
-              f"rank {launched}, flash at a query offset {offset} "
-              f"{'ok' if ok else 'FAIL'} [{card}]", flush=True)
+              f"{rel['decode']:.3e} (limit {tol:g}); {vs_forward}; "
+              f"{kernel} launches a rank {launched}, flash heads a launch "
+              f"{[x['card_heads'] for x in rows]}, flash at a query offset "
+              f"{offset} {'ok' if ok else 'FAIL'} [{card}]", flush=True)
         if not ok:
             fail(f"{tag} {case}: the mesh on the card disagrees with the "
                  f"CPU, or decode with the forward, or the kernel did not "
@@ -4264,12 +4315,12 @@ def dry_runs(jobs: list) -> list:
 
 
 def dry_check(tag: str, what: str, predicted: int, measured: int,
-              exact: bool, card: str) -> bool:
+              exact: bool, card: str, tol: float = DRY16_TOL) -> bool:
     """Prints the dry run's figure beside the card's; equal, or within
-    ``DRY16_TOL`` of it."""
+    ``tol`` of it."""
     gap = (predicted - measured) / measured
-    ok = predicted == measured if exact else abs(gap) <= DRY16_TOL
-    limit = "equal" if exact else f"within {DRY16_TOL:.0%}"
+    ok = predicted == measured if exact else abs(gap) <= tol
+    limit = "equal" if exact else f"within {tol:.0%}"
     print(f"[{tag}] {what}: dry run {predicted:,} B, card {measured:,} B, "
           f"gap {gap:+.4%} ({limit}) {'ok' if ok else 'FAIL'} [{card}]",
           flush=True)
@@ -4284,10 +4335,11 @@ def dry_jobs(tag: str, setup) -> list:
             for r in range(world)]
 
 
-def dry_rank_checks(tag: str, runs: list, ranks: dict, card: str) -> bool:
+def dry_rank_checks(tag: str, runs: list, ranks: dict, card: str,
+                    tol: float = DRY16_TOL) -> bool:
     """Each rank's parameter bytes and bytes along ``model`` a step equal
     to what the rank processes of phase 15 measured (``tp15_full``'s
-    record ``ranks``), its peak within ``DRY16_TOL`` of theirs."""
+    record ``ranks``), its peak within ``tol`` of theirs."""
     ok = True
     for r, res in enumerate(runs):
         ok &= dry_check(f"{tag} rank {r}", "parameter bytes",
@@ -4298,7 +4350,7 @@ def dry_rank_checks(tag: str, runs: list, ranks: dict, card: str) -> bool:
                         ranks["model_bytes"][r], True, card)
         ok &= dry_check(f"{tag} rank {r}", "peak of a step",
                         res["memory"]["peak_bytes"], ranks["peak_bytes"][r],
-                        False, card)
+                        False, card, tol)
     return ok
 
 
@@ -4341,53 +4393,127 @@ def dryrun_phase(card: str, train: dict, tp: dict) -> dict:
 
 # [17a]: the reduced archs and the kernel each one's forward launches
 SPLIT17_REDUCED = {"deepseek-v3-671b": "flash", "mamba2-1.3b": "ssd"}
-# [17b] / [17c] over 1 x 2 gloo ranks on the card: (tag, arch, layers kept
-# (None: the published depth), prefill batch x tokens, decode steps,
-# training batch x tokens, grad_accum, the kernel the forward launches,
-# its launches a rank a forward, the heads of each launch)
+# [17b] / [17c] and [18b]-[18d] over 1 x 2 gloo ranks on the card: the
+# arch, its config's changes ("over": 17b keeps 8 of mamba2-1.3b's 48
+# layers, for the script's time; 17c keeps deepseek-v3-671b's first
+# three layers, the dense ones, so no MoE layer is left; 18b keeps
+# recurrentgemma-9b's one (rglru, rglru, local attention) period and its
+# two rglru_mlp tail blocks), the prefill's batch x tokens (the vision
+# prefix's 256 positions before them: 4,096 in all, as input_specs lays
+# out train_4k, since attention above its 2,048 chunk takes multiples of
+# it; an encoder-decoder's frames, with 1 / DEC_FRACTION as many decoder
+# tokens), the decode steps, the training step's batch x tokens (None:
+# no step), the kernel the forward launches, its launches a rank a
+# forward and the heads of each launch
 SPLIT17_FULL = (
-    ("17b", "mamba2-1.3b", None, (2, 4096), 0, (2, 4096), 2, "ssd", 48, 32),
-    ("17c", "deepseek-v3-671b", 3, (2, 2048), 4, (2, 2048), 2, "flash", 3,
-     64))
+    {"tag": "17b", "arch": "mamba2-1.3b",
+     "over": {"grad_accum": 2, "num_layers": 8},
+     "prefill": (2, 4096), "decode": 0, "train": (2, 4096), "kernel": "ssd",
+     "launches": 8, "heads": 32},
+    {"tag": "17c", "arch": "deepseek-v3-671b",
+     "over": {"grad_accum": 2, "num_layers": 3, "moe": None},
+     "prefill": (2, 2048), "decode": 4, "train": (2, 2048),
+     "kernel": "flash", "launches": 3, "heads": 64})
 SPLIT17_SHARE = 0.55           # parameter bytes a rank, of one process's
 SPLIT17_BUDGET_S = 120.0       # [17]'s seconds, reported against
+# [18a]: the reduced families over 4 ranks as 2 x 2 and 1 x 4
+SPLIT18_REDUCED = {"recurrentgemma-9b": "flash", "internvl2-2b": "flash",
+                   "seamless-m4t-medium": "flash"}
+SPLIT18_TOL = 1e-5             # [18a] card vs CPU, of max |logit|
+SGD1 = {"optimizer": "sgd", "grad_accum": 1}
+SPLIT18_FULL = (
+    {"tag": "18b", "arch": "recurrentgemma-9b",
+     "over": dict(SGD1, num_layers=5), "prefill": (2, 4096), "decode": 4,
+     "train": (2, 4096), "kernel": "flash", "launches": 1, "heads": 16},
+    {"tag": "18c", "arch": "internvl2-2b", "over": SGD1,
+     "prefill": (2, 3840), "decode": 0, "train": (2, 3840),
+     "kernel": "flash", "launches": 24, "heads": 8},
+    {"tag": "18d", "arch": "seamless-m4t-medium", "over": SGD1,
+     "prefill": (2, 4096), "decode": 4, "train": None, "kernel": "flash",
+     "launches": 24, "heads": 8})
+# parameter bytes a rank, of one process's: internvl2-2b's vocabulary
+# (92,553, odd) leaves its embedding and unembedding whole on both ranks
+SPLIT18_SHARE = 0.65
+SPLIT18_PEAK_TOL = 0.05        # a dry-run peak within 5 % of the card's
+SPLIT18_LOSS_TOL = 1e-3        # the split step's loss, of one process's
+SPLIT18_BUDGET_S = 180.0       # [18]'s seconds, reported against
 
 
-def split17_overrides(setup) -> dict:
-    """The config changes of a ``SPLIT17_FULL`` setup: its grad_accum and,
-    where it keeps fewer layers, its depth.  deepseek-v3-671b keeps its
-    first three layers, the dense ones, so it has no MoE layer left."""
-    over = {"grad_accum": setup[6]}
-    if setup[2] is not None:
-        over.update(num_layers=setup[2], moe=None)
-    return over
-
-
-def split17_config(setup):
-    """The config of a ``SPLIT17_FULL`` setup: the arch's published one
-    with ``split17_overrides``."""
+def split_config(setup):
+    """The config of a ``SPLIT17_FULL`` / ``SPLIT18_FULL`` setup: the
+    arch's published one with the setup's changes."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    cfg = get_config(setup[1])
-    if setup[2] is not None and setup[2] != cfg.moe.first_dense_layers:
-        raise ValueError(f"{setup[0]} keeps the dense layers only")
-    return dataclasses.replace(cfg, **split17_overrides(setup))
+    return dataclasses.replace(get_config(setup["arch"]), **setup["over"])
 
 
-def split17_rank(rank: int, store: str, spec: dict) -> None:
-    """Phase 17b / 17c, one of 1 x 2 gloo ranks on the card: ``spec``'s
-    model at its published widths (17c cut in depth), its slices drawn by
+def split_batch(cfg, b: int, s: int, seed: int, dev,
+                targets: bool = False) -> dict:
+    """``b`` x ``s`` tokens (and targets) from the synthetic stream; a
+    vision model's prefix before them (random embeddings); an
+    encoder-decoder's ``s`` random frames with ``s // DEC_FRACTION``
+    decoder tokens.  The same on every rank and process: drawn on the CPU
+    from ``seed``."""
+    import torch
+
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import layers
+    from repro_torch.models.build import DEC_FRACTION
+    dt = layers.dtype_of(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    n = s // DEC_FRACTION if cfg.is_encoder_decoder else s
+    toks = next(synthetic_token_batches(cfg.vocab_size, b, n, seed=seed))
+    batch = {k: torch.as_tensor(toks[k], device=dev)
+             for k in (("tokens", "targets") if targets else ("tokens",))}
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = torch.randn(
+            (b, cfg.frontend.num_embeddings, cfg.d_model),
+            generator=gen).to(device=dev, dtype=dt)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((b, s, cfg.d_model),
+                                      generator=gen).to(device=dev, dtype=dt)
+    return batch
+
+
+def split_memory(model, caches, b: int, seed: int, mesh=None) -> None:
+    """An encoder-decoder's memory caches filled with random values from
+    ``seed`` (a prefill returns them zero), the whole ones or, with
+    ``mesh``, this rank's slices of them by ``cache_specs``."""
+    import torch
+
+    from repro_torch.sharding import partition
+    if not model.cfg.is_encoder_decoder:
+        return
+    gen = torch.Generator().manual_seed(seed)
+    specs = None if mesh is None else model._rank_cache_specs(
+        caches, b, False, mesh)
+    for k in ("cross_k", "cross_v"):
+        slot = caches["dec"][k]
+        shape = list(slot.shape)
+        if specs is not None:
+            shape = [d * int(math.prod(mesh.shape[a] for a in
+                                       partition.entry_axes(e)))
+                     for d, e in zip(shape, specs["dec"][k])]
+        full = torch.randn(shape, generator=gen).to(slot.dtype)
+        if specs is not None:
+            full = partition.local_slice(full, specs["dec"][k], mesh)
+        slot.copy_(full)
+
+
+def split_rank(rank: int, store: str, spec: dict) -> None:
+    """Phases 17b / 17c and 18b-18d, one of 1 x 2 gloo ranks on the card:
+    the setup's model at its published widths, its slices drawn by
     Model.init(mesh=...); the prefill forward through its kernel on the
-    rank's heads (the counts, and the launches by heads, set to 0 just
-    before it and read just after), the decode steps, then one
-    train_step_deferred on a fixed batch (its peak from the resident
-    state up, its bytes along model); rank 0 writes the logits gathered
-    whole, each rank its record, to ``spec["dir"]``."""
+    rank's heads (or query rows, or channels; the counts, and the
+    launches by heads, set to 0 just before it and read just after), the
+    decode steps (an encoder-decoder's memory caches random), then the
+    training step on a fixed batch where the setup has one (its peak from
+    the resident state up, its bytes along model); rank 0 writes the
+    logits gathered whole, each rank its record, to ``spec["dir"]``."""
     import torch
 
     from repro_torch.core.messages import MeshCollectives
-    from repro_torch.data import synthetic_token_batches
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import layers
     from repro_torch.models.build import _param_shapes, make_model
@@ -4395,13 +4521,13 @@ def split17_rank(rank: int, store: str, spec: dict) -> None:
     from repro_torch.util import tree
     from repro_torch.util.device import strict_f32
     strict_f32()
-    setup = tuple(spec["setup"])
-    tag, n_dec = setup[0], setup[4]
+    setup = spec["setup"]
+    tag, n_dec = setup["tag"], setup["decode"]
     base = mesh_lib.init_process_mesh(rank, 2, "gloo", store, timeout=120)
     try:
         mesh = mesh_lib.make_rank_mesh(base, 2)
         dev = mesh.device
-        cfg = split17_config(setup)
+        cfg = split_config(setup)
         model = make_model(cfg)
         params = model.init(seed=0, device=dev, mesh=mesh)
         specs = model.param_specs(mesh)
@@ -4413,17 +4539,16 @@ def split17_rank(rank: int, store: str, spec: dict) -> None:
                              t.shape, partition.spec_at(specs, path), mesh))
                          * t.element_size()
                          for path, t in tree.leaves_with_paths(whole))}
-        b, s = setup[3]
-        tokens = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, s, seed=0),
-                                 device=dev)
+        b, s = setup["prefill"]
+        batch = split_batch(cfg, b, s, 0, dev)
         lspec = partition.logits_spec(cfg, mesh, b)
         with hints.sharding_hints(mesh, moe_a2a=True) as comm, \
                 torch.inference_mode():
             torch.cuda.synchronize(dev)
             reset_counts()
             t0 = time.perf_counter()
-            logits, _, _ = model.forward(params, {"tokens": tokens},
-                                         use_kernel=True, last_only=True)
+            logits, _, _ = model.forward(params, batch, use_kernel=True,
+                                         last_only=True)
             torch.cuda.synchronize(dev)
             ms = 1e3 * (time.perf_counter() - t0)
             rec["launches"] = counts()
@@ -4432,12 +4557,13 @@ def split17_rank(rank: int, store: str, spec: dict) -> None:
                               "model_ms": 1e3 * comm.model_s,
                               "staging_ms": 1e3 * comm.staging_s}
             got = [partition.gather_leaf(logits, lspec, mesh, comm)]
-            del logits
+            del logits, batch
             rec["decode"] = {"ms": [], "model_bytes": 0}
             if n_dec:
                 steps = torch.as_tensor(mesh14_tokens(
                     cfg.vocab_size, b, n_dec, seed=1), device=dev)
                 caches = model.init_cache(b, n_dec, device=dev, mesh=mesh)
+                split_memory(model, caches, b, 2, mesh)
                 for t in range(n_dec):
                     c0 = comm.model_bytes
                     torch.cuda.synchronize(dev)
@@ -4454,105 +4580,113 @@ def split17_rank(rank: int, store: str, spec: dict) -> None:
             torch.save([t.float().cpu() for t in got],
                        pathlib.Path(spec["dir"]) / f"{tag}-logits.pt")
         del got
-        # the training step: its peak from the resident state up (the f32
-        # unembedding copy of the inference weights let go)
-        layers._f32_memo.clear()
-        tb, ts = setup[5]
-        batch = next(synthetic_token_batches(cfg.vocab_size, tb, ts, seed=5))
-        batch = {k: v[mesh_lib.batch_rows(mesh, tb)]
-                 for k, v in batch.items()}
-        opt_state = model.init_optimizer().init(params)
-        comm = MeshCollectives(mesh)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        before = counts()
-        t0 = time.perf_counter()
-        with hints.sharding_hints(mesh, moe_a2a=True, comm=comm):
-            new, opt_state, met = model.train_step_deferred(
-                mesh, params, opt_state, batch, comm=comm)
-        loss = float(met["loss"])
-        rec["train"] = {
-            "ms": 1e3 * (time.perf_counter() - t0), "loss": loss,
-            "model_bytes": comm.model_bytes, "model_ms": 1e3 * comm.model_s,
-            "peak_bytes": torch.cuda.max_memory_allocated(dev),
-            "finite": all(bool(torch.isfinite(t).all())
-                          for t in tree.leaves(new)),
-            "launches": sum(counts()[k] - before[k] for k in before)}
+        if setup["train"] is not None:
+            # its peak from the resident state up (the f32 unembedding
+            # copy of the inference weights let go)
+            layers._f32_memo.clear()
+            tb, ts = setup["train"]
+            batch = split_batch(cfg, tb, ts, 5, dev, targets=True)
+            batch = {k: v[mesh_lib.batch_rows(mesh, tb)]
+                     for k, v in batch.items()}
+            opt_state = model.init_optimizer().init(params)
+            comm = MeshCollectives(mesh)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = counts()
+            t0 = time.perf_counter()
+            with hints.sharding_hints(mesh, moe_a2a=True, comm=comm):
+                new, opt_state, met = model.train_step_deferred(
+                    mesh, params, opt_state, batch, comm=comm)
+            rec["train"] = {
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "loss": float(met["loss"]),
+                "model_bytes": comm.model_bytes,
+                "model_ms": 1e3 * comm.model_s,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for t in tree.leaves(new)),
+                "launches": sum(counts()[k] - before[k] for k in before)}
         (pathlib.Path(spec["dir"]) / f"{tag}-rank{rank}.json").write_text(
             json.dumps(rec))
     finally:
         mesh_lib.destroy(base)
 
 
-def split17_one_process(card: str, setup, dev) -> dict:
-    """One process on the card: ``setup``'s model from the ranks' seed,
-    the prefill forward through its kernel, the decode steps and one
-    train_step_deferred on the ranks' tokens; the logits and the loss,
-    the model freed after."""
+def split_one_process(card: str, setup, dev) -> dict:
+    """One process on the card: the setup's model from the ranks' seed,
+    the prefill forward through its kernel, the decode steps (the same
+    random memory caches) and, where the setup has one, the training step
+    on the ranks' batch; the logits and the loss, the model freed
+    after."""
     import torch
 
-    from repro_torch.data import synthetic_token_batches
     from repro_torch.models.build import make_model
     from repro_torch.util.device import strict_f32
     strict_f32()
-    tag, n_dec = setup[0], setup[4]
-    cfg = split17_config(setup)
+    tag, n_dec = setup["tag"], setup["decode"]
+    cfg = split_config(setup)
     model = make_model(cfg)
     params = model.init(seed=0, device=dev)
-    b, s = setup[3]
+    b, s = setup["prefill"]
     t0 = time.perf_counter()
     with torch.inference_mode():
-        tokens = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, s, seed=0),
-                                 device=dev)
-        logits, _, _ = model.forward(params, {"tokens": tokens},
-                                     use_kernel=True, last_only=True)
+        batch = split_batch(cfg, b, s, 0, dev)
+        logits, _, _ = model.forward(params, batch, use_kernel=True,
+                                     last_only=True)
         out = [logits.float().cpu()]
-        del logits
+        del logits, batch
         if n_dec:
             steps = torch.as_tensor(mesh14_tokens(cfg.vocab_size, b, n_dec,
                                                   seed=1), device=dev)
             caches = model.init_cache(b, n_dec, device=dev)
+            split_memory(model, caches, b, 2)
             for t in range(n_dec):
                 lg, caches = model.decode_step(params, caches,
                                                steps[:, t:t + 1])
                 out.append(lg.float().cpu())
             del caches
-    tb, ts = setup[5]
-    batch = next(synthetic_token_batches(cfg.vocab_size, tb, ts, seed=5))
-    _, _, met = model.train_step_deferred(
-        None, params, model.init_optimizer().init(params), batch)
-    loss = float(met["loss"])
+    loss = None
+    if setup["train"] is not None:
+        tb, ts = setup["train"]
+        batch = split_batch(cfg, tb, ts, 5, dev, targets=True)
+        _, _, met = model.train_step_deferred(
+            None, params, model.init_optimizer().init(params), batch)
+        loss = float(met["loss"])
+        del met, batch
+    step = "" if loss is None else (
+        f" and one train_step_deferred ({setup['train'][0]} x "
+        f"{setup['train'][1]}, grad_accum {cfg.grad_accum}, "
+        f"{cfg.optimizer}), loss {loss:.6f}")
     print(f"[{tag}] one process ({cfg.name}, {cfg.num_layers} layers"
           f"{' + MTP' if cfg.mtp_depth else ''}): prefill {b} x {s}, "
-          f"{n_dec} decode steps and one train_step_deferred ({tb} x {ts}, "
-          f"grad_accum {cfg.grad_accum}, {cfg.optimizer}) in "
-          f"{time.perf_counter() - t0:.1f} s (cold), loss {loss:.6f} "
-          f"[{card}]", flush=True)
-    del model, params, met
+          f"{n_dec} decode steps{step} in {time.perf_counter() - t0:.1f} s "
+          f"(cold) [{card}]", flush=True)
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
     return {"logits": out, "loss": loss}
 
 
-def split17_full(card: str, tmp, setup, dev) -> dict:
-    """Runs ``split17_rank`` over 1 x 2 ranks for ``setup`` after one
+def split_full(card: str, tmp, setup, dev, share_limit: float,
+               loss_tol: float) -> dict:
+    """Runs ``split_rank`` over 1 x 2 ranks for ``setup`` after one
     process's run of the same; prints and holds: parameter bytes a rank
-    equal to its shards' and at most ``SPLIT17_SHARE`` of one process's,
-    the kernel launched the setup's count of times a rank in the forward,
-    each launch on the rank's heads (all on the tensor cores), the
-    prefill and decode logits within ``LOGIT_TOL`` of max of one
-    process's, the training loss within 2^-7 of one process's, no kernel
-    in training, everything finite."""
+    equal to its shards' by param_specs and at most ``share_limit`` of
+    one process's, the kernel launched the setup's count of times a rank
+    in the forward, each launch on the setup's heads (all on the tensor
+    cores), the prefill and decode logits within ``LOGIT_TOL`` of max of
+    one process's (bf16 partial sums over ``model``), the training loss
+    within ``loss_tol`` of one process's, no kernel in training,
+    everything finite."""
     import torch
 
     from repro_torch.launch import mesh as mesh_lib
-    tag, arch, _, (b, s), n_dec, (tb, ts), accum, kernel, expect, \
-        n_heads = setup
-    one = split17_one_process(card, setup, dev)
+    tag, arch, kernel = setup["tag"], setup["arch"], setup["kernel"]
+    (b, s), n_dec, train = setup["prefill"], setup["decode"], setup["train"]
+    one = split_one_process(card, setup, dev)
     t0 = time.perf_counter()
-    mesh_lib.run_ranks(split17_rank, 2, ({"dir": str(tmp),
-                                          "setup": list(setup)},),
+    mesh_lib.run_ranks(split_rank, 2, ({"dir": str(tmp), "setup": setup},),
                        timeout=900)
     wall = time.perf_counter() - t0
     recs = [json.loads((tmp / f"{tag}-rank{r}.json").read_text())
@@ -4567,21 +4701,19 @@ def split17_full(card: str, tmp, setup, dev) -> dict:
     launched = [r["launches"][kernel] for r in recs]
     on_tc = [r["launches"][f"{kernel}_tc"] for r in recs]
     heads = [sorted(int(h) for h in r["heads"][kernel]) for r in recs]
-    losses = [r["train"]["loss"] for r in recs]
-    loss_rel = max(abs(x - one["loss"]) / abs(one["loss"]) for x in losses)
-    depth = split17_config(setup)
-    print(f"[{tag}] {arch} full width ({depth.num_layers} layers"
-          f"{' + MTP' if depth.mtp_depth else ''}) over 1 x 2 gloo ranks "
+    cfg = split_config(setup)
+    print(f"[{tag}] {arch} full width ({cfg.num_layers} layers"
+          f"{' + MTP' if cfg.mtp_depth else ''}) over 1 x 2 gloo ranks "
           f"(devices {[r['device'] for r in recs]}, {wall:.1f} s): "
           f"parameter bytes a rank {[r['resident_bytes'] for r in recs]} = "
           f"its shards by param_specs {exact}, "
           f"{[round(x, 4) for x in share]} of one process's "
           f"{recs[0]['one_process_bytes'] / 1e9:.2f} GB [{card}]", flush=True)
-    print(f"[{tag}] prefill {b} x {s} through {kernel} on each rank's heads: "
+    print(f"[{tag}] prefill {b} x {s} through {kernel} on each rank's share: "
           f"{[round(r['prefill']['ms'], 1) for r in recs]} ms (first, cold), "
           f"{launched} launches a rank ({on_tc} on the tensor cores; "
-          f"expected {expect}), heads a launch {heads} (expected "
-          f"{n_heads}), sent along model "
+          f"expected {setup['launches']}), heads a launch {heads} (expected "
+          f"{setup['heads']}), sent along model "
           f"{[r['prefill']['model_bytes'] for r in recs]} B in "
           f"{[round(r['prefill']['model_ms'], 1) for r in recs]} host ms; "
           f"the logits against one process's: rel "
@@ -4594,43 +4726,92 @@ def split17_full(card: str, tmp, setup, dev) -> dict:
               f" B; the logits against one process's: rel "
               f"{[f'{x:.3e}' for x in rels[1:]]} (limit {LOGIT_TOL:g}), "
               f"argmax agreement {agree[1:]} [{card}]", flush=True)
-    print(f"[{tag}] one train_step_deferred {tb} x {ts} (grad_accum "
-          f"{accum}): {[round(r['train']['ms'], 1) for r in recs]} ms, loss "
-          f"{losses} against one process's {one['loss']:.6f}: rel "
-          f"{loss_rel:.3e} (limit {BF16_TOL:g}); sent along model "
-          f"{[r['train']['model_bytes'] for r in recs]} B in "
-          f"{[round(r['train']['model_ms'], 1) for r in recs]} host ms; peak "
-          f"{[r['train']['peak_bytes'] for r in recs]} B a rank; kernel "
-          f"launches {[r['train']['launches'] for r in recs]} [{card}]",
-          flush=True)
-    ok = (exact and max(share) <= SPLIT17_SHARE
-          and all(n == expect for n in launched) and on_tc == launched
-          and all(h == [n_heads] for h in heads)
-          and max(rels) <= LOGIT_TOL and loss_rel <= BF16_TOL
-          and all(math.isfinite(x) for x in rels + losses)
-          and all(r["train"]["finite"] and not r["train"]["launches"]
-                  for r in recs))
+    ok = (exact and max(share) <= share_limit
+          and all(n == setup["launches"] for n in launched)
+          and on_tc == launched and all(h == [setup["heads"]] for h in heads)
+          and max(rels) <= LOGIT_TOL
+          and all(math.isfinite(x) for x in rels))
+    res = {"wall_s": wall, "launches": launched, "heads": heads,
+           "logits_rel": rels,
+           "resident_bytes": [r["resident_bytes"] for r in recs],
+           "prefill_model_bytes": [r["prefill"]["model_bytes"]
+                                   for r in recs]}
+    if train is not None:
+        losses = [r["train"]["loss"] for r in recs]
+        loss_rel = max(abs(x - one["loss"]) / abs(one["loss"])
+                       for x in losses)
+        print(f"[{tag}] one train_step_deferred {train[0]} x {train[1]} "
+              f"(grad_accum {cfg.grad_accum}, {cfg.optimizer}): "
+              f"{[round(r['train']['ms'], 1) for r in recs]} ms, loss "
+              f"{losses} against one process's {one['loss']:.6f}: rel "
+              f"{loss_rel:.3e} (limit {loss_tol:g}); sent along model "
+              f"{[r['train']['model_bytes'] for r in recs]} B in "
+              f"{[round(r['train']['model_ms'], 1) for r in recs]} host ms; "
+              f"peak {[r['train']['peak_bytes'] for r in recs]} B a rank; "
+              f"kernel launches {[r['train']['launches'] for r in recs]} "
+              f"[{card}]", flush=True)
+        ok &= (loss_rel <= loss_tol
+               and all(math.isfinite(x) for x in losses)
+               and all(r["train"]["finite"] and not r["train"]["launches"]
+                       for r in recs))
+        res.update(loss_rel=loss_rel,
+                   model_bytes=[r["train"]["model_bytes"] for r in recs],
+                   peak_bytes=[r["train"]["peak_bytes"] for r in recs])
     if not ok:
-        fail(f"{tag}: shard bytes, launches on the rank's heads, logits, "
+        fail(f"{tag}: shard bytes, launches on the rank's share, logits, "
              f"loss or finiteness")
-    return {"wall_s": wall, "launches": launched, "heads": heads,
-            "logits_rel": rels, "loss_rel": loss_rel,
-            "resident_bytes": [r["resident_bytes"] for r in recs],
-            "model_bytes": [r["train"]["model_bytes"] for r in recs],
-            "peak_bytes": [r["train"]["peak_bytes"] for r in recs],
-            "prefill_model_bytes": [r["prefill"]["model_bytes"]
-                                    for r in recs]}
+    return res
 
 
-def split17_dry_jobs(setup) -> list:
-    """The dry runs of a ``SPLIT17_FULL`` setup's training step, one a
-    rank of 1 x 2."""
-    tb, ts = setup[5]
-    over = split17_overrides(setup)
+def split_dry_jobs(setup) -> list:
+    """The dry runs of a setup's training step, one a rank of 1 x 2 (the
+    vision prefix's positions in the sequence)."""
+    from repro_torch.configs import get_config
+    tb, ts = setup["train"]
+    cfg = get_config(setup["arch"])
+    if cfg.arch_type == "vlm":
+        ts += cfg.frontend.num_embeddings
+    over = dict(setup["over"])
     accum = over.pop("grad_accum")
-    return [{"tag": setup[0], "arch": setup[1], "accum": accum,
+    return [{"tag": setup["tag"], "arch": setup["arch"], "accum": accum,
              "overrides": over, "batch": tb, "seq": ts, "dims": [1, 2],
              "rank": r} for r in range(2)]
+
+
+def split_full_phase(card: str, tmp, setups, dry: list, dev, share: float,
+                     loss_tol: float, peak_tol: float) -> dict:
+    """Runs ``split_full`` for each setup, the dry runs of the ``dry``
+    ones' training steps in processes beside them; prints the dry runs
+    and holds each rank's parameter bytes and bytes along ``model``
+    equal to the card's, its peak within ``peak_tol``."""
+    out = {}
+    jobs = [job for setup in dry for job in split_dry_jobs(setup)]
+    procs = start_dry_runs(jobs)
+    try:
+        for setup in setups:
+            out[setup["tag"]] = split_full(card, tmp, setup, dev, share,
+                                           loss_tol)
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    runs = dry_results(procs, jobs)
+    ok = True
+    for job, res in zip(jobs, runs):
+        print(f"[{job['tag']}] dry run rank {job['rank']} of 1 x 2: "
+              f"stand-ins {res['lower_s']:.1f} s, step "
+              f"{res['compile_s']:.1f} s, {res['cost']['flops']:.4g} FLOPs, "
+              f"memory {json.dumps(res['memory'])}, collectives "
+              f"{json.dumps(res['collectives'])}", flush=True)
+    for setup in dry:
+        tag = setup["tag"]
+        mine = [res for job, res in zip(jobs, runs) if job["tag"] == tag]
+        ok &= dry_rank_checks(tag, mine, out[tag], card, peak_tol)
+    if not ok:
+        fail(f"{'/'.join(s['tag'] for s in dry)}: a dry-run prediction "
+             f"disagrees with the card")
+    return out
 
 
 def split_phase(card: str, dev) -> dict:
@@ -4651,29 +4832,39 @@ def split_phase(card: str, dev) -> dict:
               f"{wall:.1f} s, worst rel {worst:.3e}; launches over the "
               f"ranks {out['reduced']} [{card}]", flush=True)
         # ---- 17b / 17c: full width over 1 x 2; 17c's dry runs beside ----
-        mla = SPLIT17_FULL[1]
-        jobs = split17_dry_jobs(mla)
-        procs = start_dry_runs(jobs)
-        try:
-            for setup in SPLIT17_FULL:
-                out[setup[0]] = split17_full(card, tmp, setup, dev)
-        except BaseException:
-            for proc in procs:
-                proc.kill()
-                proc.wait()
-            raise
-        runs = dry_results(procs, jobs)
-    for job, res in zip(jobs, runs):
-        print(f"[17c] dry run rank {job['rank']} of 1 x 2: stand-ins "
-              f"{res['lower_s']:.1f} s, step {res['compile_s']:.1f} s, "
-              f"{res['cost']['flops']:.4g} FLOPs, memory "
-              f"{json.dumps(res['memory'])}, collectives "
-              f"{json.dumps(res['collectives'])}", flush=True)
-    if not dry_rank_checks("17c", runs, out["17c"], card):
-        fail("17c: a dry-run prediction disagrees with the card")
+        out.update(split_full_phase(card, tmp, SPLIT17_FULL,
+                                    SPLIT17_FULL[1:], dev, SPLIT17_SHARE,
+                                    BF16_TOL, DRY16_TOL))
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[17] split MLA / SSD phase {out['phase_s']:.1f} s (target "
           f"{SPLIT17_BUDGET_S:g} s) [{card}]", flush=True)
+    return out
+
+
+def split18_phase(card: str, dev) -> dict:
+    """Phase 18: the RG-LRU hybrid, the vision prefix and the
+    encoder-decoder split over model (module docstring, item 18)."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="split18_") as tmp:
+        tmp = pathlib.Path(tmp)
+        # ---- 18a: reduced f32 families, card vs CPU, 2 x 2 and 1 x 4 ----
+        recs, wall, worst = reduced_mesh(card, tmp, "18a", SPLIT18_REDUCED,
+                                         out, SPLIT18_TOL)
+        out["reduced_worst"] = worst
+        print(f"[18a] 4 ranks (devices {[r['device'] for r in recs]}) in "
+              f"{wall:.1f} s, worst rel {worst:.3e} [{card}]", flush=True)
+        # ---- 18b-18d: full width over 1 x 2; the dry runs beside ----
+        out.update(split_full_phase(
+            card, tmp, SPLIT18_FULL,
+            [setup for setup in SPLIT18_FULL if setup["train"] is not None],
+            dev, SPLIT18_SHARE, SPLIT18_LOSS_TOL, SPLIT18_PEAK_TOL))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[18] split RG-LRU hybrid / vision prefix / encoder-decoder "
+          f"phase {out['phase_s']:.1f} s (target {SPLIT18_BUDGET_S:g} s) "
+          f"[{card}]", flush=True)
     return out
 
 
@@ -5093,7 +5284,10 @@ def main() -> int:
     # ---- 17. MLA and the SSD mixer split over model, on the rank's heads ---
     split = split_phase(card, dev)
 
-    # ---- 18. the kernels line, the card, the result ------------------------
+    # ---- 18. the RG-LRU hybrid, vision prefix, encoder-decoder split -------
+    split18 = split18_phase(card, dev)
+
+    # ---- 19. the kernels line, the card, the result ------------------------
     main_c = 1000
     rows_out = [{
         "name": "community_spmm_ell", "route": "cuda",
@@ -5204,8 +5398,8 @@ def main() -> int:
         "checked": True, "launches_per_forward": mamba["launches"],
         "launches_per_rank_split_forward": split["17b"]["launches"],
         "heads_per_launch_split": split["17b"]["heads"],
-        "split_forward": f"{SPLIT17_FULL[0][1]} 1 x 2 ranks, "
-                         f"{SPLIT17_FULL[0][3][0]} x {SPLIT17_FULL[0][3][1]}",
+        "split_forward": "{arch} 1 x 2 ranks, {prefill[0]} x "
+                         "{prefill[1]}".format(**SPLIT17_FULL[0]),
         "launches_reduced_split_mesh": split["reduced"]["ssd"],
         "per_shape": ssd_t, "checks": ssd_checks})
     # the flash row: launches of the qwen2-7b kernel forward (phase 10, this
@@ -5241,11 +5435,16 @@ def main() -> int:
         "offset_launches_reduced_mesh": tp["offset_launches"],
         "launches_per_rank_split_mla_forward": split["17c"]["launches"],
         "heads_per_launch_split_mla": split["17c"]["heads"],
-        "split_mla_forward": f"{SPLIT17_FULL[1][1]} cut to "
-                             f"{SPLIT17_FULL[1][2]} layers, 1 x 2 ranks, "
-                             f"{SPLIT17_FULL[1][3][0]} x "
-                             f"{SPLIT17_FULL[1][3][1]}",
+        "split_mla_forward": "{arch} cut to {over[num_layers]} layers, "
+                             "1 x 2 ranks, {prefill[0]} x "
+                             "{prefill[1]}".format(**SPLIT17_FULL[1]),
         "launches_reduced_split_mesh": split["reduced"]["flash"],
+        "launches_per_rank_split_families": {
+            f"{setup['arch']} ({setup['tag']})":
+                split18[setup["tag"]]["launches"] for setup in SPLIT18_FULL},
+        "heads_per_launch_split_families": {
+            f"{setup['arch']} ({setup['tag']})":
+                split18[setup["tag"]]["heads"] for setup in SPLIT18_FULL},
         "offset_checks": [ch for ch in flash_checks if "q_offset" in ch],
         "checks": flash_checks})
     print(json.dumps({"kernels": rows_out}))

@@ -9,7 +9,9 @@ It reads shapes only, so it counts a step on ``meta`` tensors as it
 counts the same step on real ones: ``peak`` is what
 ``torch.cuda.max_memory_allocated`` would read for a process that holds
 only this step, short of the allocator's rounding and a kernel's own
-scratch.
+scratch, except the scratch ``SCRATCH`` names: what a CUDA kernel
+allocates through the caching allocator below the dispatcher, counted
+live with the op's outputs while the op runs.
 
     tracker = MemoryTracker()
     argument_bytes = tracker.hold(params, opt_state, batch)
@@ -35,6 +37,21 @@ def storage_bytes(*trees) -> int:
         st = t.untyped_storage()
         seen[id(st)] = st.nbytes()
     return sum(seen.values())
+
+
+def _softmax_backward_scratch(args) -> int:
+    """``softmax_backward_cuda_out``'s scratch: grad · output, an
+    output-sized buffer, and a contiguous copy of a strided grad
+    (``scripts/softmax_scratch.py`` measures it on the card)."""
+    grad, out = args[0], args[1]
+    n = out.numel() * out.element_size()
+    return n + (0 if grad.is_contiguous()
+                else grad.numel() * grad.element_size())
+
+
+# aten ops whose CUDA kernels allocate scratch that no dispatch mode sees
+SCRATCH = {torch.ops.aten._softmax_backward_data.default:
+           _softmax_backward_scratch}
 
 
 class MemoryTracker(TorchDispatchMode):
@@ -69,7 +86,20 @@ class MemoryTracker(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         for t in tensors_in(out):
             self._track(t)
+        scratch = SCRATCH.get(func)
+        if scratch is not None:
+            self._transient(scratch(args),
+                            str(out.dtype).removeprefix("torch."))
         return out
+
+    def _transient(self, n: int, dtype: str) -> None:
+        """``n`` bytes live beside the live storages for a moment."""
+        if self.live + n > self.peak:
+            self.peak = self.live + n
+            self.peak_by_dtype = dict(self._by_dtype)
+            self.peak_by_dtype[dtype] = self.peak_by_dtype.get(dtype, 0) + n
+            if self._watch is not None:
+                self.at_peak = self._watch()
 
     def _track(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()

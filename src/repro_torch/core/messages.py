@@ -1401,10 +1401,23 @@ class MeshCollectives:
         return self.gather_line(x, dim, self.model, back)
 
     def _sum(self, x: Tensor) -> Tensor:
-        parts = self._line_parts(x, self.model)
-        if len(parts) == 1:
+        """Σ over the model ranks in f32, rank order, in pieces of at most
+        ``BUCKET_BYTES`` a rank: no rank holds more than one piece's parts
+        at a time (a large replicated gradient would otherwise stand nm
+        times over)."""
+        if self.model.world_size == 1:
             return x
-        return fold([p.float() for p in parts]).to(x.dtype)
+        step = BUCKET_BYTES // x.element_size()
+        if x.numel() <= step:
+            parts = self._line_parts(x, self.model)
+            return fold([p.float() for p in parts]).to(x.dtype)
+        flat = x.contiguous().reshape(-1)
+        out = torch.empty_like(flat)
+        for a in range(0, flat.numel(), step):
+            parts = self._line_parts(flat[a:a + step], self.model)
+            out[a:a + step] = fold([p.float() for p in parts]).to(x.dtype)
+            del parts
+        return out.view(x.shape)
 
     def sum_model(self, x: Tensor) -> Tensor:
         """Σ over the model ranks of ``x``, in f32 and rank order (``fold``

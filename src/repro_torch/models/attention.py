@@ -27,7 +27,9 @@ and sums the row-split ``o`` projection over ``model``; the ``context``
 branch takes the rank's query rows, which attend to every key at a query
 offset (both routes take ``q_offset``).  ``gqa_decode_step_ranks`` runs a
 decode step on caches placed by ``cache_specs`` (head_dim, else heads,
-over ``model``).
+over ``model``).  Cross-attention splits on the heads
+(``gqa_cross_forward_ranks``: the encoder's memory whole along ``model``;
+``gqa_cross_step_ranks`` on the rank's slices of the memory caches).
 
 Caches (a decode step writes its token into the cache it is given, in
 place, and returns the same tensors; a caller that keeps the pre-step
@@ -443,6 +445,22 @@ def gqa_decode_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
                          partition.local_slice(v, kv_spec, lay.mesh),
                          rolling)
 
+    out = _cached_ranks(q, cache["k"], cache["v"], split,
+                        valid[None, None, None, None, :], group, lay)
+    cache["pos"].add_(1)
+    return _out_rows(out.reshape(b, 1, hq * hd), p["o"], lay), cache
+
+
+def _cached_ranks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  split: Optional[int], mask: Optional[torch.Tensor],
+                  group: int, lay) -> torch.Tensor:
+    """One token's queries ``q`` (B, 1, Hq, hd, whole on every rank)
+    against a rank's slices ``k`` / ``v`` of a cache, split over ``model``
+    on its heads (``split`` 2), on head_dim (3: partial scores summed over
+    ``model`` in rank order) or not at all; (B, 1, Hq / Hkv, group, hd)
+    whole on every rank."""
+    b, _, hq, hd = q.shape
+    m, nm = lay.m, lay.nm
     if split == 2:
         nq = hq // nm
         q = q[:, :, m * nq:(m + 1) * nq]
@@ -450,19 +468,75 @@ def gqa_decode_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
     if split == 3:
         w = hd // nm
         qg = qg[..., m * w:(m + 1) * w]
-    scores = _scores(qg, cache["k"])
+    scores = _scores(qg, k)
     if split == 3:
         scores = lay.comm.sum_model(scores)
-    out = _mix(scores, valid[None, None, None, None, :], cache["v"], hd)
+    out = _mix(scores, mask, v, hd)
     if split is not None:
         out = lay.comm.gather_model(out, 2 if split == 2 else 4)
-    out = out.reshape(b, 1, hq * hd)
-    cache["pos"].add_(1)
-    o = p["o"]
-    if o.shape[0] == hq * hd:
-        return out @ o, cache
-    n = o.shape[0]
-    return lay.comm.sum_model(out[..., m * n:(m + 1) * n] @ o), cache
+    return out
+
+
+def _out_rows(out: torch.Tensor, o: torch.Tensor, lay) -> torch.Tensor:
+    """``out`` (whole along ``model``) through the rank's rows of the
+    row-split ``o``, summed over ``model`` (or through ``o`` whole)."""
+    if o.shape[0] == out.shape[-1]:
+        return out @ o
+    n, m = o.shape[0], lay.m
+    return lay.comm.sum_model(out[..., m * n:(m + 1) * n] @ o)
+
+
+def gqa_cross_forward_ranks(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                            memory: torch.Tensor, lay) -> torch.Tensor:
+    """This rank's share of ``gqa_cross_forward`` under the hints: ``x``
+    its piece of the (normed) decoder residual, ``memory`` (B, S_m, D) the
+    encoder's output whole along ``model`` (entered once a forward and
+    read by every decoder layer: its gradient partial on each rank), ``p``
+    its shards by ``param_specs``; the heads divide over ``model``
+    (``transformer.split_arch``).  The decoder residual whole along
+    ``model`` (``lay.enter``), queries from the rank's Hq/nm heads, keys
+    and values of its Hkv/nm heads from the memory, its row slice of
+    ``o`` and one sum over ``model`` laid out as the residual
+    (``lay.leave``)."""
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    nq, nk, m = hq // lay.nm, hkv // lay.nm, lay.m
+    xf = lay.enter(x)
+    b, s = xf.shape[:2]
+    sm = memory.shape[1]
+    q = (xf @ p["q"]).reshape(b, s, nq, hd)
+    k = (memory @ p["k"]).reshape(b, sm, nk, hd)
+    v = (memory @ p["v"]).reshape(b, sm, nk, hd)
+    if cfg.qkv_bias:
+        q = q + _bias(p, "q_b", nq * hd, hq * hd, m, lay).reshape(nq, hd)
+        k = k + _bias(p, "k_b", nk * hd, hkv * hd, m, lay).reshape(nk, hd)
+        v = v + _bias(p, "v_b", nk * hd, hkv * hd, m, lay).reshape(nk, hd)
+    out = _sdpa(q, k, v, None)
+    return lay.leave(out.reshape(b, s, nq * hd) @ p["o"])
+
+
+def gqa_cross_step_ranks(cfg: ModelConfig, p: Params, cache: Params,
+                         specs: Params, x_t: torch.Tensor, lay
+                         ) -> torch.Tensor:
+    """One token's cross-attention (``p`` the rank's shards of it, ``x_t``
+    (B, 1, D) whole along ``model``) on one rank against its slices of the
+    memory's k / v caches (``cache["cross_k"]`` / ``cache["cross_v"]`` by
+    ``cache_specs``: head_dim, else heads, over ``model``): the query
+    whole from the column slices of q (one all-gather; no q bias, as the
+    reference's step), the scores over the cache (partial over head_dim,
+    summed over ``model``), the heads' outputs all-gathered and the rank's
+    rows of ``o`` summed over ``model``."""
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    b = x_t.shape[0]
+    q = x_t @ p["q"]
+    if q.shape[-1] != hq * hd:
+        q = lay.comm.gather_model(q, 2)
+    out = _cached_ranks(q.reshape(b, 1, hq, hd), cache["cross_k"],
+                        cache["cross_v"],
+                        partition.model_dim(specs["cross_k"]), None,
+                        hq // hkv, lay)
+    return _out_rows(out.reshape(b, 1, hq * hd), p["o"], lay)
 
 
 # ---------------------------------------------------------------------------

@@ -142,7 +142,8 @@ class Model:
         ``param_specs``, ``batch`` the global batch (every rank the same);
         it returns its block of the logits (its rows, its vocabulary
         columns: the reference's ``P(data, None, model)``), the aux loss
-        (the same on every rank) and its piece of the final hidden."""
+        (the same on every rank) and its piece of the final hidden (the
+        vision prefix's positions included)."""
         cfg = self.cfg
         window = window if window is not None else cfg.sliding_window
         lay = self._layout(*self._residual_extent(batch))
@@ -177,10 +178,24 @@ class Model:
         return partition.map_specs(
             lambda spec: partition.drop_axes(spec, manual), specs)
 
+    def _prefix(self) -> int:
+        """The positions before the text in the residual (the vision
+        prefix), 0 for the other archs."""
+        cfg = self.cfg
+        return cfg.frontend.num_embeddings if cfg.arch_type == "vlm" else 0
+
     def _hidden_ranks(self, params: Params, batch: dict, lay, window,
                       use_kernel: bool):
-        """This rank's share of the stack: (its piece of the final hidden,
-        aux, its slice of the embedding, its rows of the batch)."""
+        """This rank's share of the stack: (its piece of the final hidden
+        — the vision prefix's positions included —, aux, its slice of the
+        embedding, its rows of the batch).
+
+        An encoder-decoder's encoder runs on a layout of its own frames
+        (``_layout`` of S_enc), and its output is entered whole along
+        ``model`` once (``RankLayout.enter``: its gradient by the
+        encoder's convention) for every decoder layer's cross-attention
+        on the rank's heads.  The vision prefix goes before the embedded
+        tokens in the (P + S)-position residual that ``lay`` lays out."""
         cfg = self.cfg
         specs = self._rank_specs(lay.mesh)
         dev = tree.leaves(params)[0].device
@@ -190,20 +205,21 @@ class Model:
                                lay.mesh, lay.comm, hints.DATA_AXES)
         memory = None
         if cfg.is_encoder_decoder:
+            frames = local["frames"]
+            enc = self._layout(lay.batch, frames.shape[1])
             x, _ = transformer.apply_stack_ranks(
-                cfg, params["stack"], specs["stack"], local["frames"], lay,
+                cfg, params["stack"], specs["stack"], enc.piece(frames), enc,
                 use_kernel=use_kernel, only_kinds=("enc",))
             memory = layers.apply_norm(cfg, params["enc_final_norm"], x)
-        x = layers.embed_ranks(cfg, emb, local["tokens"], lay)
-        if cfg.arch_type == "vlm":
-            x = torch.cat([local["vision_embeds"].to(x.dtype), x], dim=1)
+            if transformer.split_arch(cfg, lay.nm):
+                memory = enc.enter(memory)
+        x = layers.embed_ranks(cfg, emb, local["tokens"], lay,
+                               local.get("vision_embeds"))
         x, aux = transformer.apply_stack_ranks(
             cfg, params["stack"], specs["stack"], x, lay, window=window,
             memory=memory, use_kernel=use_kernel,
             only_kinds=("dec",) if cfg.is_encoder_decoder else None)
         h = layers.apply_norm(cfg, params["final_norm"], x)
-        if cfg.arch_type == "vlm":
-            h = h[:, cfg.frontend.num_embeddings:]
         return h, aux, emb, local
 
     def _forward_ranks(self, params: Params, batch: dict, lay, window,
@@ -214,7 +230,7 @@ class Model:
             last = lay.comm.from_last_model_rank(h[:, -1:]) \
                 if lay.seq_split else h[:, -1:]
         else:
-            last = lay.enter(h)
+            last = lay.enter(h)[:, self._prefix():]
         return layers.unembed(self.cfg, emb, last), aux, h
 
     def encode(self, params: Params, frames: torch.Tensor,
@@ -265,7 +281,8 @@ class Model:
                 "(hints.manual_region): here the data axes split the batch")
         h, aux, emb, local = self._hidden_ranks(params, batch, lay,
                                                 cfg.sliding_window, False)
-        ce = layers.next_token_ce_ranks(cfg, emb, h, local["targets"], lay)
+        ce = layers.next_token_ce_ranks(cfg, emb, h, local["targets"], lay,
+                                        prefix=self._prefix())
         total = ce + aux
         metrics = {"ce": ce, "aux": aux}
         if cfg.mtp_depth:
@@ -487,7 +504,8 @@ class Model:
         there: with the residual split each rank's gradient is its
         positions' part, summed over ``model`` in rank order; with the
         residual whole each rank holds the whole gradient, and the first
-        model rank's is sent to the others."""
+        model rank's is sent to the others.  An encoder-decoder's encoder
+        leaves follow its frames' layout, the rest the decoder's."""
         cfg = self.cfg
         data = hints.DATA_AXES
         specs = self.param_specs(mesh)
@@ -517,6 +535,9 @@ class Model:
                 loss_sum = loss_sum + lv.detach()
                 mets.append({k: v.detach() for k, v in m.items()})
             split = self._layout(*self._residual_extent(mb)).seq_split
+            enc_split = self._layout(mb["frames"].shape[0],
+                                     mb["frames"].shape[1]).seq_split \
+                if cfg.is_encoder_decoder else split
         del live, live_tree
         stacked = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
         names = sorted(stacked)
@@ -526,12 +547,16 @@ class Model:
         same = [i for i, sp in enumerate(leaf_specs)
                 if "model" not in {a for e in sp
                                    for a in partition.entry_axes(e)}]
-        if same and comm.model.world_size > 1:
-            flat = torch.cat([acc[i].reshape(-1) for i in same])
-            flat = comm.sum_model(flat) if split else \
+        groups: dict = {}                  # gradient convention -> leaves
+        for i in same if comm.model.world_size > 1 else ():
+            groups.setdefault(enc_split if _in_encoder(paths[i]) else split,
+                              []).append(i)
+        for summed, group in groups.items():
+            flat = torch.cat([acc[i].reshape(-1) for i in group])
+            flat = comm.sum_model(flat) if summed else \
                 comm.broadcast_model(flat, 0)
             off = 0
-            for i in same:
+            for i in group:
                 n = acc[i].numel()
                 acc[i].reshape(-1).copy_(flat[off:off + n])
                 off += n
@@ -689,6 +714,12 @@ class Model:
     def cache_specs(self, shape: InputShape, *, rolling: bool = False):
         return self.init_cache(shape.global_batch, shape.seq_len,
                                rolling=rolling, device="meta")
+
+
+def _in_encoder(path) -> bool:
+    """Whether a parameter's key path lies in an encoder-decoder's encoder
+    (its ``enc`` stack or its final norm)."""
+    return tuple(path[:2]) == ("stack", "enc") or path[0] == "enc_final_norm"
 
 
 def _next_token_ce(logits: torch.Tensor,

@@ -171,21 +171,30 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens.long()]
 
 
-def embed_ranks(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
-                lay) -> torch.Tensor:
+def embed_ranks(cfg: ModelConfig, p: Params, tokens: torch.Tensor, lay,
+                prefix: torch.Tensor | None = None) -> torch.Tensor:
     """This rank's piece of the embedded residual: the ids of its rows
     (``tokens``, (B, S)) looked up among its rows of the table, zero
-    outside them, and summed over ``model`` into the residual's layout."""
+    outside them, and summed over ``model`` into the residual's layout;
+    ``prefix`` (B, P, D), the same on every rank (the vision prefix), goes
+    before the tokens (the first model rank adds it to the sum)."""
     table = p["table"]
     if table.shape[0] == cfg.vocab_size:
-        return lay.piece(embed(p, tokens))
+        x = embed(p, tokens)
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        return lay.piece(x)
     n = table.shape[0]
     ids = tokens.long() - lay.m * n
     inside = (ids >= 0) & (ids < n)
     rows = table[ids.clamp(0, n - 1)]
-    return lay.leave(torch.where(inside[..., None], rows,
-                                 torch.zeros((), dtype=rows.dtype,
-                                             device=rows.device)))
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    if prefix is not None:
+        prefix = prefix.to(rows.dtype)
+        rows = torch.cat([prefix if lay.m == 0 else torch.zeros_like(prefix),
+                          rows], dim=1)
+    return lay.leave(rows)
 
 
 # the f32 copy of the last unembedding matrix seen, keyed by a weak reference
@@ -234,6 +243,34 @@ def next_token_nll(logits: torch.Tensor,
     return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
 
 
+class _ExpSumAt(torch.autograd.Function):
+    """With z = logits − ``top`` (the row maxima): (Σ exp(z) over the last
+    dim, z at ``idx`` where ``inside`` else 0), stacked.  exp(z) is formed
+    in z's buffer, and the backward writes exp(z) · g₀ into one buffer and
+    adds g₁ at ``idx`` in place: the bits autograd's sub / exp / gather /
+    where chain gives (each element's one product and, at the target, one
+    sum), with one (B, S, V/nm) buffer live beside the logits, not three."""
+
+    @staticmethod
+    def forward(ctx, logits, top, idx, inside):
+        z = logits - top[..., None]
+        zt = torch.gather(z, -1, idx[..., None])[..., 0]
+        zt = torch.where(inside, zt, torch.zeros((), dtype=z.dtype,
+                                                 device=z.device))
+        e = z.exp_()
+        ctx.save_for_backward(e, idx, inside)
+        return torch.stack([e.sum(-1), zt])
+
+    @staticmethod
+    def backward(ctx, g):
+        e, idx, inside = ctx.saved_tensors
+        grad = e * g[0][..., None]
+        at = torch.where(inside, g[1], torch.zeros((), dtype=g.dtype,
+                                                   device=g.device))
+        return grad.scatter_add_(-1, idx[..., None], at[..., None]), None, \
+            None, None
+
+
 def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
                        lay) -> torch.Tensor:
     """``next_token_nll`` of the whole vocabulary from this rank's block of
@@ -243,45 +280,45 @@ def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,
     the target's logit from the rank that owns its column (zero on the
     others) summed over ``model`` in rank order, and log Σ − target.  The
     backward is softmax − one-hot on the rank's own columns (the sum's
-    gradient passes on)."""
+    gradient passes on), formed in one buffer (``_ExpSumAt``)."""
     comm, n = lay.comm, logits.shape[-1]
     with torch.no_grad():
         top = torch.stack(comm.model_parts(logits.amax(-1))).amax(0)
-    z = logits - top[..., None]
     t = targets.long() - lay.m * n
     inside = (t >= 0) & (t < n)
-    zt = torch.gather(z, -1, t.clamp(0, n - 1)[..., None])[..., 0]
-    zt = torch.where(inside, zt, torch.zeros((), dtype=z.dtype,
-                                             device=z.device))
-    sums = comm.sum_model(torch.stack([z.exp().sum(-1), zt]))
+    sums = comm.sum_model(_ExpSumAt.apply(logits, top, t.clamp(0, n - 1),
+                                          inside))
     return torch.log(sums[0]) - sums[1]
 
 
 def next_token_ce_ranks(cfg: ModelConfig, p: Params, h: torch.Tensor,
-                        targets: torch.Tensor, lay, shift: int = 0
-                        ) -> torch.Tensor:
+                        targets: torch.Tensor, lay, shift: int = 0,
+                        prefix: int = 0) -> torch.Tensor:
     """The mean next-token cross-entropy of this rank's rows over ranks:
     ``h`` its piece of the final hidden (``lay``), ``targets`` (B, S) its
     rows' whole, ``p`` its slice of the embedding; with ``shift``,
     position t against target t + ``shift`` (the last ``shift`` positions
-    dropped: multi-token prediction).  With the vocabulary split over
-    ``model``, ``h`` whole along ``model`` and the vocabulary-parallel CE
-    on the rank's logits block; else the whole vocabulary on the rank's
-    positions (their shifted targets may lie in the next rank's piece),
-    their sums added over ``model``."""
+    dropped: multi-token prediction); with ``prefix``, the hidden's first
+    ``prefix`` positions (the vision prefix) carry no target.  With the
+    vocabulary split over ``model``, ``h`` whole along ``model`` and the
+    vocabulary-parallel CE on the rank's logits block; else the whole
+    vocabulary on the rank's positions (their shifted targets may lie in
+    the next rank's piece), their sums added over ``model``."""
     table = p["table"] if cfg.tie_embeddings else p["unembed"]
     b, s = targets.shape
     if table.shape[0 if cfg.tie_embeddings else 1] != cfg.vocab_size:
-        hw = lay.enter(h)
+        hw = lay.enter(h)[:, prefix:]
         return vocab_parallel_nll(unembed(cfg, p, hw[:, :s - shift]),
                                   targets[:, shift:], lay).mean()
     if not lay.seq_split:
-        return next_token_nll(unembed(cfg, p, h[:, :s - shift]),
+        return next_token_nll(unembed(cfg, p, h[:, prefix:prefix + s - shift]),
                               targets[:, shift:]).mean()
-    ahead = torch.cat([targets[:, shift:], targets[:, :shift]], 1)
+    ahead = torch.cat([targets.new_zeros((b, prefix)), targets[:, shift:],
+                       targets[:, :shift]], 1)
     nll = next_token_nll(unembed(cfg, p, h), lay.piece(ahead))
     rows = lay.positions
-    keep = torch.arange(rows.start, rows.stop, device=nll.device) < s - shift
+    pos = torch.arange(rows.start, rows.stop, device=nll.device)
+    keep = (pos >= prefix) & (pos < prefix + s - shift)
     nll = torch.where(keep, nll, torch.zeros((), dtype=nll.dtype,
                                              device=nll.device))
     return lay.comm.sum_model(nll.sum()) / (b * (s - shift))

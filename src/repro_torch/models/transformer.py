@@ -10,23 +10,20 @@ Over the ranks of a data × model mesh under ``sharding_hints``
 (``apply_stack_ranks``, ``decode_stack_ranks``) each rank holds its slices
 of every layer by ``param_specs`` (and of every cache by ``cache_specs``);
 a layer's slices are all-gathered over the data axes (the FSDP leg) as it
-runs.  The attention segments (``attn_mlp``, ``attn_moe``: GQA, or MLA
-whose heads divide over ``model``) and the Mamba-2 ``ssm`` segment whose
-heads split run split (``split_arch``): the residual lives between layers
-as the rank's (B/n_dp, S/nm, D) piece (``hints.residual_layout``, the
-reference's ``hint_residual``; whole along ``model`` where nm does not
-divide S, as in a decode step), each split sublayer all-gathers it along
-``model`` at entry, computes on the rank's heads (or its columns of the
-MLP) and reduce-scatters its partial sums at exit; a decode step runs on
-the rank's slices of the caches.  The other families (``hybrid`` /
-``rglru_mlp``, ``enc`` / ``dec``, the vision prefix), and MLA and ``ssm``
-where their heads do not split, are placed the same way but compute whole:
+runs.  Every family runs split where ``split_arch`` holds: the residual
+lives between layers as the rank's (B/n_dp, S/nm, D) piece
+(``hints.residual_layout``, the reference's ``hint_residual``; whole along
+``model`` where nm does not divide S, as in a decode step), each split
+sublayer all-gathers it along ``model`` at entry, computes on the rank's
+heads (GQA, MLA, the SSD mixer, cross-attention), channels (the RG-LRU) or
+columns of the MLP and reduce-scatters its partial sums at exit; a decode
+step runs on the rank's slices of the caches.  Where nm does not divide
+the heads or channels the arch is placed the same way but computes whole:
 each layer's slices are all-gathered along all their axes (the routed
 experts' along the data axes only: the all-to-all dispatch still runs on
-them) and their activations stay whole along ``model``; their split
-compute is later work.  Both carry gradients (the tensor-parallel training
-step; ``hints``' two conventions), with remat per layer, collectives
-included.
+them) and its activations stay whole along ``model``.  Both carry
+gradients (the tensor-parallel training step; ``hints``' two conventions),
+with remat per layer, collectives included.
 
 Segment kinds:
   attn_mlp    pre-norm attention (GQA/MQA/MLA per cfg) + dense FFN
@@ -443,20 +440,24 @@ def decode_stack(cfg: ModelConfig, params: Params, caches: Params,
 
 def split_arch(cfg: ModelConfig, nm: int) -> bool:
     """Whether the layers run split over ``nm`` model ranks, each on its
-    own heads: the GQA attention stacks (``attn_mlp`` / ``attn_moe``;
-    ``gqa_forward_ranks`` picks heads or context), MLA where nm divides
-    the heads, and the Mamba-2 ``ssm`` stack where its heads and B / C
-    groups split (``ssm.heads_split``).  Every other arch, and these where
-    the heads do not split, gathers each layer whole and runs it on every
-    rank (``gather_layer(whole=True)``), the residual whole along
-    ``model``: in the forward, in a decode step and in training alike."""
-    if cfg.arch_type == "vlm" or cfg.hybrid is not None \
-            or cfg.is_encoder_decoder:
-        return False
+    own heads or channels: the GQA attention stacks (``attn_mlp`` /
+    ``attn_moe``, the vision prefix's decoder; ``gqa_forward_ranks`` picks
+    heads or context), MLA where nm divides the heads, the Mamba-2 ``ssm``
+    stack where its heads and B / C groups split (``ssm.heads_split``),
+    the RG-LRU hybrid where nm divides the recurrence's width and the
+    MLP's hidden width (its local attention by heads or context), and the
+    encoder-decoder where nm divides its query and KV heads.  Where it
+    does not, the arch gathers each layer whole and runs it on every rank
+    (``gather_layer(whole=True)``), the residual whole along ``model``:
+    in the forward, in a decode step and in training alike."""
     if cfg.mla is not None:
         return cfg.num_heads % nm == 0
     if cfg.arch_type == "ssm":
         return ssm.heads_split(cfg, nm)
+    if cfg.hybrid is not None:
+        return rglru.channels_split(cfg, nm) and cfg.d_ff % nm == 0
+    if cfg.is_encoder_decoder:
+        return cfg.num_heads % nm == 0 and cfg.num_kv_heads % nm == 0
     return True
 
 
@@ -512,7 +513,7 @@ def apply_stack_ranks(cfg: ModelConfig, params: Params, specs, x, lay, *,
         p = gather_layer(p, sp, lay, whole=not split)
         if split:
             return apply_layer_ranks(cfg, kind, p, x, lay, window=window,
-                                     use_kernel=use_kernel)
+                                     memory=memory, use_kernel=use_kernel)
         return apply_layer(cfg, kind, p, x, window=window, memory=memory,
                            use_kernel=use_kernel, lay=lay)
 
@@ -535,26 +536,57 @@ def apply_stack_ranks(cfg: ModelConfig, params: Params, specs, x, lay, *,
 
 def apply_layer_ranks(cfg: ModelConfig, kind: str, p: Params,
                       x: torch.Tensor, lay, *, window: Optional[int] = None,
+                      memory: Optional[torch.Tensor] = None,
                       use_kernel: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A split ``attn_mlp`` / ``attn_moe`` (GQA or MLA) or ``ssm`` layer
-    on this rank's piece."""
+    """A split layer on this rank's piece: ``attn_mlp`` / ``attn_moe``
+    (GQA or MLA), ``ssm``, ``hybrid`` / ``rglru_mlp`` (the RG-LRU on the
+    rank's channels, the local attention by ``hints.qkv_layout``), ``enc``
+    (bidirectional) and ``dec`` (``memory``: the encoder's output whole
+    along ``model``, its cross-attention on the rank's heads)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def mlp(sub, x):
+        return x + layers.apply_mlp_ranks(
+            cfg, sub["mlp"], layers.apply_norm(cfg, sub["norm2"], x), lay,
+            _dense_ff_width(cfg))
+
+    def rg(sub, x):
+        return x + rglru.rglru_forward_ranks(
+            cfg, sub["rg"], layers.apply_norm(cfg, sub["norm1"], x), lay)
+
     if kind == "ssm":
         return x + ssm.ssm_forward_ranks(
             cfg, p["mixer"], layers.apply_norm(cfg, p["norm"], x), lay,
             use_kernel=use_kernel), zero
+    if kind == "hybrid":
+        for i, blk in enumerate(cfg.hybrid.pattern):
+            sub = p[f"blk{i}"]
+            if blk == "rglru":
+                x = rg(sub, x)
+            else:
+                x = x + attention.gqa_forward_ranks(
+                    cfg, sub["attn"], layers.apply_norm(cfg, sub["norm1"], x),
+                    lay, window=cfg.hybrid.local_window,
+                    use_kernel=use_kernel)
+            x = mlp(sub, x)
+        return x, zero
+    if kind == "rglru_mlp":
+        return mlp(p, rg(p, x)), zero
     attn = attention.gqa_forward_ranks if cfg.mla is None \
         else attention.mla_forward_ranks
+    kw = {"causal": False} if kind == "enc" else {}
     x = x + attn(cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), lay,
-                 window=window, use_kernel=use_kernel)
-    h_in = layers.apply_norm(cfg, p["norm2"], x)
+                 window=window, use_kernel=use_kernel, **kw)
+    if kind == "dec":
+        x = x + attention.gqa_cross_forward_ranks(
+            cfg, p["cross"], layers.apply_norm(cfg, p["norm_x"], x), memory,
+            lay)
     if kind == "attn_moe":
-        h, aux = moe_lib.apply_moe(cfg, p["moe"], h_in, lay)
+        h, aux = moe_lib.apply_moe(cfg, p["moe"],
+                                   layers.apply_norm(cfg, p["norm2"], x), lay)
         return x + h, aux
-    h = layers.apply_mlp_ranks(cfg, p["mlp"], h_in, lay,
-                               _dense_ff_width(cfg))
-    return x + h, zero
+    return mlp(p, x), zero
 
 
 def apply_layer_step_ranks(cfg: ModelConfig, kind: str, p: Params,
@@ -564,27 +596,61 @@ def apply_layer_step_ranks(cfg: ModelConfig, kind: str, p: Params,
     """One token through a split layer on this rank's slices of its
     parameters and of its cache (``specs``: the layer's ``cache_specs``):
     ``x_t`` whole along ``model``.  Attention caches are written in place;
-    the SSM states come back as new tensors (the rank's slices)."""
+    the recurrent states come back as new tensors (the SSM's the rank's
+    slices; the RG-LRU's conv state its channels, h whole)."""
+    def mlp(sub, x):
+        return x + layers.apply_mlp_ranks(
+            cfg, sub["mlp"], layers.apply_norm(cfg, sub["norm2"], x), lay,
+            _dense_ff_width(cfg))
+
+    def rg(sub, c, x):
+        h, c = rglru.rglru_decode_step_ranks(
+            cfg, sub["rg"], c, layers.apply_norm(cfg, sub["norm1"], x), lay)
+        return x + h, c
+
     if kind == "ssm":
         h, cache = ssm.ssm_decode_step_ranks(
             cfg, p["mixer"], cache, specs,
             layers.apply_norm(cfg, p["norm"], x_t), lay)
         return x_t + h, cache
+    if kind == "hybrid":
+        new_c: Params = {}
+        for i, blk in enumerate(cfg.hybrid.pattern):
+            sub, key = p[f"blk{i}"], f"blk{i}"
+            if blk == "rglru":
+                x_t, new_c[key] = rg(sub, cache[key], x_t)
+            else:
+                h, new_c[key] = attention.gqa_decode_step_ranks(
+                    cfg, sub["attn"], cache[key], specs[key],
+                    layers.apply_norm(cfg, sub["norm1"], x_t), lay,
+                    rolling=True)
+                x_t = x_t + h
+            x_t = mlp(sub, x_t)
+        return x_t, new_c
+    if kind == "rglru_mlp":
+        x_t, cache = rg(p, cache, x_t)
+        return mlp(p, x_t), cache
     h_in = layers.apply_norm(cfg, p["norm1"], x_t)
     if cfg.mla is not None:
         h, _ = attention.mla_decode_step_ranks(cfg, p["attn"], cache, specs,
                                                h_in, lay)
+    elif kind == "dec":
+        h, _ = attention.gqa_decode_step_ranks(cfg, p["attn"], cache["self"],
+                                               specs["self"], h_in, lay,
+                                               rolling=rolling)
     else:
         h, _ = attention.gqa_decode_step_ranks(cfg, p["attn"], cache, specs,
                                                h_in, lay, rolling=rolling)
     x_t = x_t + h
-    h_in = layers.apply_norm(cfg, p["norm2"], x_t)
+    if kind == "dec":
+        x_t = x_t + attention.gqa_cross_step_ranks(
+            cfg, p["cross"], cache, specs,
+            layers.apply_norm(cfg, p["norm_x"], x_t), lay)
     if kind == "attn_moe":
-        h, _ = moe_lib.apply_moe(cfg, p["moe"], h_in, lay)
-    else:
-        h = layers.apply_mlp_ranks(cfg, p["mlp"], h_in, lay,
-                                   _dense_ff_width(cfg))
-    return x_t + h, cache
+        h, _ = moe_lib.apply_moe(cfg, p["moe"],
+                                 layers.apply_norm(cfg, p["norm2"], x_t), lay)
+        return x_t + h, cache
+    return mlp(p, x_t), cache
 
 
 def _cache_spec(leaf: torch.Tensor, spec) -> tuple:

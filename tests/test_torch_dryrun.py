@@ -302,6 +302,32 @@ def test_long_context_decode_finds_its_cache_specs(arch, multi_pod):
     assert found == want
 
 
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_tracker_counts_the_softmax_backward_scratch(device, strided):
+    """A softmax backward's peak above its inputs: its output and the
+    card kernel's output-sized grad · output buffer, and a contiguous
+    copy of a strided grad (``memory.SCRATCH``; on the card 2 and 3
+    times the output, ``scripts/softmax_scratch.py``), on real and on
+    ``meta`` tensors alike; the peak by dtype carries it, and nothing
+    stays live after."""
+    import torch
+
+    from repro_torch.analysis.memory import MemoryTracker
+    out = torch.softmax(torch.ones((6, 40), device=device), -1)
+    grad = torch.ones((40, 6), device=device).t() if strided \
+        else torch.ones((6, 40), device=device)
+    tracker = MemoryTracker()
+    base = tracker.hold(out, grad)
+    with tracker:
+        res = torch.ops.aten._softmax_backward_data(grad, out, -1,
+                                                    torch.float32)
+    n = out.numel() * 4
+    assert tracker.peak - base == (3 if strided else 2) * n
+    assert tracker.peak_by_dtype["float32"] == tracker.peak
+    assert tracker.live - base == n and res.shape == out.shape
+
+
 def test_expert_counts_are_bincount_and_run_on_meta():
     """The MoE's expert counts over ranks (``bincount``, which has no meta
     kernel, as a scatter-add of ones): the same int64 counts, and a
@@ -318,13 +344,18 @@ def test_expert_counts_are_bincount_and_run_on_meta():
 
 
 @pytest.mark.parametrize("step", STEPS)
-@pytest.mark.parametrize("arch", ("mamba2-1.3b", "deepseek-v3-671b"))
+@pytest.mark.parametrize("arch", ("mamba2-1.3b", "deepseek-v3-671b",
+                                  "recurrentgemma-9b", "internvl2-2b",
+                                  "seamless-m4t-medium"))
 def test_split_archs_split_the_compute(arch, step):
     """A rank of 1 × 4 does at most half the FLOPs of one process on the
-    same reduced step (B = 8, S = 16): the compute, not only the values,
-    is split over ``model``."""
+    same reduced step (B = 8, S = 16; the vision prefix's 16 positions
+    before 16 tokens; 16 frames): the compute, not only the values, is
+    split over ``model``."""
     cfg = configs.get_config(arch, reduced=True)
-    shape = InputShape(step, REF_S, REF_B, step)
+    seq = REF_S + (cfg.frontend.num_embeddings if cfg.arch_type == "vlm"
+                   and step != "decode" else 0)
+    shape = InputShape(step, seq, REF_B, step)
     flops = {}
     for dims in ((1, 1), (1, 4)):
         with mesh_lib.stand_in_mesh(dims, 0) as mesh:

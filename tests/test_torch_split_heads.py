@@ -120,7 +120,8 @@ def test_heads_that_do_not_divide_are_not_split():
     """Two SSD heads, or six MLA heads, over four ranks: the layers are
     gathered whole (a layout choice, ``transformer.split_arch``); over two
     ranks they split.  The GQA stacks split at any count (their own heads
-    or context branch)."""
+    or context branch); the RG-LRU hybrid and the encoder-decoder where
+    nm divides their channels and heads."""
     cfg = configs.get_config("mamba2-1.3b", reduced=True)
     cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
         cfg.ssm, head_dim=cfg.ssm.expand * cfg.d_model // 2))
@@ -135,5 +136,21 @@ def test_heads_that_do_not_divide_are_not_split():
     assert not transformer.split_arch(mla, 4)
     gqa = configs.get_config("gemma-2b", reduced=True)
     assert all(transformer.split_arch(gqa, nm) for nm in (1, 2, 4, 3))
-    assert not transformer.split_arch(
-        configs.get_config("recurrentgemma-9b", reduced=True), 2)
+    # the RG-LRU hybrid splits where nm divides its width (256) and its
+    # MLP (512); three ranks divide neither, and an MLP 510 wide splits
+    # over 2 ranks only
+    hybrid = configs.get_config("recurrentgemma-9b", reduced=True)
+    assert all(transformer.split_arch(hybrid, nm) for nm in (1, 2, 4, 16))
+    assert not transformer.split_arch(hybrid, 3)
+    narrow = dataclasses.replace(hybrid, d_ff=510)
+    assert transformer.split_arch(narrow, 2)
+    assert not transformer.split_arch(narrow, 4)
+    # the encoder-decoder where nm divides its heads (4 reduced, 16
+    # published), the vision prefix's GQA decoder at any count
+    encdec = configs.get_config("seamless-m4t-medium", reduced=True)
+    assert transformer.split_arch(encdec, 4)
+    assert not transformer.split_arch(encdec, 8)
+    assert transformer.split_arch(configs.get_config("seamless-m4t-medium"),
+                                  16)
+    vlm = configs.get_config("internvl2-2b", reduced=True)
+    assert all(transformer.split_arch(vlm, nm) for nm in (1, 2, 3, 4, 16))

@@ -22,6 +22,11 @@ carry the gradient), ``grad_accum`` 1 and 2:
   * deepseek-v3-671b with 6 heads and mamba2-1.3b with 10 SSD heads at
     2 × 2 (split, an odd count of heads a rank) and at 1 × 4 (the layers
     gathered whole: ``transformer.split_arch``);
+  * recurrentgemma-9b (the RG-LRU on the rank's channels), internvl2-2b
+    (its 16-position vision prefix before the 16 tokens) and
+    seamless-m4t-medium (32 frames, 4 decoder tokens: the decoder's
+    residual whole at 1 × 4, split at 2 × 2, its encoder split on both)
+    at grad_accum 1 on both meshes;
   * the one-device ``train_step`` at grad_accum 1: the reference's own gap
     between its placed step and one device, reported beside the port's.
 
@@ -74,9 +79,13 @@ WORLD = 4
 MESHES = {"2x2": 2, "1x4": 4}          # name -> model axis
 ARCHS = ("gemma-2b", "qwen2-7b", "deepseek-moe-16b", "mamba2-1.3b",
          "deepseek-v3-671b")
-HALVES = (ARCHS[:2] + ARCHS[3:4], ARCHS[2:3] + ARCHS[4:])  # a JAX process each
+# the RG-LRU hybrid, the vision prefix and the encoder-decoder, grad_accum 1
+FAMILIES = ("recurrentgemma-9b", "internvl2-2b", "seamless-m4t-medium")
+HALVES = (ARCHS[:2] + ARCHS[3:4] + FAMILIES[:2],
+          ARCHS[2:3] + ARCHS[4:] + FAMILIES[2:])  # a JAX process each
 ACCUMS = (1, 2)
 B, S = 8, 16
+S_FRAMES = 32                          # seamless: 32 frames, 4 tokens
 TOL = 1e-4
 LOSS_TOL = 1e-5
 GROUP_TIMEOUT_S = 60.0
@@ -96,7 +105,8 @@ CASES = ([(arch, accum, mesh, "") for arch in ARCHS for accum in ACCUMS
          + [("qwen2-7b", 1, "2x2", "adam")]
          + [(arch, 1, mesh, variant) for arch, variant in
             (("deepseek-v3-671b", "h6"), ("mamba2-1.3b", "h10"))
-            for mesh in MESHES])
+            for mesh in MESHES]
+         + [(arch, 1, mesh, "") for arch in FAMILIES for mesh in MESHES])
 
 _WORKER = r"""
 import dataclasses, functools, json, sys
@@ -123,8 +133,10 @@ arrays = {}
 for arch in spec["archs"]:
     base = configs.get_config(arch, reduced=True)
     rng = np.random.default_rng(0)
-    batch = {k: rng.integers(0, base.vocab_size, (spec["b"], spec["s"]))
-             .astype(np.int32) for k in ("tokens", "targets")}
+    batch = {k: (rng.integers(0, base.vocab_size, shape).astype(np.int32)
+                 if k in ("tokens", "targets") else
+                 rng.normal(size=shape).astype(np.float32))
+             for k, shape in spec["batches"][arch].items()}
     arrays.update({f"{arch}/batch/{k}": v for k, v in batch.items()})
     for c_arch, accum, name, variant in spec["cases"]:
         if c_arch != arch:
@@ -184,6 +196,27 @@ class PlainMesh:
     def __init__(self, nm: int):
         self.axis_names = ("data", "model")
         self.shape = {"data": WORLD // nm, "model": nm}
+
+
+def _train_shape(arch) -> InputShape:
+    """The training input shape of an arch's cases: B × S tokens; the
+    vision prefix's positions before them; an encoder-decoder's
+    ``S_FRAMES`` frames and its decoder's ``input_specs`` share of them."""
+    cfg = configs.get_config(arch, reduced=True)
+    seq = S
+    if cfg.arch_type == "vlm":
+        seq += cfg.frontend.num_embeddings
+    if cfg.is_encoder_decoder:
+        seq = S_FRAMES
+    return InputShape("train", seq, B, "train")
+
+
+def _batch_shapes(arch) -> dict:
+    """Each batch entry's shape, as ``Model.input_specs`` of the arch's
+    training shape makes it."""
+    cfg = configs.get_config(arch, reduced=True)
+    return {k: list(v.shape) for k, v in
+            make_model(cfg).input_specs(_train_shape(arch)).items()}
 
 
 def _case(arch, accum, mesh, variant):
@@ -362,6 +395,19 @@ def _collective_pairs(mesh, rank_key: str) -> dict:
     (rows @ ww).cos().sum().backward()
     out["fsdp_deferred"] = rel(got, partition.local_slice(ww.grad, spec,
                                                           mesh))
+
+    # the sum in pieces: past ``BUCKET_BYTES`` a rank, the same bits as
+    # one sum of the whole
+    from repro_torch.core import messages
+    big = torch.randn((nm * 7 + 3, 5), generator=gen) * (m + 1)
+    whole = comm.sum_model(big)
+    keep = messages.BUCKET_BYTES
+    messages.BUCKET_BYTES = 16 * 4
+    try:
+        pieces = comm.sum_model(big)
+    finally:
+        messages.BUCKET_BYTES = keep
+    out["sum_pieces"] = float((pieces - whole).abs().max())
     return {f"{rank_key}/{k}": v for k, v in out.items()}
 
 
@@ -447,7 +493,7 @@ def _rank_main(rank, store, spec):
             opt = model.init_optimizer().init(local)
             rows = mesh_lib.batch_rows(mesh, B)
             batch = {k: arrays[f"{arch}/batch/{k}"][rows]
-                     for k in ("tokens", "targets")}
+                     for k in _batch_shapes(arch)}
             comm = MeshCollectives(mesh)
             calls = []
             inner = comm.sum_data
@@ -518,7 +564,8 @@ def reference(tmp_path_factory):
     for i, archs in enumerate(HALVES):
         path = tmp / f"reference{i}.npz"
         spec = {"archs": archs, "cases": CASES, "meshes": MESHES, "b": B,
-                "s": S, "variant_cfg": VARIANT_CFG}
+                "s": S, "variant_cfg": VARIANT_CFG,
+                "batches": {a: _batch_shapes(a) for a in archs}}
         procs.append(subprocess.Popen(
             [sys.executable, "-c", _WORKER, str(path), json.dumps(spec)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -689,7 +736,7 @@ def test_dry_run_counts_the_ranks_bytes(ranks, arch, accum, mesh, variant):
     lines and summed over ``data``."""
     _, records = ranks
     cfg = _model(arch, accum, variant).cfg
-    shape = InputShape("train", S, B, "train")
+    shape = _train_shape(arch)
     dims = (WORLD // MESHES[mesh], MESHES[mesh])
     default = partition.FSDP_THRESHOLD
     partition.FSDP_THRESHOLD = 0 if variant == "fsdp" else default
@@ -707,7 +754,8 @@ def test_dry_run_counts_the_ranks_bytes(ranks, arch, accum, mesh, variant):
 
 @pytest.mark.parametrize("pair", ["gather_scatter", "scatter_gather",
                                   "sum_identity", "gather_slice", "fork_sum",
-                                  "first_rank", "fsdp_deferred"])
+                                  "first_rank", "fsdp_deferred",
+                                  "sum_pieces"])
 @pytest.mark.parametrize("mesh", MESHES)
 def test_differentiable_collectives_match_one_process(ranks, pair, mesh):
     """Each collective's backward against autograd of the same function
@@ -716,6 +764,34 @@ def test_differentiable_collectives_match_one_process(ranks, pair, mesh):
     _, records = ranks
     for r in records:
         assert r[f"pairs/{mesh}/{pair}"] <= 1e-6, (mesh, pair, r)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 11), (1, 5, 64)])
+def test_loss_buffer_gives_the_autograd_chain_bits(shape):
+    """``layers._ExpSumAt`` (the vocabulary-parallel loss's Σ exp and
+    target logit, exp formed in place and the gradient in one buffer)
+    against the plain autograd chain it replaces: the same forward and
+    the same gradient, bit for bit, targets inside and outside the
+    rank's columns."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(shape[-1])
+    logits = torch.randn(shape, generator=gen) * 4
+    top = logits.amax(-1) + 0.5
+    t = torch.randint(-3, shape[-1] + 3, shape[:2], generator=gen)
+    inside = (t >= 0) & (t < shape[-1])
+    idx = t.clamp(0, shape[-1] - 1)
+    g = torch.randn((2,) + shape[:2], generator=gen)
+    a = logits.clone().requires_grad_(True)
+    got = layers._ExpSumAt.apply(a, top, idx, inside)
+    got.backward(g)
+    b = logits.clone().requires_grad_(True)
+    z = b - top[..., None]
+    zt = torch.where(inside, torch.gather(z, -1, idx[..., None])[..., 0],
+                     torch.zeros(()))
+    want = torch.stack([z.exp().sum(-1), zt])
+    want.backward(g)
+    assert torch.equal(got, want)
+    assert torch.equal(a.grad, b.grad)
 
 
 @pytest.mark.parametrize("arch", ODD_ARCHS)
