@@ -95,11 +95,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      the shape phase 17b launches it at (bf16: the three-pass tensor-core
      kernel, each case also beside the
      plain three-pass form with the kernel's bf16 roundings, reported;
-     f32: the FFMA kernel, a fixed route by dtype); and
+     f32: the three-pass FFMA kernels, a fixed route by dtype, at 4 x
+     4096 and 1 x 32768, each case also beside the plain three-pass form
+     in f32, reported); and
      the flash attention kernels (bf16: the tensor-core kernel, limit
      2^-7; f32: the FFMA kernel, limit 1e-5) at qwen2-7b's, gemma-2b's and
      recurrentgemma-9b's attention shapes (causal; window 2048), one
-     non-causal case, a ragged S = 3000, head_dim 80, one f32 case, one
+     non-causal case, a ragged S = 3000, head_dim 80, f32 cases at
+     qwen2-7b's and gemma-2b's heads (S 2048), one
      non-causal case with a window, and a deepseek-moe-16b rank's 8 heads
      over 1 x 2 model ranks (2 x 2048, Hq = Hkv = 8, head_dim 128: the
      shape phase 14b launches it at) and a deepseek-v3-671b rank's 64 MLA
@@ -117,12 +120,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      plain one), timed forwards
      (tokens/s, profiled idle share), 2 decode requests of 64 tokens
      (per-token latency), and decode against the kernel forward with the
-     weights in f32 (probabilities within rtol 2e-2, atol 2e-3);
+     weights in f32 (probabilities within rtol 2e-2, atol 2e-3; that
+     forward's 48 ssd_scan launches all on the FFMA route);
   9. time both kernels, their plain versions and (attention)
      scaled_dot_product_attention, beside the card's bound for the
      inputs' type: the SSD scan in bf16 (tensor cores) at 4 x 4096 and
      1 x 32768 with a profiled call's device time per pass, and in f32
-     (FFMA) at 4 x 4096; each flash shape's route, blocks and TFLOP/s (the
+     (FFMA, three passes) at both shapes, also per pass; each flash
+     shape's route, blocks and TFLOP/s, f32 at qwen2-7b's and gemma-2b's
+     heads (the
      SSD, flash and SDPA over windows of 10 calls, the SM clock printed
      beside);
   10. the attention families through the flash kernel, with random bf16
@@ -368,15 +374,29 @@ SSD_DESIGN = ("bf16 on the tensor cores (wgmma) in three kernels: chunk "
               "states in parallel (m64n64k16, both operands MN-major), the "
               "state passed across chunks in f32, each chunk's output per "
               "64-row tile (C.B^T and scores.x as flash's Q.K^T and P.V); "
-              f"f32 FFMA kernel in {SSD_SRC}")
-# the SSD kernels by the names the profiler shows
-SSD_KERNELS = {"ssd_scan_kernel": "ssd_scan f32 (FFMA)",
+              f"f32 in {SSD_SRC}, the same three passes on the CUDA cores: "
+              "chunk states from a 2-stage cp.async ring of 32 rows (8 x 8 "
+              "FFMA tiles a thread), the state passed in f32 (one template "
+              "with bf16's, ssd_state.cuh), the output by 64-row tiles in "
+              "order carrying the state entering each, so only the "
+              "diagonal tiles' scores are formed, the next tile in flight")
+# the SSD kernels by the names the profiler shows (the f32 pass 2 before
+# the bf16 one: both are ssd_state_passing<T>)
+SSD_KERNELS = {"ssd_f32_chunk_states": "ssd f32 pass 1 (chunk states)",
+               "ssd_state_passing<float>": "ssd f32 pass 2 (state passing)",
+               "ssd_f32_chunk_output": "ssd f32 pass 3 (output)",
                "ssd_chunk_states": "ssd pass 1 (chunk states)",
                "ssd_state_passing": "ssd pass 2 (state passing)",
                "ssd_chunk_output": "ssd pass 3 (output)"}
 # the flash kernels by the names the profiler shows
 FLASH_KERNELS = {"flash_wgmma_kernel": "flash_attention bf16 (tensor cores)",
-                 "flash_kernel": "flash_attention f32 (FFMA)"}
+                 "flash_ffma_kernel": "flash_attention f32 (FFMA)"}
+FLASH_F32_DESIGN = ("register tiles on the CUDA cores: 128 query rows a "
+                    "block (64 at hd 256), 8 x 8 scores and 8 x 8 outputs "
+                    "a thread at hd 128, q.k^T from 16-byte loads along "
+                    "the head_dim, P parked in shared memory for P.v, k "
+                    "and v copied by cp.async behind the product that does "
+                    "not read them, longest causal tiles first")
 NAMED_KERNELS = {**SSD_KERNELS, **FLASH_KERNELS}
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"      # f32
 FLASH_TC_SRC = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
@@ -1732,18 +1752,17 @@ def ssd_operands(gen, b, s, h, p, g, n, dtype, dev):
             randn(b, s, g, n).to(dtype))
 
 
-def ssd_work(x, b_mat, chunk: int) -> tuple[float, float]:
-    """(FLOPs, bytes) of the SSD scan: per (batch, head, chunk of L) the
-    dual form's causal half, 2·(L(L+1)/2)·(N + P) for C·Bᵀ and scores·x,
-    plus 4·L·N·P for the state's term in and its update; x, dt, a, B and C
-    read once, y written once."""
-    from repro_torch.kernels.ref import ssd_chunk_length
+def ssd_work(x, b_mat) -> tuple[float, float]:
+    """(FLOPs, bytes) of the SSD scan, counted as its least arithmetic: the
+    recurrence itself, per (batch, position, head) the state's decay (N·P
+    multiplies), its update by B ⊗ (dt x) (P multiplies, N·P FMAs) and the
+    output C·h (N·P FMAs), 5·N·P + P.  Every chunked form does more: at
+    4 x 4096 this is 43.0 GFLOP, the FFMA route's three passes do 63.4 and
+    the chunks' dual form 86.1.  x, dt, a, B and C read once, y written
+    once."""
     b, s, h, p = x.shape
-    length = ssd_chunk_length(s, chunk)
     g, n = b_mat.shape[2], b_mat.shape[3]
-    pairs = length * (length + 1) / 2
-    flops = b * h * (s // length) * (2 * pairs * (n + p)
-                                     + 4 * length * n * p)
+    flops = b * s * h * (5 * n * p + p)
     elt = x.element_size()
     nbytes = 2 * b * s * h * p * elt + b * s * h * 4 + h * 4 \
         + 2 * b * s * g * n * elt
@@ -1785,6 +1804,7 @@ SSD_CHECKS = [      # (name, b, s, h, p, g, n, dtype)
     ("prefill 4x4096 bf16", 4, 4096, 64, 64, 1, 128, "bfloat16"),
     ("prefill 4x4096 f32", 4, 4096, 64, 64, 1, 128, "float32"),
     ("1x32768 bf16", 1, 32768, 64, 64, 1, 128, "bfloat16"),
+    ("1x32768 f32", 1, 32768, 64, 64, 1, 128, "float32"),
     ("ragged S=1000 (chunk 8) bf16", 1, 1000, 64, 64, 1, 128, "bfloat16"),
     ("S=100 < chunk bf16", 2, 100, 64, 64, 1, 128, "bfloat16"),
     ("G=2 2x2048 bf16", 2, 2048, 64, 64, 2, 128, "bfloat16"),
@@ -1837,8 +1857,11 @@ FLASH_CHECKS = [
     # a deepseek-v3-671b rank's MLA heads over 1 x 2 model ranks (phase 17c)
     ("deepseek-v3-671b rank heads 1x2 S=2048 Hq64 Hkv64 qk192 v128 padded "
      "causal bf16", 2, 2048, 64, 64, 192, True, None, "bfloat16", 128),
+    ("gemma-2b heads S=2048 Hq8 Hkv1 hd256 causal f32", 1, 2048, 8, 1, 256,
+     True, None, "float32"),
 ]
-FLASH_TIMED = [FLASH_CHECKS[i] for i in (0, 1, 2, 6)]   # three bf16, the f32
+# three bf16, the two f32
+FLASH_TIMED = [FLASH_CHECKS[i] for i in (0, 1, 2, 6, 10)]
 SSD_PROFILED = 10   # SSD calls in the profiled window of phase 9
 # calls per timed window of the LM kernels and SDPA (the card runs one while
 # the host enqueues the next: a sub-millisecond kernel is not charged the
@@ -1848,9 +1871,9 @@ INNER = 10
 
 def check_lm_kernels(gen, dev) -> tuple[list, list]:
     """Phase 7: the SSD scan and flash attention kernels against their plain
-    versions on the same CUDA tensors; each bf16 SSD case also against the
-    plain three-pass form with the tensor-core kernel's bf16 roundings
-    (reported)."""
+    versions on the same CUDA tensors; each SSD case also against the
+    plain three-pass form, with the tensor-core kernel's bf16 roundings
+    (bf16) or in f32 (reported)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1871,18 +1894,19 @@ def check_lm_kernels(gen, dev) -> tuple[list, list]:
                       SSD_F32_TOL if dtype == torch.float32 else BF16_TOL,
                       ssd_checks)
         ssd_checks[-1]["route"] = "tensor cores (wgmma)" if tc else "FFMA"
-        if tc:
-            emulated = ref.ssd_scan_three_pass(*args, chunk=256,
-                                               round_bf16=True)
-            e_err, e_rel = rel_err(out, emulated)
-            p_err, p_rel = rel_err(emulated, want)
-            ssd_checks[-1].update(rel_err_vs_emulated=e_rel,
-                                  emulated_rel_err_vs_plain=p_rel)
-            print(f"[7]   tensor-core route; vs the three-pass form with "
-                  f"its bf16 roundings: max_abs_err {e_err:.3e} rel "
-                  f"{e_rel:.3e}; that form vs the plain version: rel "
-                  f"{p_rel:.3e} (reported)", flush=True)
-            del emulated
+        # the kernel beside the plain three-pass form it splits the scan
+        # as: with the tensor-core route's bf16 roundings, or in f32
+        emulated = ref.ssd_scan_three_pass(*args, chunk=256, round_bf16=tc)
+        e_err, e_rel = rel_err(out, emulated)
+        p_err, p_rel = rel_err(emulated, want)
+        ssd_checks[-1].update(rel_err_vs_emulated=e_rel,
+                              emulated_rel_err_vs_plain=p_rel)
+        form = "with its bf16 roundings" if tc else "in f32"
+        print(f"[7]   {ssd_checks[-1]['route']} route; vs the three-pass "
+              f"form {form}: max_abs_err {e_err:.3e} rel {e_rel:.3e}; that "
+              f"form vs the plain version: rel {p_rel:.3e} (reported)",
+              flush=True)
+        del emulated
         del args, out, want
     flash_checks: list[dict] = []
     for name, b, s, hq, hkv, hd, causal, window, dtype, *v_hd in \
@@ -2078,8 +2102,11 @@ def mamba_phase(card: str, dev) -> dict:
         model32 = make_model(cfg32)
         params32 = transformer.tree_map(lambda t: t.float(), params)
         dec32, _ = decode_run(model32, params32, tokens)
+        before32 = counts()
         full32, _, _ = model32.forward(params32, {"tokens": tokens},
                                        use_kernel=True)
+        f32_ssd = counts()["ssd"] - before32["ssd"]
+        f32_ssd_tc = counts()["ssd_tc"] - before32["ssd_tc"]
     torch.cuda.synchronize()
     gap32, ok32 = probs_gap(dec32, full32)
     gap16, _ = probs_gap(dec_logits, full_bf16)
@@ -2094,7 +2121,8 @@ def mamba_phase(card: str, dev) -> dict:
                                 "busy_ms": d_busy / 1e3, "idle": d_idle,
                                 "device_events": n_dev},
                decode_f32_max_abs_dp=gap32, decode_bf16_max_abs_dp=gap16,
-               decode_f32_logits_rel=rel32, decode_bf16_logits_rel=rel16)
+               decode_f32_logits_rel=rel32, decode_bf16_logits_rel=rel16,
+               f32_forward_ssd_launches=f32_ssd)
     print(f"[8] decode {b} requests x {s} tokens (init_cache({b}, {s}), one "
           f"decode_step per token): per token median "
           f"{out['decode_median_ms']:.2f} ms, p90 {out['decode_p90_ms']:.2f} "
@@ -2103,7 +2131,9 @@ def mamba_phase(card: str, dev) -> dict:
           f"wall {d_wall / 1e3:.2f} ms, device busy {d_busy / 1e3:.2f} ms, "
           f"idle share {d_idle}, {n_dev} device events [{card}]", flush=True)
     print(f"[8] decode vs the kernel forward over the same {s} tokens, f32 "
-          f"weights: max |dp| {gap32:.3e}, allclose rtol {DECODE_RTOL} atol "
+          f"weights ({f32_ssd} FFMA ssd_scan launches in that forward, "
+          f"{f32_ssd_tc} on the tensor cores): max |dp| {gap32:.3e}, "
+          f"allclose rtol {DECODE_RTOL} atol "
           f"{DECODE_ATOL}: {'ok' if ok32 else 'FAIL'}; logits rel "
           f"{rel32:.3e} (limit {DECODE_LOGIT_TOL:.0e}); bf16 weights "
           f"(reported, no limit): max |dp| {gap16:.3e}, logits rel "
@@ -2112,10 +2142,39 @@ def mamba_phase(card: str, dev) -> dict:
             and bool(torch.isfinite(dec_logits).all())):
         fail(f"f32 decode disagrees with the forward: max |dp| {gap32:.3e}, "
              f"logits rel {rel32:.3e}")
+    if f32_ssd != cfg.num_layers or f32_ssd_tc:
+        fail(f"the f32 forward made {f32_ssd} ssd_scan launches, "
+             f"{f32_ssd_tc} on the tensor cores; expected {cfg.num_layers} "
+             f"on the FFMA route")
     del params, params32, dec_logits, dec32, full_bf16, full32, caches
     torch.cuda.empty_cache()
     print(f"[8] Mamba-2 summary {json.dumps(out)}", flush=True)
     return out
+
+
+def ssd_pass_ms(call, call_ms: float) -> tuple:
+    """(device ms a call of each SSD pass, profiled launches of each, the
+    passes' sum over ``call_ms``) from SSD_PROFILED profiled calls: each
+    pass's mean over the launches the profiler traced.  After earlier
+    profiled windows in the same process the profiler drops some of a
+    window's launches (a third to a half in the whole script), while those
+    it keeps last as long as phase 8's; so the mean, not the sum over
+    SSD_PROFILED, with the count beside it.
+    The ms are None (withheld, and said so) unless every pass was traced
+    and the means add up to 0.85-1.05 of the call's CUDA-event time."""
+    events = profiled(lambda: [call() for _ in range(SSD_PROFILED)])[3]
+    kinds = {k: v for k, v in device_ms_by_kind(events).items()
+             if k.startswith("ssd") and " pass " in k}
+    traced = {k: v["events"] for k, v in kinds.items()}
+    passes = {k: round(v["ms"] / v["events"], 4) for k, v in kinds.items()}
+    share = sum(passes.values()) / call_ms
+    if len(kinds) != 3 or not 0.85 <= share <= 1.05:
+        print(f"[9]   per-pass device ms withheld: the profiler traced "
+              f"{json.dumps(traced)} launches in {SSD_PROFILED} calls, "
+              f"their mean ms {json.dumps(passes)} sum to {share:.3f} of "
+              f"the call", flush=True)
+        passes = None
+    return passes, traced, share
 
 
 def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
@@ -2136,46 +2195,44 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
     ssd_t = {}
     for (b, s), dtype in ((PREFILL, torch.bfloat16),
                           (SSD_LONG, torch.bfloat16),
-                          (PREFILL, torch.float32)):
+                          (PREFILL, torch.float32),
+                          (SSD_LONG, torch.float32)):
         args = ssd_operands(gen, b, s, 64, 64, 1, 128, dtype, dev)
         tc = dtype == torch.bfloat16
         before = counts()
         ms = median_ms(lambda: ops.ssd_scan(*args, chunk=256), 5,
                        inner=INNER)
-        passes = None
-        if tc:          # device time per pass over 10 profiled calls
-            events = profiled(lambda: [ops.ssd_scan(*args, chunk=256)
-                                       for _ in range(SSD_PROFILED)])[3]
-            passes = {k: round(v["ms"] / SSD_PROFILED, 4)
-                      for k, v in device_ms_by_kind(events).items()
-                      if k.startswith("ssd pass")}
+        passes, traced, share = ssd_pass_ms(
+            lambda: ops.ssd_scan(*args, chunk=256), ms)
         reset_counts(before)            # timing launches do not count
         plain_ms = median_ms(lambda: ref.ssd_scan_ref(*args, chunk=256), 3,
                              warmup=1)
-        flops, nbytes = ssd_work(args[0], args[3], 256)
+        flops, nbytes = ssd_work(args[0], args[3])
         bnd, by = bound(flops, nbytes, peak(dtype), peak_bw)
         key = f"{b}x{s}" + ("" if tc else " f32")
-        if tc:
-            lay = ssd.tc_layout(b, s, 64, 64, 128, 256)
-            blocks = (f"{math.prod(lay['pass1_grid'])} / "
-                      f"{math.prod(lay['pass2_grid'])} / "
-                      f"{math.prod(lay['pass3_grid'])} blocks in passes 1-3, "
-                      f"{lay['scratch_bytes'] / 1e6:.1f} MB of scratch")
-        else:
-            blocks = f"{b * 64} blocks"
+        lay = (ssd.tc_layout if tc else ssd.ffma_layout)(b, s, 64, 64, 128,
+                                                          256)
+        blocks = (f"{math.prod(lay['pass1_grid'])} / "
+                  f"{math.prod(lay['pass2_grid'])} / "
+                  f"{math.prod(lay['pass3_grid'])} blocks in passes 1-3, "
+                  f"{lay['scratch_bytes'] / 1e6:.1f} MB of scratch")
         ssd_t[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                       "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9,
                       "mbytes": nbytes / 1e6,
                       "tflop_per_s": flops / ms / 1e9,
                       "route": "tensor cores (wgmma)" if tc else "FFMA",
-                      "device_ms_by_pass": passes}
+                      "device_ms_by_pass": passes,
+                      "profiled_launches_by_pass": traced,
+                      "profiled_passes_share_of_call": share}
         print(f"[9] ssd_scan {key} {'bf16' if tc else ''} (H 64, P 64, N "
               f"128, chunk 256), {ssd_t[key]['route']}, {blocks}: kernel "
               f"{ms:.3f} ms ({ssd_t[key]['tflop_per_s']:.1f} TFLOP/s), plain "
               f"version {plain_ms:.3f} ms, no single PyTorch call, bound "
               f"{bnd:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); device ms a call by pass "
-              f"{json.dumps(passes)} [{card}]", flush=True)
+              f"{json.dumps(passes)} (profiled launches "
+              f"{json.dumps(traced)} of {SSD_PROFILED} calls, their sum "
+              f"{share:.3f} of the call) [{card}]", flush=True)
         del args
     flash_t = {}
     F = torch.nn.functional
@@ -2208,9 +2265,8 @@ def time_lm_kernels(gen, dev, peak_fp32: float, peak_bf16: float,
         bnd, by = bound(flops, nbytes, peak(dtype), peak_bw)
         tc = dtype == torch.bfloat16
         route = "tensor cores (wgmma)" if tc else "FFMA"
-        # a block per (batch, query head, tile of query rows); the FFMA
-        # kernel's tiles are 32 rows (flash_attention.cu)
-        rows = flash.tc_layout(hd)["block_q"] if tc else 32
+        # a block per (batch, query head, tile of query rows)
+        rows = (flash.tc_layout if tc else flash.ffma_layout)(hd)["block_q"]
         blocks = b * hq * -(-s // rows)
         flash_t[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bnd, "bound_by": by,
@@ -5414,8 +5470,8 @@ def main() -> int:
     rows_out.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_TC_SRC,
         "replaces": FLASH_REPLACES, "launches": qwen["launches"],
-        "design": "bf16 on the tensor cores (wgmma); f32 FFMA kernel in "
-                  f"{FLASH_SRC}",
+        "design": "bf16 on the tensor cores (wgmma); f32 in "
+                  f"{FLASH_SRC}: {FLASH_F32_DESIGN}",
         "tensor_core_launches": qwen["tc_launches"],
         "launches_per_forward": per_forward,
         "device_ms_per_call_in_models": {

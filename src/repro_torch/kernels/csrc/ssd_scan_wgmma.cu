@@ -28,7 +28,8 @@
 //      formed.
 //   2. state passing, grid (slices of N P, batch x heads): a thread per
 //      state element walks the chunks in order in f32 and writes the state
-//      entering each chunk, rounded to bf16.  Bound by memory.
+//      entering each chunk, rounded to bf16 (ssd_state_passing<bf16> of
+//      ssd_state.cuh, the f32 route's pass 2 in f32).  Bound by memory.
 //   3. output, grid (chunks, heads, batch), one warpgroup per 64-row tile
 //      T of the chunk: the block copies the entering state, C, B and x of
 //      the chunk once, in one cp.async group per 64-row tile U, and steps
@@ -60,6 +61,7 @@
 // arithmetic, the price of running the chunks in parallel.
 #include <math.h>
 
+#include "ssd_state.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -78,8 +80,6 @@ constexpr int BLOCK = MAX_L * 128;      // a 64-column block of L rows
 // pass 1: B w (L x N, two column blocks) and x (L x P) of one chunk
 constexpr int P1_THREADS = 256;
 constexpr int P1_SMEM = 3 * BLOCK + 1024;              // 99,328
-// pass 2
-constexpr int P2_THREADS = 256;
 // pass 3: C and B (L x N), x (L x P) and in_c (N x P) of one chunk
 constexpr int P3_THREADS = 128 * TILES;
 constexpr int IN_BYTES = MAX_N * 128;
@@ -251,25 +251,6 @@ ssd_chunk_states(const bf16* __restrict__ x, const float* __restrict__ dt,
         const int p = 8 * j + 2 * (lane % 4) + cc;
         if (p < p_dim) sb[(size_t)n * p_dim + p] = d[4 * j + 2 * hh + cc];
       }
-  }
-}
-
-// ---- pass 2: the state entering each chunk ----------------------------
-__global__ void __launch_bounds__(P2_THREADS)
-ssd_state_passing(const float* __restrict__ states,
-                  const float* __restrict__ decay,
-                  bf16* __restrict__ in_states, int nc, int np) {
-  const int i = blockIdx.x * P2_THREADS + threadIdx.x;
-  if (i >= np) return;
-  const size_t bh = blockIdx.y;
-  const float* s = states + bh * nc * np + i;
-  const float* dec = decay + bh * nc;
-  bf16* o = in_states + bh * nc * np + i;
-  float st = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < nc; ++c) {
-    o[(size_t)c * np] = __float2bfloat16(st);
-    if (c + 1 < nc) st = dec[c] * st + s[(size_t)c * np];
   }
 }
 
@@ -465,9 +446,8 @@ extern "C" int ssd_scan_wgmma_layout(int batch, int seq, int heads,
       || p_dim > MAX_P || n_dim < 1 || n_dim > MAX_N)
     return (int)cudaErrorInvalidValue;
   const int nc = seq / chunk;
-  const int np = n_dim * p_dim;
-  const int v[11] = {nc, heads, batch, P1_SMEM,
-                     (np + P2_THREADS - 1) / P2_THREADS, batch * heads,
+  const dim3 g2 = ssd::state_passing_grid(batch, heads, n_dim, p_dim);
+  const int v[11] = {nc, heads, batch, P1_SMEM, (int)g2.x, (int)g2.y,
                      nc, heads, batch, P3_THREADS, P3_SMEM};
   for (int i = 0; i < 11; ++i) out[i] = v[i];
   return 0;
@@ -510,7 +490,8 @@ extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* a,
       (float*)states, (float*)cum, (float*)decay, seq, heads, p_dim, groups,
       n_dim, chunk, vec_x, vec_b);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_state_passing<<<dim3(lay[4], lay[5]), P2_THREADS, 0, s>>>(
+  ssd::ssd_state_passing<bf16><<<dim3(lay[4], lay[5]),
+                                 ssd::PASS2_THREADS, 0, s>>>(
       (const float*)states, (const float*)decay, (bf16*)in_states,
       seq / chunk, n_dim * p_dim);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

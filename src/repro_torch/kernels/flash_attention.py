@@ -6,8 +6,11 @@ and sliding-window masks and grouped-query heads.  The route is fixed by the
 operands' dtype, not chosen on failure:
 
 * bf16 runs ``csrc/flash_attention_wgmma.cu``, on the tensor cores (wgmma);
-* f32 runs ``csrc/flash_attention.cu``, an FFMA kernel (tensor cores in
-  f32 would mean TF32, outside the f32 limit of 1e-5 of max).
+* f32 runs ``csrc/flash_attention.cu``, an FFMA kernel: register tiles of
+  scores and output (8 × 8 at head_dim 128), P parked in shared memory
+  for P·v, k and v copied by ``cp.async`` behind the product that does
+  not read them, longest causal tiles first (tensor cores in f32 would
+  mean TF32, outside the f32 limit of 1e-5 of max).
 
 The reference's models run the jnp ``block_causal_attention`` and never
 this kernel; the port's models call it (through ``ops.flash_attention``)
@@ -16,7 +19,8 @@ for every full-sequence self-attention under ``use_kernel=True``
 module checks the
 operands, allocates the output and launches on the current CUDA stream; the
 kernels pick their own tiles (the TPU wrapper's ``block_q`` and ``block_k``
-are tiling only); ``tc_layout`` mirrors the tensor-core kernel's choice.
+are tiling only); ``tc_layout`` and ``ffma_layout`` mirror the tensor-core
+and the FFMA kernel's choices.
 
 Both kernels take a query slice at an offset (``q_offset``): q holds S_q
 rows at key positions q_offset .. q_offset + S_q − 1 of k and v's S_k, the
@@ -67,6 +71,28 @@ def tc_layout(hd: int) -> dict:
     smem = 2 * head * (block_q + 4 * block_k) + 1024
     return {"head_pad": head, "block_q": block_q, "block_k": block_k,
             "threads": 128 * warpgroups, "smem_bytes": smem}
+
+
+def ffma_layout(hd: int) -> dict:
+    """The FFMA (f32) kernel's tiles at head_dim ``hd`` (1..256), as
+    ``flash_attention_f32_layout`` in the CUDA source computes them: the
+    head_dim padded to 64, 128 or 256; query rows a block, keys a kv tile
+    and lanes sharing a query row (128, 64, 8 at 64; 128, 128, 16 at 128;
+    64, 64, 16 at 256); 256 threads; shared-memory bytes (q and k, rows
+    padded by 4 floats, v, and P for two keys a lane, rows padded by 4
+    floats); each thread's query rows and keys.  The grid is (batch × Hq,
+    ⌈S_q / block_q⌉), the query tiles walked from the last when causal."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
+    head = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    block_q, block_k, lanes = {64: (128, 64, 8), 128: (128, 128, 16),
+                               256: (64, 64, 16)}[head]
+    smem = 4 * ((block_q + block_k) * (head + 4) + block_k * head
+                + 2 * lanes * (block_q + 4))
+    return {"head_pad": head, "block_q": block_q, "block_k": block_k,
+            "threads": 256, "smem_bytes": smem,
+            "rows_per_thread": block_q * lanes // 256,
+            "keys_per_thread": block_k // lanes, "lanes_per_row": lanes}
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

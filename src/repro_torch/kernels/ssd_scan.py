@@ -5,25 +5,27 @@ Two CUDA kernels replace the Pallas TPU kernel ``ssd_scan``
 the (N × P) state carried across chunks.  The route is fixed by the
 operands' dtype, not chosen on failure:
 
-* bf16 runs ``csrc/ssd_scan_wgmma.cu`` on the tensor cores (wgmma), in
-  three kernels launched in order: chunk states in parallel, the state
-  passed across chunks, then each chunk's output;
-* f32 runs ``csrc/ssd_scan.cu``, an FFMA kernel that walks the chunks of a
-  (batch, head) in order (tensor cores in f32 would mean TF32, outside the
-  f32 limit of 1e-4).
+* bf16 runs ``csrc/ssd_scan_wgmma.cu`` on the tensor cores (wgmma);
+* f32 runs ``csrc/ssd_scan.cu`` on the CUDA cores (FFMA; tensor cores in
+  f32 would mean TF32, outside the f32 limit of 1e-4).
 
-This module checks the operands, allocates the output and the tensor-core
-route's scratch (the chunk states, the state entering each chunk, the
-within-chunk cumulative decay and each chunk's total decay), and launches
-on the current CUDA stream through the libraries ``build.load`` compiles at
-first use.  The model path is inference only (the reference's kernel has
-no VJP), so there is no ``autograd.Function``.
+Both split the scan into three kernels launched in order: chunk states in
+parallel, the state passed across chunks (``csrc/ssd_state.cuh``, one
+template for both: the entering state is bf16 on the tensor-core route,
+f32 on the FFMA route), then each chunk's output.  This module checks the
+operands, allocates the output and the scratch (the chunk states, the
+state entering each chunk, the within-chunk cumulative decay and each
+chunk's total decay), and launches on the current CUDA stream through the
+libraries ``build.load`` compiles at first use.  The model path is
+inference only (the reference's kernel has no VJP), so there is no
+``autograd.Function``.
 
 ``ssd_launches`` counts every call that reaches a kernel, ``ssd_tc_launches``
 those that reach the tensor-core kernel, ``ssd_heads`` the launches by
 their number of heads; a caller that wants the count of one phase resets
-them to 0 before the phase.  ``tc_layout`` mirrors the
-tensor-core route's grids and shared memory (``ssd_scan_wgmma_layout``).
+them to 0 before the phase.  ``tc_layout`` and ``ffma_layout`` mirror the
+two routes' grids and shared memory (``ssd_scan_wgmma_layout``,
+``ssd_scan_f32_layout``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,16 @@ _ROUTES = {torch.float32: (LIB, "ssd_scan_f32", "ssd_scan_error_string"),
 _PASS2_THREADS, _PASS3_THREADS = 256, 512
 _PASS1_SMEM = 3 * MAX_CHUNK * 128 + 1024
 _PASS3_SMEM = 5 * MAX_CHUNK * 128 + MAX_STATE * 128 + 1024
+# the FFMA route's blocks, one per chunk in passes 1 and 3: chunk states
+# 128 threads, a ring of two 32-row stages of B and x; output 256
+# threads, the chunk's 64-row tiles in turn: the state entering the tile,
+# two stages of C_T, B_T (rows padded by 4 floats) and x_T, the scores
+# (padded)
+_FFMA_PASS1_THREADS, _FFMA_PASS3_THREADS = 128, 256
+_FFMA_PASS1_SMEM = 4 * 2 * 32 * (MAX_STATE + MAX_HEAD_DIM)
+_FFMA_PASS3_SMEM = 4 * (MAX_STATE * MAX_HEAD_DIM
+                        + 2 * 64 * (MAX_STATE + MAX_STATE + 4 + MAX_HEAD_DIM)
+                        + 64 * (64 + 4))
 
 
 def tc_layout(b: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
@@ -72,6 +84,27 @@ def tc_layout(b: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
             "pass3_smem_bytes": _PASS3_SMEM,
             "scratch_bytes": 4 * states + 2 * states + 4 * b * h * s
             + 4 * b * h * nc}
+
+
+def ffma_layout(b: int, s: int, h: int, p: int, n: int, chunk: int) -> dict:
+    """The FFMA route's three launches at (B, S, H, P, N) and the kernel's
+    chunk: each pass's grid, passes 1 and 3's threads and dynamic shared
+    memory, the 64-row tiles pass 3 walks in a chunk, and the scratch
+    bytes the launcher allocates (f32 chunk states and f32 entering
+    states).  Mirrors ``ssd_scan_f32_layout``."""
+    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"chunk {chunk} must divide S = {s} and be at most "
+                         f"{MAX_CHUNK}")
+    nc = s // chunk
+    states = b * h * nc * n * p
+    return {"chunks": nc, "pass1_grid": (nc, h, b),
+            "pass1_threads": _FFMA_PASS1_THREADS,
+            "pass1_smem_bytes": _FFMA_PASS1_SMEM,
+            "pass2_grid": (-(-(n * p) // _PASS2_THREADS), b * h),
+            "pass3_grid": (nc, h, b), "pass3_threads": _FFMA_PASS3_THREADS,
+            "pass3_smem_bytes": _FFMA_PASS3_SMEM,
+            "pass3_row_tiles": -(-chunk // 64),
+            "scratch_bytes": 8 * states + 4 * b * h * s + 4 * b * h * nc}
 
 
 def check_operands(x, dt, a, b_mat, c_mat,
@@ -122,15 +155,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"<= {MAX_HEAD_DIM} and d_state <= {MAX_STATE}; got "
                          f"{length}, {p} and {n}")
     lib, symbol, errors = _ROUTES[x.dtype]
-    tensors = [x, dt, a, b_mat, c_mat, y]
-    if lib == TC_LIB:
-        nc = s // length
-        f32 = dict(dtype=torch.float32, device=device)
-        tensors += [torch.empty((bsz, h, nc, n, p), **f32),
-                    torch.empty((bsz, h, nc, n, p), dtype=torch.bfloat16,
-                                device=device),
-                    torch.empty((bsz, h, s), **f32),
-                    torch.empty((bsz, h, nc), **f32)]
+    nc = s // length
+    f32 = dict(dtype=torch.float32, device=device)
+    # scratch: chunk states (f32), entering states (x's dtype), cum, decay
+    tensors = [x, dt, a, b_mat, c_mat, y,
+               torch.empty((bsz, h, nc, n, p), **f32),
+               torch.empty((bsz, h, nc, n, p), dtype=x.dtype, device=device),
+               torch.empty((bsz, h, s), **f32),
+               torch.empty((bsz, h, nc), **f32)]
     build.launch("ssd_scan", lib, symbol, tensors,
                  [bsz, s, h, p, g, n, length], device, errors)
     ssd_launches += 1

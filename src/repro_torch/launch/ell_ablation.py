@@ -25,17 +25,17 @@ import argparse
 import ctypes
 import json
 import re
-import statistics
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import ablation
 
 SOURCE = build.CSRC / "community_spmm_ell.cu"
-OUT = build.BUILD_ROOT / "ell_ablation"
+# the C entries: seven operand pointers, k, D, n_pad, C, the stream
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 _UNROLLED_A = "#pragma unroll\n  for (int r = 0; r < L::BM * ACH"
 _UNROLLED_Z = "#pragma unroll\n  for (int r = 0; r < BK * ZCH"
@@ -81,66 +81,16 @@ VARIANTS = {
 }
 
 
-def variant_source(name: str) -> str:
-    """The kernel's source with variant ``name``'s changes; raises if the
-    kernel no longer contains the text a change replaces."""
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"ell_ablation: {name!r} no longer matches "
-                             f"{SOURCE.name}: {old.strip()[:60]!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def build_variant(name: str):
-    """Build variant ``name`` into OUT; return its library and, per tile
-    configuration and block type, the largest register count a thread and
-    spill-store bytes ptxas reports over the copy-width instantiations."""
-    stem = re.sub(r"[^a-z0-9]+", "_", name.lower())
-    OUT.mkdir(parents=True, exist_ok=True)
-    cu, lib = OUT / f"{stem}.cu", OUT / f"lib{stem}.so"
-    cu.write_text(variant_source(name))
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas",
-                           "-v", "-o", str(lib), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    usage, key = {}, None
-    for line in (proc.stdout + proc.stderr).splitlines():
-        entry = re.search(r"Compiling entry function '.*TileILi(\d+)ELi(\d+)"
-                          r"ELi\d+ELi\d+ELi\d+ELi\d+EEE(13__nv_bfloat16|f)",
-                          line)
-        if entry:
-            key = (f"{entry.group(1)}x{entry.group(2)} "
-                   f"{'bf16' if entry.group(3) != 'f' else 'f32'}")
-            usage.setdefault(key, {"registers": 0, "spill_store_bytes": 0})
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        regs = re.search(r"Used (\d+) registers", line)
-        if key is not None and spill:
-            usage[key]["spill_store_bytes"] = max(
-                usage[key]["spill_store_bytes"], int(spill.group(1)))
-        if key is not None and regs:
-            usage[key]["registers"] = max(usage[key]["registers"],
-                                          int(regs.group(1)))
-    return ctypes.CDLL(str(lib)), usage
-
-
-def median_ms(fn, reps: int = 5, inner: int = 3) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+def tile_name(line: str) -> "str | None":
+    """The tile configuration and block type whose entry function a ptxas
+    line starts (the copy-width instantiations of one share a name)."""
+    found = re.search(r"Compiling entry function '.*TileILi(\d+)ELi(\d+)"
+                      r"ELi\d+ELi\d+ELi\d+ELi\d+EEE(13__nv_bfloat16|f)",
+                      line)
+    if found is None:
+        return None
+    return (f"{found.group(1)}x{found.group(2)} "
+            f"{'bf16' if found.group(3) != 'f' else 'f32'}")
 
 
 def clock_under_load(fn, args, seconds: float = 3.0) -> str:
@@ -199,8 +149,8 @@ def main(argv=None) -> int:
         argv)
     if not torch.cuda.is_available():
         raise SystemExit("ell_ablation: needs a CUDA card")
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+    built = ablation.build_variants(SOURCE, VARIANTS, "ell_ablation",
+                                    tile_name)
     usage = {name: u for name, (_, u) in built.items()}
     for name, u in usage.items():
         print(f"{name}: registers (spill-store bytes) " + ", ".join(
@@ -213,10 +163,7 @@ def main(argv=None) -> int:
         want = None
         row = {}
         for variant, (lib, _) in built.items():
-            fn = getattr(lib, symbol)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fn = ablation.entry(lib, symbol, ARGTYPES)
             out = torch.empty((k, n_pad, c), device=dev)
             call = [t.data_ptr() for t in ops] + [out.data_ptr(), k, d,
                                                   n_pad, c, stream]
@@ -225,10 +172,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if want is None:
                 want = out
-            row[variant] = {"ms": median_ms(lambda fn=fn, a=call: fn(*a)),
+            row[variant] = {"ms": ablation.median_ms(
+                                lambda fn=fn, a=call: fn(*a), reps=5,
+                                inner=3, warmup=2),
                             "bitwise_as_built": bool(torch.equal(out, want))}
         if "C=1000 f32" in name:
-            fn = getattr(built["as built"][0], symbol)
+            fn = ablation.entry(built["as built"][0], symbol, ARGTYPES)
             row["as built"]["clock_under_load"] = clock_under_load(fn, call)
             print(f"{name}: as built, SM clock and power under load "
                   f"{row['as built']['clock_under_load']}", flush=True)
@@ -237,11 +186,8 @@ def main(argv=None) -> int:
             f"{v} {r['ms']:.3f} ms{'' if r['bitwise_as_built'] else ' DIFF'}"
             for v, r in row.items()), flush=True)
         del want
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
     print(json.dumps({"ell_ablation": summary, "ptxas": usage}))
-    print(card)
+    print(ablation.card())
     same = all(r["bitwise_as_built"] for row in summary.values()
                for r in row.values())
     return 0 if same else 1

@@ -1,41 +1,37 @@
-"""Where the tensor-core flash attention kernel spends its time, by ablation.
+"""Where the flash attention kernels spend their time, by ablation.
 
-The card's profilers (ncu, nsys) do not run in every sandbox, so this
-measures the cost of each phase of ``kernels/csrc/flash_attention_wgmma.cu``
-by taking it away: each variant is the kernel's source with one textual
-change, built beside the others and timed at the shapes ``chip_smoke.py``
-times.  A variant that removes a phase computes a wrong answer; its time
-says only what that phase costs.  Two variants change the tiling instead
-(a three-stage k/v ring, head_dim 256 in two warpgroups) and stay exact.
+Measures the cost of each phase of ``kernels/csrc/flash_attention_wgmma.cu``
+(bf16, the default) or ``kernels/csrc/flash_attention.cu`` (``--dtype
+float32``, the FFMA route) by taking it away: each variant is the kernel's
+source with one textual change, built beside the others and timed at the
+shapes ``chip_smoke.py`` times.  A variant that removes a phase computes a
+wrong answer; its time says only what that phase costs.  The variants that
+change the tiling instead (bf16: a three-stage k/v ring, head_dim 256 in
+two warpgroups; f32: other register tiles and blocks) stay exact.
 
-    PYTHONPATH=src python -m repro_torch.launch.flash_ablation
+    PYTHONPATH=src python -m repro_torch.launch.flash_ablation [--dtype
+        bfloat16|float32]
 
-Needs a CUDA card and nvcc; builds into ``build/torch_ext/ablation/``.
-Prints one line per shape (median ms per call over CUDA-event windows of
-10 calls) and ends with a JSON summary and the card's name and power
-limit.
+Needs a CUDA card and nvcc; builds into
+``build/torch_ext/flash_ablation_<dtype>/``.  Prints one line per shape
+(median ms per call over CUDA-event windows of 10 calls) and ends with a
+JSON summary and the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
-import math
 import re
-import statistics
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from repro_torch.kernels import build, ref
-
-SOURCE = build.CSRC / "flash_attention_wgmma.cu"
-OUT = build.BUILD_ROOT / "ablation"
+from repro_torch.launch import ablation
 
 # name -> changes to the kernel's text: (old, new) replaces old; a pair of
 # texts as old replaces the span from the first up to the second
-VARIANTS = {
+BF16_VARIANTS = {
     "as built": [],
     "no softmax": [(
         ("      float mx[2] = {-INFINITY, -INFINITY};",
@@ -67,7 +63,7 @@ VARIANTS = {
         ("  static constexpr int MIN_BLOCKS = HD == 256 ? 2 : 1;",
          "  static constexpr int MIN_BLOCKS = 1;")],
 }
-SHAPES = [  # name, b, s, hq, hkv, hd, causal, window
+BF16_SHAPES = [  # name, b, s, hq, hkv, hd, causal, window
     ("qwen2-7b S=4096 Hq28 Hkv4 hd128 causal", 1, 4096, 28, 4, 128, True,
      None),
     ("gemma-2b S=4096 Hq8 Hkv1 hd256 causal", 1, 4096, 8, 1, 256, True, None),
@@ -76,91 +72,81 @@ SHAPES = [  # name, b, s, hq, hkv, hd, causal, window
     ("non-causal S=2048 Hq8 Hkv2 hd128", 1, 2048, 8, 2, 128, False, None),
 ]
 
-
-def variant_source(name: str) -> str:
-    """The kernel's source with variant ``name``'s changes; raises if the
-    kernel no longer contains the text a change replaces."""
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        start, end = old if isinstance(old, tuple) else (old, None)
-        i = src.find(start)
-        j = i + len(start) if end is None else src.find(end)
-        if i < 0 or j < 0:
-            raise SystemExit(f"flash_ablation: {name!r} no longer matches "
-                             f"{SOURCE.name}: {start.strip()[:60]!r}")
-        src = src[:i] + new + src[j:]
-    return src
-
-
-def build_variant(name: str):
-    """Build variant ``name`` into OUT; return its C entry and, per padded
-    head_dim, the registers a thread and the spill-store bytes ptxas
-    reports."""
-    stem = name.replace(" ", "_")
-    OUT.mkdir(parents=True, exist_ok=True)
-    cu, lib = OUT / f"{stem}.cu", OUT / f"lib{stem}.so"
-    cu.write_text(variant_source(name))
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas",
-                           "-v", "-I", str(build.CSRC), "-o", str(lib),
-                           str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    usage, hd = {}, None
-    for line in (proc.stdout + proc.stderr).splitlines():
-        entry = re.search(r"Compiling entry function '.*kernelILi(\d+)E", line)
-        if entry:
-            hd = int(entry.group(1))
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        regs = re.search(r"Used (\d+) registers", line)
-        if hd is not None and spill:
-            usage.setdefault(hd, {})["spill_store_bytes"] = int(spill.group(1))
-        if hd is not None and regs:
-            usage.setdefault(hd, {})["registers"] = int(regs.group(1))
-    fn = ctypes.CDLL(str(lib)).flash_attention_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn, usage
+F32_VARIANTS = {
+    "as built": [],
+    "no q.k^T": [("    for (int d0 = 0; d0 < hd16; d0 += 16) {",
+                  "    for (int d0 = 0; d0 < 0; d0 += 16) {")],
+    "P.v: loads, 1 FMA of 4": [
+        ("            axpy4(acc[i][cm], pv[i / 4].x, vv);\n"
+         "            axpy4(acc[i + 1][cm], pv[i / 4].y, vv);\n"
+         "            axpy4(acc[i + 2][cm], pv[i / 4].z, vv);\n"
+         "            axpy4(acc[i + 3][cm], pv[i / 4].w, vv);",
+         "            acc[i][cm].x += pv[i / 4].x * vv.x;\n"
+         "            acc[i + 1][cm].x += pv[i / 4].y * vv.x;\n"
+         "            acc[i + 2][cm].x += pv[i / 4].z * vv.x;\n"
+         "            acc[i + 3][cm].x += pv[i / 4].w * vv.x;")],
+    "no P.v": [("    for (int jr = 0; jr < KJ; jr += 2) {",
+                "    for (int jr = 0; jr < 0; jr += 2) {")],
+    "hd 128 in 4 x 8 tiles (BK 64, 8 lanes a row)": [
+        ("  static constexpr int BQ = 128, BK = 128, TX = 16;",
+         "  static constexpr int BQ = 128, BK = 64, TX = 8;")],
+    "hd 128 in 64-row blocks": [
+        ("  static constexpr int BQ = 128, BK = 128, TX = 16;",
+         "  static constexpr int BQ = 64, BK = 128, TX = 16;")],
+    "hd 64 one block an SM": [
+        ("__global__ void __launch_bounds__(THREADS, HD == 64 ? 2 : 1)",
+         "__global__ void __launch_bounds__(THREADS, 1)")],
+}
+F32_SHAPES = [  # name, b, s, hq, hkv, hd, causal, window
+    ("qwen2-7b heads S=2048 Hq28 Hkv4 hd128 causal", 1, 2048, 28, 4, 128,
+     True, None),
+    ("gemma-2b heads S=2048 Hq8 Hkv1 hd256 causal", 1, 2048, 8, 1, 256, True,
+     None),
+    ("2x4096 Hq8 Hkv2 hd64 causal", 2, 4096, 8, 2, 64, True, None),
+]
+# dtype -> (source, C entry, variants, shapes)
+ROUTES = {
+    "bfloat16": ("flash_attention_wgmma.cu", "flash_attention_bf16",
+                 BF16_VARIANTS, BF16_SHAPES),
+    "float32": ("flash_attention.cu", "flash_attention_f32", F32_VARIANTS,
+                F32_SHAPES),
+}
 
 
-def median_ms(fn, reps: int = 7, inner: int = 10) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+def kernel_name(line: str) -> "str | None":
+    """The flash kernel, by padded head_dim, whose entry function a ptxas
+    line starts."""
+    found = re.search(r"Compiling entry function '.*kernelILi(\d+)E", line)
+    return f"hd {found.group(1)}" if found else None
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(
-        argv)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dtype", choices=sorted(ROUTES), default="bfloat16")
+    dtype_name = parser.parse_args(argv).dtype
     if not torch.cuda.is_available():
         raise SystemExit("flash_ablation: needs a CUDA card")
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
-    fns = {name: fn for name, (fn, _) in built.items()}
+    source, entry_name, variants, shapes = ROUTES[dtype_name]
+    built = ablation.build_variants(build.CSRC / source, variants,
+                                    f"flash_ablation_{dtype_name}",
+                                    kernel_name)
+    fns = {name: ablation.entry(lib, entry_name, [ctypes.c_void_p] * 4
+                                + [ctypes.c_int] * 7
+                                + [ctypes.c_float, ctypes.c_void_p])
+           for name, (lib, _) in built.items()}
     usage = {name: u for name, (_, u) in built.items()}
     print("registers a thread (spill-store bytes) by padded head_dim, as "
           "built: " + ", ".join(
-              f"hd {hd} {u['registers']} ({u['spill_store_bytes']})"
+              f"{hd} {u['registers']} ({u['spill_store_bytes']})"
               for hd, u in sorted(usage["as built"].items())), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dtype_name)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     summary = {}
-    for name, b, s, hq, hkv, hd, causal, window in SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen, device=dev)
-                   .to(torch.bfloat16)
+    for name, b, s, hq, hkv, hd, causal, window in shapes:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, s, hq, hd), (b, s, hkv, hd),
                                  (b, s, hkv, hd)))
         out = torch.empty_like(q)
@@ -173,20 +159,16 @@ def main(argv=None) -> int:
             if fn(*args) != 0:
                 raise RuntimeError(f"{variant} failed to launch at {name}")
             torch.cuda.synchronize()
-            err = float((out.float() - want.float()).abs().max()
-                        / want.float().abs().max())
-            row[variant] = {"ms": median_ms(lambda fn=fn: fn(*args)),
-                            "rel_err": err if math.isfinite(err) else None}
+            row[variant] = {"ms": ablation.median_ms(lambda fn=fn: fn(*args)),
+                            "rel_err": ablation.rel_err(out, want)}
         summary[name] = row
         print(f"{name}: " + ", ".join(
-            f"{vname} {r['ms']:.4f} ms" for vname, r in row.items()),
-            flush=True)
+            f"{vname} {r['ms']:.4f} ms (rel err {r['rel_err']})"
+            for vname, r in row.items()), flush=True)
         del q, k, v, out, want
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(json.dumps({"flash_ablation": summary, "ptxas": usage}))
-    print(card)
+    print(json.dumps({"flash_ablation": summary, "dtype": dtype_name,
+                      "ptxas": usage}))
+    print(ablation.card())
     return 0
 
 

@@ -789,6 +789,52 @@ def test_ssd_tc_layout_matches_the_launcher(cuda_device):
     assert query(1, 512, 4, 64, 128, 512, out) != 0
 
 
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 24, 4, 64, 1, 128, 8),       # chunk 8: one partial 64-row tile
+    (2, 192, 4, 64, 2, 128, 64),     # chunk 64: one whole tile, G = 2
+    (1, 1024, 4, 64, 1, 128, 256),   # chunk 256: four tiles, the model's
+    (2, 100, 4, 64, 1, 128, 256),    # S = 100 < chunk: one chunk of 100
+    (1, 1000, 4, 64, 2, 128, 256),   # S = 1000: the chunk halves to 8
+    (2, 512, 4, 32, 2, 64, 256),     # P < 64, N < 128, G = 2
+    (2, 300, 4, 18, 2, 22, 100),     # rows off 16 bytes: 4-byte copies
+])
+def test_ssd_ffma_kernel_at_the_edges(cuda_device, b, s, h, p, g, n, chunk):
+    """The f32 (FFMA) three-pass kernels against the plain scan and against
+    the plain three-pass form in f32 (``ref.ssd_scan_three_pass``), each
+    within the f32 limit of 1e-4 · max; one launch, none on the tensor
+    cores."""
+    args = _ssd_operands(s + p + n, b, s, h, p, g, n, torch.float32,
+                         cuda_device)
+    before = (ssd_launcher.ssd_launches, ssd_launcher.ssd_tc_launches)
+    got, _ = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert (ssd_launcher.ssd_launches, ssd_launcher.ssd_tc_launches) == (
+        before[0] + 1, before[1])
+    _within(got, ref.ssd_scan_ref(*args, chunk=chunk), 1e-4)
+    _within(got, ref.ssd_scan_three_pass(*args, chunk=chunk), 1e-4)
+
+
+def test_ssd_ffma_layout_matches_the_launcher(cuda_device):
+    """The FFMA route's own grids and shared memory equal ``ffma_layout``
+    over a sweep of shapes and chunks."""
+    import ctypes
+    lib = build.load(ssd_launcher.LIB)
+    query = lib.ssd_scan_f32_layout
+    query.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 12)()
+    for b, s, h, p, n, chunk in ((4, 4096, 64, 64, 128, 256),
+                                 (1, 32768, 64, 64, 128, 256),
+                                 (2, 300, 4, 18, 22, 100),
+                                 (1, 1000, 4, 32, 64, 8)):
+        assert query(b, s, h, p, n, chunk, out) == 0
+        t = ssd_launcher.ffma_layout(b, s, h, p, n, chunk)
+        assert list(out) == [*t["pass1_grid"], t["pass1_threads"],
+                             t["pass1_smem_bytes"], *t["pass2_grid"],
+                             *t["pass3_grid"], t["pass3_threads"],
+                             t["pass3_smem_bytes"]]
+    assert query(1, 512, 4, 64, 128, 512, out) != 0
+
+
 def test_ssd_launcher_refuses_bad_operands(cuda_device):
     x, dt, a, bm, cm = _ssd_operands(1, 1, 64, 4, 16, 2, 16, torch.float32,
                                      cuda_device)
@@ -918,6 +964,83 @@ def test_flash_layout_matches_the_launcher(cuda_device):
         t = flash_launcher.tc_layout(hd)
         assert list(out) == [t["head_pad"], t["block_q"], t["block_k"],
                              t["threads"], t["smem_bytes"]]
+
+
+@pytest.mark.parametrize("s,hq,hkv,hd,causal,window,v_hd", [
+    (1, 4, 1, 64, True, None, None),        # one row
+    (100, 7, 1, 80, True, None, None),      # S below a tile, GQA 7:1, hd 80
+    (3000, 28, 4, 128, True, None, None),   # ragged S, qwen2-7b's heads
+    (513, 14, 2, 192, True, None, 128),     # qk 192, v 128 zero-padded
+    (700, 8, 1, 256, True, 100, None),      # hd 256, a window
+    (640, 7, 1, 64, False, None, None),     # non-causal, GQA 7:1
+    (640, 4, 2, 128, False, 33, None),      # a window without causal
+    (130, 4, 4, 128, True, 1, None),        # a window of one key
+    (130, 2, 1, 30, True, None, None),      # hd 30: 4-byte copies
+])
+def test_flash_ffma_kernel_at_the_edges(cuda_device, s, hq, hkv, hd, causal,
+                                        window, v_hd):
+    """The f32 (FFMA) kernel, batch 2: head dims 64, 80, 128, 192 (v
+    zero-padded from 128, as MLA's attend calls it) and 256, sequences
+    below and off the 128-row / 64-key tiles, windows, non-causal, GQA 7:1;
+    within 1e-5 · max of the plain version, one launch, none on the tensor
+    cores."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s * 1000 + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               for shape in ((2, s, hq, hd), (2, s, hkv, hd),
+                             (2, s, hkv, v_hd or hd)))
+    v = torch.nn.functional.pad(v, (0, hd - v.shape[-1]))
+    before = (flash_launcher.flash_launches,
+              flash_launcher.flash_tc_launches)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_launcher.flash_launches,
+            flash_launcher.flash_tc_launches) == (before[0] + 1, before[1])
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _within(got, want, 1e-5)
+    if v_hd:
+        assert not bool(got[..., v_hd:].any())
+
+
+@pytest.mark.parametrize("s,nm,hq,hkv,hd,causal,window", [
+    (2048, 4, 28, 4, 128, True, None),      # qwen2-7b's context ranks
+    (1000, 3, 7, 1, 256, True, 300),        # ragged slices, hd 256, window
+    (300, 2, 7, 1, 80, False, None),        # non-causal, hd 80
+])
+def test_flash_ffma_kernel_at_a_query_offset(cuda_device, s, nm, hq, hkv, hd,
+                                             causal, window):
+    """Each context rank's query rows at its offset against every key, f32,
+    within 1e-5 · max of the plain version at the same offset."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               for shape in ((1, s, hq, hd), (1, s, hkv, hd),
+                             (1, s, hkv, hd)))
+    bounds = [s * m // nm for m in range(nm + 1)]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        rows = q[:, lo:hi].contiguous()
+        got = ops.flash_attention(rows, k, v, causal=causal, window=window,
+                                  q_offset=lo)
+        torch.cuda.synchronize()
+        _within(got, ref.flash_attention_ref(rows, k, v, causal=causal,
+                                             window=window, q_offset=lo),
+                1e-5)
+
+
+def test_flash_ffma_layout_matches_the_launcher(cuda_device):
+    """The FFMA kernel's own tiles equal ``ffma_layout`` for every
+    head_dim."""
+    import ctypes
+    lib = build.load(flash_launcher.LIB)
+    query = lib.flash_attention_f32_layout
+    query.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 8)()
+    for hd in range(1, 257):
+        assert query(hd, out) == 0
+        t = flash_launcher.ffma_layout(hd)
+        assert list(out) == [t["head_pad"], t["block_q"], t["block_k"],
+                             t["threads"], t["smem_bytes"],
+                             t["rows_per_thread"], t["keys_per_thread"],
+                             t["lanes_per_row"]]
+    assert query(0, out) != 0 and query(257, out) != 0
 
 
 def test_flash_launcher_refuses_bad_operands(cuda_device):

@@ -969,6 +969,42 @@ def test_flash_tensor_core_tiles_fit_every_head_dim():
             flash_launcher.tc_layout(hd)
 
 
+def test_flash_ffma_tiles_fit_every_head_dim():
+    """The FFMA (f32) kernel's tiles for every head_dim 1..256: the head
+    padded to 64, 128 or 256; 128 query rows, 64-key tiles and 8 lanes a
+    row at 64, 128 / 128 / 16 at 128, 64 / 64 / 16 at 256; q and k (rows
+    padded by 4 floats), v and P for two keys a lane fit a block's 232,448
+    bytes of shared memory (two blocks an SM at hd <= 64); the row groups
+    of ``lanes_per_row`` lanes cover the block's rows and the lanes of a
+    row the tile's keys and the padded head_dim in 4-column groups; and
+    the grid's query tiles cover every row of the sequences the kernel is
+    run at."""
+    for hd in range(1, 257):
+        t = flash_launcher.ffma_layout(hd)
+        head, lanes = t["head_pad"], t["lanes_per_row"]
+        assert head in (64, 128, 256) and hd <= head
+        assert head == 64 or hd > head // 2
+        assert (t["block_q"], t["block_k"], lanes, t["threads"]) == {
+            64: (128, 64, 8, 256), 128: (128, 128, 16, 256),
+            256: (64, 64, 16, 256)}[head]
+        assert t["smem_bytes"] == 4 * (
+            (t["block_q"] + t["block_k"]) * (head + 4)
+            + t["block_k"] * head + 2 * lanes * (t["block_q"] + 4))
+        assert t["smem_bytes"] <= 232448
+        assert t["rows_per_thread"] * t["threads"] // lanes == t["block_q"]
+        assert t["keys_per_thread"] * lanes == t["block_k"]
+        assert head % (4 * lanes) == 0
+        for s in (1, 63, 64, 65, 129, 1000, 2048, 3000, 4097, 32768):
+            tiles = -(-s // t["block_q"])
+            assert (tiles - 1) * t["block_q"] < s <= tiles * t["block_q"]
+    assert flash_launcher.ffma_layout(128)["smem_bytes"] == 217600
+    assert 2 * (flash_launcher.ffma_layout(64)["smem_bytes"] + 1024) \
+        <= 233472
+    for hd in (0, 257):
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_launcher.ffma_layout(hd)
+
+
 def _flash_cpu(b=1, s=8, hq=4, hkv=2, hd=16, dtype=torch.bfloat16):
     return [torch.zeros(shape, dtype=dtype) for shape in
             ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd))]

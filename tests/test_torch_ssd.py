@@ -14,11 +14,14 @@ entering state, the decayed scores) it stays within the kernel's limit of
 2^-7 · max of the f32 plain path.  Shapes are the CUDA tests': chunk 256,
 a ragged S whose chunk halves to 8, S = 100 below the chunk, G = 2 and 4.
 
-The launcher's dispatch (bf16 to the tensor-core library with its scratch,
-f32 to the FFMA library), its operand checks and ``tc_layout`` run here
-with the launch recorded in place of the kernel; the kernels themselves
-run in tests/test_torch_cuda.py and ``chip_smoke.py``.
+The launcher's dispatch (bf16 to the tensor-core library, f32 to the FFMA
+library, each with its scratch), its operand checks, ``tc_layout`` and
+``ffma_layout`` run here with the launch recorded in place of the kernel;
+the kernels themselves run in tests/test_torch_cuda.py and
+``chip_smoke.py``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,6 +159,45 @@ def test_tc_layout_shared_memory():
             ssd_launcher.tc_layout(1, s, 4, 16, 16, chunk)
 
 
+def test_ffma_layout_fits_and_covers_every_chunk():
+    """The FFMA (f32) route at every chunk the launcher accepts (1..256,
+    three chunks of batch 2 and 4 heads at the model's P 64 and N 128): a
+    block per chunk in passes 1 and 3 covering the sequence, pass 3's
+    64-row tiles covering the chunk, pass 2's threads one per state
+    element; pass 1's ring (two 32-row stages of B and x) and pass 3's
+    buffers (the entering state, two stages of C_T, B_T padded and x_T,
+    the scores) within a block's 232,448 bytes, three and one blocks an SM
+    with their static arrays (3 KB and 2.25 KB) and 1 KB reserved a
+    block; at 4 x 4096 4,096 blocks a pass and two f32
+    state scratches of 134 MB."""
+    for chunk in range(1, 257):
+        lay = ssd_launcher.ffma_layout(2, 3 * chunk, 4, 64, 128, chunk)
+        assert lay["chunks"] == 3
+        assert lay["pass1_grid"] == lay["pass3_grid"] == (3, 4, 2)
+        tiles = lay["pass3_row_tiles"]
+        assert (tiles - 1) * 64 < chunk <= tiles * 64
+        gx, gy = lay["pass2_grid"]
+        assert (gx - 1) * 256 < 128 * 64 <= gx * 256 and gy == 8
+        assert (lay["pass1_threads"], lay["pass3_threads"]) == (128, 256)
+        for smem, static, blocks in ((lay["pass1_smem_bytes"], 3072, 3),
+                                     (lay["pass3_smem_bytes"], 2304, 1)):
+            assert smem <= 232448
+            assert blocks * (smem + static + 1024) <= 233472
+    assert ssd_launcher.ffma_layout(1, 512, 4, 16, 16, 256)[
+        "pass3_smem_bytes"] == 4 * (128 * 64 + 2 * (64 * 128 + 64 * 132
+                                                    + 64 * 64) + 64 * 68)
+    lay = ssd_launcher.ffma_layout(4, 4096, 64, 64, 128, 256)
+    assert math.prod(lay["pass1_grid"]) == math.prod(lay["pass3_grid"]) \
+        == 4096
+    states = 4 * 64 * 16 * 128 * 64
+    assert 4 * states == 134217728
+    assert lay["scratch_bytes"] == 8 * states + 4 * 4 * 64 * 4096 \
+        + 4 * 4 * 64 * 16
+    for s, chunk in ((100, 64), (512, 512)):
+        with pytest.raises(ValueError, match="chunk"):
+            ssd_launcher.ffma_layout(1, s, 4, 16, 16, chunk)
+
+
 def _cpu(b=1, s=64, h=4, p=16, g=2, n=16, dtype=torch.bfloat16):
     x, dt, a, bm, cm = (torch.as_tensor(v)
                         for v in _operands(4, b, s, h, p, g, n))
@@ -164,8 +206,9 @@ def _cpu(b=1, s=64, h=4, p=16, g=2, n=16, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dispatch_is_fixed_by_dtype(monkeypatch, dtype):
-    """bf16 reaches the tensor-core library with its four scratch tensors,
-    f32 the FFMA one; every call counts in ``ssd_launches``, tensor-core
+    """bf16 reaches the tensor-core library, f32 the FFMA one, each with its
+    four scratch tensors (the entering states in x's dtype); every call
+    counts in ``ssd_launches``, tensor-core
     calls in ``ssd_tc_launches`` (launch recorded in place of the kernel,
     the device check bypassed)."""
     calls = []
@@ -184,16 +227,14 @@ def test_dispatch_is_fixed_by_dtype(monkeypatch, dtype):
     assert symbol == ("ssd_scan_bf16" if tc else "ssd_scan_f32")
     assert errors.startswith(lib)
     assert scalars == [1, 96, 4, 16, 2, 16, 32]     # the chunk halves to 32
-    assert tensors[5] is y and len(tensors) == (10 if tc else 6)
-    if tc:
-        states, entering, cum, decay = tensors[6:]
-        assert (states.shape, states.dtype) == ((1, 4, 3, 16, 16),
-                                                torch.float32)
-        assert (entering.shape, entering.dtype) == ((1, 4, 3, 16, 16),
-                                                    torch.bfloat16)
-        assert tuple(cum.shape) == (1, 4, 96) and tuple(decay.shape) == (
-            1, 4, 3)
-        assert all(t.is_contiguous() for t in tensors)
+    assert tensors[5] is y and len(tensors) == 10
+    states, entering, cum, decay = tensors[6:]
+    assert (states.shape, states.dtype) == ((1, 4, 3, 16, 16),
+                                            torch.float32)
+    assert (entering.shape, entering.dtype) == ((1, 4, 3, 16, 16), dtype)
+    assert tuple(cum.shape) == (1, 4, 96) and tuple(decay.shape) == (
+        1, 4, 3)
+    assert all(t.is_contiguous() for t in tensors)
     assert (ssd_launcher.ssd_launches, ssd_launcher.ssd_tc_launches) == (
         1, int(tc))
 
