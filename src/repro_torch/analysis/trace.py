@@ -1,8 +1,9 @@
-"""The op trace: the program form the port's rules read.
+"""The port's tracing: an op trace for the rules, a span log for timing.
 
-The counterpart of ``repro.analysis.hlo``.  The reference lints the HLO
-text XLA compiles for a jitted step.  The port runs eagerly, so its rules
-read a trace recorded while one real step runs.  It has two parts:
+**The op trace** is the program form the port's rules read, the
+counterpart of ``repro.analysis.hlo``.  The reference lints the HLO text
+XLA compiles for a jitted step.  The port runs eagerly, so its rules read
+a trace recorded while one real step runs.  It has two parts:
 
   * every aten op, logged by a ``TorchDispatchMode``: its name, the id,
     shape, dtype and device of each input and output tensor, whether it
@@ -15,23 +16,38 @@ read a trace recorded while one real step runs.  It has two parts:
     pairs, rows, bytes) and the all-gather; and the shard-ordered sum that
     stands for the reference's W-update psum.
 
-Why this form.  ``torch.fx`` and ``torch.export`` cannot hold the step:
-every line-search probe reads a bool on the host, and that data-dependent
-control flow stops both.  The profiler's kernel trace sees kernels only on
-a card, and carries no dtypes for the f32-accumulation checks.  A dispatch
-trace behaves the same on the CPU and on the card, and sees the backward
-passes the line searches run.
+``torch.fx`` and ``torch.export`` cannot hold the step: every line-search
+probe reads a bool on the host, and that data-dependent control flow stops
+both.  The profiler's kernel trace sees kernels only on a card, and
+carries no dtypes for the f32-accumulation checks.  A dispatch trace
+behaves the same on the CPU and on the card, and sees the backward passes
+the line searches run.  ``with record() as tape: tr.step()``.  It holds no
+tensor but the kernels' index tables, copies none and reads no value from
+the device: tensors are known by an id (a weak map from tensor to int), so
+nothing it keeps outlives the step.
 
-The recorder is off by default: ``with record() as tape: tr.step()``.  The
-hooks in the port (``RECORDER is not None``) cost one module-attribute
-check when it is off.  It holds no tensor but the kernels' index tables,
-copies none and reads no value from the device: tensors are known by an id
-(a weak map from tensor to int), so nothing it keeps outlives the step.
+**The span log** times the parts of the trainer on the host: ``with
+spans() as log: tr.step()``.  Each span is a named interval on
+``time.perf_counter_ns`` with the index of the span around it, the id of
+the ``admm.step`` it lies in and small attributes (the layer ``l``, the
+probe ``site``), kept in columns of Python lists; counters count by name
+(``host_reads.<site>``: one a device → host read, made in ``decide`` and
+under ``marked``).  No ``record_function``, CUDA event or device read is
+made, and no tensor is kept.  ``log.anchor`` pairs the clock with
+``time.time_ns``, the wall clock torch.profiler measures its events from,
+so that a profiled window's device timeline can be laid under the spans.
+``SpanLog.summary`` reduces a log by span name.
+
+Both are off by default.  The hooks in the port (``RECORDER is not
+None``, ``span``, ``decide``, ``marked``) cost a module-attribute check
+when they are off; ``span`` then returns one shared null context.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 from typing import Any, Iterable, Iterator, Mapping, Optional
 
 import torch
@@ -39,6 +55,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.weak import WeakIdKeyDictionary
 
 RECORDER: "Optional[Recorder]" = None
+SPANS: "Optional[SpanLog]" = None
 
 # aten ops that multiply matrices: the consumers the product rules watch
 PRODUCT_OPS = frozenset({"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv",
@@ -296,25 +313,188 @@ class marked:
     and carry ``site`` in the trace, so that ``memory/host-transfer`` can
     tell them from any other read: a line-search decision (``decide``),
     and on the process transport the host staging of a gloo round and the
-    per-step count of the bytes sent."""
+    per-step count of the bytes sent.  In a span log the region is a
+    ``host.read`` span (the host waits on the card there) and counts
+    ``reads`` under ``host_reads.<site>``."""
 
-    def __init__(self, site: str):
-        self.site = site
+    def __init__(self, site: str, reads: int = 1):
+        self.site, self.reads = site, reads
 
     def __enter__(self) -> None:
         self._rec = rec = RECORDER
         if rec is not None:
             self._prev, rec.probe_site = rec.probe_site, self.site
+        self._log = log = SPANS
+        if log is not None:
+            log.count("host_reads." + self.site, self.reads)
+            log.open("host.read", time.perf_counter_ns(), site=self.site)
 
     def __exit__(self, *exc) -> None:
+        if self._log is not None:
+            self._log.close(time.perf_counter_ns())
         if self._rec is not None:
             self._rec.probe_site = self._prev
 
 
 def decide(flag: torch.Tensor, site: str) -> bool:
     """``bool(flag)``: a line-search decision, the host read a step makes
-    on purpose.  Under a recorder the read is marked with ``site``."""
-    if RECORDER is None:
+    on purpose.  Under a recorder or a span log the read is ``marked``
+    with ``site``."""
+    if RECORDER is None and SPANS is None:
         return bool(flag)
     with marked(site):
         return bool(flag)
+
+
+# ---------------------------------------------------------------------------
+# the span log
+# ---------------------------------------------------------------------------
+
+# the root span of one trainer step: every span inside it carries its id
+STEP = "admm.step"
+_NULL = contextlib.nullcontext()
+
+
+class SpanLog:
+    """The spans and counters of ``with spans() as log:``.
+
+    One entry a span in each column, in the order the spans opened:
+    ``names``; ``start_ns`` and ``end_ns`` on ``time.perf_counter_ns``
+    (-1 while open); ``parents``, the index of the span open around it
+    (-1 for none); ``steps``, the id of the ``admm.step`` span it lies in
+    (0, 1, … in the log's order; -1 outside a step); ``layers`` and
+    ``sites``, its attributes (None where not given).  ``counts`` maps a
+    counter's name to its total.  ``anchor`` is ``(perf_counter_ns,
+    time_ns)`` read together when the log opened: ``wall_ns`` maps a span's
+    time onto the wall clock."""
+
+    def __init__(self):
+        self.names: list[str] = []
+        self.start_ns: list[int] = []
+        self.end_ns: list[int] = []
+        self.parents: list[int] = []
+        self.steps: list[int] = []
+        self.layers: list[Optional[int]] = []
+        self.sites: list[Optional[str]] = []
+        self.counts: dict[str, int] = {}
+        self.n_steps = 0
+        self._open = -1
+        self._step = -1
+        self.anchor = (time.perf_counter_ns(), time.time_ns())
+        self.closer = _Closer(self)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def open(self, name: str, t_ns: int, l: Optional[int] = None,
+             site: Optional[str] = None) -> None:
+        """Open a span at ``t_ns`` inside the innermost open one."""
+        i = len(self.names)
+        if name == STEP:
+            self._step, self.n_steps = self.n_steps, self.n_steps + 1
+        self.names.append(name)
+        self.start_ns.append(t_ns)
+        self.end_ns.append(-1)
+        self.parents.append(self._open)
+        self.steps.append(self._step)
+        self.layers.append(l)
+        self.sites.append(site)
+        self._open = i
+
+    def close(self, t_ns: int) -> None:
+        """Close the innermost open span at ``t_ns``."""
+        i = self._open
+        if i < 0:
+            return
+        self.end_ns[i] = t_ns
+        self._open = p = self.parents[i]
+        self._step = self.steps[p] if p >= 0 else -1
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counts[name] = self.counts.get(name, 0) + n
+
+    def total(self, prefix: str) -> int:
+        """The sum of the counters ``prefix`` and ``prefix.<anything>``
+        (``total("host_reads")``: every site's reads)."""
+        return sum(v for k, v in self.counts.items()
+                   if k == prefix or k.startswith(prefix + "."))
+
+    def wall_ns(self, t_ns: int) -> int:
+        """``t_ns`` of ``perf_counter_ns`` on ``time_ns``'s clock."""
+        return t_ns - self.anchor[0] + self.anchor[1]
+
+    def self_ns(self) -> list[int]:
+        """Each closed span's own time: its length less its closed
+        children's (-1 for a span still open)."""
+        length = [e - s if e >= 0 else -1
+                  for s, e in zip(self.start_ns, self.end_ns)]
+        own = list(length)
+        for i, p in enumerate(self.parents):
+            if p >= 0 and length[i] >= 0 and length[p] >= 0:
+                own[p] -= length[i]
+        return own
+
+    def summary(self, steps: "Optional[Iterable[int]]" = None) -> dict:
+        """Per span name, over the closed spans (of the steps ``steps``,
+        default every span): ``count``, ``host_s`` (their summed length)
+        and ``self_s`` (their own time, ``self_ns``), in the order the
+        names first appear."""
+        keep = None if steps is None else set(steps)
+        own = self.self_ns()
+        out: dict[str, dict] = {}
+        for i, name in enumerate(self.names):
+            if own[i] < 0 or (keep is not None and self.steps[i] not in keep):
+                continue
+            row = out.setdefault(name, {"count": 0, "host_s": 0.0,
+                                        "self_s": 0.0})
+            row["count"] += 1
+            row["host_s"] += (self.end_ns[i] - self.start_ns[i]) * 1e-9
+            row["self_s"] += own[i] * 1e-9
+        return out
+
+
+class _Closer:
+    """The context ``span`` returns while a log is on: the span opened in
+    ``span``; leaving the block closes it."""
+
+    def __init__(self, log: SpanLog):
+        self.log = log
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> None:
+        self.log.close(time.perf_counter_ns())
+
+
+def span(name: str, l: Optional[int] = None, site: Optional[str] = None):
+    """``with span(name):`` — the block is one span of the open log, with
+    the layer ``l`` and probe ``site`` as attributes.  Without a log, one
+    shared null context."""
+    log = SPANS
+    if log is None:
+        return _NULL
+    log.open(name, time.perf_counter_ns(), l, site)
+    return log.closer
+
+
+class spans:
+    """``with spans() as log:`` — the port's spans and counters inside land
+    in ``log`` (a ``SpanLog``; pass ``log`` to go on in an earlier one).
+    Not reentrant."""
+
+    def __init__(self, log: "Optional[SpanLog]" = None):
+        self._log = log
+
+    def __enter__(self) -> SpanLog:
+        global SPANS
+        if SPANS is not None:
+            raise RuntimeError("a span log is already open")
+        if self._log is None:
+            self._log = SpanLog()
+        SPANS = self._log
+        return self._log
+
+    def __exit__(self, *exc) -> None:
+        global SPANS
+        SPANS = None

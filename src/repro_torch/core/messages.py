@@ -793,14 +793,17 @@ class Loopback:
         return loopback_tables(plan, device)
 
     def exchange(self, plan, x, comm_bf16, tables):
-        return exchange_neighbors(plan, x, comm_bf16, tables=tables)
+        with trace.span("comm.exchange"):
+            return exchange_neighbors(plan, x, comm_bf16, tables=tables)
 
     def exchange_packed(self, plan, x_plane, comm_bf16, staged, tables):
-        return exchange_neighbors_packed(plan, x_plane, comm_bf16,
-                                         staged=staged, tables=tables)
+        with trace.span("comm.exchange"):
+            return exchange_neighbors_packed(plan, x_plane, comm_bf16,
+                                             staged=staged, tables=tables)
 
     def allgather(self, x, comm_bf16):
-        return allgather(x, comm_bf16)
+        with trace.span("comm.allgather"):
+            return allgather(x, comm_bf16)
 
     def flush(self) -> None:
         pass
@@ -864,8 +867,11 @@ def gather_parts(mesh, x: Tensor, root: "int | None" = None):
     stage = mesh.backend == "gloo" and x.device.type == "cuda"
     # a 0-dim value travels as one element
     send = x.detach().reshape(-1)
-    with trace.marked("transport-staging"):
-        send = send.cpu() if stage else send.contiguous()
+    if stage:
+        with trace.marked("transport-staging"):
+            send = send.cpu()
+    else:
+        send = send.contiguous()
     parts = [torch.empty_like(send) for _ in range(mesh.world_size)] \
         if root is None or mesh.rank == root else None
     if root is None:
@@ -947,6 +953,23 @@ class ProcessTransport:
     def tables(self, plan: NeighborExchange, device: torch.device) -> dict:
         return process_tables(plan, self.rank, device)
 
+    # -- the transport's clock -----------------------------------------------
+
+    @staticmethod
+    def _start(name: str) -> int:
+        """The clock at the start of a region ``time_s`` counts (ns); in a
+        span log the region is the span ``name``, on the same readings."""
+        t0 = time.perf_counter_ns()
+        if trace.SPANS is not None:
+            trace.SPANS.open(name, t0)
+        return t0
+
+    def _stop(self, t0: int) -> None:
+        t1 = time.perf_counter_ns()
+        self.time_s += (t1 - t0) * 1e-9
+        if trace.SPANS is not None:
+            trace.SPANS.close(t1)
+
     # -- the rounds ----------------------------------------------------------
 
     def _to_host(self, x: Tensor) -> Tensor:
@@ -990,7 +1013,7 @@ class ProcessTransport:
     def _land(self, buf: Tensor, posted, in_place: bool) -> Tensor:
         """Wait on one round and scatter what it delivered into ``buf``
         (in place, or into a copy for a staged exchange)."""
-        t0 = time.perf_counter()
+        t0 = self._start("comm.exchange")
         reqs, rbuf, recv, dtype = posted
         for q in reqs:
             q.wait()
@@ -1004,7 +1027,7 @@ class ProcessTransport:
                 buf[recv] = rbuf
             else:
                 buf = buf.index_put((recv,), rbuf)
-        self.time_s += time.perf_counter() - t0
+        self._stop(t0)
         return buf
 
     def _record(self, kind, rounds, x, out, feat, comm_bf16) -> None:
@@ -1021,14 +1044,14 @@ class ProcessTransport:
         """This shard's local payload (k, n_pad, C) -> its receive buffer
         (r_pad, n_pad, C): own lanes at ``own_slots[rank]``, neighbour rows
         from the rounds; own rows stay f32 under ``comm_bf16``."""
-        t0 = time.perf_counter()
+        t0 = self._start("comm.exchange")
         n, feat = plan.n_pad, tuple(x.shape[2:])
         x_flat = x.reshape((-1,) + feat)
         limit = tables["limit"]
         buf = x.new_zeros((limit + 1,) + feat)
         buf[tables["own_dst"]] = x_flat
         posted = self._post(tables["rounds"], x_flat, comm_bf16)
-        self.time_s += time.perf_counter() - t0
+        self._stop(t0)
         for p in posted:
             buf = self._land(buf, p, in_place=True)
         out = buf[:limit].reshape((plan.r_pad, n) + feat)
@@ -1041,12 +1064,12 @@ class ProcessTransport:
                         comm_bf16: bool, staged: bool, tables: dict):
         """This shard's state plane (plane_rows, C) -> its receive plane
         (recv_plane_rows, C), or with ``staged`` its stages (``_Stages``)."""
-        t0 = time.perf_counter()
+        t0 = self._start("comm.exchange")
         rows, feat = plan.recv_plane_rows, tuple(x_plane.shape[1:])
         buf = x_plane.new_zeros((rows + 1,) + feat)
         buf[tables["own_plane_dst"]] = x_plane[tables["own_plane_src"]]
         posted = self._post(tables["plane_rounds"], x_plane, comm_bf16)
-        self.time_s += time.perf_counter() - t0
+        self._stop(t0)
         if staged:
             out = _Stages(self, buf, posted, rows)
             self._open.append(out)
@@ -1064,14 +1087,14 @@ class ProcessTransport:
         ``dist.all_gather`` of this shard's (k, n_pad, C); with
         ``comm_bf16`` every row travels bf16, this shard's own too, as in
         the reference."""
-        t0 = time.perf_counter()
+        t0 = self._start("comm.allgather")
         wire = x.to(torch.bfloat16) if comm_bf16 and \
             x.dtype == torch.float32 else x
         out = torch.cat(gather_parts(self.mesh, wire)).to(x.dtype)
         # this rank's lanes reach every rank (its own copy counted, as the
         # reference's full_bytes counts every agent's copy)
         self.sent_bytes += self.n_shards * wire.numel() * wire.element_size()
-        self.time_s += time.perf_counter() - t0
+        self._stop(t0)
         if trace.RECORDER is not None:
             item = wire.element_size()
             trace.RECORDER.transport("allgather", x, out,
@@ -1082,9 +1105,9 @@ class ProcessTransport:
     def psum(self, part: Tensor) -> Tensor:
         """Σ over the ranks of ``part``: all-gathered, summed in rank
         order, the same bits on every rank."""
-        t0 = time.perf_counter()
+        t0 = self._start("comm.sum")
         out = fold(gather_parts(self.mesh, part))
-        self.time_s += time.perf_counter() - t0
+        self._stop(t0)
         if trace.RECORDER is not None:
             trace.RECORDER.shard_sum([part], out)
         return out

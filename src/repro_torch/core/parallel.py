@@ -386,14 +386,20 @@ def gathered_widths(cfg: gcn.GCNConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 def _lane_search(accepted, step0: Tensor, admm: ADMMConfig) -> Tensor:
-    """Per-lane doubling until every lane accepts (frozen lanes stop)."""
-    step = step0
-    done = accepted(step)
-    for _ in range(admm.max_backtracks):
-        if trace.decide(done.all(), "lane-search"):
-            break
-        step = torch.where(done, step, step * admm.backtrack_growth)
-        done = done | accepted(step)
+    """Per-lane doubling until every lane accepts (frozen lanes stop): at
+    most ``max_backtracks`` doublings, each probe one candidate's
+    objective and the read that decides whether to go on."""
+    step, done = step0, None
+    for i in range(admm.max_backtracks + 1):
+        with trace.span("admm.probe", site="lane-search"):
+            if done is None:
+                done = accepted(step)
+            else:
+                step = torch.where(done, step, step * admm.backtrack_growth)
+                done = done | accepted(step)
+            if i == admm.max_backtracks or trace.decide(done.all(),
+                                                        "lane-search"):
+                break
     return step
 
 
@@ -794,8 +800,9 @@ class _Body:
                  batch: _Batch, sdr: "Tensor | None" = None
                  ) -> ParallelState:
         admm, n_l = self.admm, self.cfg.num_layers
-        zs, u, zh_in, zh, aggs = self.inputs(state.zs, state.u, batch,
-                                             use_kernel)
+        with trace.span("admm.inputs"):
+            zs, u, zh_in, zh, aggs = self.inputs(state.zs, state.u, batch,
+                                                 use_kernel)
         keep = None if batch.smask is None else batch.smask > 0
 
         def sampled(new, old):
@@ -808,38 +815,42 @@ class _Body:
         # ---- Line 3: W update (layer-parallel, Jacobi over Z^k) ----
         new_ws, new_taus = [], []
         for l, obj in enumerate(self.w_objectives(aggs, zs, u, batch)):
-            w_new, tau = backtracking_step(obj, state.weights[l],
-                                           state.taus[l], admm,
-                                           psum=self.psum)
+            with trace.span("admm.w_update", l=l):
+                w_new, tau = backtracking_step(obj, state.weights[l],
+                                               state.taus[l], admm,
+                                               psum=self.psum)
             new_ws.append(w_new)
             new_taus.append(tau)
 
         # ---- Line 4: Z update (community-parallel, reads W^{k+1}, Z^k) ----
         new_zs, new_thetas = [], []
         for l in range(1, n_l):
-            obj_lanes = self.z_objective(l, aggs, zh_in, zh, zs, u,
-                                         new_ws[l - 1], new_ws[l], batch,
-                                         sdr, use_kernel)
-            z_new, theta = backtracking_step_lanes(
-                obj_lanes, zs[l - 1], state.thetas[l - 1], admm)
+            with trace.span("admm.z_update", l=l):
+                obj_lanes = self.z_objective(l, aggs, zh_in, zh, zs, u,
+                                             new_ws[l - 1], new_ws[l], batch,
+                                             sdr, use_kernel)
+                z_new, theta = backtracking_step_lanes(
+                    obj_lanes, zs[l - 1], state.thetas[l - 1], admm)
             new_zs.append(sampled(z_new, zs[l - 1]))
             new_thetas.append(sampled(theta, state.thetas[l - 1]))
 
         # ---- Z_L: per-community FISTA prox (eq. 7) ----
-        b = self.agg_mm(zh_in[n_l - 1], aggs[n_l - 1], new_ws[-1], batch,
-                        use_kernel)
-        z_last = fista_lanes(admm, b, u, self.labels, self.mask, zs[-1],
-                             self.denom)
+        with trace.span("admm.z_last"):
+            b = self.agg_mm(zh_in[n_l - 1], aggs[n_l - 1], new_ws[-1], batch,
+                            use_kernel)
+            z_last = fista_lanes(admm, b, u, self.labels, self.mask, zs[-1],
+                                 self.denom)
         new_zs.append(sampled(z_last, zs[-1]))
         new_thetas.append(state.thetas[-1])
 
         # ---- Line 5: dual ascent (eq. 3) with updated iterates ----
-        if n_l >= 2:
-            pen, agg_pen = self.gather(new_zs[n_l - 2], batch), None
-        else:
-            pen, agg_pen = zh_in[0], aggs[0]
-        b_new = self.agg_mm(pen, agg_pen, new_ws[-1], batch, use_kernel)
-        new_u = sampled(u + admm.rho * (new_zs[-1] - b_new), u)
+        with trace.span("admm.u_update"):
+            if n_l >= 2:
+                pen, agg_pen = self.gather(new_zs[n_l - 2], batch), None
+            else:
+                pen, agg_pen = zh_in[0], aggs[0]
+            b_new = self.agg_mm(pen, agg_pen, new_ws[-1], batch, use_kernel)
+            new_u = sampled(u + admm.rho * (new_zs[-1] - b_new), u)
 
         return ParallelState(tuple(new_ws),
                              tuple(self.to_plane(z) for z in new_zs),
@@ -895,6 +906,16 @@ class ParallelADMMTrainer:
             config = TrainerConfig(**legacy_flags)
         elif config is None:
             config = TrainerConfig()
+        with trace.span("layout"):
+            self._build(cfg, admm, g, num_parts, seed, config, part, device,
+                        n_shards, mesh)
+
+    def _build(self, cfg: gcn.GCNConfig, admm: ADMMConfig, g: graph.Graph,
+               num_parts: int, seed: int, config: TrainerConfig,
+               part: "np.ndarray | None", device, n_shards: int,
+               mesh) -> None:
+        """The constructor's work, in the spans of its parts: the
+        community layout, the device data, the first iterates, the plan."""
         self.mesh = mesh
         if mesh is not None:
             if n_shards not in (1, mesh.world_size):
@@ -918,11 +939,13 @@ class ParallelADMMTrainer:
         else:
             partitioner = partitioner or "precomputed"
         self.partitioner = partitioner
-        self.partition_stats = graph.partition_quality(
-            g.num_nodes, g.edges, part, num_parts)
-        self.layout = lay = graph.build_community_layout(
-            g.num_nodes, g.edges, part, compressed=compressed,
-            pad_mode=pad_mode)
+        with trace.span("layout.partition_quality"):
+            self.partition_stats = graph.partition_quality(
+                g.num_nodes, g.edges, part, num_parts)
+        with trace.span("layout.community"):
+            self.layout = lay = graph.build_community_layout(
+                g.num_nodes, g.edges, part, compressed=compressed,
+                pad_mode=pad_mode)
         m = int(np.asarray(lay.neighbor_mask).shape[0])
         if n_shards < 1 or m % n_shards:
             raise ValueError(f"n_shards={n_shards} must divide the {m} "
@@ -937,23 +960,35 @@ class ParallelADMMTrainer:
             self.rank, lanes = mesh.rank, slice(mesh.rank * k,
                                                 (mesh.rank + 1) * k)
         self._lanes = lanes
-        hosted = self.comm.shards
 
-        self.packed_layout = lay.device_layout(n_shards) if packed else None
+        with trace.span("layout.device_layout"):
+            self.packed_layout = lay.device_layout(n_shards) if packed \
+                else None
         # the full data serves the step on the loopback and the metrics on
         # rank 0; any other rank holds its lanes' only
         data_kw = dict(compressed=compressed,
                        adjacency_bf16=config.adjacency_bf16,
                        device_layout=self.packed_layout, device=device)
-        if self.rank == 0:
-            self._full_data = community_data(g, lay, **data_kw)
-            self.data = self._full_data if mesh is None \
-                else lane_data(self._full_data, lanes)
-        else:
-            self._full_data = None
-            self.data = community_data(g, lay, lanes=lanes, **data_kw)
+        with trace.span("layout.community_data"):
+            if self.rank == 0:
+                self._full_data = community_data(g, lay, **data_kw)
+                self.data = self._full_data if mesh is None \
+                    else lane_data(self._full_data, lanes)
+            else:
+                self._full_data = None
+                self.data = community_data(g, lay, lanes=lanes, **data_kw)
 
-        # init from the same forward pass as the serial trainer
+        with trace.span("layout.first_iterates"):
+            self.state = self._first_state(cfg, admm, g, seed, m)
+
+        with trace.span("layout.plan"):
+            self._plan_and_tables(lay, m, k, lanes)
+
+    def _first_state(self, cfg: gcn.GCNConfig, admm: ADMMConfig,
+                     g: graph.Graph, seed: int, m: int) -> ParallelState:
+        """The first iterates, from the same forward pass as the serial
+        trainer (dense Ã on the device), in this process's layout."""
+        device = self.device
         gen = torch.Generator().manual_seed(seed)
         ws = gcn.init_weights(cfg, gen, device)
         a_full = torch.as_tensor(
@@ -968,8 +1003,18 @@ class ParallelADMMTrainer:
                                   device=device) for _ in ws)
         thetas = tuple(torch.full((m,), admm.tau_init, dtype=torch.float32,
                                   device=device) for _ in zs)
-        self.state = self.shard_state(ParallelState(tuple(ws), zs, u, taus,
-                                                    thetas))
+        return self.shard_state(ParallelState(tuple(ws), zs, u, taus,
+                                              thetas))
+
+    def _plan_and_tables(self, lay: graph.CommunityLayout, m: int, k: int,
+                         lanes: slice) -> None:
+        """The exchange plan, the step program's index tables, the
+        minibatch sampler, ``comm_stats`` and the metrics' views."""
+        cfg, admm, config, mesh = self.cfg, self.admm, self.config, self.mesh
+        device, packed, compressed = self.device, self.packed, \
+            self.compressed
+        n_shards, pad_mode, hosted = self.n_shards, self.pad_mode, \
+            self.comm.shards
 
         # the exchange plan: the p2p transport's accounting at any shard
         # count; the step runs it only across shards (with one shard the
@@ -1299,17 +1344,21 @@ class ParallelADMMTrainer:
         ``rank_sent_bytes`` (by rank), and this rank's ``transport_s`` and
         ``staging_s`` (host seconds in the transport, and of them in its
         host staging copies)."""
-        if self.mesh is None:
-            self._advance()
-            return
+        with trace.span(trace.STEP):
+            if self.mesh is None:
+                self._advance()
+            else:
+                self._advance_measured()
+
+    def _advance_measured(self) -> None:
         t = self.comm
         sent, secs, staged = t.sent_bytes, t.time_s, t.staging_s
         self._advance()
         mine = torch.tensor([t.sent_bytes - sent], dtype=torch.int64,
                             device=self.device)
-        with trace.marked("wire-accounting"):
-            per_rank = [int(x) for x in messages.gather_parts(self.mesh,
-                                                              mine)]
+        parts = messages.gather_parts(self.mesh, mine)
+        with trace.marked("wire-accounting", reads=len(parts)):
+            per_rank = [int(x) for x in parts]
         self.comm_stats.update(sent_bytes=sum(per_rank),
                                rank_sent_bytes=per_rank,
                                transport_s=t.time_s - secs,

@@ -132,11 +132,12 @@ def backtracking_step(obj: Callable[[Tensor], Tensor], x: Tensor,
     tau = torch.clamp(tau0 / admm.backtrack_growth, min=1e-8)
     with torch.no_grad():
         for _ in range(admm.max_backtracks):
-            bound = val - 0.5 * g_sq / tau
-            tol = admm.backtrack_rtol * (torch.abs(bound) + 1e-12)
-            if not trace.decide(bound + tol < psum(obj(x - grad / tau)),
-                                "backtracking"):
-                break
+            with trace.span("admm.probe", site="backtracking"):
+                bound = val - 0.5 * g_sq / tau
+                tol = admm.backtrack_rtol * (torch.abs(bound) + 1e-12)
+                if not trace.decide(bound + tol < psum(obj(x - grad / tau)),
+                                    "backtracking"):
+                    break
             tau = tau * admm.backtrack_growth
     return x - grad / tau, tau
 

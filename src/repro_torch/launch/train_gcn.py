@@ -45,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace
 from repro_torch.core import gcn, graph
 from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
 from repro_torch.core.subproblems import ADMMConfig
@@ -113,24 +114,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "card per rank, gloo shares one or runs on the CPU")
     ap.add_argument("--profile", action="store_true",
                     help="on the card, one more step under torch.profiler "
-                         "(rank 0's under --processes): its wall ms, device "
-                         "busy ms and idle share")
+                         "and the span log (rank 0's under --processes): "
+                         "its wall ms, device busy ms and idle share, its "
+                         "host ms by phase and its host reads")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the "
                          "CPU)")
     return ap.parse_args(argv)
 
 
-def profiled_step(trainer) -> tuple[float, float, float, int]:
+def profiled_step(trainer) -> tuple[float, float, float, int,
+                                    trace.SpanLog]:
     """(wall ms, device-busy ms, device ms of the NCCL kernels, their
-    count) of one ``trainer.step()`` on the card: busy is the union of the
-    device intervals the profiler traced."""
+    count, the span log) of one ``trainer.step()`` on the card: busy is
+    the union of the device intervals the profiler traced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = trainer.device
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            trace.spans() as log:
         t0 = time.perf_counter()
         trainer.step()
         torch.cuda.synchronize(dev)
@@ -147,7 +151,19 @@ def profiled_step(trainer) -> tuple[float, float, float, int]:
             end = hi
     nccl = [e.time_range.end - e.time_range.start for e in events
             if "nccl" in e.name.lower()]
-    return 1e3 * wall, busy / 1e3, sum(nccl) / 1e3, len(nccl)
+    return 1e3 * wall, busy / 1e3, sum(nccl) / 1e3, len(nccl), log
+
+
+def phase_line(log: trace.SpanLog) -> str:
+    """A step's host ms by phase span (``admm.*``, ``comm.*``; a span
+    that repeats with its count) and its host reads, from its span log."""
+    parts = []
+    for name, row in log.summary().items():
+        if name.startswith(("admm.", "comm.")):
+            n = f" x{row['count']}" if row["count"] > 1 else ""
+            parts.append(f"{name} {1e3 * row['host_s']:.2f}{n}")
+    return (f"phases (host ms): {', '.join(parts)}; host reads "
+            f"{log.total('host_reads')}")
 
 
 def main(argv=None) -> dict:
@@ -266,10 +282,11 @@ def run(args, mesh=None) -> dict:
                 f"rank 0 transport {1e3 * cs['transport_s']:.1f} ms")
     if args.profile and trainer.device.type == "cuda":
         if mesh is None or mesh.rank == 0:
-            wall, busy, nccl_ms, nccl_n = profiled_step(trainer)
+            wall, busy, nccl_ms, nccl_n, spans = profiled_step(trainer)
             say(f"profiled step: wall {wall:.1f} ms, device busy "
                 f"{busy:.1f} ms, device idle share {1 - busy / wall:.4f}; "
                 f"NCCL kernels {nccl_ms:.3f} ms in {nccl_n} events")
+            say(phase_line(spans))
         else:
             trainer.step()
     say(f"final: train {log.train_acc[-1]:.3f} test {log.test_acc[-1]:.3f}")
