@@ -362,6 +362,14 @@ ELL_DESIGN = ("FFMA from a cp.async ring of 32-row stages, one FFMA chain "
               "or 64x32 (4x4), whichever loads the busiest SM less; 64x16 "
               "(4x1) where C <= 32")
 FUSED_REPLACES = "src/repro/kernels/community_spmm.py:531"
+FISTA_SRC = "src/repro_torch/kernels/csrc/fista_lanes.cu"
+FISTA_REPLACES = ("no Pallas kernel: the reference's fista_lanes, an XLA "
+                  "loop (src/repro/core/parallel.py:472)")
+FISTA_DESIGN = ("one thread-block cluster a lane (ceil(n / 512) <= 8 "
+                "blocks), the lane's rows resident in shared memory (in a "
+                "global workspace past 8,896 rows at C = 10), one row a "
+                "thread, f64 lane sums through distributed shared memory, "
+                "every FISTA step and backtrack decided on the card")
 DENSE_DESIGN = ("the ELL kernel's dense addressing (a compile-time flag): "
                 "D = M slots, slot r live where mask[m, r] != 0, its Z rows "
                 "at r * n_pad, no slot or count table read; the ELL "
@@ -1720,6 +1728,96 @@ def time_packed(blocks, off, mask, rows, nbrs, z, peak_flops, peak_bw,
     if w is None:
         out["layout"] = community_spmm.operand_layout(blocks, z)
     return out
+
+
+def fista_phase(trainer, state, admm, peak_flops: float, peak_bw: float,
+                card: str) -> dict:
+    """Phase 3's Z_L prox check on the card, on the (b, u, labels, mask, Z,
+    denom) the trainer hands ``ops.fista_lanes`` in one step from
+    ``state``: the kernel against the plain host loop
+    (``parallel.fista_lanes``) on the same tensors, Z within TOL · max |Z|
+    of each lane and each lane's final Lipschitz constant bitwise; then
+    both timed, and the kernel's bound from its least bytes and FLOPs
+    (``fista.work``, an exp or a log counted as one)."""
+    import torch
+
+    from repro_torch.core import parallel
+    from repro_torch.kernels import fista, ops
+
+    seen = []
+    real = ops.fista_lanes
+
+    def spy(admm_, *args):
+        seen.append(args)
+        return real(admm_, *args)
+
+    ops.fista_lanes = spy
+    try:
+        trainer.next_state(state, use_kernel=True)
+    finally:
+        ops.fista_lanes = real
+    if len(seen) != 1:
+        fail(f"one step called the Z_L prox {len(seen)} times, not once")
+    args = seen[0]
+    b, u, labels, mask, z0, denom = args
+    k, n, c = z0.shape
+    got, lip, probes = fista.fista_lanes(
+        b.detach().contiguous(), u.detach().contiguous(),
+        labels.to(torch.int32).contiguous(),
+        mask.detach().float().contiguous(), z0.detach().contiguous(),
+        denom.detach(), rho=admm.rho, growth=admm.backtrack_growth,
+        rtol=admm.backtrack_rtol, max_backtracks=admm.max_backtracks,
+        iters=admm.fista_iters, stats=True)
+    found = []
+    search = parallel._lane_search
+
+    def spy_search(accepted, step0, admm_):
+        found.append(search(accepted, step0, admm_))
+        return found[-1]
+
+    parallel._lane_search = spy_search
+    try:
+        want = parallel.fista_lanes(admm, *args)
+    finally:
+        parallel._lane_search = search
+    want_lip = found[-1] * 0.9
+    rel = [((got[m] - want[m]).abs().max()
+            / want[m].abs().max().clamp_min(1e-30)).item() for m in range(k)]
+    bitwise = sum(bool(torch.equal(got[m], want[m])) for m in range(k))
+    lip_equal = bool(torch.equal(lip, want_lip))
+    print(f"[3] Z_L prox on the trainer's inputs ({k} x {n} x {c}): kernel "
+          f"vs plain loop max rel err by lane {[f'{r:.3e}' for r in rel]} "
+          f"(limit {TOL:g}), bitwise lanes {bitwise}/{k}, final L bitwise "
+          f"{lip_equal} ({lip.tolist()}), probes {probes.tolist()}",
+          flush=True)
+    if not max(rel) <= TOL:
+        fail(f"the FISTA kernel's Z_L differs from the plain loop's by "
+             f"{max(rel):.3e} of max |Z|")
+    if not lip_equal:
+        fail(f"the FISTA kernel's final L {lip.tolist()} differ from the "
+             f"plain loop's {want_lip.tolist()}")
+    before = fista.launches
+    ms = median_ms(lambda: real(admm, *args), 20, inner=10)
+    fista.launches = before               # timing launches do not count
+    plain_ms = median_ms(lambda: parallel.fista_lanes(admm, *args), 5)
+    flops, nbytes = fista.work(k, n, c, admm.fista_iters)
+    t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bw
+    lay = fista.layout(n, c)
+    print(f"[3] Z_L prox times: kernel {ms:.4f} ms, plain loop "
+          f"{plain_ms:.3f} ms, bound {max(t_ops, t_bytes):.5f} ms ("
+          f"{'operations' if t_ops >= t_bytes else 'bytes'}; "
+          f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB); cluster "
+          f"{lay['cluster']} x {lay['threads']} threads, {lay['rows']} rows "
+          f"a block, {lay['smem_bytes']} B shared [{card}]", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "mflop": flops / 1e6, "mbytes": nbytes / 1e6,
+            "max_rel_err": max(rel),
+            "max_abs_err": (got - want).abs().max().item(),
+            "bitwise_lanes": bitwise, "lip_bitwise": lip_equal,
+            "timed_at": {"k": k, "n_pad": n, "C": c,
+                         "iters": admm.fista_iters},
+            "layout": lay}
 
 
 def objective_gap(trainer) -> float:
@@ -4966,7 +5064,7 @@ def main() -> int:
     from repro_torch.configs import gcn_paper
     from repro_torch.core import graph, messages
     from repro_torch.core.parallel import ParallelADMMTrainer, TrainerConfig
-    from repro_torch.kernels import build, community_spmm, ref
+    from repro_torch.kernels import build, community_spmm, fista, ref
     from repro_torch.launch import roofline
     from repro_torch.util.device import strict_f32
 
@@ -4981,8 +5079,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load_all(build.LIBRARIES)
     print(f"[1] built {KERNEL_SRC}, {FUSED_SRC}, {SSD_SRC}, {SSD_TC_SRC}, "
-          f"{FLASH_SRC} and {FLASH_TC_SRC} in {time.perf_counter() - t0:.2f} "
-          f"s", flush=True)
+          f"{FLASH_SRC}, {FLASH_TC_SRC} and {FISTA_SRC} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     if sys.argv[1:] == ["--four-cards"]:
         four_card_mesh_phase(card)
         print(card)
@@ -5164,10 +5262,15 @@ def main() -> int:
           f"reassociation may flip a line search)", flush=True)
     trainer.state = s0
     del s_k, s_p
+    peak_flops, peak_bf16, peak_bw = roofline.peaks(name)
+    fista_t = fista_phase(trainer, s0, admm, peak_flops, peak_bw, card)
+    trainer.state = s0
 
     reset_counts()
+    fista.launches = 0
     log = trainer.train(EPOCHS)
     launches = community_spmm.launches
+    fista_launches = fista.launches
     print_log("3", log)
     check_finite_log(log, "packed ELL")
     st = trainer.state
@@ -5182,11 +5285,17 @@ def main() -> int:
     if not worst <= TOL:
         fail(f"objectives differ between paths by {worst:.3e}")
     community_spmm.launches = 0
+    fista.launches = 0
     trainer.step()
     per_step = community_spmm.launches
+    fista_per_step = fista.launches
     print(f"[3] kernel launches: {launches} in {EPOCHS} epochs "
-          f"({launches / EPOCHS:g} per epoch), {per_step} per step",
-          flush=True)
+          f"({launches / EPOCHS:g} per epoch), {per_step} per step; Z_L "
+          f"prox {fista_launches} in {EPOCHS} epochs, {fista_per_step} per "
+          f"step", flush=True)
+    if fista_launches != EPOCHS or fista_per_step != 1:
+        fail(f"the Z_L prox kernel ran {fista_launches} times in {EPOCHS} "
+             f"epochs and {fista_per_step} in a step, not once a step")
 
     wall_us, busy_us, idle = profiled_idle(trainer.step)
     print(f"[3] profiled step: wall {wall_us / 1e3:.1f} ms, device busy "
@@ -5203,7 +5312,6 @@ def main() -> int:
     bf16 = bf16_phase(cfg, admm, g, card, dev, f32_blocks, f32_resident)
 
     # ---- 3m. M = 3 over 3 loopback shards: the packed and fused kernels ---
-    peak_flops, peak_bf16, peak_bw = roofline.peaks(name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_3p_") as tmp:
         saved = {"dir": tmp}
         multi = multishard_phase(cfg, admm, g, card, dev, peak_flops,
@@ -5503,6 +5611,21 @@ def main() -> int:
                 split18[setup["tag"]]["heads"] for setup in SPLIT18_FULL},
         "offset_checks": [ch for ch in flash_checks if "q_offset" in ch],
         "checks": flash_checks})
+    # the FISTA row: launches of phase 3's training run (the main path),
+    # checked and timed on that trainer's own Z_L inputs
+    rows_out.append({
+        "name": "fista_lanes", "route": "cuda", "source": FISTA_SRC,
+        "replaces": FISTA_REPLACES, "design": FISTA_DESIGN,
+        "layout": fista_t["layout"], "launches": fista_launches,
+        "launches_per_step": fista_per_step,
+        "max_abs_err": fista_t["max_abs_err"],
+        "max_rel_err": fista_t["max_rel_err"],
+        "ms": fista_t["ms"], "plain_ms": fista_t["plain_ms"],
+        "bound_ms": fista_t["bound_ms"], "bound_by": fista_t["bound_by"],
+        "library_ms": None, "timed_at": fista_t["timed_at"],
+        "checked": True, "lip_bitwise": fista_t["lip_bitwise"],
+        "bitwise_lanes": fista_t["bitwise_lanes"],
+        "mflop": fista_t["mflop"], "mbytes": fista_t["mbytes"]})
     print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,15 +32,18 @@ spans() as log: tr.step()``.  Each span is a named interval on
 the ``admm.step`` it lies in and small attributes (the layer ``l``, the
 probe ``site``), kept in columns of Python lists; counters count by name
 (``host_reads.<site>``: one a device → host read, made in ``decide`` and
-under ``marked``).  No ``record_function``, CUDA event or device read is
-made, and no tensor is kept.  ``log.anchor`` pairs the clock with
-``time.time_ns``, the wall clock torch.profiler measures its events from,
-so that a profiled window's device timeline can be laid under the spans.
+under ``marked``; ``fista.kernel`` / ``fista.plain``: the route a step's
+Z_L prox took, through ``count``).  No ``record_function``, CUDA event or
+device read is made, and no tensor is kept.  ``log.anchor`` pairs the clock
+with ``time.time_ns``, the wall clock torch.profiler measures its events
+from, so that a profiled window's device timeline can be laid under the
+spans.
 ``SpanLog.summary`` reduces a log by span name.
 
 Both are off by default.  The hooks in the port (``RECORDER is not
-None``, ``span``, ``decide``, ``marked``) cost a module-attribute check
-when they are off; ``span`` then returns one shared null context.
+None``, ``span``, ``decide``, ``marked``, ``count``) cost a
+module-attribute check when they are off; ``span`` then returns one shared
+null context.
 """
 from __future__ import annotations
 
@@ -451,6 +454,13 @@ class SpanLog:
             row["host_s"] += (self.end_ns[i] - self.start_ns[i]) * 1e-9
             row["self_s"] += own[i] * 1e-9
         return out
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the open span log's counter ``name``; nothing without
+    a log."""
+    if SPANS is not None:
+        SPANS.count(name, n)
 
 
 class _Closer:

@@ -17,7 +17,11 @@ with the others.  One body (``_Body``) runs both.  One ADMM iteration:
   * Z update — community-parallel: each lane solves its ψ_{l,m} (eq. 5/6)
     from its neighbours' relayed aggregates with its own backtracking
     θ_{l,m} (``backtracking_step_lanes``); Z_L by per-lane FISTA (eq. 7,
-    ``fista_lanes``).  Neither runs a collective.
+    ``fista_lanes``).  Neither runs a collective.  Under ``use_kernel``
+    on a CUDA device the Z_L prox is one launch of
+    ``csrc/fista_lanes.cu`` (``kernels.ops.fista_lanes``), every FISTA
+    step and backtrack on the card with no host read, at every lane size;
+    on the CPU and with ``use_kernel=False`` the plain host loop runs.
   * U update — local dual ascent (eq. 3).
 
 Transports (``messages``; each round of the reference's ``ppermute``
@@ -53,9 +57,10 @@ restricted to the sampled shards, unsampled lanes keep their iterates, and
 stale neighbours' coupling terms are damped by ``stale_decay``.
 
 Each ``lax.while_loop`` of the reference is a host loop with the same
-acceptance test; each ``lax.scan`` a Python loop.  Gradients come from
-autograd; the aggregates reach every objective as constants, so no
-gradient flows through the kernel.
+acceptance test; each ``lax.scan`` a Python loop (the Z_L prox's, on the
+kernel route, a loop inside the kernel).  Gradients come from autograd
+(the FISTA kernel's in closed form); the aggregates reach every objective
+as constants, so no gradient flows through the kernel.
 """
 from __future__ import annotations
 
@@ -427,7 +432,13 @@ def backtracking_step_lanes(obj_lanes, x: Tensor, theta0: Tensor,
 def fista_lanes(admm: ADMMConfig, b: Tensor, u: Tensor, labels: Tensor,
                 mask: Tensor, z_init: Tensor, denom: Tensor) -> Tensor:
     """Eq. (7) per community lane: R(Z,Y_m) + ⟨U_m, Z−B_m⟩ + ρ/2‖Z−B_m‖²,
-    each lane with its own Lipschitz backtracking."""
+    each lane with its own Lipschitz backtracking.
+
+    The plain path: a host loop of autograd gradients and lane searches,
+    one host read a probe.  The trainer runs it on the CPU and without
+    ``use_kernel``; under ``use_kernel`` on a CUDA device the step runs
+    the same algorithm as one launch of ``kernels.ops.fista_lanes``
+    instead."""
     lab = labels.long()[..., None]
 
     def obj_lanes(z):
@@ -838,8 +849,13 @@ class _Body:
         with trace.span("admm.z_last"):
             b = self.agg_mm(zh_in[n_l - 1], aggs[n_l - 1], new_ws[-1], batch,
                             use_kernel)
-            z_last = fista_lanes(admm, b, u, self.labels, self.mask, zs[-1],
-                                 self.denom)
+            if use_kernel:
+                z_last = kops.fista_lanes(admm, b, u, self.labels, self.mask,
+                                          zs[-1], self.denom)
+            else:
+                trace.count("fista.plain")
+                z_last = fista_lanes(admm, b, u, self.labels, self.mask,
+                                     zs[-1], self.denom)
         new_zs.append(sampled(z_last, zs[-1]))
         new_thetas.append(state.thetas[-1])
 

@@ -36,9 +36,10 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 # every library, one per csrc/<name>.cu: the ELL kernel (strided, packed
 # and dense launches), the fused ELL→GEMM kernel, the Mamba-2 SSD scan in
 # f32 (FFMA) and in bf16 (tensor cores, three passes), flash attention in
-# f32 (FFMA) and in bf16 (tensor cores)
+# f32 (FFMA) and in bf16 (tensor cores), the trainer's per-lane FISTA prox
 LIBRARIES = ("community_spmm_ell", "community_spmm_ell_fused", "ssd_scan",
-             "ssd_scan_wgmma", "flash_attention", "flash_attention_wgmma")
+             "ssd_scan_wgmma", "flash_attention", "flash_attention_wgmma",
+             "fista_lanes")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _locks: dict[str, threading.Lock] = {}
@@ -104,10 +105,10 @@ def load_all(names) -> list[ctypes.CDLL]:
 def launch(kernel: str, lib_name: str, symbol: str, tensors: list,
            scalars: list, device: torch.device, error_symbol: str) -> None:
     """Call ``symbol(pointers..., scalars..., stream)`` of library
-    ``lib_name`` on ``device``'s current stream: a pointer per tensor, a C
-    ``int`` per Python int and a C ``float`` per Python float.  The C function
-    returns its launch's ``cudaError_t``; a non-zero one raises, with the
-    library's ``error_symbol(code)`` text."""
+    ``lib_name`` on ``device``'s current stream: a pointer per tensor (a
+    null one per None), a C ``int`` per Python int and a C ``float`` per
+    Python float.  The C function returns its launch's ``cudaError_t``; a
+    non-zero one raises, with the library's ``error_symbol(code)`` text."""
     lib = load(lib_name)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:     # first use: declare the C signature
@@ -121,7 +122,8 @@ def launch(kernel: str, lib_name: str, symbol: str, tensors: list,
         err.restype = ctypes.c_char_p
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*[t.data_ptr() for t in tensors], *scalars, stream)
+        code = fn(*[None if t is None else t.data_ptr() for t in tensors],
+                  *scalars, stream)
     if code != 0:
         msg = getattr(lib, error_symbol)(code).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} "

@@ -151,6 +151,9 @@ class LaunchSpec:
         """What the layout query answers for this launch."""
         if self.query_symbol == FUSED_QUERY:
             return (self.cluster, self.tile[0], self.smem_bytes)
+        if self.query_symbol == FISTA_QUERY:      # a cluster covers a lane
+            return (self.cluster, -(-self.tile[0] // self.cluster),
+                    self.threads, self.smem_bytes)
         blocks = self.args[0]
         z = next(a for a in self.args if a.role == "data" and a is not blocks)
         return (self.tile[0], self.tile[1], *self.thread_tile, self.stages,
@@ -159,6 +162,7 @@ class LaunchSpec:
 
 ELL_QUERY = "community_spmm_ell_layout"
 FUSED_QUERY = "community_spmm_ell_fused_layout"
+FISTA_QUERY = "fista_lanes_layout"     # kernels.fista's launches
 
 
 def _ell_launch(name: str, symbol: str, blocks: Operand, tables: tuple,

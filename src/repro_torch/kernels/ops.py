@@ -7,7 +7,8 @@ launch raises: nothing falls back to the plain version.  Under an op-trace
 recorder (``analysis.trace``) a plain aggregation is recorded as the
 kernel launch it stands in for, with the launch spec the kernel would take,
 so that a trace on the CPU carries the same kernel events as one on the
-card.
+card.  The FISTA prox's plain version (``fista_lanes``) is the trainer's
+own host loop, ``core.parallel.fista_lanes``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.analysis import trace
 from repro_torch.kernels import community_spmm as launchers
+from repro_torch.kernels import fista as fista_launcher
 from repro_torch.kernels import flash_attention as flash_launcher
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd_launcher
@@ -227,3 +229,37 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return ssd_launcher.ssd_scan(
         x.contiguous(), dt.to(f32).contiguous(), a.to(f32).contiguous(),
         b_mat.contiguous(), c_mat.contiguous(), chunk), None
+
+
+
+def fista_lanes(admm, b: torch.Tensor, u: torch.Tensor,
+                labels: torch.Tensor, mask: torch.Tensor,
+                z_init: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
+    """Eq. (7) per community lane: Z_L (k, n, C).
+
+    ``admm`` gives ρ, the backtracking growth, tolerance and cap, and the
+    FISTA iterations; b, u, z_init (k, n, C) f32, labels (k, n), mask (k, n),
+    denom a 0-dim f32.  On the card one kernel launch on the current stream
+    that reads nothing back (span-log counter ``fista.kernel``); on the CPU
+    the plain host loop (``fista.plain``)."""
+    if z_init.device.type == "cpu":
+        from repro_torch.core import parallel   # the plain version's home
+        trace.count("fista.plain")
+        k, n, c = z_init.shape
+        return _plain(
+            lambda: fista_launcher.spec(k, n, c, admm.fista_iters),
+            parallel.fista_lanes(admm, b, u, labels, mask, z_init, denom),
+            b=b, u=u, labels=labels, mask=mask, z_init=z_init, denom=denom)
+    return _fista_kernel(admm, b, u, labels, mask, z_init, denom)
+
+
+def _fista_kernel(admm, b, u, labels, mask, z_init, denom) -> torch.Tensor:
+    """``fista_lanes``' kernel route."""
+    trace.count("fista.kernel")
+    z, _, _ = fista_launcher.fista_lanes(
+        b.detach().contiguous(), u.detach().contiguous(), _i32(labels),
+        mask.detach().float().contiguous(), z_init.detach().contiguous(),
+        denom.detach(), rho=admm.rho, growth=admm.backtrack_growth,
+        rtol=admm.backtrack_rtol, max_backtracks=admm.max_backtracks,
+        iters=admm.fista_iters)
+    return z

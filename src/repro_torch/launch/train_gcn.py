@@ -156,13 +156,16 @@ def profiled_step(trainer) -> tuple[float, float, float, int,
 
 def phase_line(log: trace.SpanLog) -> str:
     """A step's host ms by phase span (``admm.*``, ``comm.*``; a span
-    that repeats with its count) and its host reads, from its span log."""
+    that repeats with its count), the Z_L prox's route (``fista.kernel``
+    / ``fista.plain`` steps) and its host reads, from its span log."""
     parts = []
     for name, row in log.summary().items():
         if name.startswith(("admm.", "comm.")):
             n = f" x{row['count']}" if row["count"] > 1 else ""
             parts.append(f"{name} {1e3 * row['host_s']:.2f}{n}")
-    return (f"phases (host ms): {', '.join(parts)}; host reads "
+    return (f"phases (host ms): {', '.join(parts)}; Z_L prox kernel / "
+            f"plain {log.total('fista.kernel')} / "
+            f"{log.total('fista.plain')}; host reads "
             f"{log.total('host_reads')}")
 
 

@@ -44,6 +44,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro_torch.core import messages
 from repro_torch.kernels import build, community_spmm, ops, ref
+from repro_torch.kernels import fista as fista_launcher
 from repro_torch.kernels import flash_attention as flash_launcher
 from repro_torch.kernels import ssd_scan as ssd_launcher
 
@@ -193,8 +194,8 @@ def test_every_source_is_a_registered_library():
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sorted(build.LIBRARIES) == sources
     assert {community_spmm.LIB, community_spmm.FUSED_LIB, ssd_launcher.LIB,
-            ssd_launcher.TC_LIB, flash_launcher.LIB,
-            flash_launcher.TC_LIB} == set(build.LIBRARIES)
+            ssd_launcher.TC_LIB, flash_launcher.LIB, flash_launcher.TC_LIB,
+            fista_launcher.LIB} == set(build.LIBRARIES)
     # the dense launch is an addressing of the ELL kernel, not a library
     assert "community_spmm_dense" not in sources
 
