@@ -87,8 +87,8 @@ def agg_err(p: ref.Problem, before: ref.State, after: ref.State,
         wants = [ref.aggregate(p, z) for z in inputs]
     worst = 0.0
     for nodes, rows in calls:
-        idx = torch.as_tensor(nodes, device=p.a.device)
-        rows = rows.to(p.a.device)
+        idx = torch.as_tensor(nodes, device=p.x.device)
+        rows = rows.to(p.x.device)
         best = math.inf
         for want in wants:
             if want.shape[1] != rows.shape[1]:
@@ -119,7 +119,7 @@ def judge(p: ref.Problem, seed: int, states: list, calls: list) -> dict:
     """All numbers of a run: ``states`` the program's iterates in node
     order before its first step and after each of the next, ``calls`` per
     step its aggregations [(node ids, rows)]."""
-    dev = p.a.device
+    dev = p.x.device
     out = {"init_err": init_err(p, states[0], seed), "agg_err": 0.0,
            "iter_err": 0.0, "loss_err": 0.0}
     for k in range(1, len(states)):

@@ -3,11 +3,11 @@ arXiv:2112.09335), written from the paper's equations in node order.
 
 It imports only numpy and torch.  From the shared inputs (the graph, the
 community assignment and the seed) it works out everything again itself:
-the normalised adjacency Ã = (D+I)^-1/2 (A+I) (D+I)^-1/2 as a dense
-matrix, each community's nodes and its neighbour communities, the Glorot
-weights and the first iterates (the GCN's forward pass).  Community m
-owns the nodes whose id is m; its neighbours N_m are the communities with
-an edge into m, m included.
+the normalised adjacency Ã = (D+I)^-1/2 (A+I) (D+I)^-1/2 as a sparse
+matrix of its nonzeros, each community's nodes and its neighbour
+communities, the Glorot weights and the first iterates (the GCN's forward
+pass).  Community m owns the nodes whose id is m; its neighbours N_m are
+the communities with an edge into m, m included.
 
 One iteration from (W, Z, U, τ, θ):
 
@@ -22,7 +22,9 @@ One iteration from (W, Z, U, τ, θ):
   cross-entropy + <U, Z - B> + ρ/2 ||Z - B||² (eq. 7).
 * U += ρ (Z_L - Ã Z_{L-1} W_L) (eq. 3).
 
-Each product with Ã keeps the association (Ã Z) W.  The acceptance tests
+Each product with Ã keeps the association (Ã Z) W and runs over Ã's
+nonzeros (CSR), so that no N x N matrix is formed: the reference judges a
+graph whose dense Ã would not fit on the card.  The acceptance tests
 carry the relative slack ``backtrack_rtol`` of the configuration.  With
 ``tf32=True`` every matrix product runs in TF32 instead: that is the
 control, the precision one step below the configuration's.
@@ -65,14 +67,14 @@ class State:
 class Problem:
     dims: tuple
     admm: Admm
-    a: Tensor                # (N, N) Ã
+    a: Tensor                # (N, N) Ã, sparse CSR
     x: Tensor                # (N, C0) features
     labels: Tensor           # (N,) int64
     train: Tensor            # (N,) f32 0/1
     denom: Tensor            # 0-dim: number of training nodes
     lanes: list              # per community: its node ids (ascending)
     rows: list               # per community: node ids of N_m's communities
-    coupling: list           # per community: Ã[rows_m][:, lanes_m]
+    coupling: list           # per community: Ã[rows_m][:, lanes_m], CSR
     tf32: bool = False
 
     @property
@@ -80,18 +82,52 @@ class Problem:
         return len(self.lanes)
 
 
+def adjacency_entries(num_nodes: int, edges: np.ndarray, device
+                      ) -> tuple[Tensor, Tensor, Tensor]:
+    """(rows, cols, values) of Ã's nonzeros from an edge list, on
+    ``device``, in row-major order: each edge once in each direction
+    however often the list repeats it, a self loop of the list dropped
+    before the degree is taken, d = (row sum + 1)^-1/2, and each value
+    a_ij · d_i · d_j with the unit diagonal."""
+    n = int(num_nodes)
+    e = torch.as_tensor(np.asarray(edges, dtype=np.int64),
+                        device=device).reshape(-1, 2)
+    u, v = e[:, 0], e[:, 1]
+    # each entry (i, j) by its row-major key i · N + j, each key once: a
+    # self loop of the list is the diagonal's own key
+    loops = torch.arange(n, device=device) * (n + 1)
+    key = torch.unique(torch.cat([u * n + v, v * n + u, loops]))
+    rows, cols = key // n, key % n
+    # a row's entries: its row sum in A plus the unit diagonal
+    d = torch.rsqrt(torch.bincount(rows, minlength=n).to(torch.float32))
+    # a_ij = 1: (a_ij · d_i) · d_j is d_i · d_j, rounded once
+    return rows, cols, d[rows] * d[cols]
+
+
+def _csr(rows: Tensor, cols: Tensor, values: Tensor, shape) -> Tensor:
+    """A CSR matrix of ``shape`` from row-major entries."""
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=shape[0]), 0)
+    return torch.sparse_csr_tensor(crow, cols, values, tuple(shape),
+                                   check_invariants=True)
+
+
 def normalized_adjacency(num_nodes: int, edges: np.ndarray,
                          device) -> Tensor:
-    """Dense Ã from an edge list, on ``device``."""
-    e = torch.as_tensor(np.asarray(edges, dtype=np.int64), device=device)
-    a = torch.zeros((num_nodes, num_nodes), dtype=torch.float32,
-                    device=device)
-    a[e[:, 0], e[:, 1]] = 1.0
-    a[e[:, 1], e[:, 0]] = 1.0
-    a.fill_diagonal_(0.0)
-    d = torch.rsqrt(a.sum(dim=1) + 1.0)
-    a.fill_diagonal_(1.0)
-    return a * d[:, None] * d[None, :]
+    """Ã from an edge list, on ``device``, as a sparse CSR matrix."""
+    n = int(num_nodes)
+    return _csr(*adjacency_entries(n, edges, device), (n, n))
+
+
+def _block(rows: Tensor, cols: Tensor, values: Tensor, keep_rows: Tensor,
+           keep_cols: Tensor) -> Tensor:
+    """Ã[keep_rows][:, keep_cols] (boolean masks over the nodes) as CSR,
+    its rows and columns in node order."""
+    kept = keep_rows[rows] & keep_cols[cols]
+    row_at = torch.cumsum(keep_rows.to(torch.int64), 0) - 1
+    col_at = torch.cumsum(keep_cols.to(torch.int64), 0) - 1
+    shape = (int(keep_rows.sum()), int(keep_cols.sum()))
+    return _csr(row_at[rows[kept]], col_at[cols[kept]], values[kept], shape)
 
 
 def build_problem(graph, part: np.ndarray, dims, admm: Admm, device,
@@ -99,18 +135,20 @@ def build_problem(graph, part: np.ndarray, dims, admm: Admm, device,
     n = graph.num_nodes
     part = np.asarray(part)
     m = int(part.max()) + 1
-    a = normalized_adjacency(n, graph.edges, device)
+    entries = adjacency_entries(n, graph.edges, device)
+    a = _csr(*entries, (n, n))
     e = np.asarray(graph.edges)
     nbr = np.eye(m, dtype=bool)
     nbr[part[e[:, 0]], part[e[:, 1]]] = True
     nbr[part[e[:, 1]], part[e[:, 0]]] = True
     lanes, rows, coupling = [], [], []
     for c in range(m):
-        lane = torch.as_tensor(np.flatnonzero(part == c), device=device)
-        row = torch.as_tensor(np.flatnonzero(nbr[c][part]), device=device)
-        lanes.append(lane)
-        rows.append(row)
-        coupling.append(a[row][:, lane].contiguous())
+        in_lane, in_rows = part == c, nbr[c][part]
+        lanes.append(torch.as_tensor(np.flatnonzero(in_lane), device=device))
+        rows.append(torch.as_tensor(np.flatnonzero(in_rows), device=device))
+        coupling.append(_block(*entries,
+                               torch.as_tensor(in_rows, device=device),
+                               torch.as_tensor(in_lane, device=device)))
     return Problem(
         dims=tuple(dims), admm=admm, a=a,
         x=torch.as_tensor(graph.features, device=device),
@@ -142,8 +180,18 @@ def _tf32(x: Tensor) -> Tensor:
 
 
 def mm(p: Problem, a: Tensor, b: Tensor) -> Tensor:
-    """a @ b in the problem's precision: on the CPU the control's TF32 is
-    emulated by rounding the operands; on the card ``precision`` sets it."""
+    """a @ b in the problem's precision.  A dense product's control TF32 is
+    emulated on the CPU by rounding the operands, and on the card
+    ``precision`` sets it.  A sparse ``a`` (Ã or a block of it) runs in
+    float32 on every device (cuSPARSE does not follow ``allow_tf32``), so
+    the control rounds its values and ``b`` itself."""
+    if a.layout == torch.sparse_csr:
+        if p.tf32:
+            a = torch.sparse_csr_tensor(
+                a.crow_indices(), a.col_indices(), _tf32(a.values()),
+                a.shape, check_invariants=True)
+            b = _tf32(b)
+        return a @ b
     if p.tf32 and a.device.type == "cpu":
         return _tf32(a) @ _tf32(b)
     return a @ b

@@ -26,7 +26,9 @@ def test_nonzeros_of_the_normalised_adjacency():
     # three edges both ways and four self loops
     assert g.nnz == 2 * 3 + 4 == 10
     a = reference.normalized_adjacency(4, EDGES, "cpu")
-    assert int(torch.count_nonzero(a)) == g.nnz
+    # the entries Ã stores, each a nonzero
+    assert a.values().numel() == g.nnz
+    assert int(torch.count_nonzero(a.values())) == g.nnz
 
 
 def test_aggregation_counts_nonzeros_not_blocks():
